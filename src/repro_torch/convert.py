@@ -1,0 +1,72 @@
+"""Carry state across from numpy arrays into the port's types.
+
+Any object with the right attributes works as a source (numpy arrays, or
+anything ``numpy.asarray`` reads), so state exported by another
+implementation of the twin starts the port from identical values.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core.power import PowerParams
+from repro_torch.core.state import TwinConfig, TwinState
+from repro_torch.traces.schema import Workload
+
+
+def _t(x, dtype, dev) -> torch.Tensor:
+    return torch.as_tensor(np.array(np.asarray(x), dtype=dtype), device=dev)
+
+
+def workload_from_numpy(w, device: "str | torch.device" = "cuda") -> Workload:
+    """A :class:`Workload` from an object with the trace's array attributes."""
+    dev = resolve_device(device)
+    return Workload(
+        submit_bin=_t(w.submit_bin, np.int32, dev),
+        duration_bins=_t(w.duration_bins, np.int32, dev),
+        cores=_t(w.cores, np.int32, dev),
+        util_levels=_t(w.util_levels, np.float32, dev),
+        valid=_t(w.valid, bool, dev),
+        deferrable=(None if getattr(w, "deferrable", None) is None
+                    else _t(w.deferrable, bool, dev)),
+    )
+
+
+def power_params_from_numpy(p, device: "str | torch.device" = "cuda") -> PowerParams:
+    """:class:`PowerParams` of float32 tensors from ``p_idle/p_max/r`` arrays."""
+    dev = resolve_device(device)
+    return PowerParams(p_idle=_t(p.p_idle, np.float32, dev),
+                       p_max=_t(p.p_max, np.float32, dev),
+                       r=_t(p.r, np.float32, dev))
+
+
+#: TwinState fields in leaf order after the three PowerParams groups
+_COUNT_FIELDS = ("hist_u", "hist_p", "hist_n", "window", "slo_samples",
+                 "slo_compliant", "bias_under", "bias_over", "bias_ties")
+
+
+def twin_state_from_numpy(leaves, cfg: TwinConfig) -> TwinState:
+    """A :class:`TwinState` on ``cfg.device`` from flat state leaves.
+
+    ``leaves`` is the state's flat leaf list: ``params``, ``base_params``
+    and ``cand`` as three ``(p_idle, p_max, r)`` groups, then ``hist_u``,
+    ``hist_p``, ``hist_n``, ``window``, ``slo_samples``, ``slo_compliant``,
+    ``bias_under``, ``bias_over``, ``bias_ties`` (18 arrays).
+    """
+    leaves = [np.asarray(x) for x in leaves]
+    if len(leaves) != 18:
+        raise ValueError(f"expected 18 state leaves, got {len(leaves)}")
+    dev = resolve_device(cfg.device)
+
+    def params(i):
+        return PowerParams(*(_t(x, np.float32, dev) for x in leaves[i:i + 3]))
+
+    rest = dict(zip(_COUNT_FIELDS, leaves[9:18]))
+    return TwinState(
+        params=params(0), base_params=params(3), cand=params(6),
+        hist_u=_t(rest["hist_u"], np.float32, dev),
+        hist_p=_t(rest["hist_p"], np.float32, dev),
+        **{k: _t(rest[k], np.int32, dev) for k in _COUNT_FIELDS[2:]},
+        cfg=cfg)

@@ -1,0 +1,303 @@
+"""The Orchestrator (paper §2.3, component C): the I/O shell around the core.
+
+Port of ``repro.core.orchestrator``.  All per-window math is one
+:func:`~repro_torch.core.state.twin_step` on ``self.state``; this shell owns
+telemetry I/O (the :class:`~repro_torch.core.telemetry.TelemetryStore`),
+wall-clock pacing, run records, float64 sustainability bookkeeping and the
+SLO-aware proposals routed through the human-in-the-loop gate.  The
+what-if, optimizer and proposal-applying surface comes with later slices.
+
+Acceleration factor (paper §2.3): ratio between simulated and wall time;
+``None`` runs as fast as compute allows.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections.abc import Callable
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core.calibrate import CalibrationSpec
+from repro_torch.core.desim import Prediction, SimOutput, simulate_utilization
+from repro_torch.core.feedback import HITLGate, propose_from_state
+from repro_torch.core.power import PowerParams, mape
+from repro_torch.core.slo import NFR1, BiasTracker, SLOMonitor
+from repro_torch.core.state import (
+    SimSlice,
+    TwinConfig,
+    TwinState,
+    empty_telemetry,
+    init_twin_state,
+    make_telemetry,
+    twin_step,
+)
+from repro_torch.core.telemetry import (
+    AMBIENT_KEY,
+    CARBON_INTENSITY_KEY,
+    PRICE_KEY,
+    TelemetryStore,
+)
+from repro_torch.traces.carbon import validate_carbon_intensity
+from repro_torch.traces.price import validate_price
+from repro_torch.traces.schema import SAMPLE_SECONDS, DatacenterConfig, Workload
+from repro_torch.traces.thermal import PUEParams, validate_ambient
+
+
+@dataclasses.dataclass(frozen=True)
+class OrchestratorConfig:
+    bins_per_window: int = 36            # 3 h windows at 5-min sampling
+    calibration: CalibrationSpec = CalibrationSpec()
+    calibrate: bool = True               # E2 ablation switch
+    history_windows: int = 4             # telemetry history per calibration
+    acceleration: float | None = None    # None = max acceleration
+    power_cap_w: float | None = None
+    power_model: str = "opendc"
+    #: where the twin runs: "cuda" (hand-written kernels) or "cpu"
+    device: str = "cuda"
+    pue: PUEParams | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Clock:
+    """Injectable wall clock for the I/O shell (records and pacing only)."""
+
+    now: Callable[[], float] = time.time
+    sleep: Callable[[float], None] = time.sleep
+
+
+@dataclasses.dataclass
+class WindowRecord:
+    """Run metadata per window (paper §2.3: 'which outputs belong together').
+
+    ``sim_seconds`` times the whole ``twin_step`` (prediction and
+    calibration) up to a device synchronize.
+    """
+
+    window: int
+    started_at: float
+    sim_seconds: float
+    params: PowerParams
+    prediction: Prediction
+    mape: float | None = None
+    gco2: float | None = None
+    energy_cost: float | None = None
+    proposals: int = 0
+
+
+def _f64(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy().astype(np.float64)
+
+
+class Orchestrator:
+    """Drives the closed loop over a trace-driven physical twin."""
+
+    def __init__(
+        self,
+        workload: Workload,
+        dc: DatacenterConfig,
+        t_bins: int,
+        cfg: OrchestratorConfig = OrchestratorConfig(),
+        base_params: PowerParams = PowerParams(),
+        gate: HITLGate | None = None,
+        carbon_intensity: "np.ndarray | None" = None,
+        ambient_c: "np.ndarray | None" = None,
+        price: "np.ndarray | None" = None,
+        clock: Clock | None = None,
+    ):
+        self.device = resolve_device(cfg.device)
+        self.workload = workload.to(self.device)
+        self.dc = dc
+        self.t_bins = int(t_bins)
+        self.cfg = cfg
+        self.base_params = base_params
+        if carbon_intensity is not None:
+            carbon_intensity = validate_carbon_intensity(
+                np.asarray(carbon_intensity), self.t_bins)
+        self.carbon_intensity = carbon_intensity
+        if ambient_c is not None:
+            ambient_c = validate_ambient(np.asarray(ambient_c), self.t_bins)
+        self.ambient_c = ambient_c
+        if price is not None:
+            price = validate_price(np.asarray(price), self.t_bins)
+        self.price = price
+        if (cfg.pue is not None and cfg.pue.amb_coeff > 0.0
+                and ambient_c is None):
+            raise ValueError(
+                "OrchestratorConfig.pue has amb_coeff > 0 but no ambient_c "
+                "trace was supplied — pass ambient_c=[t_bins] deg C or use "
+                "a load-only PUE model (amb_coeff=0)")
+        self.clock = clock or Clock()
+        self.store = TelemetryStore(cfg.bins_per_window)
+        self.gate = gate or HITLGate()
+        self.records: list[WindowRecord] = []
+        self._sim: SimOutput | None = None
+        #: seconds the last full-horizon DES took (device synchronized)
+        self.des_seconds: float | None = None
+        self.twin_cfg = TwinConfig(
+            bins_per_window=cfg.bins_per_window,
+            dc=dc,
+            calibration=cfg.calibration,
+            calibrate=cfg.calibrate,
+            history_windows=cfg.history_windows,
+            power_model=cfg.power_model,
+            device=str(self.device),
+            slos=(NFR1,),
+            pue=cfg.pue,
+        )
+        self.state: TwinState = init_twin_state(self.twin_cfg, base_params)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @property
+    def monitor(self) -> SLOMonitor:
+        """SLO compliance view, hydrated from the core's accumulators."""
+        return SLOMonitor.from_counts(
+            self.twin_cfg.slos, self.state.slo_samples,
+            self.state.slo_compliant)
+
+    @property
+    def bias(self) -> BiasTracker:
+        """Fig.-6 bias split, hydrated from the core's accumulators."""
+        return BiasTracker(under=int(self.state.bias_under),
+                           over=int(self.state.bias_over),
+                           ties=int(self.state.bias_ties))
+
+    def _ensure_sim(self) -> SimOutput:
+        """Full-horizon DES utilization field, computed once per topology."""
+        if self._sim is None:
+            t0 = self.clock.now()
+            self._sim = simulate_utilization(
+                self.workload,
+                num_hosts=self.dc.num_hosts,
+                cores_per_host=self.dc.cores_per_host,
+                t_bins=self.t_bins,
+            )
+            self._sync()
+            self.des_seconds = self.clock.now() - t0
+        return self._sim
+
+    @property
+    def num_windows(self) -> int:
+        return self.t_bins // self.cfg.bins_per_window
+
+    def window_slice(self, window: int) -> slice:
+        w = self.cfg.bins_per_window
+        return slice(window * w, (window + 1) * w)
+
+    def _trace_slice(self, trace, sl: slice):
+        if trace is None:
+            return None
+        return torch.tensor(np.asarray(trace[sl], np.float32),
+                            device=self.device)
+
+    def run_window(self, window: int) -> WindowRecord:
+        """Execute one window: gather its inputs, advance the core one
+        ``twin_step``, then records, float64 bookkeeping, proposals, pacing."""
+        t_start = self.clock.now()
+        sim = self._ensure_sim()
+        sl = self.window_slice(window)
+        w_bins = sl.stop - sl.start
+
+        tw = self.store.get(window)
+        # telemetry measured on a different topology cannot score this twin
+        if tw is not None and np.asarray(tw.u_th).shape[1] != self.dc.num_hosts:
+            tw = None
+
+        def measured(key, validate):
+            v = tw.extras.get(key) if tw is not None else None
+            if v is not None and np.asarray(v).shape[0] != w_bins:
+                return None  # partially clipped extras: use the forecast
+            return None if v is None else validate(np.asarray(v))
+
+        ci_meas = measured(CARBON_INTENSITY_KEY, validate_carbon_intensity)
+        pr_meas = measured(PRICE_KEY, validate_price)
+        amb_meas = measured(AMBIENT_KEY, validate_ambient)
+
+        # measured ambient feeds the prediction itself (PUE multiplies power)
+        amb_w = (self._trace_slice(amb_meas, slice(None))
+                 if amb_meas is not None
+                 else self._trace_slice(self.ambient_c, sl))
+        telem = (make_telemetry(tw.u_th, tw.power_w, device=self.device)
+                 if tw is not None
+                 else empty_telemetry(self.cfg.bins_per_window,
+                                      self.dc.num_hosts, device=self.device))
+
+        t0 = self.clock.now()
+        self.state, out = twin_step(
+            self.state, telem, SimSlice(
+                u_th=sim.u_th[sl],
+                carbon_intensity=self._trace_slice(self.carbon_intensity, sl),
+                ambient_c=amb_w,
+                price=self._trace_slice(self.price, sl)))
+        pred = out.prediction
+        self._sync()
+        sim_seconds = self.clock.now() - t0
+
+        rec = WindowRecord(
+            window=window, started_at=t_start, sim_seconds=sim_seconds,
+            params=out.params_used, prediction=pred)
+
+        # float64 sustainability records: measured signals win over forecasts
+        if ci_meas is not None:
+            rec.gco2 = float(np.sum(_f64(pred.energy_kwh)
+                                    * np.asarray(ci_meas, np.float64)))
+        elif pred.gco2 is not None:
+            rec.gco2 = float(np.sum(_f64(pred.gco2)))
+        if pr_meas is not None:
+            rec.energy_cost = float(np.sum(_f64(pred.energy_kwh)
+                                           * np.asarray(pr_meas, np.float64)))
+        elif pred.energy_cost is not None:
+            rec.energy_cost = float(np.sum(_f64(pred.energy_cost)))
+
+        if tw is not None:
+            rec.mape = float(out.mape)
+            props = propose_from_state(
+                window,
+                mape=rec.mape,
+                mean_util=float(np.mean(tw.u_th)),
+                queue_len=float(np.mean(sim.queue_len[sl].cpu().numpy())),
+                power_w=float(np.mean(pred.power_w.cpu().numpy())),
+                power_cap_w=self.cfg.power_cap_w,
+            )
+            for p_ in props:
+                self.gate.submit(p_)
+            rec.proposals = len(props)
+
+        self.records.append(rec)
+
+        if self.cfg.acceleration:
+            wall = self.cfg.bins_per_window * SAMPLE_SECONDS / self.cfg.acceleration
+            spent = self.clock.now() - t_start
+            if wall > spent:
+                self.clock.sleep(min(wall - spent, 1.0))  # capped for tests
+        return rec
+
+    def run(self, num_windows: int | None = None) -> list[WindowRecord]:
+        n = num_windows if num_windows is not None else self.num_windows
+        for w in range(n):
+            self.run_window(w)
+        return self.records
+
+    def overall_mape(self) -> float:
+        """MAPE over all scored bins (concatenated windows), in float32."""
+        real, simp = [], []
+        for rec in self.records:
+            tw = self.store.get(rec.window)
+            if tw is None:
+                continue
+            real.append(np.asarray(tw.power_w, np.float32))
+            simp.append(rec.prediction.power_w.detach().cpu().numpy())
+        if not real:
+            return float("nan")
+        return float(mape(torch.from_numpy(np.concatenate(real)),
+                          torch.from_numpy(np.concatenate(simp))))
+
+    def per_window_mape(self) -> np.ndarray:
+        return np.array([r.mape if r.mape is not None else np.nan
+                         for r in self.records])

@@ -1,0 +1,137 @@
+"""Public kernel wrappers: device dispatch, operand packing, launch counts.
+
+Dispatch follows the tensor's device, never a fallback: a CUDA tensor
+launches the hand-written kernel (and raises if that fails), a CPU tensor
+runs the plain PyTorch version in :mod:`repro_torch.kernels.ref`.
+
+``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that its main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.calib_mape import calib_mape_grid_cuda
+from repro_torch.kernels.des_readout import (
+    MODEL_IDS,
+    PRECISION_IDS,
+    des_readout_cuda,
+)
+
+Tensor = torch.Tensor
+
+LAUNCHES: dict[str, int] = {"calib_mape_grid": 0, "des_readout": 0}
+
+#: failure-start sentinel of hosts that never fail
+NEVER = int(np.iinfo(np.int32).max)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _device_kind(x: Tensor) -> str:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for tensors on {x.device}")
+    return x.device.type
+
+
+def calib_mape_grid(u_th: Tensor, real_power: Tensor, p_idle: Tensor,
+                    p_max: Tensor, r: Tensor) -> Tensor:
+    """Candidate MAPEs [%] over a cached utilization window.
+
+    ``u_th`` ``[T, H]`` with ``real_power`` ``[T]`` gives ``[C]``; the
+    batched form ``[B, T, H]`` / ``[B, T]`` gives ``[B, C]`` in one launch.
+    """
+    if u_th.dim() not in (2, 3) or real_power.dim() != u_th.dim() - 1:
+        raise ValueError(
+            f"u_th/real_power must be [T, H]/[T] or [B, T, H]/[B, T]; got "
+            f"{tuple(u_th.shape)} / {tuple(real_power.shape)}")
+    if _device_kind(u_th) == "cpu":
+        return ref.calib_mape_grid_ref(u_th, real_power, p_idle, p_max, r)
+    batched = u_th.dim() == 3
+    f32 = lambda x: x.to(torch.float32).contiguous()  # noqa: E731
+    out = calib_mape_grid_cuda(
+        f32(u_th if batched else u_th[None]),
+        f32(real_power if batched else real_power[None]),
+        f32(p_idle), f32(p_max), f32(r))
+    LAUNCHES["calib_mape_grid"] += 1
+    return out if batched else out[0]
+
+
+def pack_readout(
+    u_th: Tensor,
+    *,
+    p_idle,
+    p_max,
+    r,
+    mask: Tensor | None = None,
+    cap_t=None,
+    intensity=None,
+    ambient=None,
+    price=None,
+    peak_tflops: float = 1.0,
+    pue_base: float = 1.0,
+    pue_amb_coeff: float = 0.0,
+    pue_amb_ref: float = 18.0,
+    pue_load_coeff: float = 0.0,
+    fail_start=None,
+    fail_end=None,
+    fail_kill=None,
+    model: str = "opendc",
+    precision: str = "f32",
+    dt_seconds: float = 300.0,
+) -> tuple[Tensor, dict]:
+    """The readout's operands on ``u_th``'s device, as both versions take them.
+
+    Scalar or ``[H]`` power parameters broadcast to host rows; absent axes
+    take the kernel's sentinels (no mask, ``+inf`` cap, zero carbon/price
+    columns, hosts that never fail).
+    """
+    if model not in MODEL_IDS:
+        raise ValueError(f"unknown power model {model!r}")
+    if precision not in PRECISION_IDS:
+        raise ValueError(f"unknown precision policy {precision!r}")
+    dev = u_th.device
+    t, h = u_th.shape
+
+    def row(x, dtype=torch.float32):
+        x = torch.as_tensor(x, device=dev).to(dtype)
+        return x.broadcast_to((h,)).contiguous()
+
+    def col(x, fill=0.0):
+        x = torch.as_tensor(fill if x is None else x, device=dev)
+        return x.to(torch.float32).broadcast_to((t,)).contiguous()
+
+    operands = dict(
+        p_idle=row(p_idle), p_max=row(p_max), r=row(r),
+        mask=row(1.0 if mask is None else mask),
+        fail_start=row(NEVER if fail_start is None else fail_start, torch.int32),
+        fail_end=row(0 if fail_end is None else fail_end, torch.int32),
+        fail_kill=row(0.0 if fail_kill is None else fail_kill),
+        cap=col(cap_t, float("inf")), intensity=col(intensity),
+        ambient=col(ambient), price=col(price),
+        peak_tflops=float(peak_tflops), pue_base=float(pue_base),
+        pue_load_coeff=float(pue_load_coeff),
+        pue_amb_coeff=float(pue_amb_coeff), pue_amb_ref=float(pue_amb_ref),
+        model=model, precision=precision, dt_seconds=float(dt_seconds))
+    return u_th.to(torch.float32).contiguous(), operands
+
+
+def des_readout(u_th: Tensor, **kw) -> dict[str, Tensor]:
+    """Fused DES readout: ``{field: [T] f32}`` for every ``READOUT_FIELDS``.
+
+    Keyword operands as :func:`pack_readout` takes them.
+    """
+    kind = _device_kind(u_th)
+    u, operands = pack_readout(u_th, **kw)
+    if kind == "cpu":
+        return ref.des_readout_ref(u, **operands)
+    out = des_readout_cuda(u, **operands)
+    LAUNCHES["des_readout"] += 1
+    return out

@@ -1,0 +1,135 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+These are the specifications the CUDA kernels in ``csrc/`` are held to:
+the CPU path of :mod:`repro_torch.kernels.ops` runs them, the tests hold
+them against the JAX package, and ``chip_smoke.py`` holds each kernel
+against its plain version on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+#: bfloat16 is used only on the tflops/efficiency leaves of the readout
+#: (the precision policy of ``repro.kernels.des_readout``).
+BF16 = torch.bfloat16  # tracecheck: disable=TC005 — readout precision policy, perf leaves only
+
+#: floor under the log in the exp/log power form (0**r -> ~0, never -inf)
+LOG_FLOOR = 1e-30
+
+#: output order of the fused readout, Prediction's array leaves
+READOUT_FIELDS = ("power_w", "energy_kwh", "tflops", "utilization",
+                  "efficiency", "gco2", "power_demand_w", "pue",
+                  "energy_cost")
+
+#: [candidates, bins, hosts] elements materialized per chunk of candidates
+_CALIB_CHUNK_ELEMS = 1 << 24
+
+
+def calib_mape_grid_ref(u_th: Tensor, real_power: Tensor, p_idle: Tensor,
+                        p_max: Tensor, r: Tensor) -> Tensor:
+    """Grid-search MAPE [%] of every candidate; ``[B, C]`` (or ``[C]``).
+
+    ``u_th`` is ``[T, H]`` or batched ``[B, T, H]`` with ``real_power``
+    ``[T]`` / ``[B, T]``; the candidates ``p_idle/p_max/r`` are ``[C]`` and
+    shared by every batch row.  For candidate c:
+    ``sim_t = H*p_idle_c + (p_max_c - p_idle_c) * (S2_t - Sr_t(c))`` with
+    ``S2_t = sum_h 2u`` and ``Sr_t(c) = sum_h exp(r_c * log max(u, 1e-30))``
+    over u clipped to [0, 1].  Zero-real bins are excluded from the mean
+    and an all-zero row gives NaN for every candidate.
+    """
+    batched = u_th.dim() == 3
+    u = u_th if batched else u_th[None]
+    real = (real_power if batched else real_power[None]).float()
+    u = u.float().clamp(0.0, 1.0)
+    b, t, h = u.shape
+    s2 = (2.0 * u).sum(dim=2)                                # [B, T]
+    log_u = torch.log(u.clamp(min=LOG_FLOOR))                # [B, T, H]
+    rr = r.float()
+    step = max(1, _CALIB_CHUNK_ELEMS // max(b * t * h, 1))
+    sr = torch.cat([
+        torch.exp(rr[c0:c0 + step, None, None, None] * log_u[None]).sum(dim=3)
+        for c0 in range(0, rr.shape[0], step)], dim=0)        # [C, B, T]
+    pi, pm = p_idle.float(), p_max.float()
+    span = (pm - pi)[:, None, None]
+    sim = h * pi[:, None, None] + span * (s2[None] - sr)     # [C, B, T]
+    nonzero = real.abs() > 1e-9                              # [B, T]
+    n_nz = nonzero.sum(dim=1)                                # [B]
+    ape = ((real[None] - sim) / (real[None].abs() + 1e-9)).abs() * nonzero[None]
+    out = ape.sum(dim=2).T * (100.0 / n_nz.clamp(min=1).float())[:, None]
+    out = torch.where(n_nz[:, None] > 0, out, torch.full_like(out, float("nan")))
+    return out if batched else out[0]
+
+
+def shape_term(u: Tensor, r: Tensor, model: str) -> Tensor:
+    """Power-curve shape term over pre-clipped ``u`` (exp/log opendc form)."""
+    if model == "opendc":
+        return 2.0 * u - torch.exp(r * torch.log(u.clamp(min=LOG_FLOOR)))
+    if model == "linear":
+        return u
+    if model == "sqrt":
+        return torch.sqrt(u)
+    if model == "cubic":
+        return u * u * u
+    raise ValueError(f"unknown power model {model!r}")
+
+
+def des_readout_ref(u_th: Tensor, *, p_idle: Tensor, p_max: Tensor,
+                    r: Tensor, mask: Tensor, fail_start: Tensor,
+                    fail_end: Tensor, fail_kill: Tensor, cap: Tensor,
+                    intensity: Tensor, ambient: Tensor, price: Tensor,
+                    peak_tflops: float, pue_base: float,
+                    pue_load_coeff: float, pue_amb_coeff: float,
+                    pue_amb_ref: float, model: str, precision: str,
+                    dt_seconds: float) -> dict[str, Tensor]:
+    """The fused per-bin readout, unfused: 9 ``[T]`` float32 leaves.
+
+    Operands are already broadcast by :func:`repro_torch.kernels.ops.pack_readout`:
+    host rows ``[H]`` (``p_idle/p_max/r`` f32, ``mask`` f32 0/1,
+    ``fail_start/fail_end`` int32 with the ``int32.max`` never-fails
+    sentinel, ``fail_kill`` f32 0/1) and bin columns ``[T]`` (``cap`` with
+    the ``+inf`` uncapped sentinel, ``intensity/ambient/price`` zeros when
+    absent).  Mirrors ``repro.kernels.des_readout._tile_readout``.
+    """
+    if precision not in ("f32", "bf16"):
+        raise ValueError(f"unknown precision policy {precision!r}")
+    u = u_th.float()
+    t = u.shape[0]
+    t_ids = torch.arange(t, dtype=torch.int32, device=u.device)[:, None]
+    off = (fail_kill > 0.0) & (t_ids >= fail_start) & (t_ids < fail_end)
+    on = torch.where(off, 0.0, 1.0) * mask                          # [T, H]
+    uc = u.clamp(0.0, 1.0)
+    host_p = p_idle + (p_max - p_idle) * shape_term(uc, r, model)
+    it_demand = (host_p * on).sum(dim=1)
+    idle_floor = (p_idle * on).sum(dim=1)
+    util_raw = (u * on).sum(dim=1) / on.sum(dim=1).clamp(min=1.0)
+    # float32 scalars as 0-d host tensors: rounded like the kernel's float
+    # parameters, and used by device ops without a host-to-device copy
+    f32 = dict(dtype=torch.float32)
+    peak, p_base, p_load, p_amb, p_ref = (
+        torch.tensor(v, **f32) for v in (peak_tflops, pue_base,
+                                         pue_load_coeff, pue_amb_coeff,
+                                         pue_amb_ref))
+    load = util_raw.clamp(0.0, 1.0)
+    pue = p_base + p_load * (1.0 - load)
+    pue = pue + p_amb * (ambient - p_ref).clamp(min=0.0)
+    demand = it_demand * pue
+    floor = idle_floor * pue
+    exceeded = demand > cap
+    power = torch.minimum(demand, cap)
+    throttle = ((cap - floor) / (demand - floor).clamp(min=1e-9)).clamp(0.0, 1.0)
+    e = power * torch.tensor(dt_seconds / 3600.0, **f32) / 1000.0
+    util = torch.where(exceeded, util_raw * throttle, util_raw)
+    if precision == "bf16":
+        tf16 = util.to(BF16) * peak.to(BF16)
+        eff = (tf16 / e.clamp(min=1e-9).to(BF16)).float()
+        tflops = tf16.float()
+    else:
+        tflops = util * peak
+        eff = tflops / e.clamp(min=1e-9)
+    gco2 = e * intensity
+    cost = e * price
+    return dict(zip(READOUT_FIELDS,
+                    (power, e, tflops, util, eff, gco2, demand, pue, cost)))
