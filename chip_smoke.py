@@ -19,9 +19,12 @@ Phases (each passes or the script exits non-zero without a result line):
    (277 hosts x 16 cores, 7 days, seed 22): uncalibrated, calibrated
    (r only) and joint calibration with one refine round, with the kernels'
    launch counts reset just before and read just after;
-5. rerun the calibrated experiment on the CPU and require the same DES
-   schedule and parameter stream, and the MAPE stream within rtol 1e-5;
-6. time each kernel and its plain version at the main path's shapes.
+5. rerun the calibrated experiment on the CPU and require that the DES
+   schedule the twin predicted from and the parameter stream equal the
+   card run's own, and the MAPE stream within rtol 1e-5;
+6. time each kernel and its plain version at the main path's shapes
+   (device time, median of 5 rounds of up to 20 calls, with the
+   rounds' spread).
 
 The second-to-last line of standard output is the ``kernels`` JSON record,
 the last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -31,6 +34,7 @@ no process that outlives it (``nvcc`` and ``nvidia-smi`` are waited for).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -74,12 +78,22 @@ class DeviceTimer:
 
     ``device_ms`` keeps the queue full: a spin kernel (``torch.cuda._sleep``)
     runs while the host enqueues the timed calls, so the events bracket the
-    device's work alone, not the host's launch overhead.  ``wall_ms`` is
-    the caller's view: host time per call up to a synchronize.
+    device's work alone, not the host's launch overhead.  A round counts
+    only if the card was still spinning when the last call had been queued.
+    Otherwise host gaps could count as device time: the spin was too short,
+    or the calls held more launches than the stream's queue takes, so that
+    the host waited for the spin to end.  Such a round is repeated with a
+    spin twice as long and half as many calls.  ``wall_ms`` is the caller's
+    view: host time per call up to a synchronize.
     """
+
+    #: repeated rounds before the timer gives up on keeping the queue ahead
+    MAX_RETRIES = 8
 
     def __init__(self, torch):
         self.torch = torch
+        torch.cuda._sleep(1000)          # load the spin kernel before timing it
+        torch.cuda.synchronize()
         start, end = self._events()
         start.record()
         torch.cuda._sleep(10_000_000)
@@ -100,19 +114,31 @@ class DeviceTimer:
         self.torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / reps
 
-    def device_ms(self, fn, reps: int = 20, rounds: int = 5) -> float:
-        host_ms = self.wall_ms(fn, reps=3)   # warm-up, and the enqueue cost
-        times = []
-        for _ in range(rounds):
+    def device_ms(self, fn, reps: int = 20, rounds: int = 5) -> dict:
+        """Device ms per call: the median over ``rounds`` rounds, with the
+        least and greatest round, the calls per round and the retries."""
+        spin_ms = 2.0 * reps * self.wall_ms(fn, reps=3) + 0.1   # warm-up too
+        times, retries = [], 0
+        while len(times) < rounds:
             start, end = self._events()
-            self.torch.cuda._sleep(int(2.0 * reps * host_ms * self.cycles_per_ms) + 100_000)
+            self.torch.cuda._sleep(int(spin_ms * self.cycles_per_ms))
             start.record()
             for _ in range(reps):
                 fn()
             end.record()
+            covered = not start.query()      # still behind the spin?
             self.torch.cuda.synchronize()
-            times.append(start.elapsed_time(end) / reps)
-        return statistics.median(times)
+            if covered:
+                times.append(start.elapsed_time(end) / reps)
+                continue
+            retries += 1
+            if retries > self.MAX_RETRIES:
+                fail(f"device timer: the spin ran out before the host had "
+                     f"queued {reps} call(s), {retries} times")
+            spin_ms *= 2.0
+            reps = max(1, reps // 2)
+        return dict(ms=statistics.median(times), min_ms=min(times),
+                    max_ms=max(times), reps=reps, retries=retries)
 
 
 def calib_inputs(torch, np, b, t, h, c, seed, device):
@@ -169,8 +195,7 @@ def main() -> int:
 
     import numpy as np
 
-    from repro_torch.core import CalibrationSpec, OrchestratorConfig, run_surf_experiment
-    from repro_torch.core.desim import simulate_utilization
+    from repro_torch.core import CalibrationSpec, OrchestratorConfig
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.traces.schema import DatacenterConfig
     from repro_torch.traces.surf import BINS_PER_DAY, SurfTraceSpec, make_surf22_like
@@ -255,15 +280,15 @@ def main() -> int:
         f"{dc.cores_per_host} cores, {t_bins} bins")
     joint_cfg = OrchestratorConfig(
         calibration=CalibrationSpec(mode="joint", refine_iters=1))
-    runs = {}
+    runs, sims = {}, {}
     ops.reset_launches()
     t_main = time.time()
     for name, cal, cfg in (("uncalibrated", False, None),
                            ("calibrated", True, None),
                            ("joint", True, joint_cfg)):
         t0 = time.time()
-        res = run_surf_experiment(w, dc, t_bins, calibrate=cal, cfg=cfg,
-                                  device="cuda")
+        res, sims[name] = e2_run(w, dc, t_bins, calibrate=cal, cfg=cfg,
+                                 device="cuda")
         wall = time.time() - t0
         runs[name] = res
         rep = res.slo_reports[0]
@@ -290,17 +315,15 @@ def main() -> int:
     if not runs["calibrated"].overall_mape < runs["uncalibrated"].overall_mape:
         fail("E2: calibration did not lower the MAPE")
 
-    # 5) the calibrated run again on the CPU: same schedule, same parameters
+    # 5) the calibrated run again on the CPU: the schedule its windows were
+    # predicted from and its parameter stream equal the card run's own
     t0 = time.time()
-    sim_gpu = simulate_utilization(w, num_hosts=dc.num_hosts,
-                                   cores_per_host=dc.cores_per_host, t_bins=t_bins)
-    sim_cpu = simulate_utilization(w.to("cpu"), num_hosts=dc.num_hosts,
-                                   cores_per_host=dc.cores_per_host, t_bins=t_bins)
+    cpu, sim_cpu = e2_run(w.to("cpu"), dc, t_bins, calibrate=True, cfg=None,
+                          device="cpu")
+    gpu, sim_gpu = runs["calibrated"], sims["calibrated"]
     for k in ("job_start", "job_host", "queue_len", "running"):
         if not torch.equal(getattr(sim_gpu, k).cpu(), getattr(sim_cpu, k)):
             fail(f"DES {k}: card and CPU schedules differ")
-    cpu = run_surf_experiment(w.to("cpu"), dc, t_bins, calibrate=True, device="cpu")
-    gpu = runs["calibrated"]
     for f in ("p_idle", "p_max", "r"):
         a = np.array([float(getattr(r.params, f)) for r in gpu.records])
         b = np.array([float(getattr(r.params, f)) for r in cpu.records])
@@ -322,18 +345,23 @@ def main() -> int:
     readout_lib = _build.load("des_readout")
     stream = torch.cuda.current_stream().cuda_stream
 
+    def timed(kernel, plain, **extra):
+        k, p = timer.device_ms(kernel), timer.device_ms(plain)
+        return dict(ms=k["ms"], plain_ms=p["ms"], kernel_rounds=k,
+                    plain_rounds=p, **extra)
+
     def calib_case(b, t, h, c):
         u, real, pi, pm, r = calib_inputs(torch, np, b, t, h, c, 1, dev)
         out = torch.empty((b, c), device=dev)
 
         def kernel():
-            calib_lib.calib_mape_grid_launch(
-                u.data_ptr(), real.data_ptr(), pi.data_ptr(), pm.data_ptr(),
-                r.data_ptr(), out.data_ptr(), b, t, h, c, stream)
+            if calib_lib.calib_mape_grid_launch(
+                    u.data_ptr(), real.data_ptr(), pi.data_ptr(), pm.data_ptr(),
+                    r.data_ptr(), out.data_ptr(), b, t, h, c, stream) != 0:
+                fail("calib_mape_grid: the timed launch returned a CUDA error")
 
-        return dict(
-            ms=timer.device_ms(kernel),
-            plain_ms=timer.device_ms(lambda: ref.calib_mape_grid_ref(u, real, pi, pm, r)),
+        return timed(
+            kernel, lambda: ref.calib_mape_grid_ref(u, real, pi, pm, r),
             wrapper_wall_ms=timer.wall_ms(lambda: ops.calib_mape_grid(u, real, pi, pm, r)),
             bytes=4 * (b * t * h + b * t + 3 * c + b * c),
             ops=3 * b * t * h * c + 8 * b * t * c + 4 * b * t * h)
@@ -348,19 +376,20 @@ def main() -> int:
         out = torch.empty((len(ref.READOUT_FIELDS), t), device=dev)
 
         def kernel():
-            readout_lib.des_readout_launch(
-                u.data_ptr(), *(x.data_ptr() for x in rows), out.data_ptr(), t, h,
-                0, 0, operands["peak_tflops"], 1.0, 0.0, 0.0, 18.0,
-                operands["dt_seconds"] / 3600.0, stream)
+            if readout_lib.des_readout_launch(
+                    u.data_ptr(), *(x.data_ptr() for x in rows), out.data_ptr(), t, h,
+                    0, 0, operands["peak_tflops"], 1.0, 0.0, 0.0, 18.0,
+                    operands["dt_seconds"] / 3600.0, stream) != 0:
+                fail("des_readout: the timed launch returned a CUDA error")
 
-        return dict(
-            ms=timer.device_ms(kernel),
-            plain_ms=timer.device_ms(lambda: ref.des_readout_ref(u, **operands)),
+        return timed(
+            kernel, lambda: ref.des_readout_ref(u, **operands),
             wrapper_wall_ms=timer.wall_ms(lambda: ops.des_readout(u, **call)),
             bytes=4 * (t * h + 7 * h + 4 * t + 9 * t),
             ops=14 * t * h + 30 * t)
 
     main = calib_case(1, 144, 277, 64)      # E2 calibration: 4 windows x 36 bins
+    main_shapes = [main]
     kernels.append(dict(
         name="calib_mape_grid", route="cuda",
         source="src/repro_torch/kernels/csrc/calib_mape.cu",
@@ -373,6 +402,7 @@ def main() -> int:
     shapes["calib B=1 T=144 H=277 C=9216 (E2 joint)"] = calib_case(1, 144, 277, 9216)
     shapes["calib B=277 T=144 H=1 C=64 (per-host refit)"] = calib_case(277, 144, 1, 64)
     main = readout_case_timed(36, 277)      # E2 prediction window
+    main_shapes.append(main)
     kernels.append(dict(
         name="des_readout", route="cuda",
         source="src/repro_torch/kernels/csrc/des_readout.cu",
@@ -385,10 +415,13 @@ def main() -> int:
     shapes["readout T=2016 H=277 (E2 horizon)"] = readout_case_timed(2016, 277)
     for v in shapes.values():
         v.update(bound(v["bytes"], v["ops"]))
-    for row in kernels:
-        log(f"{row['name']}: {row['ms'] * 1e3:.2f} us (bound {row['bound_ms'] * 1e3:.3f} us, "
-            f"by {row['bound_by']}), plain {row['plain_ms'] * 1e3:.2f} us, "
-            f"{row['launches']} launches on the main path")
+    for row, v in zip(kernels, main_shapes):
+        k, p = v["kernel_rounds"], v["plain_rounds"]
+        log(f"{row['name']}: {row['ms'] * 1e3:.2f} us (rounds {k['min_ms'] * 1e3:.2f}-"
+            f"{k['max_ms'] * 1e3:.2f}; bound {row['bound_ms'] * 1e3:.3f} us, by "
+            f"{row['bound_by']}), plain {row['plain_ms'] * 1e3:.2f} us (rounds "
+            f"{p['min_ms'] * 1e3:.2f}-{p['max_ms'] * 1e3:.2f}, {p['reps']} calls "
+            f"per round, {p['retries']} retries), {row['launches']} launches on the main path")
     for k, v in shapes.items():
         log(f"extra shape {k}: {json.dumps(v)}")
     details["kernels"] = kernels
@@ -406,6 +439,19 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def e2_run(w, dc, t_bins, *, calibrate, cfg, device):
+    """``run_surf_experiment`` spelled out through the ``DigitalTwin``
+    facade, so that the twin's own DES output (the schedule its windows
+    were predicted from) can be read: returns the result and that output."""
+    from repro_torch.core import DigitalTwin, OrchestratorConfig, TraceGroundTruth
+
+    cfg = dataclasses.replace(cfg or OrchestratorConfig(), calibrate=calibrate,
+                              device=device)
+    twin = DigitalTwin(w, dc, t_bins, cfg)
+    truth = TraceGroundTruth(twin.orchestrator.workload, dc, t_bins)
+    return twin.run(truth.window), twin.orchestrator._ensure_sim()
 
 
 def profile_e2(torch, w, dc, t_bins) -> dict:

@@ -3,8 +3,8 @@
 On the CPU the port's wrappers run their plain PyTorch versions (the CUDA
 kernels build and run only on a card); the JAX side runs its Pallas
 kernels in interpret mode, as its own tests do.  Inputs are made from a
-seed with numpy and handed to both.  The kernels themselves are checked on
-a card by ``tests/test_torch_cuda.py``.
+seed with numpy and handed to both.  The kernels themselves are held
+against these plain versions on a card by ``chip_smoke.py``.
 """
 
 import numpy as np
