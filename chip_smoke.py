@@ -5,26 +5,39 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-(``--profile`` adds a ``torch.profiler`` trace of the DES and of the
-calibrated E2 run: device busy time, idle share, top kernels.)
+(``--profile`` adds ``torch.profiler`` traces of the DES, of the
+calibrated E2 run, of one SmolLM-360M prefill call and of 16 serve steps:
+device busy time, idle share, top kernels.)
 
 Phases (each passes or the script exits non-zero without a result line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``;
+2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged ones, and run the calibration kernel
-   twice for bitwise-equal results;
-4. drive the port's main path, experiment E2 at the paper's SURF-SARA size
+   main paths' shapes and at ragged ones (flash attention at the JAX
+   attention sweep's shapes and bars), and run each kernel twice for
+   bitwise-equal results;
+4. drive the twin's main path, experiment E2 at the paper's SURF-SARA size
    (277 hosts x 16 cores, 7 days, seed 22): uncalibrated, calibrated
    (r only) and joint calibration with one refine round, with the kernels'
    launch counts reset just before and read just after;
 5. rerun the calibrated experiment on the CPU and require that the DES
    schedule the twin predicted from and the parameter stream equal the
    card run's own, and the MAPE stream within rtol 1e-5;
-6. time each kernel and its plain version at the main path's shapes
-   (device time, median of 5 rounds of up to 20 calls, with the
-   rounds' spread).
+6. the fleet power map (``ops.power_sim``, which no library path calls)
+   on the calibrated card run's own utilization field, counted, and held
+   against that run's DES readout;
+7. the LM serving path at SmolLM-360M's full width and depth in bf16:
+   ``make_prefill_step`` on ``[4, 2048]`` tokens (32 flash-attention
+   launches per call, counted), then ``launch/serve.py``'s ``main`` at
+   ``--reduce 1 --batch 4 --prompt-len 32 --gen 64``;
+8. the LM at full width, 2 layers, f32: prefill logits (S=256) and 8
+   greedy serve steps on the card against the same on the CPU;
+9. time each kernel, its plain version and, where one exists, the one
+   PyTorch call that computes the same (SDPA for attention), at the main
+   paths' shapes (device time, median of 5 rounds of up to 20 calls, with
+   the rounds' spread).
 
 The second-to-last line of standard output is the ``kernels`` JSON record,
 the last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -45,14 +58,43 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and
-#: float32 FLOP/s outside the tensor cores
+#: H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s,
+#: float32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 
 #: experiment E2 at the paper's size
 E2_DAYS = 7.0
 E2_SEED = 22
+
+#: the kernels the twin's E2 path launches
+E2_KERNELS = ("calib_mape_grid", "des_readout")
+
+#: the card every phase runs on
+DEVICE = "cuda"
+
+#: SmolLM-360M prefill: batch, sequence, timed calls after the first
+PREFILL_B, PREFILL_S, PREFILL_CALLS = 4, 2048, 5
+
+#: the serving launcher at full size
+SERVE_ARGV = ["--reduce", "1", "--batch", "4", "--prompt-len", "32",
+              "--gen", "64", "--device", DEVICE]
+
+#: the flash-attention sweep of the JAX package (tests/test_kernels.py):
+#: (b, hq, hkv, sq, skv, d, causal, bf16), then the prefill shape
+FLASH_CASES = [
+    (1, 4, 4, 128, 128, 64, True, False),
+    (2, 8, 2, 100, 100, 32, True, False),
+    (2, 4, 1, 64, 64, 64, False, False),
+    (1, 6, 2, 1, 96, 64, True, False),
+    (2, 4, 2, 128, 128, 64, True, True),
+    (1, 4, 4, 257, 257, 16, True, False),
+    (PREFILL_B, 15, 5, PREFILL_S, PREFILL_S, 64, True, True),
+]
+
+#: power_sim shapes: the JAX sweep's, then the E2 horizon
+POWER_SIM_SHAPES = [(96, 17), (300, 277), (1024, 64), (2016, 277)]
 
 
 def fail(msg: str) -> None:
@@ -272,6 +314,9 @@ def main() -> int:
             "within rtol 1e-5 atol 1e-6 (bf16 perf leaves within one bf16 ulp), "
             "every axis on")
 
+    errs["flash_attention"] = check_flash(torch, np, ops, ref, dev)
+    errs["power_sim"] = check_power_sim(torch, np, ops, dev)
+
     # 4) the main path: E2 at full size, kernels counted
     dc = DatacenterConfig()
     t_bins = int(E2_DAYS * BINS_PER_DAY)
@@ -309,8 +354,8 @@ def main() -> int:
     details["main_path_seconds"] = time.time() - t_main
     details["main_path_launches"] = launches
     log(f"main path launches: {launches}")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in E2_KERNELS:
+        if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
     if not runs["calibrated"].overall_mape < runs["uncalibrated"].overall_mape:
         fail("E2: calibration did not lower the MAPE")
@@ -338,7 +383,18 @@ def main() -> int:
         f"u_th bitwise equal: {u_equal}, {time.time() - t0:.1f} s")
     details["cpu_rerun_u_th_bitwise"] = u_equal
 
-    # 6) kernel times at the main path's shapes (device time, queue kept full)
+    # 6) the fleet power map on the card run's own horizon, counted
+    launches.update(power_sim_path(torch, ops, sim_gpu.u_th, gpu.records[-1].params, dc))
+
+    # 7) the LM serving path at SmolLM-360M's full size, counted
+    details["lm_prefill"] = lm_prefill(torch, ops)
+    launches["flash_attention"] = details["lm_prefill"]["launches"]
+    details["lm_serve"] = lm_serve(torch, ops)
+
+    # 8) the LM on the card against the LM on the CPU, f32
+    details["lm_card_vs_cpu"] = lm_card_vs_cpu(torch, np)
+
+    # 9) kernel times at the main paths' shapes (device time, queue kept full)
     timer = DeviceTimer(torch)
     kernels, shapes = [], {}
     calib_lib = _build.load("calib_mape")
@@ -413,15 +469,42 @@ def main() -> int:
         library_ms=None))
     shapes["readout T=36 H=277 (E2 window)"] = main
     shapes["readout T=2016 H=277 (E2 horizon)"] = readout_case_timed(2016, 277)
+
+    main = time_power_sim(torch, timer, ops, ref, _build, dev, 2016, 277)
+    main_shapes.append(main)
+    kernels.append(dict(
+        name="power_sim", route="cuda",
+        source="src/repro_torch/kernels/csrc/power_sim.cu",
+        replaces="src/repro/kernels/power_sim.py:42",
+        launches=launches["power_sim"],
+        max_abs_err=errs["power_sim"], ms=main["ms"],
+        plain_ms=main["plain_ms"], **bound(main["bytes"], main["ops"]),
+        library_ms=None))
+    shapes["power_sim T=2016 H=277 (E2 horizon)"] = main
+    main = time_flash(torch, timer, ref, _build, dev, *FLASH_CASES[-1][:6])
+    main_shapes.append(main)
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:95",
+        launches=launches["flash_attention"],
+        max_abs_err=errs["flash_attention"], ms=main["ms"],
+        plain_ms=main["plain_ms"],
+        **bound(main["bytes"], main["ops"], PEAK_BF16_TC_FLOPS),
+        library_ms=main["library_ms"]))
+    shapes["flash B=4 Hq=15 Hkv=5 S=2048 D=64 bf16 causal (SmolLM prefill)"] = main
     for v in shapes.values():
-        v.update(bound(v["bytes"], v["ops"]))
+        v.update(bound(v["bytes"], v["ops"], v.get("peak_ops", PEAK_F32_FLOPS)))
     for row, v in zip(kernels, main_shapes):
         k, p = v["kernel_rounds"], v["plain_rounds"]
         log(f"{row['name']}: {row['ms'] * 1e3:.2f} us (rounds {k['min_ms'] * 1e3:.2f}-"
             f"{k['max_ms'] * 1e3:.2f}; bound {row['bound_ms'] * 1e3:.3f} us, by "
             f"{row['bound_by']}), plain {row['plain_ms'] * 1e3:.2f} us (rounds "
             f"{p['min_ms'] * 1e3:.2f}-{p['max_ms'] * 1e3:.2f}, {p['reps']} calls "
-            f"per round, {p['retries']} retries), {row['launches']} launches on the main path")
+            f"per round, {p['retries']} retries), "
+            + (f"library {row['library_ms'] * 1e3:.2f} us, "
+               if row["library_ms"] is not None else "")
+            + f"{row['launches']} launches on the main path")
     for k, v in shapes.items():
         log(f"extra shape {k}: {json.dumps(v)}")
     details["kernels"] = kernels
@@ -431,6 +514,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     if "--profile" in sys.argv[1:]:
         details["profile"] = profile_e2(torch, w, dc, t_bins)
+        details["profile_lm"] = profile_lm(torch)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
 
     print(card)
@@ -461,51 +545,368 @@ def profile_e2(torch, w, dc, t_bins) -> dict:
     device's busy share is the summed device time of its kernels and copies
     over the host's wall time.
     """
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import DigitalTwin, OrchestratorConfig, TraceGroundTruth
     from repro_torch.core.desim import simulate_utilization
-
-    def traced(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = []
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
-            if dev_us > 0:
-                rows.append((ev.key, dev_us, ev.count))
-        rows.sort(key=lambda x: -x[1])
-        busy = sum(r[1] for r in rows) / 1e6
-        return dict(wall_s=wall, device_busy_s=busy,
-                    device_idle_share=1.0 - busy / wall if wall else None,
-                    top=[dict(name=k[:80], device_ms=v / 1e3, count=n)
-                         for k, v, n in rows[:12]])
 
     twin = DigitalTwin(w, dc, t_bins, OrchestratorConfig(device="cuda"))
     truth = TraceGroundTruth(w, dc, t_bins)
     twin.orchestrator._ensure_sim()       # the DES is traced on its own
     out = dict(
-        des=traced(lambda: simulate_utilization(
+        des=traced(torch, lambda: simulate_utilization(
             w, num_hosts=dc.num_hosts, cores_per_host=dc.cores_per_host,
             t_bins=t_bins)),
-        calibrated_windows=traced(lambda: twin.run(truth.window)))
+        calibrated_windows=traced(torch, lambda: twin.run(truth.window)))
+    log_profile(out)
+    return out
+
+
+def profile_lm(torch) -> dict:
+    """Device busy time of one SmolLM-360M prefill call (``[4, 2048]``,
+    bf16) and of 16 greedy serve steps at batch 4 (``--profile`` only)."""
+    from repro_torch.launch.steps import (
+        make_prefill_step, make_serve_step, param_specs_for, state_specs_for)
+    from repro_torch.models.common import init_params
+
+    cfg = smollm()
+    dtype = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_params(param_specs_for(cfg), gen, dtype, DEVICE)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    prefill, serve = make_prefill_step(cfg), make_serve_step(cfg)
+    state = init_params(state_specs_for(cfg, PREFILL_B, 32), None, dtype, DEVICE)
+    tok = tokens[:, 0]
+
+    def decode(first, n):
+        nonlocal tok, state
+        for i in range(first, first + n):
+            cache_len = torch.full((PREFILL_B,), i, dtype=torch.int32, device=DEVICE)
+            tok, state = serve(params, state, {"token": tok[:, None],
+                                               "cache_len": cache_len})
+
+    prefill(params, {"tokens": tokens})              # warm
+    decode(0, 4)
+    out = dict(prefill=traced(torch, lambda: prefill(params, {"tokens": tokens})),
+               decode_16_steps=traced(torch, lambda: decode(4, 16)))
+    log_profile(out)
+    return out
+
+
+def traced(torch, fn) -> dict:
+    """``torch.profiler`` over ``fn``: wall time, the summed device time of
+    its kernels and copies, the device's idle share, the top kernels.
+
+    Only device-side events count (kernels, copies, memsets): a host-side
+    operator also carries its kernels' device time, and counting both
+    would count that time twice.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type == DeviceType.CUDA and dev_us > 0:
+            rows.append((ev.key, dev_us, ev.count))
+    rows.sort(key=lambda x: -x[1])
+    busy = sum(r[1] for r in rows) / 1e6
+    return dict(wall_s=wall, device_busy_s=busy,
+                device_idle_share=1.0 - busy / wall if wall else None,
+                top=[dict(name=k[:80], device_ms=v / 1e3, count=n)
+                     for k, v, n in rows[:12]])
+
+
+def log_profile(out: dict) -> None:
     for name, v in out.items():
         log(f"profile {name}: wall {v['wall_s']:.3f} s, device busy "
             f"{v['device_busy_s']:.4f} s, idle share {v['device_idle_share']:.4f}")
         for row in v["top"][:6]:
             log(f"    {row['device_ms']:.3f} ms x{row['count']}  {row['name']}")
+
+
+def check_flash(torch, np, ops, ref, dev) -> float:
+    """Flash attention against its plain version at the JAX sweep's shapes
+    and bars (f32 rtol 2e-5 / atol 2e-4, bf16 rtol 2e-2 / atol 2e-1), and
+    at the prefill shape; twice each, for bitwise-equal results.  Returns
+    the largest absolute error."""
+    worst = 0.0
+    for i, (b, hq, hkv, sq, skv, d, causal, bf16) in enumerate(FLASH_CASES):
+        rng = np.random.default_rng(100 + i)
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q, k, v = (torch.as_tensor(rng.normal(0, 1, (b, h, s, d)).astype(np.float32),
+                                   device=dev).to(dt)
+                   for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+        got = ops.flash_attention(q, k, v, causal=causal)
+        again = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        tol = 2e-2 if bf16 else 2e-5
+        err = float((got.float() - want.float()).abs().max())
+        if got.dtype != dt or not torch.allclose(got.float(), want.float(),
+                                                 rtol=tol, atol=10 * tol):
+            fail(f"flash_attention {(b, hq, hkv, sq, skv, d, causal, str(dt))}: "
+                 f"max |err| {err} beyond rtol {tol} atol {10 * tol}")
+        if not torch.equal(got, again):
+            fail(f"flash_attention {(b, hq, hkv, sq, skv, d)}: two runs differ bitwise")
+        worst = max(worst, err)
+        log(f"flash_attention B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
+            f"causal={causal} {str(dt)[6:]}: max |err| {err:.3g} (rtol {tol}, "
+            f"atol {10 * tol}), bitwise repeatable")
+    return worst
+
+
+#: the fleet power parameters of the power_sim checks
+POWER_KW = dict(p_idle=70.0, p_max=350.0, r=2.3, peak_tflops=120.0,
+                dt_seconds=300.0)
+
+
+def check_power_sim(torch, np, ops, dev) -> float:
+    """power_sim against its plain version (rtol 1e-4 / atol 1e-2, the JAX
+    sweep's bar), twice each for bitwise-equal results."""
+    worst = 0.0
+    for t, h in POWER_SIM_SHAPES:
+        u = torch.as_tensor(np.random.default_rng(t + h).uniform(
+            0.0, 1.1, (t, h)).astype(np.float32), device=dev)
+        got = ops.power_sim(u, **POWER_KW)
+        again = ops.power_sim(u, **POWER_KW)
+        torch.cuda.synchronize()
+        want = ops.power_sim(u.cpu(), **POWER_KW)      # the plain version, CPU
+        for name, g, a, w in zip(("power", "energy", "tflops"), got, again, want):
+            err = float((g.cpu() - w).abs().max())
+            if not torch.allclose(g.cpu(), w, rtol=1e-4, atol=1e-2):
+                fail(f"power_sim {(t, h)} {name}: max |err| {err} beyond rtol "
+                     "1e-4 atol 1e-2")
+            if not torch.equal(g, a):
+                fail(f"power_sim {(t, h)} {name}: two runs differ bitwise")
+            worst = max(worst, err)
+        log(f"power_sim T={t} H={h}: power/energy/tflops within rtol 1e-4 "
+            "atol 1e-2 of the plain version, bitwise repeatable")
+    return worst
+
+
+def power_sim_path(torch, ops, u_th, params, dc) -> dict:
+    """``ops.power_sim`` on the calibrated card run's own ``[T, H]`` field
+    with its last window's parameters, counted, against the same run's
+    fused readout (same power model, no scenario axis)."""
+    kw = dict(p_idle=float(params.p_idle), p_max=float(params.p_max),
+              r=float(params.r), peak_tflops=dc.peak_tflops, dt_seconds=300.0)
+    ops.reset_launches()
+    power, energy, tflops = ops.power_sim(u_th, **kw)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["power_sim"]
+    if launches != 1:
+        fail(f"power_sim path: {launches} launches, expected 1")
+    want = ops.des_readout(u_th, p_idle=kw["p_idle"], p_max=kw["p_max"],
+                           r=kw["r"], peak_tflops=dc.peak_tflops)
+    for name, got, key in (("power", power, "power_w"),
+                           ("energy", energy, "energy_kwh"),
+                           ("tflops", tflops, "tflops")):
+        if not torch.allclose(got, want[key], rtol=1e-4, atol=1e-2):
+            fail(f"power_sim path {name}: max |diff| vs the DES readout "
+                 f"{float((got - want[key]).abs().max())}")
+    log(f"power_sim on the E2 horizon {tuple(u_th.shape)}: fleet energy "
+        f"{float(energy.sum()):.3f} kWh, within rtol 1e-4 of the DES readout, "
+        f"{launches} launch")
+    return {"power_sim": launches}
+
+
+def smollm(num_layers=None, dtype=None):
+    from repro_torch.configs import get_config
+
+    cfg = get_config("smollm-360m")
+    repl = {k: v for k, v in (("num_layers", num_layers), ("dtype", dtype)) if v}
+    return dataclasses.replace(cfg, **repl) if repl else cfg
+
+
+def lm_prefill(torch, ops) -> dict:
+    """``make_prefill_step`` at SmolLM-360M's full width and depth, bf16,
+    on ``[4, 2048]`` seeded tokens: one call, then ``PREFILL_CALLS`` timed
+    ones, all counted; 32 flash launches per call."""
+    from repro_torch.launch.steps import make_prefill_step, param_specs_for
+    from repro_torch.models.common import init_params
+    from repro_torch.models.lm import count_params_analytic
+
+    cfg = smollm()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_params(param_specs_for(cfg), gen, getattr(torch, cfg.dtype), DEVICE)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    prefill = make_prefill_step(cfg)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    per_call = ops.LAUNCHES["flash_attention"]
+    if per_call != cfg.num_layers:
+        fail(f"prefill: {per_call} flash_attention launches per call, "
+             f"expected {cfg.num_layers}")
+    if logits.shape != (PREFILL_B, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"prefill: logits {tuple(logits.shape)} not finite [B, vocab]")
+    t0 = time.perf_counter()
+    for _ in range(PREFILL_CALLS):
+        prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / PREFILL_CALLS
+    launches = ops.LAUNCHES["flash_attention"]
+    if launches != per_call * (PREFILL_CALLS + 1):
+        fail(f"prefill: {launches} flash launches over {PREFILL_CALLS + 1} calls")
+    tok_s = PREFILL_B * PREFILL_S / (ms / 1e3)
+    log(f"LM prefill SmolLM-360M (32 x 960, bf16) B={PREFILL_B} S={PREFILL_S}: "
+        f"{ms:.3f} ms per call ({tok_s:.0f} tokens/s; first call {first_s:.3f} s), "
+        f"{per_call} flash_attention launches per call, "
+        f"{launches} over {PREFILL_CALLS + 1} calls")
+    out = dict(ms_per_call=ms, tokens_per_second=tok_s, first_call_seconds=first_s,
+               launches=launches, launches_per_call=per_call,
+               params=count_params_analytic(cfg))
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
-    """Least time for the work: bytes over HBM rate vs f32 ops over peak."""
+def lm_serve(torch, ops) -> dict:
+    """``launch/serve.py``'s main on the card at full size (``--reduce 1``)."""
+    from repro_torch.launch import serve
+
+    ops.reset_launches()
+    res = serve.main(SERVE_ARGV)
+    toks = res.tokens
+    if toks.shape != (4, 64) or not bool(((toks >= 0) & (toks < res.cfg.vocab)).all()):
+        fail(f"serve: tokens {tuple(toks.shape)} outside [0, {res.cfg.vocab})")
+    log(f"LM serve SmolLM-360M --reduce 1 batch 4: prefill 32 steps "
+        f"{res.prefill_seconds:.3f} s, decode {res.tokens_per_second:.1f} tok/s "
+        f"({res.decode_seconds:.3f} s for 64 x 4), launches {dict(ops.LAUNCHES)}")
+    return dict(prefill_seconds=res.prefill_seconds,
+                decode_seconds=res.decode_seconds,
+                decode_tokens_per_second=res.tokens_per_second,
+                sample=toks[0, :16].tolist())
+
+
+def lm_card_vs_cpu(torch, np) -> dict:
+    """SmolLM-360M at full width, 2 layers, f32: prefill logits at S=256
+    (rtol 1e-3, atol 1e-3) and 8 greedy serve steps (tokens equal) on the
+    card against the CPU, TF32 off."""
+    from repro_torch.launch.steps import (
+        make_prefill_step, make_serve_step, param_specs_for, state_specs_for)
+    from repro_torch.models.common import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # full f32 products
+    cfg = smollm(num_layers=2, dtype="float32")
+    b, s, steps = 2, 256, 8
+    p_cpu = init_params(param_specs_for(cfg), torch.Generator().manual_seed(7),
+                        torch.float32, "cpu")
+    p_gpu = _tree_to(p_cpu, DEVICE)
+    tokens = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32))
+    prefill = make_prefill_step(cfg)
+    t0 = time.time()
+    want = prefill(p_cpu, {"tokens": tokens})
+    got = prefill(p_gpu, {"tokens": tokens.to(DEVICE)}).cpu()
+    err = float((got - want).abs().max())
+    # the bar's use: the worst element's |err| / (atol + rtol |want|), <= 1
+    used = float(((got - want).abs() / (1e-3 + 1e-3 * want.abs())).max())
+    if not torch.allclose(got, want, rtol=1e-3, atol=1e-3):
+        fail(f"card vs CPU prefill logits: max |err| {err} beyond rtol 1e-3 atol "
+             f"1e-3 (bar used {used:.3f})")
+    serve = make_serve_step(cfg)
+    runs = {"cpu": "cpu", "card": DEVICE}
+    states = {run: init_params(state_specs_for(cfg, b, steps), None,
+                               torch.float32, dev) for run, dev in runs.items()}
+    tok = {run: torch.argmax(want, dim=-1).to(torch.int32).to(dev)
+           for run, dev in runs.items()}
+    params = {"cpu": p_cpu, "card": p_gpu}
+    stream = []
+    for i in range(steps):
+        for run, dev in runs.items():
+            batch = {"token": tok[run][:, None],
+                     "cache_len": torch.full((b,), i, dtype=torch.int32, device=dev)}
+            tok[run], states[run] = serve(params[run], states[run], batch)
+        if not torch.equal(tok["card"].cpu(), tok["cpu"]):
+            fail(f"card vs CPU serve step {i}: greedy tokens differ")
+        stream.append(tok["cpu"].tolist())
+    log(f"LM card vs CPU (SmolLM-360M width, 2 layers, f32): prefill logits "
+        f"max |err| {err:.3g} (rtol 1e-3, atol 1e-3; bar used {used:.3f}), "
+        f"{steps} greedy serve steps equal, {time.time() - t0:.1f} s")
+    return dict(prefill_max_abs_err=err, bar_used=used, greedy_tokens=stream)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def time_power_sim(torch, timer, ops, ref, build, dev, t, h) -> dict:
+    u = torch.rand((t, h), device=dev)
+    consts = ref.power_sim_constants(h, p_idle=POWER_KW["p_idle"],
+                                     p_max=POWER_KW["p_max"],
+                                     peak_tflops=POWER_KW["peak_tflops"],
+                                     dt_seconds=POWER_KW["dt_seconds"])
+    out = torch.empty((3, t), device=dev)
+    lib = build.load("power_sim")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def kernel():
+        if lib.power_sim_launch(u.data_ptr(), out.data_ptr(), t, h,
+                                POWER_KW["r"], consts["base"], consts["span"],
+                                consts["e_factor"], consts["peak"], stream) != 0:
+            fail("power_sim: the timed launch returned a CUDA error")
+
+    k = timer.device_ms(kernel)
+    p = timer.device_ms(lambda: ref.power_sim_ref(u, r=POWER_KW["r"], **consts))
+    return dict(ms=k["ms"], plain_ms=p["ms"], kernel_rounds=k, plain_rounds=p,
+                wrapper_wall_ms=timer.wall_ms(lambda: ops.power_sim(u, **POWER_KW)),
+                bytes=4 * (t * h + 3 * t), ops=9 * t * h + 6 * t)
+
+
+def time_flash(torch, timer, ref, build, dev, b, hq, hkv, s, _skv, d) -> dict:
+    """The prefill shape in bf16: kernel, plain version, and SDPA (the one
+    PyTorch call computing the same, timed beside, never on the path)."""
+    import torch.nn.functional as F
+
+    q = torch.randn((b, hq, s, d), device=dev).to(torch.bfloat16)
+    k = torch.randn((b, hkv, s, d), device=dev).to(torch.bfloat16)
+    v = torch.randn((b, hkv, s, d), device=dev).to(torch.bfloat16)
+    out = torch.empty_like(q)
+    scale = d ** -0.5
+    lib = build.load("flash_attention")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def kernel():
+        if lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                      out.data_ptr(), b, hq, hkv, s, s, d, 1, 1,
+                                      scale, stream) != 0:
+            fail("flash_attention: the timed launch returned a CUDA error")
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              scale=scale, enable_gqa=True)
+
+    kernel()
+    lib_err = float((library().float() - out.float()).abs().max())
+    kt = timer.device_ms(kernel)
+    pt = timer.device_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
+    lt = timer.device_ms(library)
+    log(f"flash_attention vs SDPA at the prefill shape: max |diff| {lib_err:.3g}")
+    return dict(ms=kt["ms"], plain_ms=pt["ms"], library_ms=lt["ms"],
+                kernel_rounds=kt, plain_rounds=pt, library_rounds=lt,
+                sdpa_max_abs_diff=lib_err,
+                bytes=2 * (2 * b * hq * s * d + 2 * b * hkv * s * d),
+                ops=4 * b * hq * s * s * d // 2, peak_ops=PEAK_BF16_TC_FLOPS)
+
+
+def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS) -> dict:
+    """Least time for the work: bytes over HBM rate vs ops over their peak
+    (f32 outside the tensor cores unless ``peak_ops`` says otherwise)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 

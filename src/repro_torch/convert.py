@@ -11,8 +11,11 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.power import PowerParams
 from repro_torch.core.state import TwinConfig, TwinState
+from repro_torch.models.common import ParamSpec
+from repro_torch.models.lm import model_specs
 from repro_torch.traces.schema import Workload
 
 
@@ -70,3 +73,35 @@ def twin_state_from_numpy(leaves, cfg: TwinConfig) -> TwinState:
         hist_p=_t(rest["hist_p"], np.float32, dev),
         **{k: _t(rest[k], np.int32, dev) for k in _COUNT_FIELDS[2:]},
         cfg=cfg)
+
+
+def lm_params_from_numpy(tree, cfg: ModelConfig,
+                         device: "str | torch.device" = "cuda",
+                         dtype: "torch.dtype | str | None" = None) -> dict:
+    """The dense LM's parameters from a nested dict of arrays.
+
+    ``tree`` has the layout of ``model_specs(cfg)`` (the JAX package's
+    parameter tree, leaves as numpy arrays); every leaf must have its
+    spec's shape.  Leaves go through float32, which holds bfloat16 values
+    (``ml_dtypes`` arrays, which ``torch.from_numpy`` refuses) exactly,
+    then to ``dtype`` (default: ``cfg.dtype``) on ``device``.
+    """
+    dev = resolve_device(device)
+    if not isinstance(dtype, torch.dtype):
+        dtype = getattr(torch, dtype or cfg.dtype)
+
+    def convert(node, spec, path):
+        if isinstance(spec, ParamSpec):
+            x = np.asarray(node)
+            if x.shape != spec.shape:
+                raise ValueError(f"parameter {path!r}: shape {x.shape}, "
+                                 f"expected {spec.shape}")
+            return torch.from_numpy(np.array(x, dtype=np.float32)).to(
+                device=dev, dtype=dtype)
+        missing = sorted(set(spec) - set(node))
+        if missing:
+            raise KeyError(f"parameters {missing} missing under {path or '/'!r}")
+        return {k: convert(node[k], spec[k], f"{path}/{k}" if path else k)
+                for k in spec}
+
+    return convert(tree, model_specs(cfg), "")

@@ -24,10 +24,20 @@ import threading
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-#: ``-fmad=false`` keeps ``a + b * c`` as two roundings, as the plain
-#: PyTorch versions compute it; expf/logf stay the accurate library calls.
+#: expf/logf stay the accurate library calls (no fast-math flags)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+#: per-kernel flags: ``-fmad=false`` keeps ``a + b * c`` as two roundings,
+#: as the plain PyTorch versions compute it, where the kernel is held to
+#: its plain version near f32 rounding; flash attention's products are
+#: held at the attention sweep's bars and keep their fused multiply-adds.
+KERNEL_FLAGS = {
+    "calib_mape": ("-fmad=false",),
+    "des_readout": ("-fmad=false",),
+    "power_sim": ("-fmad=false",),
+    "flash_attention": (),
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +48,9 @@ ENTRY_POINTS = {
     "calib_mape": ("calib_mape_grid_launch", [_P] * 6 + [_I] * 4 + [_P]),
     "des_readout": ("des_readout_launch",
                     [_P] * 13 + [_I] * 4 + [_F] * 6 + [_P]),
+    "power_sim": ("power_sim_launch", [_P] * 2 + [_I] * 2 + [_F] * 5 + [_P]),
+    "flash_attention": ("flash_attention_launch",
+                        [_P] * 4 + [_I] * 8 + [_F] + [_P]),
 }
 
 #: ptxas report (registers, shared memory, spills) of each build
@@ -56,9 +69,13 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + KERNEL_FLAGS[name]
+
+
 def library_path(name: str) -> pathlib.Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -71,7 +88,7 @@ def build(names=tuple(ENTRY_POINTS)) -> dict[str, pathlib.Path]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(_CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

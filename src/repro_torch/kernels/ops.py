@@ -21,10 +21,13 @@ from repro_torch.kernels.des_readout import (
     PRECISION_IDS,
     des_readout_cuda,
 )
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.power_sim import power_sim_cuda
 
 Tensor = torch.Tensor
 
-LAUNCHES: dict[str, int] = {"calib_mape_grid": 0, "des_readout": 0}
+LAUNCHES: dict[str, int] = {"calib_mape_grid": 0, "des_readout": 0,
+                            "power_sim": 0, "flash_attention": 0}
 
 #: failure-start sentinel of hosts that never fail
 NEVER = int(np.iinfo(np.int32).max)
@@ -134,4 +137,43 @@ def des_readout(u_th: Tensor, **kw) -> dict[str, Tensor]:
         return ref.des_readout_ref(u, **operands)
     out = des_readout_cuda(u, **operands)
     LAUNCHES["des_readout"] += 1
+    return out
+
+
+def power_sim(u_th: Tensor, *, p_idle: float, p_max: float, r: float,
+              peak_tflops: float, dt_seconds: float
+              ) -> tuple[Tensor, Tensor, Tensor]:
+    """Fused fleet ``(power [W], energy [kWh], tflops)`` per bin, three ``[T]``.
+
+    ``u_th`` ``[T, H]``; the power parameters are fleet scalars.
+    """
+    if u_th.dim() != 2:
+        raise ValueError(f"u_th must be [T, H], got {tuple(u_th.shape)}")
+    kind = _device_kind(u_th)
+    consts = ref.power_sim_constants(
+        u_th.shape[1], p_idle=p_idle, p_max=p_max, peak_tflops=peak_tflops,
+        dt_seconds=dt_seconds)
+    u = u_th.to(torch.float32).contiguous()
+    if kind == "cpu":
+        return ref.power_sim_ref(u, r=float(r), **consts)
+    out = power_sim_cuda(u, r=float(r), **consts)
+    LAUNCHES["power_sim"] += 1
+    return out
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    scale: float | None = None) -> Tensor:
+    """GQA flash-attention forward: ``[B, Hq, Sq, D]`` in q's dtype.
+
+    q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]`` (any strides).
+    """
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, Hq, Sq, D], got {tuple(q.shape)}")
+    kind = _device_kind(q)
+    scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
+    if kind == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal, scale=scale)
+    LAUNCHES["flash_attention"] += 1
     return out

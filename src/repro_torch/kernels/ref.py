@@ -76,6 +76,62 @@ def shape_term(u: Tensor, r: Tensor, model: str) -> Tensor:
     raise ValueError(f"unknown power model {model!r}")
 
 
+def power_sim_constants(h: int, *, p_idle: float, p_max: float,
+                        peak_tflops: float, dt_seconds: float) -> dict:
+    """The kernel's f32 scalars, folded in double as the TPU kernel folds
+    its static Python floats: ``H*p_idle``, ``p_max - p_idle``, the
+    W -> kWh-per-bin factor and the TFLOP/s peak."""
+    return dict(base=float(h * p_idle), span=float(p_max - p_idle),
+                e_factor=float(dt_seconds / 3600.0 / 1000.0),
+                peak=float(peak_tflops))
+
+
+def power_sim_ref(u_th: Tensor, *, r: float, base: float, span: float,
+                  e_factor: float, peak: float
+                  ) -> tuple[Tensor, Tensor, Tensor]:
+    """Fleet power [W], energy [kWh] and TFLOP/s per bin: three ``[T]`` f32.
+
+    Mirrors ``repro.kernels.power_sim._kernel`` on u clipped to [0, 1]:
+    ``power = base + span * sum_h (2u - exp(r * log max(u, 1e-30)))``,
+    ``energy = power * e_factor``, ``tflops = sum_h u / H * peak``, with
+    the scalars of :func:`power_sim_constants` rounded to f32.
+    """
+    u = u_th.float().clamp(0.0, 1.0)
+    h = u.shape[1]
+    f32 = dict(dtype=torch.float32)
+    rr, base_t, span_t, e_t, peak_t, h_t = (
+        torch.tensor(v, **f32) for v in (r, base, span, e_factor, peak, h))
+    shape = 2.0 * u - torch.exp(rr * torch.log(u.clamp(min=LOG_FLOOR)))
+    power = base_t + span_t * shape.sum(dim=1)
+    return power, power * e_t, u.sum(dim=1) / h_t * peak_t
+
+
+def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
+                        causal: bool = True,
+                        scale: float | None = None) -> Tensor:
+    """Plain attention with GQA head grouping: ``[B, Hq, Sq, D]`` in q's dtype.
+
+    q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]``; query head ``hi``
+    reads KV head ``hi // (Hq / Hkv)``.  In f32 after the cast, q scaled
+    after it; causal rows see keys ``j <= i + (Skv - Sq)``.  Mirrors
+    ``repro.kernels.ref.flash_attention_ref``.
+    """
+    b, hq, s, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = (d ** -0.5) if scale is None else scale
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhsd,bhtd->bhst", qf, kf)
+    if causal:
+        rows = torch.arange(s, device=q.device)[:, None] + (skv - s)
+        mask = rows >= torch.arange(skv, device=q.device)[None, :]
+        logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", probs, vf).to(q.dtype)
+
+
 def des_readout_ref(u_th: Tensor, *, p_idle: Tensor, p_max: Tensor,
                     r: Tensor, mask: Tensor, fail_start: Tensor,
                     fail_end: Tensor, fail_kill: Tensor, cap: Tensor,

@@ -1,0 +1,113 @@
+"""Attention: the flash kernel for prefill, a chunked online softmax over a
+partially filled cache, and cache decode.  GQA throughout.
+
+Layout: q [B, S, Hq, D]; k/v [B, Skv, Hkv, D], as in the JAX package.
+With no cache lengths, :func:`chunked_attention` runs the flash-attention
+kernel (:func:`repro_torch.kernels.ops.flash_attention`, on the kernel's
+[B, H, S, D] layout): a CUDA tensor launches the hand-written kernel, a
+CPU tensor runs its plain version, as ``kernel_backend`` switches the JAX
+package between Pallas and XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops as kops
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e30
+
+
+def chunked_attention(
+    q: Tensor, k: Tensor, v: Tensor,
+    *,
+    causal: bool = True,
+    kv_chunk: int = 1024,
+    scale: float | None = None,
+    kv_len: Tensor | None = None,
+) -> Tensor:
+    """Online-softmax attention over KV chunks.
+
+    kv_len: optional [B] active cache lengths (decode with a partially
+    filled cache); positions >= kv_len are masked out.
+    """
+    b, s, hq, d = q.shape
+    _, t, hkv, _ = k.shape
+    dv = v.shape[-1]                      # may differ from d (MLA)
+    g = hq // hkv
+    scale = (d ** -0.5) if scale is None else scale
+
+    if kv_len is None:
+        out = kops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, scale=scale)
+        return out.transpose(1, 2)
+
+    qg = (q * scale).reshape(b, s, hkv, g, d)
+    n_chunks = max(t // kv_chunk, 1)
+    kv_chunk = t // n_chunks
+    if t % kv_chunk:
+        raise ValueError(f"cache length {t} is not a multiple of the KV "
+                         f"chunk {kv_chunk}")
+    out = _flash_fwd_scan(qg, k, v, causal, kv_chunk, t, s, kv_len)
+    return (out.permute(0, 3, 1, 2, 4).reshape(b, s, hkv * g, dv)
+            .to(q.dtype))
+
+
+def _flash_fwd_scan(qg: Tensor, k: Tensor, v: Tensor, causal: bool,
+                    kv_chunk: int, t: int, s: int,
+                    kv_len: Tensor | None = None) -> Tensor:
+    """Online-softmax forward over KV chunks: out [b, hkv, g, s, dv] f32."""
+    b, _, hkv, g, _ = qg.shape
+    dv = v.shape[-1]
+    dev = qg.device
+    q_pos = torch.arange(s, device=dev)[:, None] + (t - s)
+    acc = torch.zeros((b, hkv, g, s, dv), dtype=torch.float32, device=dev)
+    m = torch.full((b, hkv, g, s, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hkv, g, s, 1), dtype=torch.float32, device=dev)
+    for c0 in range(0, t, kv_chunk):
+        kb = k[:, c0:c0 + kv_chunk]                   # [B, C, Hkv, D]
+        vb = v[:, c0:c0 + kv_chunk]
+        logits = torch.einsum("bshgd,bthd->bhgst", qg.float(), kb.float())
+        k_pos = c0 + torch.arange(kv_chunk, device=dev)[None, :]
+        if causal:
+            logits = logits.masked_fill(~(q_pos >= k_pos), NEG_INF)
+        if kv_len is not None:
+            live = k_pos < kv_len[:, None]                       # [B, C]
+            logits = logits.masked_fill(~live[:, None, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        p = torch.exp(logits - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgsc,bchd->bhgsd", p, vb.float())
+        m = m_new
+    return acc / l.clamp(min=1e-30)
+
+
+def decode_attention(
+    q: Tensor,         # [B, 1, Hq, D]
+    k_cache: Tensor,   # [B, T, Hkv, D]
+    v_cache: Tensor,
+    *,
+    cache_len: Tensor | None = None,    # [B] live lengths
+    scale: float | None = None,
+) -> Tensor:
+    """Single-token attention against the cache: one product over it.
+
+    The logits are the f32 products of the operands (``q`` scaled in its
+    own dtype), as the JAX package asks for them.
+    """
+    b, _, hq, d = q.shape
+    _, t, hkv, _ = k_cache.shape
+    g = hq // hkv
+    scale = (d ** -0.5) if scale is None else scale
+    qg = (q * scale).reshape(b, hkv, g, d)
+    logits = torch.einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float())
+    if cache_len is not None:
+        live = torch.arange(t, device=q.device)[None] < cache_len[:, None]
+        logits = logits.masked_fill(~live[:, None, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgt,bthd->bhgd", probs, v_cache.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)

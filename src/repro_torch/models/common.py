@@ -1,0 +1,111 @@
+"""Parameter-spec system and common layers.
+
+A model is declared as a nested dict of :class:`ParamSpec` (shape + logical
+axes + init), as in the JAX package; :func:`init_params` materializes it
+into a nested dict of tensors of the same layout, so converting weights
+between the packages stays a rename.  The logical axes are kept for that
+correspondence; the port runs on one card and shards nothing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch._device import resolve_device
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"        # normal | zeros | ones | embed
+    scale: float = 1.0          # multiplier on the fan-in init
+    dtype: str | None = None    # None = model dtype (caches may pin f32)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ "
+                             "in rank")
+
+
+def spec_leaves(specs: Any, prefix: str = "") -> list[tuple[str, ParamSpec]]:
+    """``(path, spec)`` of every leaf, keys sorted as ``jax.tree`` orders
+    a dict; ``path`` joins the keys with ``/``."""
+    if isinstance(specs, ParamSpec):
+        return [(prefix, specs)]
+    out = []
+    for k in sorted(specs):
+        out += spec_leaves(specs[k], f"{prefix}/{k}" if prefix else k)
+    return out
+
+
+def init_params(specs: Any, generator: torch.Generator, dtype: torch.dtype,
+                device: "str | torch.device" = "cuda") -> Any:
+    """Materialize a spec tree into parameters on ``device``.
+
+    Leaves are drawn in ``jax.tree`` order from ``generator``, which draws
+    on its own device (a CUDA generator draws on the card); the values are
+    the port's own, not the JAX package's.  Same rule as the JAX package:
+    ``normal`` is a fan-in scaled normal over the second-to-last dim,
+    ``embed`` a plain normal times ``scale``; both drawn in f32, then cast.
+    """
+    dev = resolve_device(device)
+
+    def one(spec: ParamSpec) -> Tensor:
+        dt = getattr(torch, spec.dtype) if spec.dtype else dtype
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dt, device=dev)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dt, device=dev)
+        z = torch.randn(spec.shape, generator=generator,
+                        dtype=torch.float32, device=generator.device)
+        if spec.init == "embed":
+            std = spec.scale
+        else:
+            fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+            std = spec.scale / math.sqrt(max(fan_in, 1))
+        return (z * std).to(device=dev, dtype=dt)
+
+    def walk(node):
+        if isinstance(node, ParamSpec):
+            return one(node)
+        return {k: walk(node[k]) for k in sorted(node)}
+
+    return walk(specs)
+
+
+def spec_param_count(specs: Any) -> int:
+    return sum(int(math.prod(s.shape)) for _, s in spec_leaves(specs))
+
+
+# -- layers -------------------------------------------------------------------
+
+
+def rms_norm(x: Tensor, gamma: Tensor, eps: float) -> Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def swiglu(gate: Tensor, up: Tensor) -> Tensor:
+    return torch.nn.functional.silu(gate) * up
+
+
+def dense(x: Tensor, w: Tensor) -> Tensor:
+    """x [..., d_in] @ w [d_in, ...out], accumulated in f32, in x's dtype.
+
+    The JAX package asks for an f32 product and casts it back.  A bf16
+    GEMM accumulates in f32 and rounds its output once, so the product
+    runs in the operands' own dtype (on the card, PyTorch's
+    ``allow_bf16_reduced_precision_reduction`` also lets cuBLAS round
+    split-K partial sums).
+    """
+    out_shape = w.shape[1:]
+    y = torch.matmul(x, w.reshape(w.shape[0], -1))
+    return y.reshape(*x.shape[:-1], *out_shape).to(x.dtype)

@@ -20,6 +20,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.calib_mape import calib_mape_grid_cuda  # noqa: E402
 from repro_torch.kernels.des_readout import des_readout_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.power_sim import power_sim_cuda  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -48,9 +50,18 @@ def test_kernel_wrappers_count_one_launch_per_call(dev):
     ops.calib_mape_grid(u, real, pi, pm, r)          # batched: one launch
     ops.calib_mape_grid(u[0], real[0], pi, pm, r)
     ops.des_readout(u[0], p_idle=70.0, p_max=350.0, r=2.0)
-    assert ops.LAUNCHES == {"calib_mape_grid": 2, "des_readout": 1}
+    power = dict(p_idle=70.0, p_max=350.0, r=2.0, peak_tflops=1.0,
+                 dt_seconds=300.0)
+    ops.power_sim(u[0], **power)
+    q = torch.randn((1, 4, 8, 16), device=dev)
+    ops.flash_attention(q, q[:, :2], q[:, :2])          # GQA views: copied, one launch
+    counts = {"calib_mape_grid": 2, "des_readout": 1, "power_sim": 1,
+              "flash_attention": 1}
+    assert ops.LAUNCHES == counts
     ops.des_readout(u[0].cpu(), p_idle=70.0, p_max=350.0, r=2.0)   # plain version
-    assert ops.LAUNCHES == {"calib_mape_grid": 2, "des_readout": 1}
+    ops.power_sim(u[0].cpu(), **power)
+    ops.flash_attention(q.cpu(), q[:, :2].cpu(), q[:, :2].cpu())
+    assert ops.LAUNCHES == counts
 
 
 def test_kernel_wrappers_reject_bad_operands(dev):
@@ -67,3 +78,35 @@ def test_kernel_wrappers_reject_bad_operands(dev):
         des_readout_cuda(x, **dict(operands, cap=operands["cap"][:-1]))
     with pytest.raises(ValueError, match="contiguous"):
         des_readout_cuda(x.T.contiguous().T, **operands)
+
+
+def test_flash_and_power_sim_wrappers_reject_bad_operands(dev):
+    q = torch.randn((2, 4, 8, 16), device=dev)
+    kv = torch.randn((2, 2, 8, 16), device=dev)
+    flash_attention_cuda(q, kv, kv, causal=True, scale=0.25)      # accepted
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(q[..., :12].contiguous(), kv[..., :12].contiguous(),
+                             kv[..., :12].contiguous(), causal=True, scale=0.25)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_cuda(q[:, :3].contiguous(), kv, kv, causal=True, scale=0.25)
+    with pytest.raises(ValueError, match="k and v"):
+        flash_attention_cuda(q, kv, kv[:, :, :4].contiguous(), causal=True, scale=0.25)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_cuda(q.double(), kv.double(), kv.double(), causal=True,
+                             scale=0.25)
+    with pytest.raises(TypeError, match="is torch.float64"):
+        flash_attention_cuda(q, kv.double(), kv, causal=True, scale=0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), kv,
+                             kv, causal=True, scale=0.25)
+    with pytest.raises(ValueError, match="on cpu"):
+        flash_attention_cuda(q, kv.cpu(), kv, causal=True, scale=0.25)
+    u = torch.rand((6, 5), device=dev)
+    consts = dict(r=2.0, base=350.0, span=280.0, e_factor=1 / 12000, peak=1.0)
+    power_sim_cuda(u, **consts)                                   # accepted
+    with pytest.raises(TypeError, match="float32"):
+        power_sim_cuda(u.double(), **consts)
+    with pytest.raises(ValueError, match="contiguous"):
+        power_sim_cuda(u.T.contiguous().T, **consts)
+    with pytest.raises(ValueError, match=r"\[T, H\]"):
+        power_sim_cuda(u[None], **consts)

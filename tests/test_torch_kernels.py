@@ -16,6 +16,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.calib_mape import calib_mape_grid_pallas  # noqa: E402
 from repro.kernels.des_readout import des_readout_pallas  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
+from repro.kernels.power_sim import power_sim_pallas  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 #: one bf16 ulp, relative (8 significant bits)
@@ -173,7 +175,62 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     want = ref.calib_mape_grid_ref(*(torch.from_numpy(a) for a in (u, real, pi, pm, r)))
     assert torch.equal(torch.from_numpy(_port_calib(u, real, pi, pm, r)), want)
     _port_readout(*_readout_case(3, t=8, h=3))
-    assert ops.LAUNCHES == {"calib_mape_grid": 0, "des_readout": 0}
+    ops.power_sim(torch.rand(8, 3), p_idle=70.0, p_max=350.0, r=2.0,
+                  peak_tflops=1.0, dt_seconds=300.0)
+    q = torch.randn(1, 2, 8, 16)
+    assert torch.equal(ops.flash_attention(q, q[:, :1], q[:, :1]),
+                       ref.flash_attention_ref(q, q[:, :1], q[:, :1]))
+    assert ops.LAUNCHES == {"calib_mape_grid": 0, "des_readout": 0,
+                            "power_sim": 0, "flash_attention": 0}
     with pytest.raises(ValueError, match="no kernel"):
         ops.calib_mape_grid(*(torch.from_numpy(a).to("meta")
                               for a in (u, real, pi, pm, r)))
+
+
+_POWER = dict(p_idle=70.0, p_max=350.0, r=2.3, peak_tflops=120.0,
+              dt_seconds=300.0)
+
+
+@pytest.mark.parametrize("t,h", [(96, 17), (300, 277), (1024, 64)])
+def test_power_sim_matches_pallas_sweep(t, h):
+    """The test_power_sim_sweep shapes, at that sweep's tolerance."""
+    u = np.random.default_rng(t + h).uniform(0, 1.1, (t, h)).astype(np.float32)
+    want = power_sim_pallas(jnp.asarray(u), interpret=True, **_POWER)
+    got = ops.power_sim(torch.from_numpy(u), **_POWER)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (t,)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-2)
+
+
+#: the test_flash_attention_sweep cases: (b, hq, hkv, sq, skv, d, causal, bf16)
+_FLASH_CASES = [
+    (1, 4, 4, 128, 128, 64, True, False),       # MHA causal
+    (2, 8, 2, 100, 100, 32, True, False),       # GQA ragged seq
+    (2, 4, 1, 64, 64, 64, False, False),        # MQA bidirectional
+    (1, 6, 2, 1, 96, 64, True, False),          # decode shape
+    (2, 4, 2, 128, 128, 64, True, True),        # bf16
+    (1, 4, 4, 257, 257, 16, True, False),       # non-tile-aligned
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,bf16", _FLASH_CASES)
+def test_flash_attention_matches_pallas_sweep(b, hq, hkv, sq, skv, d, causal,
+                                              bf16):
+    """The attention sweep's shapes and bars (f32 rtol 2e-5 / atol 2e-4,
+    bf16 rtol 2e-2 / atol 2e-1), against the Pallas kernel at 64-row
+    tiles, the port's tile size."""
+    rng = np.random.default_rng(b * 1000 + hq * 100 + sq + d)
+    arrays = [rng.normal(0, 1, (b, h, s, d)).astype(np.float32)
+              for h, s in ((hq, sq), (hkv, skv), (hkv, skv))]
+    jdt = jnp.bfloat16 if bf16 else jnp.float32  # tracecheck: disable=TC005 — attention dtype sweep, not twin math
+    tdt = torch.bfloat16 if bf16 else torch.float32  # tracecheck: disable=TC005 — attention dtype sweep, not twin math
+    want = flash_attention_pallas(*(jnp.asarray(a, jdt) for a in arrays),
+                                  causal=causal, interpret=True, q_blk=64,
+                                  k_blk=64)
+    got = ops.flash_attention(*(torch.from_numpy(a).to(tdt) for a in arrays),
+                              causal=causal)
+    assert got.dtype == tdt and got.shape == (b, hq, sq, d)
+    tol = 2e-2 if bf16 else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol * 10)
