@@ -16,8 +16,8 @@ Phases (each passes or the script exits non-zero without a result line):
    (one ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and at ragged ones (flash attention at the JAX
-   attention sweep's shapes and bars), and run each kernel twice for
-   bitwise-equal results;
+   attention sweep's shapes and bars, and at the prefill shape in bf16 and
+   f32), and run each kernel twice for bitwise-equal results;
 4. drive the twin's main path, experiment E2 at the paper's SURF-SARA size
    (277 hosts x 16 cores, 7 days, seed 22): uncalibrated, calibrated
    (r only) and joint calibration with one refine round, with the kernels'
@@ -81,16 +81,25 @@ PREFILL_B, PREFILL_S, PREFILL_CALLS = 4, 2048, 5
 SERVE_ARGV = ["--reduce", "1", "--batch", "4", "--prompt-len", "32",
               "--gen", "64", "--device", DEVICE]
 
-#: the flash-attention sweep of the JAX package (tests/test_kernels.py):
-#: (b, hq, hkv, sq, skv, d, causal, bf16), then the prefill shape
+#: the prefill's attention shape: (b, hq, hkv, sq, skv, d)
+PREFILL_FLASH = (PREFILL_B, 15, 5, PREFILL_S, PREFILL_S, 64)
+
+#: flash-attention checks, (b, hq, hkv, sq, skv, d, causal, bf16, rtol,
+#: atol): the JAX package's sweep (tests/test_kernels.py) at its bars, then
+#: the prefill shape.  There an output row averages v (N(0, 1)) over up to
+#: 2048 keys, so its values have std of about sqrt(e / n), 0.04 at
+#: n = 2048: the sweep's bf16 atol 0.2 would exceed them.  So the prefill
+#: shape is held in bf16 at atol 2e-2, and in f32 at the sweep's f32 bar,
+#: which holds all 32 KV tiles of a row to f32 rounding.
 FLASH_CASES = [
-    (1, 4, 4, 128, 128, 64, True, False),
-    (2, 8, 2, 100, 100, 32, True, False),
-    (2, 4, 1, 64, 64, 64, False, False),
-    (1, 6, 2, 1, 96, 64, True, False),
-    (2, 4, 2, 128, 128, 64, True, True),
-    (1, 4, 4, 257, 257, 16, True, False),
-    (PREFILL_B, 15, 5, PREFILL_S, PREFILL_S, 64, True, True),
+    (1, 4, 4, 128, 128, 64, True, False, 2e-5, 2e-4),
+    (2, 8, 2, 100, 100, 32, True, False, 2e-5, 2e-4),
+    (2, 4, 1, 64, 64, 64, False, False, 2e-5, 2e-4),
+    (1, 6, 2, 1, 96, 64, True, False, 2e-5, 2e-4),
+    (2, 4, 2, 128, 128, 64, True, True, 2e-2, 2e-1),
+    (1, 4, 4, 257, 257, 16, True, False, 2e-5, 2e-4),
+    (*PREFILL_FLASH, True, True, 2e-2, 2e-2),
+    (*PREFILL_FLASH, True, False, 2e-5, 2e-4),
 ]
 
 #: power_sim shapes: the JAX sweep's, then the E2 horizon
@@ -481,7 +490,7 @@ def main() -> int:
         plain_ms=main["plain_ms"], **bound(main["bytes"], main["ops"]),
         library_ms=None))
     shapes["power_sim T=2016 H=277 (E2 horizon)"] = main
-    main = time_flash(torch, timer, ref, _build, dev, *FLASH_CASES[-1][:6])
+    main = time_flash(torch, timer, ref, _build, dev, *PREFILL_FLASH)
     main_shapes.append(main)
     kernels.append(dict(
         name="flash_attention", route="cuda",
@@ -634,10 +643,10 @@ def log_profile(out: dict) -> None:
 def check_flash(torch, np, ops, ref, dev) -> float:
     """Flash attention against its plain version at the JAX sweep's shapes
     and bars (f32 rtol 2e-5 / atol 2e-4, bf16 rtol 2e-2 / atol 2e-1), and
-    at the prefill shape; twice each, for bitwise-equal results.  Returns
-    the largest absolute error."""
+    at the prefill shape in bf16 and f32 (``FLASH_CASES``); twice each, for
+    bitwise-equal results.  Returns the largest absolute error."""
     worst = 0.0
-    for i, (b, hq, hkv, sq, skv, d, causal, bf16) in enumerate(FLASH_CASES):
+    for i, (b, hq, hkv, sq, skv, d, causal, bf16, rtol, atol) in enumerate(FLASH_CASES):
         rng = np.random.default_rng(100 + i)
         dt = torch.bfloat16 if bf16 else torch.float32
         q, k, v = (torch.as_tensor(rng.normal(0, 1, (b, h, s, d)).astype(np.float32),
@@ -647,18 +656,17 @@ def check_flash(torch, np, ops, ref, dev) -> float:
         again = ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         want = ref.flash_attention_ref(q, k, v, causal=causal)
-        tol = 2e-2 if bf16 else 2e-5
         err = float((got.float() - want.float()).abs().max())
         if got.dtype != dt or not torch.allclose(got.float(), want.float(),
-                                                 rtol=tol, atol=10 * tol):
+                                                 rtol=rtol, atol=atol):
             fail(f"flash_attention {(b, hq, hkv, sq, skv, d, causal, str(dt))}: "
-                 f"max |err| {err} beyond rtol {tol} atol {10 * tol}")
+                 f"max |err| {err} beyond rtol {rtol} atol {atol}")
         if not torch.equal(got, again):
             fail(f"flash_attention {(b, hq, hkv, sq, skv, d)}: two runs differ bitwise")
         worst = max(worst, err)
         log(f"flash_attention B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
-            f"causal={causal} {str(dt)[6:]}: max |err| {err:.3g} (rtol {tol}, "
-            f"atol {10 * tol}), bitwise repeatable")
+            f"causal={causal} {str(dt)[6:]}: max |err| {err:.3g} (rtol {rtol}, "
+            f"atol {atol}), bitwise repeatable")
     return worst
 
 
@@ -789,10 +797,24 @@ def lm_serve(torch, ops) -> dict:
                 sample=toks[0, :16].tolist())
 
 
+#: the card-vs-CPU bar on f32 logits (std ~0.6): the reading on an H100
+#: is 2.4e-6, so the bar sits ~40x above it
+LOGITS_TOL = 1e-4
+
+
 def lm_card_vs_cpu(torch, np) -> dict:
     """SmolLM-360M at full width, 2 layers, f32: prefill logits at S=256
-    (rtol 1e-3, atol 1e-3) and 8 greedy serve steps (tokens equal) on the
-    card against the CPU, TF32 off."""
+    (rtol and atol ``LOGITS_TOL``) and 8 greedy serve steps (tokens equal)
+    on the card against the CPU, TF32 off.
+
+    ``init_params`` takes the fan-in of ``wq [L, d, H, hd]`` and ``wk``
+    from the head count, as the JAX package does, so random q and k have
+    std 8 and 14 and a score has std ~111: softmax is then near argmax, and
+    rounding noise in a score moves the output as far as a small fault
+    would.  Here, and on both sides alike, ``wq`` and ``wk`` are rescaled
+    to the fan-in of the d_model they contract, which gives scores of std
+    about 1, as a trained model's are.
+    """
     from repro_torch.launch.steps import (
         make_prefill_step, make_serve_step, param_specs_for, state_specs_for)
     from repro_torch.models.common import init_params
@@ -802,6 +824,9 @@ def lm_card_vs_cpu(torch, np) -> dict:
     b, s, steps = 2, 256, 8
     p_cpu = init_params(param_specs_for(cfg), torch.Generator().manual_seed(7),
                         torch.float32, "cpu")
+    layers = p_cpu["layers"]
+    layers["wq"] *= (cfg.n_heads / cfg.d_model) ** 0.5
+    layers["wk"] *= (cfg.n_kv_heads / cfg.d_model) ** 0.5
     p_gpu = _tree_to(p_cpu, DEVICE)
     tokens = torch.as_tensor(np.random.default_rng(8).integers(
         0, cfg.vocab, (b, s)).astype(np.int32))
@@ -811,10 +836,10 @@ def lm_card_vs_cpu(torch, np) -> dict:
     got = prefill(p_gpu, {"tokens": tokens.to(DEVICE)}).cpu()
     err = float((got - want).abs().max())
     # the bar's use: the worst element's |err| / (atol + rtol |want|), <= 1
-    used = float(((got - want).abs() / (1e-3 + 1e-3 * want.abs())).max())
-    if not torch.allclose(got, want, rtol=1e-3, atol=1e-3):
-        fail(f"card vs CPU prefill logits: max |err| {err} beyond rtol 1e-3 atol "
-             f"1e-3 (bar used {used:.3f})")
+    used = float(((got - want).abs() / (LOGITS_TOL * (1 + want.abs()))).max())
+    if not torch.allclose(got, want, rtol=LOGITS_TOL, atol=LOGITS_TOL):
+        fail(f"card vs CPU prefill logits: max |err| {err} beyond rtol and atol "
+             f"{LOGITS_TOL} (bar used {used:.3f})")
     serve = make_serve_step(cfg)
     runs = {"cpu": "cpu", "card": DEVICE}
     states = {run: init_params(state_specs_for(cfg, b, steps), None,
@@ -832,7 +857,7 @@ def lm_card_vs_cpu(torch, np) -> dict:
             fail(f"card vs CPU serve step {i}: greedy tokens differ")
         stream.append(tok["cpu"].tolist())
     log(f"LM card vs CPU (SmolLM-360M width, 2 layers, f32): prefill logits "
-        f"max |err| {err:.3g} (rtol 1e-3, atol 1e-3; bar used {used:.3f}), "
+        f"max |err| {err:.3g} (rtol and atol {LOGITS_TOL}; bar used {used:.3f}), "
         f"{steps} greedy serve steps equal, {time.time() - t0:.1f} s")
     return dict(prefill_max_abs_err=err, bar_used=used, greedy_tokens=stream)
 

@@ -31,6 +31,3 @@ def get_config(arch: str) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
     return mod.config()
 
-
-def all_archs() -> list[str]:
-    return list(ARCHS)

@@ -111,16 +111,3 @@ class ModelConfig:
                              "d_inner divisible by ssm_headdim")
         return self
 
-
-def param_count(cfg: ModelConfig) -> int:
-    """Approximate parameter count (used for 6*N*D MODEL_FLOPS)."""
-    from repro_torch.models.lm import count_params_analytic
-
-    return count_params_analytic(cfg)
-
-
-def active_param_count(cfg: ModelConfig) -> int:
-    """Active (per-token) parameters — MoE uses top-k + shared experts only."""
-    from repro_torch.models.lm import count_params_analytic
-
-    return count_params_analytic(cfg, active_only=True)

@@ -24,20 +24,11 @@ import threading
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-#: expf/logf stay the accurate library calls (no fast-math flags)
+#: ``-fmad=false`` keeps ``a + b * c`` as two roundings, as the plain
+#: PyTorch versions compute it (a kernel that wants the fused product
+#: writes ``fmaf``); expf/logf stay the accurate library calls.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-
-#: per-kernel flags: ``-fmad=false`` keeps ``a + b * c`` as two roundings,
-#: as the plain PyTorch versions compute it, where the kernel is held to
-#: its plain version near f32 rounding; flash attention's products are
-#: held at the attention sweep's bars and keep their fused multiply-adds.
-KERNEL_FLAGS = {
-    "calib_mape": ("-fmad=false",),
-    "des_readout": ("-fmad=false",),
-    "power_sim": ("-fmad=false",),
-    "flash_attention": (),
-}
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,13 +60,9 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _flags(name: str) -> tuple[str, ...]:
-    return NVCC_FLAGS + KERNEL_FLAGS[name]
-
-
 def library_path(name: str) -> pathlib.Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -88,7 +75,7 @@ def build(names=tuple(ENTRY_POINTS)) -> dict[str, pathlib.Path]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

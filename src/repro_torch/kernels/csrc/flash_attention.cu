@@ -17,7 +17,8 @@
 // key is masked with -1e30 when it lies past the diagonal (offset
 // Skv - Sq) or past Skv (the ragged tile), and the output is
 // acc / max(l, 1e-30).  Rows that see no key at all are left as the TPU
-// kernel leaves them: undefined.
+// kernel leaves them: undefined.  The products are explicit fmaf: the
+// library builds with -fmad=false, which still keeps those fused.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,10 +112,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < kChunks; ++c) {
           const float4 kv = kr[2 * c + half];
-          part += qr[4 * c] * kv.x;
-          part += qr[4 * c + 1] * kv.y;
-          part += qr[4 * c + 2] * kv.z;
-          part += qr[4 * c + 3] * kv.w;
+          part = fmaf(qr[4 * c], kv.x, part);
+          part = fmaf(qr[4 * c + 1], kv.y, part);
+          part = fmaf(qr[4 * c + 2], kv.z, part);
+          part = fmaf(qr[4 * c + 3], kv.w, part);
         }
         const float dot = part + __shfl_xor_sync(0xffffffffu, part, 1);
         const int kj = k0 + j0 + jj;
@@ -130,7 +131,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[jj] = expf(s[jj] - m_new);
         psum += s[jj];
       }
-      l = l * alpha + psum;
+      l = fmaf(l, alpha, psum);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= alpha;
 #pragma unroll
@@ -140,10 +141,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < kChunks; ++c) {
           const float4 vv = vr[2 * c + half];
-          acc[4 * c] += p * vv.x;
-          acc[4 * c + 1] += p * vv.y;
-          acc[4 * c + 2] += p * vv.z;
-          acc[4 * c + 3] += p * vv.w;
+          acc[4 * c] = fmaf(p, vv.x, acc[4 * c]);
+          acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
+          acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
+          acc[4 * c + 3] = fmaf(p, vv.w, acc[4 * c + 3]);
         }
       }
       m = m_new;

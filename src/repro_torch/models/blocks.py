@@ -8,7 +8,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import chunked_attention, decode_attention
 from repro_torch.models.common import ParamSpec, dense, rms_norm, swiglu
@@ -117,14 +116,3 @@ def dense_ffn(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor) -> Tensor:
         h = torch.nn.functional.gelu(dense(x, p["w_up"]), approximate="tanh")
     return dense(h, p["w_down"])
 
-
-def init_attn_cache(cfg: ModelConfig, batch: int, seq: int, dtype: torch.dtype,
-                    layers: int | None = None,
-                    device: "str | torch.device" = "cuda") -> dict[str, Tensor]:
-    kv, hd = cfg.n_kv_heads, cfg.head_dim
-    shape = (batch, seq, kv, hd)
-    if layers is not None:
-        shape = (layers,) + shape
-    dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}

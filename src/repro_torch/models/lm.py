@@ -21,13 +21,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import (
-    attn_specs,
-    dense_ffn,
-    ffn_specs,
-    gqa_attention,
-    gqa_decode,
-)
+from repro_torch.models.blocks import block_specs, dense_ffn, gqa_attention, gqa_decode
 from repro_torch.models.common import ParamSpec, dense, rms_norm, spec_param_count
 
 Tensor = torch.Tensor
@@ -46,17 +40,6 @@ def _dense_only(cfg: ModelConfig, what: str) -> None:
 # -- specs -----------------------------------------------------------------
 
 
-def _layer_specs(cfg: ModelConfig, L: int) -> dict[str, ParamSpec]:
-    d = cfg.d_model
-    s: dict[str, ParamSpec] = {
-        "ln1": ParamSpec((L, d), (None, None), init="ones")}
-    s.update(attn_specs(cfg, L))
-    if not cfg.parallel_block:
-        s["ln2"] = ParamSpec((L, d), (None, None), init="ones")
-    s.update(ffn_specs(cfg, L))
-    return s
-
-
 def model_specs(cfg: ModelConfig) -> dict[str, Any]:
     _dense_only(cfg, "model_specs")
     d = cfg.d_model
@@ -68,7 +51,7 @@ def model_specs(cfg: ModelConfig) -> dict[str, Any]:
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((d, cfg.vocab), ("embed", "vocab"),
                                      scale=1.0)
-    specs["layers"] = _layer_specs(cfg, cfg.num_layers)
+    specs["layers"] = block_specs(cfg, cfg.num_layers)
     return specs
 
 
@@ -178,6 +161,6 @@ def decode_step(cfg: ModelConfig, params: dict[str, Any],
 # -- param counting ---------------------------------------------------------------
 
 
-def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+def count_params_analytic(cfg: ModelConfig) -> int:
     """Parameters of the model (dense: every parameter is active)."""
     return spec_param_count(model_specs(cfg))

@@ -46,8 +46,8 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-def _configs(tied: bool, dtype: str = "float32"):
-    kw = dict(TINY, tie_embeddings=tied, dtype=dtype)
+def _configs(tied: bool, dtype: str = "float32", **extra):
+    kw = dict(TINY, tie_embeddings=tied, dtype=dtype, **extra)
     return JaxConfig(**kw).validate(), ModelConfig(**kw).validate()
 
 
@@ -172,6 +172,36 @@ def test_decode_stream_matches_jax(tied):
     for kv in ("k", "v"):
         np.testing.assert_allclose(state["layers"][kv].numpy(),
                                    np.asarray(jstate["layers"][kv]), **F32)
+
+
+@pytest.mark.parametrize("variant", [dict(parallel_block=True),
+                                     dict(qk_norm=True),
+                                     dict(ffn_act="gelu")],
+                         ids=["parallel_block", "qk_norm", "gelu"])
+def test_block_variants_match_jax(variant):
+    """The dense block's other branches (Cohere's parallel attention + FFN,
+    q/k norms, the GELU FFN): forward logits and a 6-step decode stream
+    at the f32 bar."""
+    jcfg, cfg = _configs(tied=False, **variant)
+    jp, p = _params(jcfg, cfg, seed=51)
+    toks = _tokens(52, (2, 10), cfg.vocab)
+    want = jax.jit(functools.partial(jax_lm.forward, jcfg))(
+        jp, {"tokens": jnp.asarray(toks)})
+    got = lm.forward(cfg, p, {"tokens": _t(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    b, n = 2, 6
+    jstate = jax.tree.map(jnp.zeros_like, jax_init_params(
+        jax_lm.decode_state_specs(jcfg, b, n), jax.random.PRNGKey(0), jnp.float32))
+    state = init_params(steps.state_specs_for(cfg, b, n), torch.Generator(),
+                        torch.float32, "cpu")
+    for i in range(n):
+        jb = {"token": jnp.asarray(toks[:, i:i + 1]),
+              "cache_len": jnp.full((b,), i, jnp.int32)}
+        tb = {"token": _t(toks[:, i:i + 1]),
+              "cache_len": torch.full((b,), i, dtype=torch.int32)}
+        want, jstate = _jax_decode(jcfg)(jp, jstate, jb)
+        got, state = lm.decode_step(cfg, p, state, tb)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
 def test_serve_step_matches_jax_greedy_tokens():
