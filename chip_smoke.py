@@ -6,8 +6,10 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (``--profile`` adds ``torch.profiler`` traces of the DES, of the
-calibrated E2 run, of one SmolLM-360M prefill call and of 16 serve steps:
-device busy time, idle share, top kernels.)
+calibrated E2 run, of one SmolLM-360M prefill call and of 16 serve steps,
+and of one Mamba2-370M and one Zamba2-1.2B prefill call: device busy
+time, idle share, top kernels, and the ``ssd_chunk`` and flash-attention
+shares of the SSM prefills' busy time.)
 
 Phases (each passes or the script exits non-zero without a result line):
 
@@ -16,8 +18,11 @@ Phases (each passes or the script exits non-zero without a result line):
    (one ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and at ragged ones (flash attention at the JAX
-   attention sweep's shapes and bars, and at the prefill shape in bf16 and
-   f32), and run each kernel twice for bitwise-equal results;
+   attention sweep's shapes and bars, and at SmolLM-360M's and Zamba2-1.2B's
+   prefill shapes in bf16 and f32; ``ssd_chunk`` at the JAX SSD sweep's
+   shapes, at both Mamba2-family prefill shapes and at a ragged 200-row
+   chunk, and at those last three again with a long memory, rtol/atol
+   1e-4), and run each kernel twice for bitwise-equal results;
 4. drive the twin's main path, experiment E2 at the paper's SURF-SARA size
    (277 hosts x 16 cores, 7 days, seed 22): uncalibrated, calibrated
    (r only) and joint calibration with one refine round, with the kernels'
@@ -28,12 +33,15 @@ Phases (each passes or the script exits non-zero without a result line):
 6. the fleet power map (``ops.power_sim``, which no library path calls)
    on the calibrated card run's own utilization field, counted, and held
    against that run's DES readout;
-7. the LM serving path at SmolLM-360M's full width and depth in bf16:
-   ``make_prefill_step`` on ``[4, 2048]`` tokens (32 flash-attention
-   launches per call, counted), then ``launch/serve.py``'s ``main`` at
-   ``--reduce 1 --batch 4 --prompt-len 32 --gen 64``;
-8. the LM at full width, 2 layers, f32: prefill logits (S=256) and 8
-   greedy serve steps on the card against the same on the CPU;
+7. the LM serving paths at full width and depth in bf16, for SmolLM-360M
+   (dense), Mamba2-370M (SSM) and Zamba2-1.2B (hybrid):
+   ``make_prefill_step`` on ``[4, 2048]`` tokens with each call's kernel
+   launches counted (``LM_PATHS``: 32 flash-attention; 48 ``ssd_chunk``;
+   38 ``ssd_chunk`` and 6 flash-attention), then ``launch/serve.py``'s
+   ``main`` at ``--reduce 1 --batch 4 --prompt-len 32 --gen 64``;
+8. each LM at full width, cut in depth, f32 (``CARD_VS_CPU``): prefill
+   logits (S=256) and 8 greedy serve steps on the card against the same
+   on the CPU;
 9. time each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same (SDPA for attention), at the main
    paths' shapes (device time, median of 5 rounds of up to 20 calls, with
@@ -81,15 +89,17 @@ PREFILL_B, PREFILL_S, PREFILL_CALLS = 4, 2048, 5
 SERVE_ARGV = ["--reduce", "1", "--batch", "4", "--prompt-len", "32",
               "--gen", "64", "--device", DEVICE]
 
-#: the prefill's attention shape: (b, hq, hkv, sq, skv, d)
+#: the prefills' attention shapes, (b, hq, hkv, sq, skv, d): SmolLM-360M
+#: (GQA) and Zamba2-1.2B's shared block
 PREFILL_FLASH = (PREFILL_B, 15, 5, PREFILL_S, PREFILL_S, 64)
+PREFILL_FLASH_ZAMBA2 = (PREFILL_B, 32, 32, PREFILL_S, PREFILL_S, 64)
 
 #: flash-attention checks, (b, hq, hkv, sq, skv, d, causal, bf16, rtol,
 #: atol): the JAX package's sweep (tests/test_kernels.py) at its bars, then
-#: the prefill shape.  There an output row averages v (N(0, 1)) over up to
+#: the prefill shapes.  There an output row averages v (N(0, 1)) over up to
 #: 2048 keys, so its values have std of about sqrt(e / n), 0.04 at
 #: n = 2048: the sweep's bf16 atol 0.2 would exceed them.  So the prefill
-#: shape is held in bf16 at atol 2e-2, and in f32 at the sweep's f32 bar,
+#: shapes are held in bf16 at atol 2e-2, and in f32 at the sweep's f32 bar,
 #: which holds all 32 KV tiles of a row to f32 rounding.
 FLASH_CASES = [
     (1, 4, 4, 128, 128, 64, True, False, 2e-5, 2e-4),
@@ -100,10 +110,42 @@ FLASH_CASES = [
     (1, 4, 4, 257, 257, 16, True, False, 2e-5, 2e-4),
     (*PREFILL_FLASH, True, True, 2e-2, 2e-2),
     (*PREFILL_FLASH, True, False, 2e-5, 2e-4),
+    (*PREFILL_FLASH_ZAMBA2, True, True, 2e-2, 2e-2),
+    (*PREFILL_FLASH_ZAMBA2, True, False, 2e-5, 2e-4),
 ]
 
 #: power_sim shapes: the JAX sweep's, then the E2 horizon
 POWER_SIM_SHAPES = [(96, 17), (300, 277), (1024, 64), (2016, 277)]
+
+#: the LM prefill paths at full width and depth, bf16, [4, 2048] tokens:
+#: arch -> kernel launches per prefill call (one flash launch per attention
+#: layer, one ssd_chunk launch per Mamba2 layer; Zamba2-1.2B: 38 Mamba2
+#: layers under 6 invocations of its shared attention block)
+LM_PATHS = {
+    "smollm-360m": {"flash_attention": 32},
+    "mamba2-370m": {"ssd_chunk": 48},
+    "zamba2-1.2b": {"ssd_chunk": 38, "flash_attention": 6},
+}
+
+#: ssd_chunk at the prefill paths' shapes, (BC, Q, H, P, G, N): B=4 rows of
+#: 2048 tokens in chunks of 128
+SSD_MAMBA2 = (PREFILL_B * PREFILL_S // 128, 128, 32, 64, 1, 128)
+SSD_ZAMBA2 = (PREFILL_B * PREFILL_S // 128, 128, 64, 64, 1, 64)
+
+#: ssd_chunk checks against the plain version, (shape, long memory): the
+#: JAX sweep's shapes (tests/test_kernels.py), both prefill shapes, and a
+#: ragged chunk of 200 rows (one chunk of a 200-token sequence) at N=128,
+#: all at the sweep's bar rtol/atol 1e-4.  The sweep's decay (about
+#: exp(-0.5) per row) leaves only the last ~18 rows of a chunk above the
+#: bar in the states and in att; so the last three shapes run again with
+#: a long memory (``ssd_inputs``), where exp(csum) stays O(1) across the
+#: chunk and every row and key tile counts.
+SSD_RAGGED = (8, 200, 8, 64, 1, 128)
+SSD_CASES = [((2, 16, 2, 8, 1, 16), False), ((3, 32, 4, 16, 2, 24), False),
+             ((1, 64, 8, 32, 4, 64), False), (SSD_MAMBA2, False),
+             (SSD_ZAMBA2, False), (SSD_RAGGED, False), (SSD_MAMBA2, True),
+             (SSD_ZAMBA2, True), (SSD_RAGGED, True)]
+SSD_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -236,6 +278,9 @@ def readout_case(torch, np, t, h, seed, device):
 def main() -> int:
     import torch
 
+    # PyTorch's default, stated because the plain versions and the
+    # card-vs-CPU checks need float32 matmuls in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -325,6 +370,7 @@ def main() -> int:
 
     errs["flash_attention"] = check_flash(torch, np, ops, ref, dev)
     errs["power_sim"] = check_power_sim(torch, np, ops, dev)
+    errs["ssd_chunk"] = check_ssd(torch, np, ops, ref, dev)
 
     # 4) the main path: E2 at full size, kernels counted
     dc = DatacenterConfig()
@@ -395,13 +441,16 @@ def main() -> int:
     # 6) the fleet power map on the card run's own horizon, counted
     launches.update(power_sim_path(torch, ops, sim_gpu.u_th, gpu.records[-1].params, dc))
 
-    # 7) the LM serving path at SmolLM-360M's full size, counted
-    details["lm_prefill"] = lm_prefill(torch, ops)
-    launches["flash_attention"] = details["lm_prefill"]["launches"]
-    details["lm_serve"] = lm_serve(torch, ops)
+    # 7) the LM serving paths at full size, each prefill counted
+    for arch, per_call in LM_PATHS.items():
+        run = details[f"lm_prefill {arch}"] = lm_prefill(torch, ops, arch, per_call)
+        for k in per_call:
+            launches[k] += run["launches"][k]
+        details[f"lm_serve {arch}"] = lm_serve(torch, ops, arch)
 
-    # 8) the LM on the card against the LM on the CPU, f32
-    details["lm_card_vs_cpu"] = lm_card_vs_cpu(torch, np)
+    # 8) the LMs on the card against the LMs on the CPU, f32
+    for arch in CARD_VS_CPU:
+        details[f"lm_card_vs_cpu {arch}"] = lm_card_vs_cpu(torch, np, arch)
 
     # 9) kernel times at the main paths' shapes (device time, queue kept full)
     timer = DeviceTimer(torch)
@@ -502,6 +551,19 @@ def main() -> int:
         **bound(main["bytes"], main["ops"], PEAK_BF16_TC_FLOPS),
         library_ms=main["library_ms"]))
     shapes["flash B=4 Hq=15 Hkv=5 S=2048 D=64 bf16 causal (SmolLM prefill)"] = main
+    main = time_ssd(torch, timer, ref, _build, dev, *SSD_MAMBA2)
+    main_shapes.append(main)
+    kernels.append(dict(
+        name="ssd_chunk", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        replaces="src/repro/kernels/ssd_chunk.py:65",
+        launches=launches["ssd_chunk"],
+        max_abs_err=errs["ssd_chunk"], ms=main["ms"],
+        plain_ms=main["plain_ms"], **bound(main["bytes"], main["ops"]),
+        library_ms=None))
+    shapes["ssd BC=64 Q=128 H=32 P=64 G=1 N=128 (Mamba2-370M prefill)"] = main
+    shapes["ssd BC=64 Q=128 H=64 P=64 G=1 N=64 (Zamba2-1.2B prefill)"] = time_ssd(
+        torch, timer, ref, _build, dev, *SSD_ZAMBA2)
     for v in shapes.values():
         v.update(bound(v["bytes"], v["ops"], v.get("peak_ops", PEAK_F32_FLOPS)))
     for row, v in zip(kernels, main_shapes):
@@ -524,6 +586,7 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         details["profile"] = profile_e2(torch, w, dc, t_bins)
         details["profile_lm"] = profile_lm(torch)
+        details["profile_ssm"] = profile_ssm(torch)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
 
     print(card)
@@ -576,7 +639,7 @@ def profile_lm(torch) -> dict:
         make_prefill_step, make_serve_step, param_specs_for, state_specs_for)
     from repro_torch.models.common import init_params
 
-    cfg = smollm()
+    cfg = lm_config("smollm-360m")
     dtype = getattr(torch, cfg.dtype)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = init_params(param_specs_for(cfg), gen, dtype, DEVICE)
@@ -601,9 +664,37 @@ def profile_lm(torch) -> dict:
     return out
 
 
-def traced(torch, fn) -> dict:
+def profile_ssm(torch) -> dict:
+    """Device busy time of one Mamba2-370M and one Zamba2-1.2B prefill call
+    (``[4, 2048]``, bf16), with the shares of ``ssd_chunk`` and flash
+    attention in it (``--profile`` only)."""
+    from repro_torch.launch.steps import make_prefill_step, param_specs_for
+    from repro_torch.models.common import init_params
+
+    out = {}
+    for arch in ("mamba2-370m", "zamba2-1.2b"):
+        cfg = lm_config(arch)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        params = init_params(param_specs_for(cfg), gen, getattr(torch, cfg.dtype),
+                             DEVICE)
+        tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
+                               device=DEVICE, dtype=torch.int32)
+        prefill = make_prefill_step(cfg)
+        prefill(params, {"tokens": tokens})              # warm
+        out[f"{arch} prefill"] = traced(
+            torch, lambda: prefill(params, {"tokens": tokens}),
+            match=("ssd_chunk", "flash_fwd"))
+        del params
+        torch.cuda.empty_cache()
+    log_profile(out)
+    return out
+
+
+def traced(torch, fn, match: tuple[str, ...] = ()) -> dict:
     """``torch.profiler`` over ``fn``: wall time, the summed device time of
-    its kernels and copies, the device's idle share, the top kernels.
+    its kernels and copies, the device's idle share, the top kernels, and
+    for each name in ``match`` the share of device busy time in the kernels
+    whose name holds it.
 
     Only device-side events count (kernels, copies, memsets): a host-side
     operator also carries its kernels' device time, and counting both
@@ -626,16 +717,21 @@ def traced(torch, fn) -> dict:
             rows.append((ev.key, dev_us, ev.count))
     rows.sort(key=lambda x: -x[1])
     busy = sum(r[1] for r in rows) / 1e6
-    return dict(wall_s=wall, device_busy_s=busy,
-                device_idle_share=1.0 - busy / wall if wall else None,
-                top=[dict(name=k[:80], device_ms=v / 1e3, count=n)
-                     for k, v, n in rows[:12]])
+    out = dict(wall_s=wall, device_busy_s=busy,
+               device_idle_share=1.0 - busy / wall if wall else None,
+               top=[dict(name=k[:80], device_ms=v / 1e3, count=n)
+                    for k, v, n in rows[:12]])
+    if match:
+        out["shares"] = {m: sum(v for k, v, _ in rows if m in k) / 1e6 / busy
+                         for m in match}
+    return out
 
 
 def log_profile(out: dict) -> None:
     for name, v in out.items():
         log(f"profile {name}: wall {v['wall_s']:.3f} s, device busy "
-            f"{v['device_busy_s']:.4f} s, idle share {v['device_idle_share']:.4f}")
+            f"{v['device_busy_s']:.4f} s, idle share {v['device_idle_share']:.4f}"
+            + "".join(f", {m} {x:.4f} of busy" for m, x in v.get("shares", {}).items()))
         for row in v["top"][:6]:
             log(f"    {row['device_ms']:.3f} ms x{row['count']}  {row['name']}")
 
@@ -725,51 +821,51 @@ def power_sim_path(torch, ops, u_th, params, dc) -> dict:
     return {"power_sim": launches}
 
 
-def smollm(num_layers=None, dtype=None):
+def lm_config(arch, num_layers=None, dtype=None):
     from repro_torch.configs import get_config
 
-    cfg = get_config("smollm-360m")
+    cfg = get_config(arch)
     repl = {k: v for k, v in (("num_layers", num_layers), ("dtype", dtype)) if v}
     return dataclasses.replace(cfg, **repl) if repl else cfg
 
 
-def lm_prefill(torch, ops) -> dict:
-    """``make_prefill_step`` at SmolLM-360M's full width and depth, bf16,
-    on ``[4, 2048]`` seeded tokens: one call, then ``PREFILL_CALLS`` timed
-    ones, all counted; 32 flash launches per call."""
+def lm_prefill(torch, ops, arch: str, per_call: dict) -> dict:
+    """``make_prefill_step`` at the arch's full width and depth, bf16, on
+    ``[4, 2048]`` seeded tokens: one call, then ``PREFILL_CALLS`` timed
+    ones, all counted.  ``per_call`` is the launches one call must make
+    (every other kernel: none)."""
     from repro_torch.launch.steps import make_prefill_step, param_specs_for
     from repro_torch.models.common import init_params
     from repro_torch.models.lm import count_params_analytic
 
-    cfg = smollm()
+    cfg = lm_config(arch)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = init_params(param_specs_for(cfg), gen, getattr(torch, cfg.dtype), DEVICE)
     tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
                            device=DEVICE, dtype=torch.int32)
     prefill = make_prefill_step(cfg)
+    want = {k: per_call.get(k, 0) for k in ops.LAUNCHES}
     ops.reset_launches()
     t0 = time.perf_counter()
     logits = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    per_call = ops.LAUNCHES["flash_attention"]
-    if per_call != cfg.num_layers:
-        fail(f"prefill: {per_call} flash_attention launches per call, "
-             f"expected {cfg.num_layers}")
+    if ops.LAUNCHES != want:
+        fail(f"prefill {arch}: launches per call {dict(ops.LAUNCHES)}, expected {want}")
     if logits.shape != (PREFILL_B, cfg.vocab) or not bool(torch.isfinite(logits).all()):
-        fail(f"prefill: logits {tuple(logits.shape)} not finite [B, vocab]")
+        fail(f"prefill {arch}: logits {tuple(logits.shape)} not finite [B, vocab]")
     t0 = time.perf_counter()
     for _ in range(PREFILL_CALLS):
         prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / PREFILL_CALLS
-    launches = ops.LAUNCHES["flash_attention"]
-    if launches != per_call * (PREFILL_CALLS + 1):
-        fail(f"prefill: {launches} flash launches over {PREFILL_CALLS + 1} calls")
+    launches = dict(ops.LAUNCHES)
+    if launches != {k: v * (PREFILL_CALLS + 1) for k, v in want.items()}:
+        fail(f"prefill {arch}: launches {launches} over {PREFILL_CALLS + 1} calls")
     tok_s = PREFILL_B * PREFILL_S / (ms / 1e3)
-    log(f"LM prefill SmolLM-360M (32 x 960, bf16) B={PREFILL_B} S={PREFILL_S}: "
-        f"{ms:.3f} ms per call ({tok_s:.0f} tokens/s; first call {first_s:.3f} s), "
-        f"{per_call} flash_attention launches per call, "
+    log(f"LM prefill {arch} ({cfg.num_layers} layers x {cfg.d_model}, bf16) "
+        f"B={PREFILL_B} S={PREFILL_S}: {ms:.3f} ms per call ({tok_s:.0f} tokens/s; "
+        f"first call {first_s:.3f} s), launches per call {per_call}, "
         f"{launches} over {PREFILL_CALLS + 1} calls")
     out = dict(ms_per_call=ms, tokens_per_second=tok_s, first_call_seconds=first_s,
                launches=launches, launches_per_call=per_call,
@@ -779,54 +875,65 @@ def lm_prefill(torch, ops) -> dict:
     return out
 
 
-def lm_serve(torch, ops) -> dict:
+def lm_serve(torch, ops, arch: str) -> dict:
     """``launch/serve.py``'s main on the card at full size (``--reduce 1``)."""
     from repro_torch.launch import serve
 
     ops.reset_launches()
-    res = serve.main(SERVE_ARGV)
+    res = serve.main(["--arch", arch, *SERVE_ARGV])
     toks = res.tokens
     if toks.shape != (4, 64) or not bool(((toks >= 0) & (toks < res.cfg.vocab)).all()):
-        fail(f"serve: tokens {tuple(toks.shape)} outside [0, {res.cfg.vocab})")
-    log(f"LM serve SmolLM-360M --reduce 1 batch 4: prefill 32 steps "
+        fail(f"serve {arch}: tokens {tuple(toks.shape)} outside [0, {res.cfg.vocab})")
+    log(f"LM serve {arch} --reduce 1 batch 4: prefill 32 steps "
         f"{res.prefill_seconds:.3f} s, decode {res.tokens_per_second:.1f} tok/s "
         f"({res.decode_seconds:.3f} s for 64 x 4), launches {dict(ops.LAUNCHES)}")
+    torch.cuda.empty_cache()
     return dict(prefill_seconds=res.prefill_seconds,
                 decode_seconds=res.decode_seconds,
                 decode_tokens_per_second=res.tokens_per_second,
                 sample=toks[0, :16].tolist())
 
 
-#: the card-vs-CPU bar on f32 logits (std ~0.6): the reading on an H100
-#: is 2.4e-6, so the bar sits ~40x above it
-LOGITS_TOL = 1e-4
+#: the card-vs-CPU checks: arch -> (layers, batch, sequence, bar on the f32
+#: logits as rtol and atol).  Mamba2's S=256 is two chunks of 128, so the
+#: inter-chunk recurrence runs; Zamba2's 7 layers are one group of 6 under
+#: the shared block (attention, LoRA, FFN) plus a tail of 1.  A bar is
+#: 1e-4 where the reading on an H100 is at most 1e-5 (SmolLM 2.4e-6,
+#: Zamba2 7.4e-6); Mamba2's (1.1e-5) is 2e-4, about ten times its reading.
+CARD_VS_CPU = {
+    "smollm-360m": (2, 2, 256, 1e-4),
+    "mamba2-370m": (2, 2, 256, 2e-4),
+    "zamba2-1.2b": (7, 2, 256, 1e-4),
+}
 
 
-def lm_card_vs_cpu(torch, np) -> dict:
-    """SmolLM-360M at full width, 2 layers, f32: prefill logits at S=256
-    (rtol and atol ``LOGITS_TOL``) and 8 greedy serve steps (tokens equal)
-    on the card against the CPU, TF32 off.
+def lm_card_vs_cpu(torch, np, arch: str) -> dict:
+    """The arch at full width, cut in depth (``CARD_VS_CPU``), f32: prefill
+    logits and 8 greedy serve steps (tokens equal) on the card against the
+    CPU (``main`` turns TF32 off).
 
     ``init_params`` takes the fan-in of ``wq [L, d, H, hd]`` and ``wk``
     from the head count, as the JAX package does, so random q and k have
     std 8 and 14 and a score has std ~111: softmax is then near argmax, and
     rounding noise in a score moves the output as far as a small fault
-    would.  Here, and on both sides alike, ``wq`` and ``wk`` are rescaled
-    to the fan-in of the d_model they contract, which gives scores of std
-    about 1, as a trained model's are.
+    would.  Here, and on both sides alike, ``wq`` and ``wk`` (SmolLM's
+    layers, Zamba2's shared block) are rescaled to the fan-in of the
+    d_model they contract, which gives scores of std about 1, as a trained
+    model's are.
     """
     from repro_torch.launch.steps import (
         make_prefill_step, make_serve_step, param_specs_for, state_specs_for)
     from repro_torch.models.common import init_params
 
-    torch.backends.cuda.matmul.allow_tf32 = False      # full f32 products
-    cfg = smollm(num_layers=2, dtype="float32")
-    b, s, steps = 2, 256, 8
+    layers, b, s, tol = CARD_VS_CPU[arch]
+    cfg = lm_config(arch, num_layers=layers, dtype="float32")
+    steps = 8
     p_cpu = init_params(param_specs_for(cfg), torch.Generator().manual_seed(7),
                         torch.float32, "cpu")
-    layers = p_cpu["layers"]
-    layers["wq"] *= (cfg.n_heads / cfg.d_model) ** 0.5
-    layers["wk"] *= (cfg.n_kv_heads / cfg.d_model) ** 0.5
+    attn = {"dense": "layers", "hybrid": "shared_attn"}.get(cfg.family)
+    if attn:
+        p_cpu[attn]["wq"] *= (cfg.n_heads / cfg.d_model) ** 0.5
+        p_cpu[attn]["wk"] *= (cfg.n_kv_heads / cfg.d_model) ** 0.5
     p_gpu = _tree_to(p_cpu, DEVICE)
     tokens = torch.as_tensor(np.random.default_rng(8).integers(
         0, cfg.vocab, (b, s)).astype(np.int32))
@@ -836,10 +943,10 @@ def lm_card_vs_cpu(torch, np) -> dict:
     got = prefill(p_gpu, {"tokens": tokens.to(DEVICE)}).cpu()
     err = float((got - want).abs().max())
     # the bar's use: the worst element's |err| / (atol + rtol |want|), <= 1
-    used = float(((got - want).abs() / (LOGITS_TOL * (1 + want.abs()))).max())
-    if not torch.allclose(got, want, rtol=LOGITS_TOL, atol=LOGITS_TOL):
-        fail(f"card vs CPU prefill logits: max |err| {err} beyond rtol and atol "
-             f"{LOGITS_TOL} (bar used {used:.3f})")
+    used = float(((got - want).abs() / (tol * (1 + want.abs()))).max())
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        fail(f"card vs CPU {arch} prefill logits: max |err| {err} beyond rtol "
+             f"and atol {tol} (bar used {used:.3f})")
     serve = make_serve_step(cfg)
     runs = {"cpu": "cpu", "card": DEVICE}
     states = {run: init_params(state_specs_for(cfg, b, steps), None,
@@ -854,12 +961,15 @@ def lm_card_vs_cpu(torch, np) -> dict:
                      "cache_len": torch.full((b,), i, dtype=torch.int32, device=dev)}
             tok[run], states[run] = serve(params[run], states[run], batch)
         if not torch.equal(tok["card"].cpu(), tok["cpu"]):
-            fail(f"card vs CPU serve step {i}: greedy tokens differ")
+            fail(f"card vs CPU {arch} serve step {i}: greedy tokens differ")
         stream.append(tok["cpu"].tolist())
-    log(f"LM card vs CPU (SmolLM-360M width, 2 layers, f32): prefill logits "
-        f"max |err| {err:.3g} (rtol and atol {LOGITS_TOL}; bar used {used:.3f}), "
+    log(f"LM card vs CPU ({arch} width, {layers} layers, f32, S={s}): prefill "
+        f"logits max |err| {err:.3g} (rtol and atol {tol}; bar used {used:.3f}), "
         f"{steps} greedy serve steps equal, {time.time() - t0:.1f} s")
-    return dict(prefill_max_abs_err=err, bar_used=used, greedy_tokens=stream)
+    del p_gpu, states
+    torch.cuda.empty_cache()
+    return dict(prefill_max_abs_err=err, bar=tol, bar_used=used,
+                greedy_tokens=stream)
 
 
 def _tree_to(tree, dev):
@@ -925,6 +1035,82 @@ def time_flash(torch, timer, ref, build, dev, b, hq, hkv, s, _skv, d) -> dict:
                 sdpa_max_abs_diff=lib_err,
                 bytes=2 * (2 * b * hq * s * d + 2 * b * hkv * s * d),
                 ops=4 * b * hq * s * s * d // 2, peak_ops=PEAK_BF16_TC_FLOPS)
+
+
+def ssd_inputs(torch, np, bc, q, h, p, g, n, seed, device, long_memory=False):
+    """ssd_chunk operands as the JAX sweep draws them: x, B, C ~ N(0, 1),
+    dt ~ U(0.1, 0.9), A_log ~ N(0, 0.3), D ~ N(0, 1), float32.  With
+    ``long_memory``, dt ~ U(0.001, 0.02) and A_log ~ N(-1, 0.3): a row then
+    decays by about exp(-0.004), so exp(csum) stays O(1) across a chunk."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device=device)  # noqa: E731
+    dt_lo, dt_hi, a_mean = (0.001, 0.02, -1.0) if long_memory else (0.1, 0.9, 0.0)
+    return (f(rng.normal(0, 1, (bc, q, h, p))), f(rng.uniform(dt_lo, dt_hi, (bc, q, h))),
+            f(rng.normal(a_mean, 0.3, (h,))), f(rng.normal(0, 1, (bc, q, g, n))),
+            f(rng.normal(0, 1, (bc, q, g, n))), f(rng.normal(0, 1, (h,))))
+
+
+def check_ssd(torch, np, ops, ref, dev) -> float:
+    """ssd_chunk against its plain version on the card at ``SSD_CASES``
+    (rtol and atol ``SSD_TOL``, y and states), twice each for bitwise-equal
+    results.  Returns the largest absolute error."""
+    worst = 0.0
+    for i, (shape, long_memory) in enumerate(SSD_CASES):
+        args = ssd_inputs(torch, np, *shape, seed=200 + i, device=dev,
+                          long_memory=long_memory)
+        got = ops.ssd_chunk(*args)
+        again = ops.ssd_chunk(*args)
+        torch.cuda.synchronize()
+        want = ref.ssd_chunk_ref(*args)
+        tag = f"{shape}{' long memory' if long_memory else ''}"
+        errs = []
+        for name, g, a, w in zip(("y", "states"), got, again, want):
+            err = float((g - w).abs().max())
+            if g.dtype != torch.float32 or not torch.allclose(g, w, rtol=SSD_TOL,
+                                                              atol=SSD_TOL):
+                fail(f"ssd_chunk {tag} {name}: max |err| {err} beyond rtol and "
+                     f"atol {SSD_TOL}")
+            if not torch.equal(g, a):
+                fail(f"ssd_chunk {tag} {name}: two runs differ bitwise")
+            errs.append(err)
+        worst = max(worst, *errs)
+        log(f"ssd_chunk BC={shape[0]} Q={shape[1]} H={shape[2]} P={shape[3]} "
+            f"G={shape[4]} N={shape[5]}{' long memory' if long_memory else ''}: "
+            f"max |err| y {errs[0]:.3g} (|y| max "
+            f"{float(want[0].abs().max()):.3g}), states {errs[1]:.3g} (rtol and "
+            f"atol {SSD_TOL}), bitwise repeatable")
+    return worst
+
+
+def time_ssd(torch, timer, ref, build, dev, bc, q, h, p, g, n) -> dict:
+    """ssd_chunk and its plain version at a prefill shape (no single
+    PyTorch call computes the same: no library time).  ``ops`` counts the
+    least work: ``C B^T`` once per (chunk, group) over the causal triangle,
+    ``att @ x`` over it per head, the states, and the elementwise terms."""
+    import numpy as np
+
+    x, dt, a, b, c, d = ssd_inputs(torch, np, bc, q, h, p, g, n, seed=1, device=dev)
+    y = torch.empty((bc, q, h, p), device=dev)
+    st = torch.empty((bc, h, p, n), device=dev)
+    lib = build.load("ssd_chunk")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def kernel():
+        if lib.ssd_chunk_launch(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                                b.data_ptr(), c.data_ptr(), d.data_ptr(),
+                                y.data_ptr(), st.data_ptr(), bc, q, h, p, g, n,
+                                stream) != 0:
+            fail("ssd_chunk: the timed launch returned a CUDA error")
+
+    tri = q * (q + 1) // 2
+    k = timer.device_ms(kernel)
+    pt = timer.device_ms(lambda: ref.ssd_chunk_ref(x, dt, a, b, c, d))
+    return dict(ms=k["ms"], plain_ms=pt["ms"], kernel_rounds=k, plain_rounds=pt,
+                bytes=4 * (2 * bc * q * h * p + bc * q * h + 2 * bc * q * g * n
+                           + bc * h * p * n + 2 * h),
+                ops=(2 * bc * g * tri * n + 2 * bc * h * tri * p
+                     + 2 * bc * h * q * p * n + 4 * bc * h * tri
+                     + 2 * bc * q * h * p + 4 * bc * q * h))
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS) -> dict:

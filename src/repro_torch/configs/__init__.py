@@ -12,13 +12,14 @@ from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, str] = {
     "smollm-360m": "smollm_360m",
+    "mamba2-370m": "mamba2_370m",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 #: architectures of the JAX package that the port does not run yet
 NOT_PORTED = (
-    "qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "zamba2-1.2b", "stablelm-3b",
-    "minicpm3-4b", "command-r-plus-104b", "mamba2-370m",
-    "seamless-m4t-medium", "qwen2-vl-7b",
+    "qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "stablelm-3b", "minicpm3-4b",
+    "command-r-plus-104b", "seamless-m4t-medium", "qwen2-vl-7b",
 )
 
 

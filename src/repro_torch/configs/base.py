@@ -1,7 +1,7 @@
 """Model configuration schema: the JAX package's ``ModelConfig``, field for field.
 
-The port runs the dense family; the other families' fields are kept so
-that a configuration reads the same in both packages.
+The port runs the dense, SSM and hybrid families; the other families'
+fields are kept so that a configuration reads the same in both packages.
 """
 
 from __future__ import annotations

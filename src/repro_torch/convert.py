@@ -78,7 +78,7 @@ def twin_state_from_numpy(leaves, cfg: TwinConfig) -> TwinState:
 def lm_params_from_numpy(tree, cfg: ModelConfig,
                          device: "str | torch.device" = "cuda",
                          dtype: "torch.dtype | str | None" = None) -> dict:
-    """The dense LM's parameters from a nested dict of arrays.
+    """The LM's parameters from a nested dict of arrays.
 
     ``tree`` has the layout of ``model_specs(cfg)`` (the JAX package's
     parameter tree, leaves as numpy arrays); every leaf must have its

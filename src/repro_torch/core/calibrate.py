@@ -18,6 +18,7 @@ from typing import Literal
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core.power import PowerParams, mape, opendc_power
 from repro_torch.kernels import ops
 
@@ -47,13 +48,15 @@ def _mean(x) -> float:
 
 
 def candidate_grid(spec: CalibrationSpec, base: PowerParams,
-                   device: "str | torch.device" = "cpu") -> PowerParams:
-    """The candidate grid as a batched ``PowerParams`` of ``[C]`` tensors.
+                   device: "str | torch.device" = "cuda") -> PowerParams:
+    """The candidate grid as a batched ``PowerParams`` of ``[C]`` tensors on
+    ``device`` (``"cuda"`` needs a card).
 
     Built host-side with ``np.linspace`` in float32, so the values are bit
     for bit those of the JAX package.  Joint mode clamps each candidate's
     ``p_max`` to its ``p_idle`` (narrow-span bases stay valid).
     """
+    device = resolve_device(device)
     r = np.linspace(spec.r_lo, spec.r_hi, spec.r_points, dtype=np.float32)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
     if spec.mode == "r_only":

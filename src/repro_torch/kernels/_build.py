@@ -42,6 +42,13 @@ ENTRY_POINTS = {
     "power_sim": ("power_sim_launch", [_P] * 2 + [_I] * 2 + [_F] * 5 + [_P]),
     "flash_attention": ("flash_attention_launch",
                         [_P] * 4 + [_I] * 8 + [_F] + [_P]),
+    "ssd_chunk": ("ssd_chunk_launch", [_P] * 8 + [_I] * 6 + [_P]),
+}
+
+#: further C functions of a kernel library, each returning an int: the
+#: limits a wrapper checks shapes against, stated once in the source
+QUERIES = {
+    "ssd_chunk": {"ssd_chunk_max_p": [], "ssd_chunk_max_q": [_I]},
 }
 
 #: ptxas report (registers, shared memory, spills) of each build
@@ -103,5 +110,9 @@ def load(name: str) -> ctypes.CDLL:
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            for q_name, q_args in QUERIES.get(name, {}).items():
+                q_fn = getattr(lib, q_name)
+                q_fn.argtypes = q_args
+                q_fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib

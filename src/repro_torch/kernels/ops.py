@@ -23,11 +23,13 @@ from repro_torch.kernels.des_readout import (
 )
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.power_sim import power_sim_cuda
+from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
 
 Tensor = torch.Tensor
 
 LAUNCHES: dict[str, int] = {"calib_mape_grid": 0, "des_readout": 0,
-                            "power_sim": 0, "flash_attention": 0}
+                            "power_sim": 0, "flash_attention": 0,
+                            "ssd_chunk": 0}
 
 #: failure-start sentinel of hosts that never fail
 NEVER = int(np.iinfo(np.int32).max)
@@ -176,4 +178,22 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, scale=scale)
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def ssd_chunk(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor,
+              d_skip: Tensor) -> tuple[Tensor, Tensor]:
+    """Mamba2/SSD intra-chunk term (``D * x`` included) and chunk-end states.
+
+    ``x [BC, Q, H, P]``, ``dt [BC, Q, H]``, ``a_log [H]``, ``b/c [BC, Q, G,
+    N]``, ``d_skip [H]`` -> ``(y_intra [BC, Q, H, P], states [BC, H, P, N])``
+    in float32.  On the card x, dt, b and c must be float32.
+    """
+    if x.dim() != 4:
+        raise ValueError(f"x must be [BC, Q, H, P], got {tuple(x.shape)}")
+    if _device_kind(x) == "cpu":
+        return ref.ssd_chunk_ref(x, dt, a_log, b, c, d_skip)
+    out = ssd_chunk_cuda(x.contiguous(), dt.contiguous(), a_log, b.contiguous(),
+                         c.contiguous(), d_skip)
+    LAUNCHES["ssd_chunk"] += 1
     return out

@@ -132,6 +132,37 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
     return torch.einsum("bhst,bhtd->bhsd", probs, vf).to(q.dtype)
 
 
+def ssd_chunk_ref(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor,
+                  c: Tensor, d_skip: Tensor) -> tuple[Tensor, Tensor]:
+    """SSD intra-chunk term and chunk-end states, unfused, in float32.
+
+    ``x [BC, Q, H, P]``, ``dt [BC, Q, H]`` (post-softplus), ``a_log [H]``,
+    ``b/c [BC, Q, G, N]``, ``d_skip [H]`` -> ``(y_intra [BC, Q, H, P],
+    states [BC, H, P, N])``; head ``h`` reads group ``h // (H / G)``.
+    ``y_intra`` already holds ``D * x``.  Mirrors
+    ``repro.kernels.ref.ssd_chunk_ref`` line for line.
+    """
+    q, h = x.shape[1], x.shape[2]
+    rep = h // b.shape[2]
+    xf = x.float()
+    dtf = dt.float()
+    a = -torch.exp(a_log.float())
+    bb = b.float().repeat_interleave(rep, dim=2)             # [BC,Q,H,N]
+    cc = c.float().repeat_interleave(rep, dim=2)
+    da = dtf * a[None, None, :]
+    csum = torch.cumsum(da, dim=1)                            # [BC,Q,H]
+    seg = csum[:, :, None, :] - csum[:, None, :, :]           # [BC,Qi,Qj,H]
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    decay = torch.where(mask[None, :, :, None], torch.exp(seg), 0.0)
+    cb = torch.einsum("bqhn,bkhn->bqkh", cc, bb)
+    att = cb * decay * dtf[:, None, :, :]
+    y = torch.einsum("bqkh,bkhp->bqhp", att, xf)
+    y = y + xf * d_skip.float()[None, None, :, None]
+    decay_end = torch.exp(csum[:, -1:, :] - csum) * dtf      # [BC,Q,H]
+    st = torch.einsum("bqhp,bqh,bqhn->bhpn", xf, decay_end, bb)
+    return y, st
+
+
 def des_readout_ref(u_th: Tensor, *, p_idle: Tensor, p_max: Tensor,
                     r: Tensor, mask: Tensor, fail_start: Tensor,
                     fail_end: Tensor, fail_kill: Tensor, cap: Tensor,

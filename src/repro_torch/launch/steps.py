@@ -1,9 +1,9 @@
-"""Step factories: prefill_step / serve_step of the dense LM.
+"""Step factories: prefill_step / serve_step of the LM.
 
 The units the serving launcher and ``chip_smoke.py`` share.  Each step
-runs under ``torch.no_grad()``: they serve, nothing here trains.  Only
-the dense LM family is ported; ``models.lm`` raises for the others
-(enc-dec included).
+runs under ``torch.no_grad()``: they serve, nothing here trains.  The
+dense, SSM and hybrid families are ported; ``models.lm`` raises for the
+others (enc-dec included).
 """
 
 from __future__ import annotations

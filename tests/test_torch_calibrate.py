@@ -48,7 +48,7 @@ def _both(u, real, spec_kw, base=BASE):
     pbase = PowerParams(*base)
     pp, pm = cal.calibrate_traced(
         torch.from_numpy(u), torch.from_numpy(real),
-        cal.candidate_grid(spec, pbase), spec, pbase)
+        cal.candidate_grid(spec, pbase, device="cpu"), spec, pbase)
     as_np = lambda p: tuple(np.asarray(getattr(p, f)) for f in ("p_idle", "p_max", "r"))  # noqa: E731
     return ((tuple(x.numpy() for x in (pp.p_idle, pp.p_max, pp.r)), float(pm)),
             (as_np(jp), float(jm)))
@@ -59,7 +59,8 @@ def test_candidate_grid_is_bitwise_the_jax_grid(mode):
     spec_kw = dict(mode=mode, r_points=16, scale_points=5)
     for base in (BASE, (300.0, 350.0, 2.0)):       # narrow span clamps p_max
         want = jcal.candidate_grid(jcal.CalibrationSpec(**spec_kw), JPowerParams(*base))
-        got = cal.candidate_grid(cal.CalibrationSpec(**spec_kw), PowerParams(*base))
+        got = cal.candidate_grid(cal.CalibrationSpec(**spec_kw), PowerParams(*base),
+                                 device="cpu")
         for f in ("p_idle", "p_max", "r"):
             np.testing.assert_array_equal(getattr(got, f).numpy(),
                                           np.asarray(getattr(want, f)), err_msg=f)
@@ -123,7 +124,7 @@ def test_per_host_rows_exact_vs_jax_and_oracle():
         np.testing.assert_array_equal(a, b)
     assert pm == pytest.approx(jm, rel=1e-4)
     spec = cal.CalibrationSpec(r_points=48)
-    cand = cal.candidate_grid(spec, PowerParams(*BASE))
+    cand = cal.candidate_grid(spec, PowerParams(*BASE), device="cpu")
     fp, fm = cal.calibrate_traced(torch.from_numpy(u), torch.from_numpy(real),
                                   cand, spec, PowerParams(*BASE))
     ref_rows, ref_m = reference_calibrate_per_host(

@@ -22,6 +22,7 @@ from repro_torch.kernels.calib_mape import calib_mape_grid_cuda  # noqa: E402
 from repro_torch.kernels.des_readout import des_readout_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.power_sim import power_sim_cuda  # noqa: E402
+from repro_torch.kernels.ssd_chunk import limits, ssd_chunk_cuda  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -44,6 +45,13 @@ def _calib_operands(dev, b=1, t=16, h=4, c=8):
             _uniform(rng, 1, 6, c, dev))
 
 
+def _ssd_operands(dev, bc=2, q=24, h=4, p=8, g=2, n=16):
+    rng = np.random.default_rng(2)
+    return (_uniform(rng, -1, 1, (bc, q, h, p), dev), _uniform(rng, 0.1, 0.9, (bc, q, h), dev),
+            _uniform(rng, -0.5, 0.5, h, dev), _uniform(rng, -1, 1, (bc, q, g, n), dev),
+            _uniform(rng, -1, 1, (bc, q, g, n), dev), _uniform(rng, 0.5, 1.5, h, dev))
+
+
 def test_kernel_wrappers_count_one_launch_per_call(dev):
     u, real, pi, pm, r = _calib_operands(dev, b=3)
     ops.reset_launches()
@@ -55,12 +63,15 @@ def test_kernel_wrappers_count_one_launch_per_call(dev):
     ops.power_sim(u[0], **power)
     q = torch.randn((1, 4, 8, 16), device=dev)
     ops.flash_attention(q, q[:, :2], q[:, :2])          # GQA views: copied, one launch
+    ssd = _ssd_operands(dev)
+    ops.ssd_chunk(*ssd)
     counts = {"calib_mape_grid": 2, "des_readout": 1, "power_sim": 1,
-              "flash_attention": 1}
+              "flash_attention": 1, "ssd_chunk": 1}
     assert ops.LAUNCHES == counts
     ops.des_readout(u[0].cpu(), p_idle=70.0, p_max=350.0, r=2.0)   # plain version
     ops.power_sim(u[0].cpu(), **power)
     ops.flash_attention(q.cpu(), q[:, :2].cpu(), q[:, :2].cpu())
+    ops.ssd_chunk(*(t.cpu() for t in ssd))
     assert ops.LAUNCHES == counts
 
 
@@ -110,3 +121,35 @@ def test_flash_and_power_sim_wrappers_reject_bad_operands(dev):
         power_sim_cuda(u.T.contiguous().T, **consts)
     with pytest.raises(ValueError, match=r"\[T, H\]"):
         power_sim_cuda(u[None], **consts)
+
+
+def test_ssd_chunk_wrapper_rejects_bad_operands(dev):
+    x, dt, a, b, c, d = _ssd_operands(dev)
+    y, st = ssd_chunk_cuda(x, dt, a.bfloat16(), b, c, d.bfloat16())  # tracecheck: disable=TC005 — model-dtype SSM parameters, cast by the wrapper
+    assert y.shape == x.shape and st.shape == (2, 4, 8, 16)
+    assert y.dtype == st.dtype == torch.float32
+    with pytest.raises(TypeError, match="float32"):
+        ssd_chunk_cuda(x.double(), dt, a, b, c, d)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_chunk_cuda(x, dt, a, b.bfloat16(), c, d)  # tracecheck: disable=TC005 — a dtype the kernel refuses
+    with pytest.raises(ValueError, match="multiple of groups"):
+        ssd_chunk_cuda(x[:, :, :3].contiguous(), dt[:, :, :3].contiguous(), a[:3],
+                       b, c, d[:3])
+    max_q, max_p = limits(torch.cuda.current_device())
+    with pytest.raises(ValueError, match="head dim"):
+        wide = torch.zeros((2, 24, 4, max_p + 1), device=dev)
+        ssd_chunk_cuda(wide, dt, a, b, c, d)
+    with pytest.raises(ValueError, match="chunk length"):
+        q = max_q + 1
+        ssd_chunk_cuda(torch.zeros((1, q, 1, 8), device=dev),
+                       torch.zeros((1, q, 1), device=dev), a[:1],
+                       torch.zeros((1, q, 1, 4), device=dev),
+                       torch.zeros((1, q, 1, 4), device=dev), d[:1])
+    with pytest.raises(ValueError, match="c must have shape"):
+        ssd_chunk_cuda(x, dt, a, b, c[..., :-1].contiguous(), d)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), dt, a, b, c, d)
+    with pytest.raises(ValueError, match="on cpu"):
+        ssd_chunk_cuda(x, dt.cpu(), a, b, c, d)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunk_cuda(x.cpu(), dt.cpu(), a.cpu(), b.cpu(), c.cpu(), d.cpu())

@@ -180,8 +180,14 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     q = torch.randn(1, 2, 8, 16)
     assert torch.equal(ops.flash_attention(q, q[:, :1], q[:, :1]),
                        ref.flash_attention_ref(q, q[:, :1], q[:, :1]))
+    x, dt, a, b, c, d = (torch.rand(shape) for shape in
+                         ((2, 8, 2, 4), (2, 8, 2), (2,), (2, 8, 1, 3), (2, 8, 1, 3), (2,)))
+    for got, want in zip(ops.ssd_chunk(x, dt, a, b, c, d),
+                         ref.ssd_chunk_ref(x, dt, a, b, c, d)):
+        assert torch.equal(got, want)
     assert ops.LAUNCHES == {"calib_mape_grid": 0, "des_readout": 0,
-                            "power_sim": 0, "flash_attention": 0}
+                            "power_sim": 0, "flash_attention": 0,
+                            "ssd_chunk": 0}
     with pytest.raises(ValueError, match="no kernel"):
         ops.calib_mape_grid(*(torch.from_numpy(a).to("meta")
                               for a in (u, real, pi, pm, r)))

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import all_archs as jax_archs  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs.base import ModelConfig as JaxConfig  # noqa: E402
 from repro.launch import steps as jax_steps  # noqa: E402
@@ -273,7 +274,8 @@ def test_smollm_config_specs_and_count_match_jax():
 
 
 def test_registry_lists_only_ported_archs():
-    assert list(ARCHS) == ["smollm-360m"]
+    assert list(ARCHS) == ["smollm-360m", "mamba2-370m", "zamba2-1.2b"]
+    assert set(ARCHS) | set(NOT_PORTED) == set(jax_archs())
     for arch in NOT_PORTED:
         with pytest.raises(KeyError, match="not ported"):
             get_config(arch)
@@ -282,6 +284,10 @@ def test_registry_lists_only_ported_archs():
     moe = dataclasses.replace(get_config("smollm-360m"), family="moe")
     with pytest.raises(NotImplementedError, match="moe"):
         lm.model_specs(moe)
+    mla = dataclasses.replace(get_config("smollm-360m"), attn_kind="mla")
+    for fn in (lm.model_specs, lambda c: lm.decode_state_specs(c, 1, 4)):
+        with pytest.raises(NotImplementedError, match="dense/mla"):
+            fn(mla)
 
 
 def test_lm_params_from_numpy_checks_the_tree():
