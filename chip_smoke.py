@@ -18,10 +18,13 @@ Phases (each passes or the script exits non-zero without a result line):
    (one ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and at ragged ones (flash attention at the JAX
-   attention sweep's shapes and bars, and at SmolLM-360M's and Zamba2-1.2B's
-   prefill shapes in bf16 and f32; ``ssd_chunk`` at the JAX SSD sweep's
-   shapes, at both Mamba2-family prefill shapes and at a ragged 200-row
-   chunk, and at those last three again with a long memory, rtol/atol
+   attention sweep's shapes, the bf16 tensor-core route at every head dim,
+   ragged, decode, Skv > Sq and non-causal shapes, and SmolLM-360M's and
+   Zamba2-1.2B's prefill shapes in bf16 and f32, each against the plain
+   version in f32 at a bar set by the route's rounding (``FLASH_CASES``);
+   ``ssd_chunk`` at the JAX SSD sweep's shapes, at both Mamba2-family
+   prefill shapes and at a ragged 200-row chunk, at those last three again
+   with a long memory and at the longest chunks, 255 and 511 rows, rtol/atol
    1e-4), and run each kernel twice for bitwise-equal results;
 4. drive the twin's main path, experiment E2 at the paper's SURF-SARA size
    (277 hosts x 16 cores, 7 days, seed 22): uncalibrated, calibrated
@@ -67,10 +70,13 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s,
-#: float32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
+#: float32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s, and
+#: f32 products as a 3xTF32 split (TF32 tensor cores, 495 TFLOP/s, over
+#: three passes: ssd_chunk's route)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 
 #: experiment E2 at the paper's size
 E2_DAYS = 7.0
@@ -95,22 +101,38 @@ PREFILL_FLASH = (PREFILL_B, 15, 5, PREFILL_S, PREFILL_S, 64)
 PREFILL_FLASH_ZAMBA2 = (PREFILL_B, 32, 32, PREFILL_S, PREFILL_S, 64)
 
 #: flash-attention checks, (b, hq, hkv, sq, skv, d, causal, bf16, rtol,
-#: atol): the JAX package's sweep (tests/test_kernels.py) at its bars, then
-#: the prefill shapes.  There an output row averages v (N(0, 1)) over up to
-#: 2048 keys, so its values have std of about sqrt(e / n), 0.04 at
-#: n = 2048: the sweep's bf16 atol 0.2 would exceed them.  So the prefill
-#: shapes are held in bf16 at atol 2e-2, and in f32 at the sweep's f32 bar,
-#: which holds all 32 KV tiles of a row to f32 rounding.
+#: atol), each against the plain version in f32 on the same inputs: the
+#: JAX package's sweep (tests/test_kernels.py), f32 at its bar, then the bf16
+#: route (the tensor-core kernel every prefill runs) at the sweep's bf16
+#: shapes, every head dim (16, 32, 128), ragged rows (100, 257), decode
+#: (Sq=1), Skv > Sq, non-causal, and SmolLM-360M's and Zamba2-1.2B's
+#: prefill shapes, and those two again in f32.  An f32 case is held to
+#: ``atol + rtol |want|``: there the f32 kernel (not the main path's) holds
+#: all 32 KV tiles of a row to f32 rounding.  A bf16 case is held to
+#: ``rtol |want| + atol ||p||`` (``flash_bar_use``), ``||p||`` the L2 norm
+#: of the row's softmax weights: the kernel rounds its output to bf16 (up
+#: to 2^-8 |want|) and each weight to bf16 before ``P V``, whose error in
+#: a row is a sum of one rounding per key and scales with ``||p||``
+#: (1 for a row that sees one key, ~0.03 for 2048 keys).  The bf16 bars
+#: sit at about twice the largest of the CPU model's readings
+#: (tests/test_torch_kernel_precision.py).
 FLASH_CASES = [
     (1, 4, 4, 128, 128, 64, True, False, 2e-5, 2e-4),
     (2, 8, 2, 100, 100, 32, True, False, 2e-5, 2e-4),
     (2, 4, 1, 64, 64, 64, False, False, 2e-5, 2e-4),
     (1, 6, 2, 1, 96, 64, True, False, 2e-5, 2e-4),
-    (2, 4, 2, 128, 128, 64, True, True, 2e-2, 2e-1),
+    (2, 4, 2, 128, 128, 64, True, True, 1e-2, 1.5e-2),
     (1, 4, 4, 257, 257, 16, True, False, 2e-5, 2e-4),
-    (*PREFILL_FLASH, True, True, 2e-2, 2e-2),
+    (2, 4, 2, 100, 100, 16, True, True, 1e-2, 1.5e-2),
+    (2, 4, 2, 100, 100, 32, True, True, 1e-2, 1.5e-2),
+    (2, 4, 2, 100, 100, 128, True, True, 1e-2, 1.5e-2),
+    (1, 4, 4, 257, 257, 64, True, True, 1e-2, 1.5e-2),
+    (1, 6, 2, 1, 96, 64, True, True, 1e-2, 1.5e-2),
+    (1, 4, 2, 64, 200, 64, True, True, 1e-2, 1.5e-2),
+    (2, 4, 1, 100, 130, 128, False, True, 1e-2, 1.5e-2),
+    (*PREFILL_FLASH, True, True, 1e-2, 1.5e-2),
     (*PREFILL_FLASH, True, False, 2e-5, 2e-4),
-    (*PREFILL_FLASH_ZAMBA2, True, True, 2e-2, 2e-2),
+    (*PREFILL_FLASH_ZAMBA2, True, True, 1e-2, 1.5e-2),
     (*PREFILL_FLASH_ZAMBA2, True, False, 2e-5, 2e-4),
 ]
 
@@ -139,12 +161,18 @@ SSD_ZAMBA2 = (PREFILL_B * PREFILL_S // 128, 128, 64, 64, 1, 64)
 #: exp(-0.5) per row) leaves only the last ~18 rows of a chunk above the
 #: bar in the states and in att; so the last three shapes run again with
 #: a long memory (``ssd_inputs``), where exp(csum) stays O(1) across the
-#: chunk and every row and key tile counts.
+#: chunk and every row and key tile counts, and so do a 255-row chunk,
+#: the longest ``ssd_chunked`` makes at the configs' ``ssd_chunk`` of 128
+#: (S = 255), and a 511-row chunk, the longest at upstream Mamba2's 256,
+#: where the kernel takes fewer heads per block to fit shared memory.
 SSD_RAGGED = (8, 200, 8, 64, 1, 128)
+SSD_LONGEST = (4, 255, 8, 64, 1, 128)
+SSD_LONGEST_256 = (2, 511, 8, 64, 1, 128)
 SSD_CASES = [((2, 16, 2, 8, 1, 16), False), ((3, 32, 4, 16, 2, 24), False),
              ((1, 64, 8, 32, 4, 64), False), (SSD_MAMBA2, False),
              (SSD_ZAMBA2, False), (SSD_RAGGED, False), (SSD_MAMBA2, True),
-             (SSD_ZAMBA2, True), (SSD_RAGGED, True)]
+             (SSD_ZAMBA2, True), (SSD_RAGGED, True), (SSD_LONGEST, True),
+             (SSD_LONGEST_256, True)]
 SSD_TOL = 1e-4
 
 
@@ -551,6 +579,8 @@ def main() -> int:
         **bound(main["bytes"], main["ops"], PEAK_BF16_TC_FLOPS),
         library_ms=main["library_ms"]))
     shapes["flash B=4 Hq=15 Hkv=5 S=2048 D=64 bf16 causal (SmolLM prefill)"] = main
+    shapes["flash B=4 Hq=32 Hkv=32 S=2048 D=64 bf16 causal (Zamba2 prefill)"] = time_flash(
+        torch, timer, ref, _build, dev, *PREFILL_FLASH_ZAMBA2)
     main = time_ssd(torch, timer, ref, _build, dev, *SSD_MAMBA2)
     main_shapes.append(main)
     kernels.append(dict(
@@ -559,7 +589,8 @@ def main() -> int:
         replaces="src/repro/kernels/ssd_chunk.py:65",
         launches=launches["ssd_chunk"],
         max_abs_err=errs["ssd_chunk"], ms=main["ms"],
-        plain_ms=main["plain_ms"], **bound(main["bytes"], main["ops"]),
+        plain_ms=main["plain_ms"],
+        **bound(main["bytes"], main["ops"], PEAK_3XTF32_FLOPS),
         library_ms=None))
     shapes["ssd BC=64 Q=128 H=32 P=64 G=1 N=128 (Mamba2-370M prefill)"] = main
     shapes["ssd BC=64 Q=128 H=64 P=64 G=1 N=64 (Zamba2-1.2B prefill)"] = time_ssd(
@@ -658,7 +689,8 @@ def profile_lm(torch) -> dict:
 
     prefill(params, {"tokens": tokens})              # warm
     decode(0, 4)
-    out = dict(prefill=traced(torch, lambda: prefill(params, {"tokens": tokens})),
+    out = dict(prefill=traced(torch, lambda: prefill(params, {"tokens": tokens}),
+                              match=("flash_bf16_kernel",)),
                decode_16_steps=traced(torch, lambda: decode(4, 16)))
     log_profile(out)
     return out
@@ -683,7 +715,7 @@ def profile_ssm(torch) -> dict:
         prefill(params, {"tokens": tokens})              # warm
         out[f"{arch} prefill"] = traced(
             torch, lambda: prefill(params, {"tokens": tokens}),
-            match=("ssd_chunk", "flash_fwd"))
+            match=("ssd_chunk_kernel", "flash_bf16_kernel"))
         del params
         torch.cuda.empty_cache()
     log_profile(out)
@@ -736,33 +768,67 @@ def log_profile(out: dict) -> None:
             log(f"    {row['device_ms']:.3f} ms x{row['count']}  {row['name']}")
 
 
+def flash_inputs(torch, np, i, device) -> tuple:
+    """q, k, v of ``FLASH_CASES[i]``: N(0, 1) drawn in f32 from seed
+    ``100 + i``, cast to the case's dtype."""
+    b, hq, hkv, sq, skv, d, _, bf16 = FLASH_CASES[i][:8]
+    rng = np.random.default_rng(100 + i)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    return tuple(torch.as_tensor(rng.normal(0, 1, (b, h, s, d)).astype(np.float32),
+                                 device=device).to(dt)
+                 for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+
+
+def softmax_row_norm(torch, q, k, causal: bool):
+    """``||p||``, the L2 norm of each query row's softmax weights
+    ``[B, Hq, Sq, 1]``, from the same scaled scores and causal rule as the
+    plain version."""
+    hq, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    skv = k.shape[2]
+    kf = k.float().repeat_interleave(hq // k.shape[1], dim=1)
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float() * d ** -0.5, kf)
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        keys = torch.arange(skv, device=q.device)[None, :]
+        logits = logits.masked_fill(rows < keys, float("-inf"))
+    return torch.softmax(logits, dim=-1).norm(dim=-1, keepdim=True)
+
+
+def flash_bar_use(torch, ref, got, q, k, v, causal: bool, rtol: float,
+                  atol: float) -> tuple[float, float]:
+    """``(max |err|, bar used)`` of flash attention's output ``got`` against
+    the plain version in f32 on the same inputs; bar used is the largest
+    ``|err| / bar`` (at most 1 to pass).  The bar is ``atol + rtol |want|``
+    for f32 inputs and ``rtol |want| + atol ||p||`` for bf16 inputs
+    (``FLASH_CASES``)."""
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    err = (got.float() - want).abs()
+    if q.dtype == torch.float32:
+        bar = atol + rtol * want.abs()
+    else:
+        bar = rtol * want.abs() + atol * softmax_row_norm(torch, q, k, causal)
+    return float(err.max()), float((err / bar).max())
+
+
 def check_flash(torch, np, ops, ref, dev) -> float:
-    """Flash attention against its plain version at the JAX sweep's shapes
-    and bars (f32 rtol 2e-5 / atol 2e-4, bf16 rtol 2e-2 / atol 2e-1), and
-    at the prefill shape in bf16 and f32 (``FLASH_CASES``); twice each, for
-    bitwise-equal results.  Returns the largest absolute error."""
+    """Flash attention against its plain version at ``FLASH_CASES``, twice
+    each for bitwise-equal results.  Returns the largest absolute error."""
     worst = 0.0
-    for i, (b, hq, hkv, sq, skv, d, causal, bf16, rtol, atol) in enumerate(FLASH_CASES):
-        rng = np.random.default_rng(100 + i)
-        dt = torch.bfloat16 if bf16 else torch.float32
-        q, k, v = (torch.as_tensor(rng.normal(0, 1, (b, h, s, d)).astype(np.float32),
-                                   device=dev).to(dt)
-                   for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+    for i, (b, hq, hkv, sq, skv, d, causal, _, rtol, atol) in enumerate(FLASH_CASES):
+        q, k, v = flash_inputs(torch, np, i, dev)
         got = ops.flash_attention(q, k, v, causal=causal)
         again = ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        want = ref.flash_attention_ref(q, k, v, causal=causal)
-        err = float((got.float() - want.float()).abs().max())
-        if got.dtype != dt or not torch.allclose(got.float(), want.float(),
-                                                 rtol=rtol, atol=atol):
-            fail(f"flash_attention {(b, hq, hkv, sq, skv, d, causal, str(dt))}: "
-                 f"max |err| {err} beyond rtol {rtol} atol {atol}")
+        case = f"{(b, hq, hkv, sq, skv, d, causal)} {str(q.dtype)[6:]}"
+        err, used = flash_bar_use(torch, ref, got, q, k, v, causal, rtol, atol)
+        if got.dtype != q.dtype or not used <= 1.0:
+            fail(f"flash_attention {case}: max |err| {err}, bar used {used} "
+                 f"(rtol {rtol}, atol {atol})")
         if not torch.equal(got, again):
-            fail(f"flash_attention {(b, hq, hkv, sq, skv, d)}: two runs differ bitwise")
+            fail(f"flash_attention {case}: two runs differ bitwise")
         worst = max(worst, err)
-        log(f"flash_attention B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
-            f"causal={causal} {str(dt)[6:]}: max |err| {err:.3g} (rtol {rtol}, "
-            f"atol {atol}), bitwise repeatable")
+        log(f"flash_attention {case}: max |err| {err:.3g}, bar used {used:.3f} "
+            f"(rtol {rtol}, atol {atol}), bitwise repeatable")
     return worst
 
 
@@ -1086,7 +1152,9 @@ def time_ssd(torch, timer, ref, build, dev, bc, q, h, p, g, n) -> dict:
     """ssd_chunk and its plain version at a prefill shape (no single
     PyTorch call computes the same: no library time).  ``ops`` counts the
     least work: ``C B^T`` once per (chunk, group) over the causal triangle,
-    ``att @ x`` over it per head, the states, and the elementwise terms."""
+    ``att @ x`` over it per head, the states, and the elementwise terms.
+    The bound takes them at the kernel's route, f32 products as 3xTF32 on
+    the tensor cores; ``bound_f32_ms`` at the f32 rate of the CUDA cores."""
     import numpy as np
 
     x, dt, a, b, c, d = ssd_inputs(torch, np, bc, q, h, p, g, n, seed=1, device=dev)
@@ -1105,12 +1173,13 @@ def time_ssd(torch, timer, ref, build, dev, bc, q, h, p, g, n) -> dict:
     tri = q * (q + 1) // 2
     k = timer.device_ms(kernel)
     pt = timer.device_ms(lambda: ref.ssd_chunk_ref(x, dt, a, b, c, d))
+    n_bytes = 4 * (2 * bc * q * h * p + bc * q * h + 2 * bc * q * g * n
+                   + bc * h * p * n + 2 * h)
+    n_ops = (2 * bc * g * tri * n + 2 * bc * h * tri * p + 2 * bc * h * q * p * n
+             + 4 * bc * h * tri + 2 * bc * q * h * p + 4 * bc * q * h)
     return dict(ms=k["ms"], plain_ms=pt["ms"], kernel_rounds=k, plain_rounds=pt,
-                bytes=4 * (2 * bc * q * h * p + bc * q * h + 2 * bc * q * g * n
-                           + bc * h * p * n + 2 * h),
-                ops=(2 * bc * g * tri * n + 2 * bc * h * tri * p
-                     + 2 * bc * h * q * p * n + 4 * bc * h * tri
-                     + 2 * bc * q * h * p + 4 * bc * q * h))
+                bytes=n_bytes, ops=n_ops, peak_ops=PEAK_3XTF32_FLOPS,
+                bound_f32_ms=bound(n_bytes, n_ops)["bound_ms"])
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS) -> dict:

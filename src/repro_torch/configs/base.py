@@ -61,6 +61,9 @@ class ModelConfig:
     expand: int = 2
     ssm_headdim: int = 64
     ssm_ngroups: int = 1
+    # chunks of up to 2 * ssd_chunk - 1 rows (S / max(S // ssd_chunk, 1));
+    # the card's ssd_chunk kernel takes up to ssd_chunk_max_q rows, 576 on
+    # an H100, so up to ssd_chunk = 288 every sequence length runs there
     ssd_chunk: int = 128
 
     # -- hybrid (Zamba2) -------------------------------------------------------

@@ -6,20 +6,24 @@ Replaces: ``repro/kernels/flash_attention.py:flash_attention_pallas``
 
 Bound on an H100: operations.  At the prefill shape of SmolLM-360M
 (B=4, Hq=15, Hkv=5, S=2048, D=64, causal) the two products take
-4*B*Hq*S^2*D/2 = 32 GFLOP against 25 MB of q/k/v/o, so the floor is the
-tensor cores' bf16 rate (about 33 us at 989 TFLOP/s).
+4*B*Hq*S^2*D/2 = 32.2 GFLOP against 25 MB of q/k/v/o, so the floor is the
+tensor cores' bf16 rate: 0.0326 ms at 989 TFLOP/s.
 
-Design (simple first, as the TPU kernel's blocking): one block of 128
-threads per (64-row query tile, query head, batch row), two threads per
-query row, each holding half of the row's scaled q and of its f32
-accumulator in registers, with the row's running max ``m`` and sum ``l``.
-The block walks the 64-row K/V tiles up to the causal diagonal (tiles
-strictly above it are skipped, as ``pl.when`` skips them), staging each
-tile in shared memory as f32; the query head ``hq`` reads KV head
-``hq / group`` in place, with no head expansion.  The two threads of a
-row add their half dot products with one shuffle, in a fixed order, so
-results are bitwise repeatable.  The products run on the CUDA cores in
-f32; tensor cores (``mma``/``wgmma``) and TMA are the next step.
+The library picks a route by dtype.  bfloat16, which every prefill hands
+it, runs on the tensor cores: one block of 4 warps per (64-row query
+tile, query head, batch row), K/V tiles kept bf16 in shared memory in a
+two-stage ``cp.async`` ring, ``S = Q K^T`` and ``P V`` as
+``mma.sync.m16n8k16`` with f32 accumulation, the online softmax on the
+accumulator fragments, and ``P`` rounded to bf16 in registers as ``P V``'s
+A operand.  The first design (kept for float32) staged K/V as f32 and
+formed scalar dot products on the CUDA cores, two threads per query row:
+at 21 TFLOP/s it took 1.51 ms, 16x SDPA, because the tensor cores never
+ran.  float32 stays on that kernel: the card-vs-CPU checks hold f32
+logits at 1e-4, which bf16 products cannot meet.  Both routes skip KV
+tiles above the causal diagonal, read KV head ``hq / group`` in place and
+sum in a fixed order (bitwise repeatable).  bf16 numerics against the TPU
+kernel: ``P`` is rounded to bf16 before ``P V``, the scale multiplies
+``S`` in f32 instead of ``q``, and the sums run in another order.
 """
 
 from __future__ import annotations
@@ -32,10 +36,6 @@ Tensor = torch.Tensor
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
-
-#: rows of a query tile and of a K/V tile
-Q_TILE = 64
-KV_TILE = 64
 
 #: largest grid y/z dimension (query heads, batch)
 MAX_GRID_YZ = 65535
@@ -87,6 +87,10 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if q.dtype != torch.float32:
+        # the bf16 route copies 16-byte chunks: a view that starts off a
+        # 16-byte boundary is copied to a fresh (aligned) allocation
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     lib = _build.load("flash_attention")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

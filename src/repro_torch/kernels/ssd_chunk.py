@@ -4,22 +4,26 @@ Replaces: ``repro/kernels/ssd_chunk.py:ssd_chunk_pallas`` (body
 ``_kernel``), the Pallas TPU kernel whose function ``models/mamba2``'s
 ``ssd_chunked`` computes for every chunk of every Mamba2 layer's prefill.
 
-Bound on an H100: operations.  At Mamba2-370M's prefill shape (BC=64,
-Q=128, H=32, P=64, G=1, N=128) the least work, ``C B^T`` once per (chunk,
-group) and the causal triangle only, is 6.6 GFLOP: 0.098 ms at the 67
-TFLOP/s of f32 outside the tensor cores, against 211 MB of operands
-(0.063 ms at 3.35 TB/s).
+Bound on an H100 at Mamba2-370M's prefill shape (BC=64, Q=128, H=32,
+P=64, G=1, N=128): the least work, ``C B^T`` once per (chunk, group) over
+the causal triangle, is 6.70 GFLOP against 210.8 MB of operands.  At the
+f32 rate outside the tensor cores (67 TFLOP/s) that is 0.0999 ms, bound by
+operations; on this kernel's route, TF32 tensor cores in three passes
+(495 / 3 = 165 TFLOP/s), 0.0629 ms, bound by bytes (3.35 TB/s).
 
-Design (simple first): one block of 256 threads per (chunk, head), as the
-TPU grid.  The chunk is walked in 64-row tiles, so any chunk length fits:
-``C B^T`` and ``att @ x`` over the causal tiles only, the state as one
-more product over all rows; operands staged in shared memory in chunks of
-32 along the contracted axis, each thread accumulating a 4 x 4 patch in
-f32 registers.  The masked exponential is evaluated only where ``j <= i``.
-Sums run in a fixed order without atomics (bitwise repeatable).  It
-recomputes ``C B^T`` per head (14 GFLOP at the shape above), as the TPU
-kernel does, and runs on the CUDA cores: TF32 tensor cores would break
-the 1e-4 parity.
+The first design, one block per (chunk, head) with f32 products on the
+CUDA cores, recomputed ``C B^T`` for every head of a group (14.0 GFLOP)
+and ran at 18 TFLOP/s (0.78 ms).  Now one block per (chunk, group, slice
+of up to 8 of the group's heads) forms ``C B^T`` once for the slice, tile
+by causal tile, and keeps it in shared memory; each head applies its
+decay to it (the exponential only where ``j <= i``) and accumulates
+``att @ x``; the states are ``(x w)^T B``.  Every product runs on the
+tensor cores as a 3xTF32 split (``a = a_hi + a_lo``, both TF32, and
+``a_lo b_hi + a_hi b_lo + a_hi b_hi`` in f32), about 2^-21 relative per
+product, which keeps the 1e-4 parity that one TF32 pass would break.
+Sums run in a fixed order without atomics (bitwise repeatable).  The
+chunk length is capped by shared memory (:func:`limits`), well above the
+255 rows that ``ssd_chunked`` makes at most.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
 
-#: largest grid (chunks x heads, the kernel's grid x-dimension)
+#: largest product of chunks and heads (at least the kernel's grid size)
 MAX_BLOCKS = 2 ** 31 - 1
 
 

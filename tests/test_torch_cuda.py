@@ -7,17 +7,24 @@ the JAX package, so it runs on a GPU machine that has only PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 It covers what ``chip_smoke.py`` does not: the wrappers' operand checks
-and their launch counting.  ``chip_smoke.py`` holds each kernel against
-its plain version on the card and runs the closed loop there and on the
-CPU.
+and their launch counting, and that ``chip_smoke.py``'s flash-attention
+check fails on faults planted in a copy of the kernel.  ``chip_smoke.py``
+holds each kernel against its plain version on the card and runs the
+closed loop there and on the CPU.
 """
+
+import ctypes
+import functools
+import importlib.util
+import pathlib
+import subprocess
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.calib_mape import calib_mape_grid_cuda  # noqa: E402
 from repro_torch.kernels.des_readout import des_readout_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
@@ -153,3 +160,118 @@ def test_ssd_chunk_wrapper_rejects_bad_operands(dev):
         ssd_chunk_cuda(x, dt.cpu(), a, b, c, d)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_chunk_cuda(x.cpu(), dt.cpu(), a.cpu(), b.cpu(), c.cpu(), d.cpu())
+
+
+def test_ssd_chunk_takes_every_chunk_up_to_its_cap(dev):
+    """The cap on the chunk length (shared memory) lies past the 511 rows
+    that ``ssd_chunked`` makes at most at upstream Mamba2's chunk of 256;
+    chunks of 255 and 511 rows and of the cap itself run (the longer ones
+    with fewer heads per block) and agree with the plain version, one row
+    more raises."""
+    from repro_torch.kernels import ref
+
+    max_q, _ = limits(torch.cuda.current_device())
+    assert max_q >= 511
+    for q in (255, 511, max_q):
+        args = _ssd_operands(dev, bc=1, q=q, h=2, p=16, g=1, n=32)
+        for got, want in zip(ssd_chunk_cuda(*args), ref.ssd_chunk_ref(*args)):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="chunk length"):
+        ssd_chunk_cuda(*_ssd_operands(dev, bc=1, q=max_q + 1, h=2, p=16, g=1, n=32))
+
+
+def test_flash_bf16_takes_views_off_a_16_byte_boundary(dev):
+    """The bf16 route copies 16-byte chunks; a contiguous view that starts
+    off such a boundary is copied by the wrapper, not refused."""
+    from repro_torch.kernels import ref
+
+    bf = torch.bfloat16  # tracecheck: disable=TC005 — the bf16 attention route
+    base = torch.randn(1 + 2 * 4 * 40 * 32, device=dev).to(bf)
+    q = base[1:].view(2, 4, 40, 32)                  # 2-byte offset
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    kv = torch.randn((2, 2, 40, 32), device=dev).to(bf)
+    got = flash_attention_cuda(q, kv, kv, causal=True, scale=32 ** -0.5)
+    _, used = _chip_smoke().flash_bar_use(torch, ref, got, q, kv, kv, True,
+                                          rtol=1e-2, atol=1.5e-2)
+    assert used <= 1.0
+
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+#: faults planted in a copy of the bf16 flash kernel, as (text, replacement)
+#: in its source, each confined to the last 64-row query tile of a
+#: 2048-key prefill, whose rows average the most keys, so a fault moves
+#: them least; "none" is the unchanged copy
+FLASH_FAULTS = {
+    "none": ("", ""),
+    "kv tile skipped": (
+        "    cp_async_commit();\n    const bf16* kst",
+        "    cp_async_commit();\n    if (kv_tiles >= 32 && kt == kv_tiles / 2) continue;\n"
+        "    const bf16* kst"),
+    "wrong ring stage": (
+        "const bf16* vst = vs + (kt & 1) * kKeys * kLd;",
+        "const bf16* vst = vs + ((kt + (kv_tiles >= 32 && kt == kv_tiles - 1)) & 1)"
+        " * kKeys * kLd;"),
+    "diagonal key masked": (
+        "(!causal || rows[e >> 1] + diag >= key)",
+        "(!causal || rows[e >> 1] + diag >= key + (kv_tiles >= 32))"),
+}
+
+
+def _build_flash_copies(out_dir: pathlib.Path) -> dict:
+    """Each ``FLASH_FAULTS`` copy of ``flash_attention.cu`` built with the
+    port's nvcc flags (one nvcc each, all started together) and loaded."""
+    src = (pathlib.Path(_build.__file__).parent / "csrc" / "flash_attention.cu").read_text()
+    procs = {}
+    for i, (name, (text, planted)) in enumerate(FLASH_FAULTS.items()):
+        assert text in src, f"{name}: the source no longer holds {text!r}"
+        cu = out_dir / f"fault{i}.cu"
+        cu.write_text(src.replace(text, planted, 1) if text else src)
+        so = out_dir / f"fault{i}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    fn_name, argtypes = _build.ENTRY_POINTS["flash_attention"]
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"{name}: nvcc failed\n{log}"
+        fn = getattr(ctypes.CDLL(str(so)), fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        libs[name] = fn
+    return libs
+
+
+def test_flash_check_fails_on_planted_faults(dev, tmp_path):
+    """``chip_smoke.py``'s bf16 flash check, at both prefill shapes, passes
+    the unchanged copy and fails each planted fault.  Prints each bar use
+    beside that of the earlier check (the plain version rounded to bf16,
+    rtol / atol 2e-2)."""
+    from repro_torch.kernels import ref
+
+    cs = _chip_smoke()
+    cases = [i for i, c in enumerate(cs.FLASH_CASES) if c[7] and c[3] == cs.PREFILL_S]
+    assert len(cases) == 2
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, launch in _build_flash_copies(tmp_path).items():
+        for i in cases:
+            b, hq, hkv, sq, skv, d, causal, _, rtol, atol = cs.FLASH_CASES[i]
+            q, k, v = cs.flash_inputs(torch, np, i, dev)
+            got = torch.empty_like(q)
+            assert launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(),
+                          b, hq, hkv, sq, skv, d, 1, int(causal), d ** -0.5,
+                          stream) == 0
+            torch.cuda.synchronize()
+            err, used = cs.flash_bar_use(torch, ref, got, q, k, v, causal, rtol, atol)
+            want = ref.flash_attention_ref(q, k, v, causal=causal).float()
+            old = float(((got.float() - want).abs() / (2e-2 + 2e-2 * want.abs())).max())
+            print(f"flash fault {name!r} at {(b, hq, hkv, sq, skv, d)}: max |err| "
+                  f"{err:.3g}, bar used {used:.3g} (earlier check {old:.3g})")
+            assert (used <= 1.0) == (name == "none"), (name, i, used)
