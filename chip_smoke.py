@@ -6,10 +6,10 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (``--profile`` adds ``torch.profiler`` traces of the DES, of the
-calibrated E2 run, of one SmolLM-360M prefill call and of 16 serve steps,
-and of one Mamba2-370M and one Zamba2-1.2B prefill call: device busy
-time, idle share, top kernels, and the ``ssd_chunk`` and flash-attention
-shares of the SSM prefills' busy time.)
+calibrated and the joint E2 runs, of one SmolLM-360M prefill call and of
+16 serve steps, and of one Mamba2-370M and one Zamba2-1.2B prefill call:
+device busy time, idle share, top kernels, and the ``ssd_chunk`` and
+flash-attention shares of the SSM prefills' busy time.)
 
 Phases (each passes or the script exits non-zero without a result line):
 
@@ -17,7 +17,11 @@ Phases (each passes or the script exits non-zero without a result line):
 2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and at ragged ones (flash attention at the JAX
+   main paths' shapes and at ragged ones (``calib_mape_grid`` at
+   ``calib_cases``: the E2 window with 64 and 9216 random candidates, the
+   E2 joint grid as built and shuffled, the per-host refit, T=97, T=1,
+   C=1, H=2500, zero-real bins and an all-zero window, rtol 1e-4 atol
+   1e-3; flash attention at the JAX
    attention sweep's shapes, the bf16 tensor-core route at every head dim,
    ragged, decode, Skv > Sq and non-causal shapes, and SmolLM-360M's and
    Zamba2-1.2B's prefill shapes in bf16 and f32, each against the plain
@@ -48,7 +52,10 @@ Phases (each passes or the script exits non-zero without a result line):
 9. time each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same (SDPA for attention), at the main
    paths' shapes (device time, median of 5 rounds of up to 20 calls, with
-   the rounds' spread).
+   the rounds' spread; ``calib_mape_grid`` also at the joint grid's own
+   candidates, with all 9216 r distinct, and at the per-host refit), each
+   beside its bound: bytes, FMA-pipe and special-function (expf, logf)
+   floors, the largest of them.
 
 The second-to-last line of standard output is the ``kernels`` JSON record,
 the last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -135,6 +142,20 @@ FLASH_CASES = [
     (*PREFILL_FLASH_ZAMBA2, True, True, 1e-2, 1.5e-2),
     (*PREFILL_FLASH_ZAMBA2, True, False, 2e-5, 2e-4),
 ]
+
+#: calib_mape_grid checks on random candidates, (B, T, H, C): the E2
+#: window with the r-only grid's 64 and the joint grid's 9216 candidates
+#: (here every r distinct), the per-host refit (B=277, H=1), a ragged
+#: window (T=97), one bin, one candidate, and 2500 hosts (five host chunks
+#: of the kernel); ``calib_cases`` adds the E2 joint grid itself
+CALIB_SHAPES = [(1, 144, 277, 64), (1, 144, 277, 9216), (277, 144, 1, 64),
+                (1, 97, 33, 130), (2, 1, 277, 64), (1, 144, 277, 1),
+                (3, 300, 2500, 5)]
+
+#: the special-function units' rate (expf, logf): 16 results a clock per
+#: SM on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+#: instructions), times the SMs and the clock ``nvidia-smi`` reads
+SFU_PER_CLOCK_PER_SM = 16
 
 #: power_sim shapes: the JAX sweep's, then the E2 horizon
 POWER_SIM_SHAPES = [(96, 17), (300, 277), (1024, 64), (2016, 277)]
@@ -273,6 +294,64 @@ def calib_inputs(torch, np, b, t, h, c, seed, device):
     return u, real, pi, pm, r
 
 
+def calib_cases(torch, np, dev) -> list:
+    """``(label, operands)`` of the calib checks (``CALIB_SHAPES``): random
+    candidates, the E2 joint grid as ``candidate_grid`` builds it (runs of
+    144 equal r that cross the kernel's 256-candidate tiles) and the same
+    grid shuffled, a window with every third bin's real power zero, and
+    an all-zero window (NaN for every candidate)."""
+    from repro_torch.core import CalibrationSpec
+    from repro_torch.core.calibrate import candidate_grid
+    from repro_torch.core.power import PowerParams
+
+    cases = [(f"B={b} T={t} H={h} C={c}",
+              calib_inputs(torch, np, b, t, h, c, seed=b + t + h + c, device=dev))
+             for b, t, h, c in CALIB_SHAPES]
+    u, real, pi, pm, r = calib_inputs(torch, np, 1, 144, 277, 64, seed=3, device=dev)
+    grid = candidate_grid(CalibrationSpec(mode="joint"), PowerParams(), device=dev)
+    joint = (grid.p_idle, grid.p_max, grid.r)
+    perm = torch.as_tensor(np.random.default_rng(4).permutation(grid.r.shape[0]),
+                           device=dev)
+    some_zero = real.clone()
+    some_zero[:, ::3] = 0.0
+    return cases + [
+        ("B=1 T=144 H=277 C=9216 E2 joint grid", (u, real, *joint)),
+        ("B=1 T=144 H=277 C=9216 E2 joint grid shuffled",
+         (u, real, *(x[perm].contiguous() for x in joint))),
+        ("B=1 T=144 H=277 C=64 every third bin zero", (u, some_zero, pi, pm, r)),
+        ("B=1 T=144 H=277 C=64 all bins zero", (u, torch.zeros_like(real), pi, pm, r)),
+    ]
+
+
+def calib_agrees(torch, got, want) -> tuple[float, bool]:
+    """``(max |err|, within the bar)`` of calib MAPEs against the plain
+    version: rtol 1e-4, atol 1e-3, NaN exactly where the plain version has
+    NaN (an all-zero window)."""
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    err = float(torch.where(both_nan, 0.0, (got - want).abs()).max())
+    return err, got.shape == want.shape and bool(
+        torch.allclose(got, want, rtol=1e-4, atol=1e-3, equal_nan=True))
+
+
+def check_calib(torch, np, ops, ref, dev) -> float:
+    """calib_mape_grid against its plain version at ``calib_cases``, twice
+    each for bitwise-equal results.  Returns the largest absolute error."""
+    worst = 0.0
+    for label, args in calib_cases(torch, np, dev):
+        got = ops.calib_mape_grid(*args)
+        again = ops.calib_mape_grid(*args)
+        torch.cuda.synchronize()
+        err, ok = calib_agrees(torch, got, ref.calib_mape_grid_ref(*args))
+        if not ok:
+            fail(f"calib_mape_grid {label}: max |err| {err} beyond rtol 1e-4 atol 1e-3")
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            fail(f"calib_mape_grid {label}: two runs differ bitwise")
+        worst = max(worst, err)
+        log(f"calib_mape_grid {label}: max |err| {err:.3g} (rtol 1e-4, atol 1e-3), "
+            "bitwise repeatable")
+    return worst
+
+
 def readout_case(torch, np, t, h, seed, device):
     """Readout operands at ``[t, h]`` with every scenario axis active."""
     rng = np.random.default_rng(seed)
@@ -320,7 +399,9 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core import CalibrationSpec, OrchestratorConfig
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.core.calibrate import candidate_grid
+    from repro_torch.core.power import PowerParams
+    from repro_torch.kernels import _build, calib_mape, ops, ref
     from repro_torch.traces.schema import DatacenterConfig
     from repro_torch.traces.surf import BINS_PER_DAY, SurfTraceSpec, make_surf22_like
 
@@ -346,28 +427,8 @@ def main() -> int:
     details["ptxas"] = dict(_build.BUILD_LOG)
 
     # 3) each kernel against its plain version on the card
-    errs: dict[str, float] = {"calib_mape_grid": 0.0, "des_readout": 0.0}
-    for (b, t, h, c) in [(1, 144, 277, 64), (1, 144, 277, 9216),
-                         (277, 144, 1, 64), (1, 97, 33, 130), (3, 300, 2500, 5)]:
-        args = calib_inputs(torch, np, b, t, h, c, seed=b + t + h + c, device=dev)
-        got = ops.calib_mape_grid(*args)
-        torch.cuda.synchronize()
-        want = ref.calib_mape_grid_ref(*args)
-        again = ops.calib_mape_grid(*args)
-        torch.cuda.synchronize()
-        if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
-            fail(f"calib_mape_grid {(b, t, h, c)}: max |err| "
-                 f"{float((got - want).abs().max())} beyond rtol 1e-4 atol 1e-3")
-        if not torch.equal(got, again):
-            fail(f"calib_mape_grid {(b, t, h, c)}: two runs differ bitwise")
-        err = float((got - want).abs().max())
-        errs["calib_mape_grid"] = max(errs["calib_mape_grid"], err)
-        log(f"calib_mape_grid B={b} T={t} H={h} C={c}: max |err| {err:.3g} "
-            "(rtol 1e-4, atol 1e-3), bitwise repeatable")
-    zero_real = torch.zeros((1, 144), device=dev)
-    u0, _, pi0, pm0, r0 = calib_inputs(torch, np, 1, 144, 277, 64, 0, dev)
-    if not torch.isnan(ops.calib_mape_grid(u0, zero_real, pi0, pm0, r0)).all():
-        fail("calib_mape_grid: an all-zero real window must give NaN")
+    errs: dict[str, float] = {"des_readout": 0.0}
+    errs["calib_mape_grid"] = check_calib(torch, np, ops, ref, dev)
 
     for (t, h) in [(36, 277), (97, 13), (2016, 277)]:
         for model in ("opendc", "linear", "sqrt", "cubic"):
@@ -492,21 +553,32 @@ def main() -> int:
         return dict(ms=k["ms"], plain_ms=p["ms"], kernel_rounds=k,
                     plain_rounds=p, **extra)
 
-    def calib_case(b, t, h, c):
-        u, real, pi, pm, r = calib_inputs(torch, np, b, t, h, c, 1, dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_per_s = SFU_PER_CLOCK_PER_SM * sms * sm_max_clock_hz()
+
+    def calib_case(u, real, pi, pm, r):
+        b, t, h = u.shape
+        c = r.shape[0]
+        tile = calib_mape.bin_tile(b, t, h, c)
+        partial = torch.empty((b, -(-t // tile), c), device=dev)
         out = torch.empty((b, c), device=dev)
 
         def kernel():
             if calib_lib.calib_mape_grid_launch(
                     u.data_ptr(), real.data_ptr(), pi.data_ptr(), pm.data_ptr(),
-                    r.data_ptr(), out.data_ptr(), b, t, h, c, stream) != 0:
+                    r.data_ptr(), partial.data_ptr(), out.data_ptr(), b, t, h, c,
+                    tile, stream) != 0:
                 fail("calib_mape_grid: the timed launch returned a CUDA error")
 
+        # one logf per (b, t, h), one expf per (b, t, h, distinct r)
+        n_r = int(torch.unique(r.view(torch.int32)).numel())
+        n_sfu = b * t * h * (n_r + 1)
         return timed(
             kernel, lambda: ref.calib_mape_grid_ref(u, real, pi, pm, r),
             wrapper_wall_ms=timer.wall_ms(lambda: ops.calib_mape_grid(u, real, pi, pm, r)),
+            bin_tile=tile, distinct_r=n_r, sfu_ops=n_sfu,
             bytes=4 * (b * t * h + b * t + 3 * c + b * c),
-            ops=3 * b * t * h * c + 8 * b * t * c + 4 * b * t * h)
+            ops=2 * b * t * h * n_r + 8 * b * t * c + 4 * b * t * h)
 
     def readout_case_timed(t, h):
         # the main path's operands: scalar params broadcast, no scenario axis
@@ -530,7 +602,8 @@ def main() -> int:
             bytes=4 * (t * h + 7 * h + 4 * t + 9 * t),
             ops=14 * t * h + 30 * t)
 
-    main = calib_case(1, 144, 277, 64)      # E2 calibration: 4 windows x 36 bins
+    # E2 calibration: 4 windows x 36 bins of 277 hosts
+    main = calib_case(*calib_inputs(torch, np, 1, 144, 277, 64, 1, dev))
     main_shapes = [main]
     kernels.append(dict(
         name="calib_mape_grid", route="cuda",
@@ -538,11 +611,18 @@ def main() -> int:
         replaces="src/repro/kernels/calib_mape.py:79",
         launches=launches["calib_mape_grid"],
         max_abs_err=errs["calib_mape_grid"], ms=main["ms"],
-        plain_ms=main["plain_ms"], **bound(main["bytes"], main["ops"]),
+        plain_ms=main["plain_ms"], **bound(main["bytes"], main["ops"],
+                                           n_sfu=main["sfu_ops"], sfu_per_s=sfu_per_s),
         library_ms=None))
     shapes["calib B=1 T=144 H=277 C=64 (E2 r_only)"] = main
-    shapes["calib B=1 T=144 H=277 C=9216 (E2 joint)"] = calib_case(1, 144, 277, 9216)
-    shapes["calib B=277 T=144 H=1 C=64 (per-host refit)"] = calib_case(277, 144, 1, 64)
+    u, real = calib_inputs(torch, np, 1, 144, 277, 1, 1, dev)[:2]
+    grid = candidate_grid(CalibrationSpec(mode="joint"), PowerParams(), device=dev)
+    shapes["calib B=1 T=144 H=277 C=9216 joint grid, 64 distinct r (E2 joint)"] = calib_case(
+        u, real, grid.p_idle, grid.p_max, grid.r)
+    shapes["calib B=1 T=144 H=277 C=9216 all r distinct"] = calib_case(
+        *calib_inputs(torch, np, 1, 144, 277, 9216, 1, dev))
+    shapes["calib B=277 T=144 H=1 C=64 (per-host refit)"] = calib_case(
+        *calib_inputs(torch, np, 277, 144, 1, 64, 1, dev))
     main = readout_case_timed(36, 277)      # E2 prediction window
     main_shapes.append(main)
     kernels.append(dict(
@@ -596,7 +676,9 @@ def main() -> int:
     shapes["ssd BC=64 Q=128 H=64 P=64 G=1 N=64 (Zamba2-1.2B prefill)"] = time_ssd(
         torch, timer, ref, _build, dev, *SSD_ZAMBA2)
     for v in shapes.values():
-        v.update(bound(v["bytes"], v["ops"], v.get("peak_ops", PEAK_F32_FLOPS)))
+        work = (v["bytes"], v["ops"], v.get("peak_ops", PEAK_F32_FLOPS),
+                v.get("sfu_ops", 0), sfu_per_s)
+        v.update(bound(*work), bound_terms_ms=bound_terms(*work))
     for row, v in zip(kernels, main_shapes):
         k, p = v["kernel_rounds"], v["plain_rounds"]
         log(f"{row['name']}: {row['ms'] * 1e3:.2f} us (rounds {k['min_ms'] * 1e3:.2f}-"
@@ -642,23 +724,29 @@ def e2_run(w, dc, t_bins, *, calibrate, cfg, device):
 
 
 def profile_e2(torch, w, dc, t_bins) -> dict:
-    """Device busy time of the E2 calibrated run (``--profile`` only).
+    """Device busy time of the E2 calibrated and joint runs (``--profile``
+    only).
 
-    ``torch.profiler`` traces the DES and the 56-window loop separately; the
+    ``torch.profiler`` traces the DES and each 56-window loop separately; the
     device's busy share is the summed device time of its kernels and copies
     over the host's wall time.
     """
-    from repro_torch.core import DigitalTwin, OrchestratorConfig, TraceGroundTruth
+    from repro_torch.core import (
+        CalibrationSpec, DigitalTwin, OrchestratorConfig, TraceGroundTruth)
     from repro_torch.core.desim import simulate_utilization
 
     twin = DigitalTwin(w, dc, t_bins, OrchestratorConfig(device="cuda"))
+    joint = DigitalTwin(w, dc, t_bins, OrchestratorConfig(
+        device="cuda", calibration=CalibrationSpec(mode="joint", refine_iters=1)))
     truth = TraceGroundTruth(w, dc, t_bins)
-    twin.orchestrator._ensure_sim()       # the DES is traced on its own
+    for t in (twin, joint):
+        t.orchestrator._ensure_sim()      # the DES is traced on its own
     out = dict(
         des=traced(torch, lambda: simulate_utilization(
             w, num_hosts=dc.num_hosts, cores_per_host=dc.cores_per_host,
             t_bins=t_bins)),
-        calibrated_windows=traced(torch, lambda: twin.run(truth.window)))
+        calibrated_windows=traced(torch, lambda: twin.run(truth.window)),
+        joint_windows=traced(torch, lambda: joint.run(truth.window)))
     log_profile(out)
     return out
 
@@ -1182,13 +1270,33 @@ def time_ssd(torch, timer, ref, build, dev, bc, q, h, p, g, n) -> dict:
                 bound_f32_ms=bound(n_bytes, n_ops)["bound_ms"])
 
 
-def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS) -> dict:
-    """Least time for the work: bytes over HBM rate vs ops over their peak
-    (f32 outside the tensor cores unless ``peak_ops`` says otherwise)."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / peak_ops * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+def bound_terms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS,
+                n_sfu: float = 0, sfu_per_s: float | None = None) -> dict:
+    """ms of each floor: bytes over HBM rate, ops over their peak (f32 on
+    the FMA pipes unless ``peak_ops`` says otherwise), and ``n_sfu``
+    special-function results (expf, logf) over ``sfu_per_s``."""
+    return {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
+            "fma": n_ops / peak_ops * 1e3,
+            "sfu": n_sfu / sfu_per_s * 1e3 if n_sfu else 0.0}
+
+
+def bound(*args, **kwargs) -> dict:
+    """Least time for the work: the largest of ``bound_terms``, bound by
+    bytes or by operations (either pipe)."""
+    terms = bound_terms(*args, **kwargs)
+    term = max(terms, key=terms.get)
+    return dict(bound_ms=terms[term],
+                bound_by="bytes" if term == "bytes" else "operations")
+
+
+def sm_max_clock_hz() -> float:
+    """The SMs' maximum clock, as ``nvidia-smi`` reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 if __name__ == "__main__":

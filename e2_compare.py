@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Experiment E2's cost per window for checkouts of the port, in turns, on one card.
+
+Run from the repository root with the roots of the checkouts to compare,
+for example a parent commit unpacked into a directory that ``.gitignore``
+lists (``git archive``) and this tree, in the order parent, this, this,
+parent:
+
+    python3 e2_compare.py build/parent . . build/parent
+
+Each argument runs in a process of its own, with that checkout's ``src/``
+first on the path and its own kernel build: E2 at the paper's size (277
+hosts x 16 cores, 7 days, seed 22) uncalibrated, calibrated and in joint
+mode with one refine round, ``--runs`` times each.  One JSON line per
+checkout gives, per mode and run, the mean and the median ms per window
+over the 56 windows (``WindowRecord.sim_seconds``) and the overall MAPE.
+The first run of a process carries its warm-up.  The script needs a card:
+without one it exits 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+
+def one(root: pathlib.Path, runs: int) -> dict:
+    """E2 through ``root``'s port, ``runs`` times in each mode."""
+    sys.path.insert(0, str(root / "src"))
+    import dataclasses
+
+    from repro_torch.core import (
+        CalibrationSpec, DigitalTwin, OrchestratorConfig, TraceGroundTruth)
+    from repro_torch.kernels import _build
+    from repro_torch.traces.schema import DatacenterConfig
+    from repro_torch.traces.surf import BINS_PER_DAY, SurfTraceSpec, make_surf22_like
+
+    _build.build(("calib_mape", "des_readout"))
+    dc = DatacenterConfig()
+    t_bins = int(7 * BINS_PER_DAY)
+    w = make_surf22_like(SurfTraceSpec(days=7.0, seed=22), dc, device="cuda")
+    modes = (("uncalibrated", False, OrchestratorConfig()),
+             ("calibrated", True, OrchestratorConfig()),
+             ("joint", True, OrchestratorConfig(
+                 calibration=CalibrationSpec(mode="joint", refine_iters=1))))
+    out: dict = {"root": str(root)}
+    for _ in range(runs):
+        for name, calibrate, cfg in modes:
+            cfg = dataclasses.replace(cfg, calibrate=calibrate, device="cuda")
+            twin = DigitalTwin(w, dc, t_bins, cfg)
+            res = twin.run(TraceGroundTruth(twin.orchestrator.workload, dc, t_bins).window)
+            ms = [r.sim_seconds * 1e3 for r in res.records]
+            out.setdefault(name, []).append(dict(
+                mean_ms=statistics.fmean(ms), median_ms=statistics.median(ms),
+                mape=res.overall_mape))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="+", help="checkout roots, run in this order")
+    ap.add_argument("--runs", type=int, default=3, help="E2 runs per mode and root")
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("e2_compare: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if args.one:
+        print(json.dumps(one(pathlib.Path(args.roots[0]).resolve(), args.runs)))
+        return 0
+    for root in args.roots:
+        proc = subprocess.run([sys.executable, __file__, "--one", "--runs",
+                               str(args.runs), root], capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stderr, file=sys.stderr)
+            return proc.returncode
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -36,7 +36,7 @@ _F = ctypes.c_float
 
 #: C entry point and argument types of every kernel library
 ENTRY_POINTS = {
-    "calib_mape": ("calib_mape_grid_launch", [_P] * 6 + [_I] * 4 + [_P]),
+    "calib_mape": ("calib_mape_grid_launch", [_P] * 7 + [_I] * 5 + [_P]),
     "des_readout": ("des_readout_launch",
                     [_P] * 13 + [_I] * 4 + [_F] * 6 + [_P]),
     "power_sim": ("power_sim_launch", [_P] * 2 + [_I] * 2 + [_F] * 5 + [_P]),

@@ -3,24 +3,31 @@
 Replaces: ``repro/kernels/calib_mape.py:calib_mape_grid_pallas`` (body
 ``_kernel``), the Pallas TPU kernel behind ``calibrate.evaluate_candidates``.
 
-Bound on an H100: operations, not bytes.  The utilization window is read
-once (T*H floats, 160 KB for the E2 history of 144 bins x 277 hosts), while
-every candidate evaluates one ``expf`` per (bin, host): B*T*H*C
-exponentials, 2.6 M for the r-only grid of 64 candidates and 368 M for the
-joint grid of 9216.  ``expf`` runs on the special-function units, so the
-special-function throughput sets the floor.
+Bound on an H100: the special-function units.  The utilization window is
+read once (T*H floats, 160 KB for the E2 history of 144 bins x 277 hosts),
+and each (bin, host) needs one ``logf`` and one ``expf`` per distinct
+exponent ``r``: 2.6 M for the E2 window and its 64 values of ``r``, at 16
+results a clock per SM on 132 SMs about 0.6 us.  The joint grid has 9216
+candidates but only those 64 values of ``r`` (r is the slowest axis of its
+meshgrid), so ``sum_h u^r`` is shared between candidates with equal ``r``.
 
-Design: one thread per candidate, a grid of ``(ceil(C/128), B)`` blocks, so
-a batch of windows (the per-host refit, B = H problems of ``[T, 1]``) is one
-launch.  Each block walks the bins in order, stages ``log(u)`` and ``2u``
-of a bin's hosts in shared memory once for all its 128 candidates, and
-every thread keeps its error sum in a register: nothing ``[C, T]``-shaped
-exists, and with no float atomics the sums are bitwise reproducible, so the
-argmin downstream cannot flip between runs.  The price of that simplicity
-is parallelism: with C = 64 the launch is one block.  Sharing ``sum_h u^r``
-between candidates with equal ``r`` (the joint grid has 64 distinct values
-among 9216 candidates) and splitting the bins across blocks with a
-fixed-order second pass are the next steps.
+Design (``csrc/calib_mape.cu``), two launches, one count:
+
+- pass 1, a grid of (candidate tiles of 256, bin tiles, B) blocks: each
+  block dedups ``r`` within its candidate tile (equal bits share one sum),
+  stages ``log u`` and ``2u`` of its bins in shared memory in chunks of
+  ``HOST_CHUNK`` hosts, forms every (bin, distinct r) sum and each bin's
+  ``S2`` in a fixed order (one warp per sum, lanes over hosts and an
+  xor-shuffle tree; one thread per sum when H < 32), and writes each
+  candidate's relative errors over its bins, in bin order, to a
+  ``[B, bin tiles, C]`` partial;
+- pass 2 sums the partials in tile order, counts the nonzero bins of
+  ``real`` and writes ``acc * (100 / n)``, or NaN when n = 0.
+
+:func:`bin_tile` picks the bins per block so that pass 1 launches at least
+two blocks an SM of an H100 where the window has the bins.  No float
+atomics anywhere: the result is bitwise reproducible, so the argmin
+downstream cannot flip between runs.
 """
 
 from __future__ import annotations
@@ -31,8 +38,41 @@ from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
 
-#: largest batch the kernel's grid y-dimension takes
+#: largest batch the kernel's grid z-dimension takes
 MAX_BATCH = 65535
+
+#: the kernel's tile limits, as ``csrc/calib_mape.cu`` states them: the
+#: candidates of a tile, the bins of a block, the hosts staged per round,
+#: the staged (bin, host) values, the (bin, slot) sums of a block, and the
+#: host count from which one warp (not one thread) forms a sum
+CAND_TILE = 256
+MAX_BINS = 32
+HOST_CHUNK = 512
+STAGE = 2048
+SUMS = 4096
+WARP_HOSTS = 32
+
+#: pass-1 blocks :func:`bin_tile` aims for: two per SM of an H100's 132
+TARGET_BLOCKS = 264
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bin_tile(b: int, t: int, h: int, c: int) -> int:
+    """Bins per pass-1 block for a ``[b, t, h]`` window and ``c`` candidates.
+
+    As many as the block's shared memory takes, split evenly, unless fewer
+    give at least ``TARGET_BLOCKS`` blocks; one bin per block at least.
+    """
+    if t <= 0:
+        return 1
+    cap = min(MAX_BINS, STAGE // max(1, min(h, HOST_CHUNK)),
+              SUMS // (min(c, CAND_TILE) + 1))
+    blocks_per_tile = max(1, b * _cdiv(c, CAND_TILE))
+    n_tiles = min(t, max(_cdiv(t, cap), _cdiv(TARGET_BLOCKS, blocks_per_tile)))
+    return _cdiv(t, n_tiles)
 
 
 def _check(name: str, x: Tensor, device: torch.device, shape: tuple) -> None:
@@ -66,16 +106,26 @@ def calib_mape_grid_cuda(u_th: Tensor, real_power: Tensor, p_idle: Tensor,
         _check(name, x, dev, (c,))
     if not 0 < b <= MAX_BATCH:
         raise ValueError(f"batch {b} outside [1, {MAX_BATCH}]")
+    entry = _build.load("calib_mape").calib_mape_grid_launch
+    return launch(entry, u_th, real_power, p_idle, p_max, r)
+
+
+def launch(entry, u_th: Tensor, real_power: Tensor, p_idle: Tensor,
+           p_max: Tensor, r: Tensor) -> Tensor:
+    """Run the C entry point ``entry`` (``calib_mape_grid_launch`` of a
+    built library) on checked operands: the bin tile, the partial scratch
+    and the output are made here.  Raises if the launch fails."""
+    dev = u_th.device
+    b, t, h = u_th.shape
+    c = r.shape[0]
+    tile = bin_tile(b, t, h, c)
+    partial = torch.empty((b, _cdiv(t, tile), c), dtype=torch.float32, device=dev)
     out = torch.empty((b, c), dtype=torch.float32, device=dev)
-    lib = _build.load("calib_mape")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.calib_mape_grid_launch(
-            u_th.data_ptr(), real_power.data_ptr(), p_idle.data_ptr(),
-            p_max.data_ptr(), r.data_ptr(), out.data_ptr(), b, t, h, c, stream)
+        err = entry(u_th.data_ptr(), real_power.data_ptr(), p_idle.data_ptr(),
+                    p_max.data_ptr(), r.data_ptr(), partial.data_ptr(),
+                    out.data_ptr(), b, t, h, c, tile, stream)
     if err != 0:
         raise RuntimeError(f"calib_mape_grid launch failed: CUDA error {err}")
-    n_nz = (real_power.abs() > 1e-9).sum(dim=1)
-    scaled = out * (100.0 / n_nz.clamp(min=1).float())[:, None]
-    return torch.where(n_nz[:, None] > 0, scaled,
-                       torch.full_like(scaled, float("nan")))
+    return out

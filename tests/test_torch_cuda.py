@@ -8,9 +8,9 @@ the JAX package, so it runs on a GPU machine that has only PyTorch:
 
 It covers what ``chip_smoke.py`` does not: the wrappers' operand checks
 and their launch counting, and that ``chip_smoke.py``'s flash-attention
-check fails on faults planted in a copy of the kernel.  ``chip_smoke.py``
-holds each kernel against its plain version on the card and runs the
-closed loop there and on the CPU.
+and calib checks fail on faults planted in copies of those kernels.
+``chip_smoke.py`` holds each kernel against its plain version on the card
+and runs the closed loop there and on the CPU.
 """
 
 import ctypes
@@ -25,7 +25,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build, ops  # noqa: E402
-from repro_torch.kernels.calib_mape import calib_mape_grid_cuda  # noqa: E402
+from repro_torch.kernels.calib_mape import (  # noqa: E402
+    MAX_BINS,
+    calib_mape_grid_cuda,
+    launch,
+)
 from repro_torch.kernels.des_readout import des_readout_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.power_sim import power_sim_cuda  # noqa: E402
@@ -90,6 +94,13 @@ def test_kernel_wrappers_reject_bad_operands(dev):
         calib_mape_grid_cuda(u, real[:, :-1], pi, pm, r)
     with pytest.raises(ValueError, match="expected"):
         calib_mape_grid_cuda(u, real, pi.cpu(), pm, r)
+    entry = _build.load("calib_mape").calib_mape_grid_launch
+    scratch, out = torch.empty((1, 1, 8), device=dev), torch.empty((1, 8), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for tile in (0, MAX_BINS + 1):                  # beyond the block's shared memory
+        assert entry(u.data_ptr(), real.data_ptr(), pi.data_ptr(), pm.data_ptr(),
+                     r.data_ptr(), scratch.data_ptr(), out.data_ptr(), 1, 16, 4, 8,
+                     tile, stream) != 0
     x, operands = ops.pack_readout(u[0, :8, :], p_idle=pi[:4], p_max=pm[:4],
                                    r=2.0, cap_t=real[0, :8])
     with pytest.raises(ValueError, match="cap"):
@@ -225,28 +236,29 @@ FLASH_FAULTS = {
 }
 
 
-def _build_flash_copies(out_dir: pathlib.Path) -> dict:
-    """Each ``FLASH_FAULTS`` copy of ``flash_attention.cu`` built with the
-    port's nvcc flags (one nvcc each, all started together) and loaded."""
-    src = (pathlib.Path(_build.__file__).parent / "csrc" / "flash_attention.cu").read_text()
+def _build_copies(name: str, faults: dict, out_dir: pathlib.Path) -> dict:
+    """Each copy of ``csrc/<name>.cu`` in ``faults`` built with the port's
+    nvcc flags (one nvcc each, all started together); its C entry point,
+    loaded with the port's argument types, by fault name."""
+    src = (pathlib.Path(_build.__file__).parent / "csrc" / f"{name}.cu").read_text()
     procs = {}
-    for i, (name, (text, planted)) in enumerate(FLASH_FAULTS.items()):
-        assert text in src, f"{name}: the source no longer holds {text!r}"
-        cu = out_dir / f"fault{i}.cu"
+    for i, (fault, (text, planted)) in enumerate(faults.items()):
+        assert text in src, f"{fault}: the source no longer holds {text!r}"
+        cu = out_dir / f"{name}_fault{i}.cu"
         cu.write_text(src.replace(text, planted, 1) if text else src)
-        so = out_dir / f"fault{i}.so"
+        so = out_dir / f"{name}_fault{i}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    fn_name, argtypes = _build.ENTRY_POINTS["flash_attention"]
-    for name, (proc, so) in procs.items():
+        procs[fault] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True), so)
+    entries = {}
+    fn_name, argtypes = _build.ENTRY_POINTS[name]
+    for fault, (proc, so) in procs.items():
         log, _ = proc.communicate()
-        assert proc.returncode == 0, f"{name}: nvcc failed\n{log}"
+        assert proc.returncode == 0, f"{fault}: nvcc failed\n{log}"
         fn = getattr(ctypes.CDLL(str(so)), fn_name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        libs[name] = fn
-    return libs
+        entries[fault] = fn
+    return entries
 
 
 def test_flash_check_fails_on_planted_faults(dev, tmp_path):
@@ -260,7 +272,7 @@ def test_flash_check_fails_on_planted_faults(dev, tmp_path):
     cases = [i for i, c in enumerate(cs.FLASH_CASES) if c[7] and c[3] == cs.PREFILL_S]
     assert len(cases) == 2
     stream = torch.cuda.current_stream().cuda_stream
-    for name, launch in _build_flash_copies(tmp_path).items():
+    for name, launch in _build_copies("flash_attention", FLASH_FAULTS, tmp_path).items():
         for i in cases:
             b, hq, hkv, sq, skv, d, causal, _, rtol, atol = cs.FLASH_CASES[i]
             q, k, v = cs.flash_inputs(torch, np, i, dev)
@@ -275,3 +287,39 @@ def test_flash_check_fails_on_planted_faults(dev, tmp_path):
             print(f"flash fault {name!r} at {(b, hq, hkv, sq, skv, d)}: max |err| "
                   f"{err:.3g}, bar used {used:.3g} (earlier check {old:.3g})")
             assert (used <= 1.0) == (name == "none"), (name, i, used)
+
+
+#: faults planted in a copy of the calib kernel, as (text, replacement) in
+#: its source; "none" is the unchanged copy
+CALIB_FAULTS = {
+    "none": ("", ""),
+    "dedup merges different r": (
+        "const unsigned bits = __float_as_uint(rc);",
+        "const unsigned bits = __float_as_uint(rc) >> 16;"),
+    "last bin tile dropped": (
+        "for (int k = 0; k < n_tiles; ++k)",
+        "for (int k = 0; k < n_tiles - (n_tiles > 1); ++k)"),
+    "host chunk skipped": (
+        "h0 += kHostChunk;", "h0 += (H > kHostChunk ? 2 : 1) * kHostChunk;"),
+}
+
+
+def test_calib_check_fails_on_planted_faults(dev, tmp_path):
+    """``chip_smoke.py``'s calib check (``calib_cases``, ``calib_agrees``)
+    passes the unchanged copy of the kernel and fails each planted fault
+    in at least one case.  Prints the cases each fault fails."""
+    from repro_torch.kernels import ref
+
+    cs = _chip_smoke()
+    cases = cs.calib_cases(torch, np, dev)
+    for name, entry in _build_copies("calib_mape", CALIB_FAULTS, tmp_path).items():
+        failed = []
+        for label, args in cases:
+            got = launch(entry, *args)
+            torch.cuda.synchronize()
+            err, ok = cs.calib_agrees(torch, got, ref.calib_mape_grid_ref(*args))
+            if not ok:
+                failed.append(f"{label} ({err:.3g})")
+        print(f"calib fault {name!r}: fails {len(failed)} of {len(cases)} cases: "
+              + "; ".join(failed))
+        assert (not failed) == (name == "none"), (name, failed)
