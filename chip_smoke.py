@@ -26,6 +26,11 @@ Phases (each passes or the script exits non-zero without a result line):
    ragged, decode, Skv > Sq and non-causal shapes, and SmolLM-360M's and
    Zamba2-1.2B's prefill shapes in bf16 and f32, each against the plain
    version in f32 at a bar set by the route's rounding (``FLASH_CASES``);
+   ``des_readout`` at ``READOUT_2D`` and, with per-lane operands, at
+   ``READOUT_LANES`` (the what-if batch, a week under 64 lanes, one lane,
+   one bin, one host, five host chunks, every warp split), 4 power models
+   x 2 precisions, rtol 1e-5 atol 1e-6 (bf16 performance leaves within one
+   bf16 ulp);
    ``ssd_chunk`` at the JAX SSD sweep's shapes, at both Mamba2-family
    prefill shapes and at a ragged 200-row chunk, at those last three again
    with a long memory and at the longest chunks, 255 and 511 rows, rtol/atol
@@ -33,7 +38,10 @@ Phases (each passes or the script exits non-zero without a result line):
 4. drive the twin's main path, experiment E2 at the paper's SURF-SARA size
    (277 hosts x 16 cores, 7 days, seed 22): uncalibrated, calibrated
    (r only) and joint calibration with one refine round, with the kernels'
-   launch counts reset just before and read just after;
+   launch counts reset just before and read just after (one
+   ``des_readout`` launch a window); then the calibrated windows once
+   more under ``torch.profiler``, whose host-to-device copies and
+   device-to-host reads may not exceed ``WINDOW_TRANSFERS``;
 5. rerun the calibrated experiment on the CPU and require that the DES
    schedule the twin predicted from and the parameter stream equal the
    card run's own, and the MAPE stream within rtol 1e-5;
@@ -53,9 +61,13 @@ Phases (each passes or the script exits non-zero without a result line):
    PyTorch call that computes the same (SDPA for attention), at the main
    paths' shapes (device time, median of 5 rounds of up to 20 calls, with
    the rounds' spread; ``calib_mape_grid`` also at the joint grid's own
-   candidates, with all 9216 r distinct, and at the per-host refit), each
-   beside its bound: bytes, FMA-pipe and special-function (expf, logf)
-   floors, the largest of them.
+   candidates, with all 9216 r distinct, and at the per-host refit;
+   ``des_readout`` at ``READOUT_TIMED``, the lane shapes on the calibrated
+   run's own field; ``power_sim`` on the E2 horizon and on readout D's
+   number of elements), each beside its
+   bound: bytes, FMA-pipe and special-function (expf, logf) floors, the
+   largest of them; and an empty kernel (``torch.cuda._sleep(0)``, one
+   thread), the launch floor of the same timer.
 
 The second-to-last line of standard output is the ``kernels`` JSON record,
 the last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -65,8 +77,10 @@ no process that outlives it (``nvcc`` and ``nvidia-smi`` are waited for).
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -159,6 +173,37 @@ SFU_PER_CLOCK_PER_SM = 16
 
 #: power_sim shapes: the JAX sweep's, then the E2 horizon
 POWER_SIM_SHAPES = [(96, 17), (300, 277), (1024, 64), (2016, 277)]
+
+#: des_readout checks: [T, H] calls, (T, H): the E2 window, a ragged
+#: window, the E2 horizon (every axis on, ``readout_case``)
+READOUT_2D = [(36, 277), (97, 13), (2016, 277)]
+
+#: des_readout checks with the lane axis, (S, T, H), per-lane operands
+#: (``lanes_case``): the JAX package's what-if batch (16 scenarios of 64 +
+#: 24 i hosts over 2 days, benchmarks/whatif_batch.py), a week of the
+#: paper's cluster under 64 what-if lanes, one lane, one bin, one host,
+#: five host chunks of the kernel (H = 5000), 33 hosts, 130 hosts; with
+#: READOUT_2D they take every warp split (1, 2, 4, 8)
+READOUT_LANES = [(16, 576, 424), (64, 2016, 277), (1, 36, 277), (5, 1, 277),
+                 (7, 50, 1), (3, 40, 5000), (4, 97, 33), (2, 300, 130)]
+
+#: des_readout timings, label -> (S, T, H): A and B as the E2 path calls
+#: the kernel (scalar parameters, no scenario axis, random u), C and D
+#: with per-lane operands on the calibrated card run's own [2016, 277]
+#: field, cut or tiled to (T, H), each lane's window moved by 36 bins
+READOUT_TIMED = {
+    "A: E2 window": (1, 36, 277),
+    "B: E2 horizon": (1, 2016, 277),
+    "C: what-if batch, 16 lanes of 64 + 24 i hosts, 2 days": (16, 576, 424),
+    "D: a week under 64 what-if lanes": (64, 2016, 277),
+}
+
+#: host-to-device copies and device-to-host reads (pinned and pageable)
+#: in the 56 calibrated E2 windows, as a trace counts them on an H100 since
+#: the readout takes its scalar operands as kernel parameters (168 copies,
+#: 3 a window, where there were 612; 339 + 170 reads): the window path may
+#: not add any
+WINDOW_TRANSFERS = {"HtoD": 168, "DtoH": 509}
 
 #: the LM prefill paths at full width and depth, bf16, [4, 2048] tokens:
 #: arch -> kernel launches per prefill call (one flash launch per attention
@@ -382,7 +427,120 @@ def readout_case(torch, np, t, h, seed, device):
     return u, kw
 
 
+def lanes_case(torch, np, u, seed, hosts=None) -> dict:
+    """Per-lane readout operands for ``u`` ``[S, T, H]``, every axis on, as
+    the scenario engine batches them: host rows ``[S, H]`` (``p_idle``,
+    ``p_max``, mask, failures), ``r`` ``[S, 1]``, caps ``[S, T]``, peak and
+    PUE ``[S]``; carbon, ambient and price ``[T]``, shared by the lanes.
+    Lane i's mask keeps its first ``hosts[i]`` hosts (80 % at random
+    without ``hosts``)."""
+    s, t, h = u.shape
+    dev = u.device
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    p_idle = rng.uniform(40.0, 90.0, (s, h))
+    p_max = rng.uniform(200.0, 420.0, (s, h))
+    mask = (rng.uniform(size=(s, h)) < 0.8 if hosts is None
+            else np.arange(h)[None, :] < np.asarray(hosts)[:, None])
+    rough = (p_idle * mask).sum(1) + 0.4 * (p_max * mask).sum(1)
+    fs = np.where(rng.uniform(size=(s, h)) < 0.4, rng.integers(0, max(t, 1), (s, h)),
+                  np.iinfo(np.int32).max).astype(np.int32)
+    fe = np.minimum(fs.astype(np.int64) + rng.integers(3, max(t // 2, 4), (s, h)),
+                    np.iinfo(np.int32).max).astype(np.int32)
+    return dict(
+        p_idle=f(p_idle), p_max=f(p_max), r=f(rng.uniform(1.2, 3.4, (s, 1))),
+        mask=torch.as_tensor(mask, device=dev),
+        cap_t=f(rng.uniform(0.5, 1.1, (s, t)) * rough[:, None]),
+        fail_start=torch.as_tensor(fs, device=dev),
+        fail_end=torch.as_tensor(fe, device=dev),
+        fail_kill=torch.as_tensor(rng.uniform(size=(s, h)) < 0.7, device=dev),
+        peak_tflops=f(rng.uniform(100.0, 500.0, s)),
+        pue_base=f(rng.uniform(1.05, 1.4, s)),
+        pue_amb_coeff=f(rng.uniform(0.0, 0.05, s)),
+        pue_amb_ref=f(rng.uniform(10.0, 22.0, s)),
+        pue_load_coeff=f(rng.uniform(0.0, 0.25, s)),
+        intensity=f(rng.uniform(50.0, 600.0, t)),
+        ambient=f(rng.uniform(-5.0, 38.0, t)),
+        price=f(rng.uniform(-0.05, 0.45, t)))
+
+
+def readout_cases(torch, np, dev) -> list:
+    """``(label, u, operands)`` of the des_readout checks: ``READOUT_2D``
+    (``u`` ``[T, H]``) and ``READOUT_LANES`` (``[S, T, H]``, u uniform in
+    [0, 1.15), per-lane operands); the what-if batch's lane i masks all
+    but its first 64 + 24 i hosts.  Then two cases whose host rows are each
+    one number, the kernel's path that stages none: the E2 window, and 3
+    lanes with every host down in bins 10-19."""
+    cases = [(f"T={t} H={h}", *readout_case(torch, np, t, h, seed=t + h, device=dev))
+             for t, h in READOUT_2D]
+    for s, t, h in READOUT_LANES:
+        rng = np.random.default_rng(s * t + h)
+        u = torch.as_tensor(rng.uniform(0.0, 1.15, (s, t, h)).astype(np.float32),
+                            device=dev)
+        hosts = [64 + 24 * i for i in range(s)] if (s, t, h) == (16, 576, 424) else None
+        cases.append((f"S={s} T={t} H={h}", u, lanes_case(torch, np, u, s + t + h, hosts)))
+    rows = dict(p_idle=65.0, p_max=330.0, r=2.4, mask=1.0)
+    u, kw = readout_case(torch, np, 36, 277, seed=5, device=dev)
+    cases.append(("T=36 H=277 rows one number each", u, dict(kw, **rows, fail_start=None,
+                                                             fail_end=None, fail_kill=None)))
+    u = torch.as_tensor(np.random.default_rng(6).uniform(
+        0.0, 1.15, (3, 40, 277)).astype(np.float32), device=dev)
+    cases.append(("S=3 T=40 H=277 rows one number each, all hosts down in bins 10-19", u,
+                  dict(lanes_case(torch, np, u, 7), **rows, fail_start=10, fail_end=20,
+                       fail_kill=1.0)))
+    return cases
+
+
+def readout_agrees(torch, got, want, precision) -> tuple[float, str | None]:
+    """``(max |err| of the f32 leaves, the first leaf beyond its bar or
+    None)``: rtol 1e-5 atol 1e-6, bf16 tflops/efficiency within one bf16
+    ulp of the plain version."""
+    worst = 0.0
+    for k, w in want.items():
+        g, w = got[k].double(), w.double()
+        bf16_leaf = precision == "bf16" and k in ("tflops", "efficiency")
+        tol = 2.0 ** -8 * w.abs() if bf16_leaf else 1e-5 * w.abs() + 1e-6
+        err = (g - w).abs()
+        if g.shape != w.shape or bool((err > tol).any()) or not bool(torch.isfinite(g).all()):
+            return float(err.max()), k
+        if not bf16_leaf:
+            worst = max(worst, float(err.max()))
+    return worst, None
+
+
+def check_readout(torch, np, ops, ref, dev) -> float:
+    """des_readout against its plain version at ``readout_cases``, 4 power
+    models x 2 precisions, twice each for bitwise-equal results.  Returns
+    the largest absolute error of an f32 leaf."""
+    worst = 0.0
+    for label, u, kw in readout_cases(torch, np, dev):
+        for model in ("opendc", "linear", "sqrt", "cubic"):
+            for precision in ("f32", "bf16"):
+                got = ops.des_readout(u, model=model, precision=precision, **kw)
+                again = ops.des_readout(u, model=model, precision=precision, **kw)
+                torch.cuda.synchronize()
+                pu, operands = ops.pack_readout(u, model=model, precision=precision, **kw)
+                want = ref.des_readout_ref(pu, **operands)
+                if u.dim() == 2:
+                    want = {k: v[0] for k, v in want.items()}
+                err, bad = readout_agrees(torch, got, want, precision)
+                if bad:
+                    fail(f"des_readout {label} {model}/{precision} {bad}: max |err| {err}")
+                if not all(torch.equal(got[k].view(torch.int32), again[k].view(torch.int32))
+                           for k in got):
+                    fail(f"des_readout {label} {model}/{precision}: two runs differ bitwise")
+                worst = max(worst, err)
+        log(f"des_readout {label}: 4 models x 2 precisions x 9 leaves within rtol "
+            "1e-5 atol 1e-6 (bf16 perf leaves within one bf16 ulp), every axis on, "
+            "bitwise repeatable")
+    return worst
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="add torch.profiler traces of E2 and the LM prefills")
+    args = ap.parse_args()
     import torch
 
     # PyTorch's default, stated because the plain versions and the
@@ -401,7 +559,8 @@ def main() -> int:
     from repro_torch.core import CalibrationSpec, OrchestratorConfig
     from repro_torch.core.calibrate import candidate_grid
     from repro_torch.core.power import PowerParams
-    from repro_torch.kernels import _build, calib_mape, ops, ref
+    from repro_torch.kernels import _build, calib_mape, des_readout, ops, ref
+    from repro_torch.kernels._launch import warp_split
     from repro_torch.traces.schema import DatacenterConfig
     from repro_torch.traces.surf import BINS_PER_DAY, SurfTraceSpec, make_surf22_like
 
@@ -427,36 +586,8 @@ def main() -> int:
     details["ptxas"] = dict(_build.BUILD_LOG)
 
     # 3) each kernel against its plain version on the card
-    errs: dict[str, float] = {"des_readout": 0.0}
-    errs["calib_mape_grid"] = check_calib(torch, np, ops, ref, dev)
-
-    for (t, h) in [(36, 277), (97, 13), (2016, 277)]:
-        for model in ("opendc", "linear", "sqrt", "cubic"):
-            for precision in ("f32", "bf16"):
-                u, kw = readout_case(torch, np, t, h, seed=t + h, device=dev)
-                got = ops.des_readout(u, model=model, precision=precision, **kw)
-                torch.cuda.synchronize()
-                pu, operands = ops.pack_readout(u, model=model,
-                                                precision=precision, **kw)
-                want = ref.des_readout_ref(pu, **operands)
-                for k in ref.READOUT_FIELDS:
-                    g = got[k].double()
-                    w = want[k].double()
-                    if precision == "bf16" and k in ("tflops", "efficiency"):
-                        tol = 2.0 ** -8 * w.abs()    # one bf16 ulp
-                    else:
-                        tol = 1e-5 * w.abs() + 1e-6
-                    bad = (g - w).abs() > tol
-                    if bool(bad.any()):
-                        fail(f"des_readout {(t, h)} {model}/{precision} {k}: "
-                             f"max |err| {float((g - w).abs().max())}")
-                    if precision == "f32":
-                        errs["des_readout"] = max(errs["des_readout"],
-                                                  float((g - w).abs().max()))
-        log(f"des_readout T={t} H={h}: 4 models x 2 precisions x 9 leaves "
-            "within rtol 1e-5 atol 1e-6 (bf16 perf leaves within one bf16 ulp), "
-            "every axis on")
-
+    errs = {"calib_mape_grid": check_calib(torch, np, ops, ref, dev),
+            "des_readout": check_readout(torch, np, ops, ref, dev)}
     errs["flash_attention"] = check_flash(torch, np, ops, ref, dev)
     errs["power_sim"] = check_power_sim(torch, np, ops, dev)
     errs["ssd_chunk"] = check_ssd(torch, np, ops, ref, dev)
@@ -501,8 +632,11 @@ def main() -> int:
     for k in E2_KERNELS:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
+    if launches["des_readout"] != len(runs) * (t_bins // 36):
+        fail(f"E2: {launches['des_readout']} des_readout launches, expected one a window")
     if not runs["calibrated"].overall_mape < runs["uncalibrated"].overall_mape:
         fail("E2: calibration did not lower the MAPE")
+    details["window_transfers"] = window_transfers(torch, w, dc, t_bins)
 
     # 5) the calibrated run again on the CPU: the schedule its windows were
     # predicted from and its parameter stream equal the card run's own
@@ -580,27 +714,41 @@ def main() -> int:
             bytes=4 * (b * t * h + b * t + 3 * c + b * c),
             ops=2 * b * t * h * n_r + 8 * b * t * c + 4 * b * t * h)
 
-    def readout_case_timed(t, h):
-        # the main path's operands: scalar params broadcast, no scenario axis
-        call = dict(p_idle=70.0, p_max=350.0, r=2.0, peak_tflops=dc.peak_tflops)
-        u, operands = ops.pack_readout(torch.rand((t, h), device=dev), **call)
-        rows = [operands[k] for k in ("p_idle", "p_max", "r", "mask", "fail_start",
-                                      "fail_end", "fail_kill", "cap", "intensity",
-                                      "ambient", "price")]
-        out = torch.empty((len(ref.READOUT_FIELDS), t), device=dev)
+    field = sim_gpu.u_th          # the calibrated card run's own [2016, 277] field
+
+    def readout_inputs(s, t, h):
+        """``(u, operands)`` of a ``READOUT_TIMED`` shape: one lane as the E2
+        path calls the kernel, or per-lane operands on ``field``."""
+        if s == 1:
+            call = dict(p_idle=70.0, p_max=350.0, r=2.0, peak_tflops=dc.peak_tflops)
+            return torch.rand((t, h), device=dev), call
+        bins = (torch.arange(t, device=dev)[None, :]
+                + 36 * torch.arange(s, device=dev)[:, None]) % field.shape[0]
+        u = field[bins][:, :, torch.arange(h, device=dev) % field.shape[1]].contiguous()
+        hosts = [64 + 24 * i for i in range(s)] if (s, t, h) == (16, 576, 424) else None
+        return u, lanes_case(torch, np, u, seed=s + t + h, hosts=hosts)
+
+    def readout_timed(s, t, h):
+        u, kw = readout_inputs(s, t, h)
+        pu, operands = ops.pack_readout(u, **kw)
+        entry = readout_lib.des_readout_launch
 
         def kernel():
-            if readout_lib.des_readout_launch(
-                    u.data_ptr(), *(x.data_ptr() for x in rows), out.data_ptr(), t, h,
-                    0, 0, operands["peak_tflops"], 1.0, 0.0, 0.0, 18.0,
-                    operands["dt_seconds"] / 3600.0, stream) != 0:
-                fail("des_readout: the timed launch returned a CUDA error")
+            return des_readout.launch(entry, pu, operands)
 
-        return timed(
-            kernel, lambda: ref.des_readout_ref(u, **operands),
-            wrapper_wall_ms=timer.wall_ms(lambda: ops.des_readout(u, **call)),
-            bytes=4 * (t * h + 7 * h + 4 * t + 9 * t),
-            ops=14 * t * h + 30 * t)
+        def plain():
+            return ref.des_readout_ref(pu, **operands)
+
+        got = dict(zip(ref.READOUT_FIELDS, kernel().unbind(0)))
+        err, bad = readout_agrees(torch, got, plain(), "f32")
+        if bad:
+            fail(f"des_readout S={s} T={t} H={h} timed case {bad}: max |err| {err}")
+        out = timed(kernel, plain,
+                    wrapper_wall_ms=timer.wall_ms(lambda: ops.des_readout(u, **kw)),
+                    split=warp_split(s, t, h), max_abs_err=err,
+                    bytes=readout_bytes(torch, pu, operands),
+                    ops=14 * s * t * h + 30 * s * t, sfu_ops=2 * s * t * h)
+        return out
 
     # E2 calibration: 4 windows x 36 bins of 277 hosts
     main = calib_case(*calib_inputs(torch, np, 1, 144, 277, 64, 1, dev))
@@ -623,7 +771,12 @@ def main() -> int:
         *calib_inputs(torch, np, 1, 144, 277, 9216, 1, dev))
     shapes["calib B=277 T=144 H=1 C=64 (per-host refit)"] = calib_case(
         *calib_inputs(torch, np, 277, 144, 1, 64, 1, dev))
-    main = readout_case_timed(36, 277)      # E2 prediction window
+    floor = timer.device_ms(lambda: torch.cuda._sleep(0))
+    details["launch_floor"] = floor
+    log(f"launch floor (an empty kernel, torch.cuda._sleep(0)): {floor['ms'] * 1e3:.3f} us "
+        f"(rounds {floor['min_ms'] * 1e3:.3f}-{floor['max_ms'] * 1e3:.3f})")
+    readout_shapes = {label: readout_timed(*shape) for label, shape in READOUT_TIMED.items()}
+    main = readout_shapes["A: E2 window"]
     main_shapes.append(main)
     kernels.append(dict(
         name="des_readout", route="cuda",
@@ -631,10 +784,11 @@ def main() -> int:
         replaces="src/repro/kernels/des_readout.py:202",
         launches=launches["des_readout"],
         max_abs_err=errs["des_readout"], ms=main["ms"],
-        plain_ms=main["plain_ms"], **bound(main["bytes"], main["ops"]),
+        plain_ms=main["plain_ms"],
+        **bound(main["bytes"], main["ops"], n_sfu=main["sfu_ops"], sfu_per_s=sfu_per_s),
         library_ms=None))
-    shapes["readout T=36 H=277 (E2 window)"] = main
-    shapes["readout T=2016 H=277 (E2 horizon)"] = readout_case_timed(2016, 277)
+    for label, (s_, t_, h_) in READOUT_TIMED.items():
+        shapes[f"readout {label} (S={s_} T={t_} H={h_})"] = readout_shapes[label]
 
     main = time_power_sim(torch, timer, ops, ref, _build, dev, 2016, 277)
     main_shapes.append(main)
@@ -644,9 +798,14 @@ def main() -> int:
         replaces="src/repro/kernels/power_sim.py:42",
         launches=launches["power_sim"],
         max_abs_err=errs["power_sim"], ms=main["ms"],
-        plain_ms=main["plain_ms"], **bound(main["bytes"], main["ops"]),
+        plain_ms=main["plain_ms"],
+        **bound(main["bytes"], main["ops"], n_sfu=main["sfu_ops"], sfu_per_s=sfu_per_s),
         library_ms=None))
     shapes["power_sim T=2016 H=277 (E2 horizon)"] = main
+    # the same per-element logf/expf as readout D, without host rows or
+    # float64 sums: what the readout's own per-host work costs beyond it
+    shapes["power_sim T=129024 H=277 (readout D's elements)"] = time_power_sim(
+        torch, timer, ops, ref, _build, dev, 64 * 2016, 277)
     main = time_flash(torch, timer, ref, _build, dev, *PREFILL_FLASH)
     main_shapes.append(main)
     kernels.append(dict(
@@ -690,13 +849,17 @@ def main() -> int:
                if row["library_ms"] is not None else "")
             + f"{row['launches']} launches on the main path")
     for k, v in shapes.items():
+        if k.startswith(("readout", "power_sim")):
+            log(f"{k}: {v['ms'] * 1e3:.3f} us, {v['ms'] / v['bound_ms']:.2f}x its bound "
+                f"{v['bound_ms'] * 1e3:.3f} us (by {v['bound_by']}), "
+                f"{v['ms'] / floor['ms']:.2f}x the launch floor")
         log(f"extra shape {k}: {json.dumps(v)}")
     details["kernels"] = kernels
     details["shapes"] = shapes
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    if "--profile" in sys.argv[1:]:
+    if args.profile:
         details["profile"] = profile_e2(torch, w, dc, t_bins)
         details["profile_lm"] = profile_lm(torch)
         details["profile_ssm"] = profile_ssm(torch)
@@ -748,6 +911,28 @@ def profile_e2(torch, w, dc, t_bins) -> dict:
         calibrated_windows=traced(torch, lambda: twin.run(truth.window)),
         joint_windows=traced(torch, lambda: joint.run(truth.window)))
     log_profile(out)
+    return out
+
+
+def window_transfers(torch, w, dc, t_bins) -> dict:
+    """Host-to-device copies and device-to-host reads of the 56 calibrated
+    E2 windows (the DES run before), counted in a ``torch.profiler``
+    trace; fails if a count exceeds ``WINDOW_TRANSFERS``."""
+    from repro_torch.core import DigitalTwin, OrchestratorConfig, TraceGroundTruth
+
+    twin = DigitalTwin(w, dc, t_bins, OrchestratorConfig(device="cuda"))
+    truth = TraceGroundTruth(w, dc, t_bins)
+    twin.orchestrator._ensure_sim()
+    out = traced(torch, lambda: twin.run(truth.window))
+    counts = out["transfers"]
+    if out["device_busy_s"] <= 0:
+        fail("window transfers: the trace saw no device activity")
+    for k, most in WINDOW_TRANSFERS.items():
+        if counts[k] > most:
+            fail(f"E2 windows: {counts[k]} {k} transfers, more than {most}")
+    log(f"E2 calibrated windows: {counts['HtoD']} host-to-device copies, "
+        f"{counts['DtoH']} device-to-host reads (at most {WINDOW_TRANSFERS}), "
+        f"device idle share {out['device_idle_share']:.4f}")
     return out
 
 
@@ -812,8 +997,9 @@ def profile_ssm(torch) -> dict:
 
 def traced(torch, fn, match: tuple[str, ...] = ()) -> dict:
     """``torch.profiler`` over ``fn``: wall time, the summed device time of
-    its kernels and copies, the device's idle share, the top kernels, and
-    for each name in ``match`` the share of device busy time in the kernels
+    its kernels and copies, the device's idle share, the number of
+    host-to-device and device-to-host copies, the top kernels, and for
+    each name in ``match`` the share of device busy time in the kernels
     whose name holds it.
 
     Only device-side events count (kernels, copies, memsets): a host-side
@@ -839,6 +1025,8 @@ def traced(torch, fn, match: tuple[str, ...] = ()) -> dict:
     busy = sum(r[1] for r in rows) / 1e6
     out = dict(wall_s=wall, device_busy_s=busy,
                device_idle_share=1.0 - busy / wall if wall else None,
+               transfers={d: sum(n for k, _, n in rows if k.startswith(f"Memcpy {d}"))
+                          for d in ("HtoD", "DtoH")},
                top=[dict(name=k[:80], device_ms=v / 1e3, count=n)
                     for k, v, n in rows[:12]])
     if match:
@@ -1132,27 +1320,46 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
+def readout_bytes(torch, u, operands) -> int:
+    """Bytes the readout must move: ``u`` and each operand tensor's own
+    elements (a stride-0 axis counts once) read once, the 9 ``[S, T]``
+    leaves written once."""
+    s, t, _ = u.shape
+    n = 4 * (u.numel() + 9 * s * t)
+    for v in operands.values():
+        if isinstance(v, torch.Tensor):
+            n += v.element_size() * math.prod(d for d, st in zip(v.shape, v.stride()) if st)
+    return n
+
+
 def time_power_sim(torch, timer, ops, ref, build, dev, t, h) -> dict:
+    """power_sim and its plain version on ``[t, h]``."""
+    from repro_torch.kernels._launch import warp_split
+
     u = torch.rand((t, h), device=dev)
     consts = ref.power_sim_constants(h, p_idle=POWER_KW["p_idle"],
                                      p_max=POWER_KW["p_max"],
                                      peak_tflops=POWER_KW["peak_tflops"],
                                      dt_seconds=POWER_KW["dt_seconds"])
-    out = torch.empty((3, t), device=dev)
+    scalars = (POWER_KW["r"], consts["base"], consts["span"], consts["e_factor"],
+               consts["peak"])
+    rows = torch.empty((3, t), device=dev)
     lib = build.load("power_sim")
+    split = warp_split(1, t, h)
     stream = torch.cuda.current_stream().cuda_stream
 
     def kernel():
-        if lib.power_sim_launch(u.data_ptr(), out.data_ptr(), t, h,
-                                POWER_KW["r"], consts["base"], consts["span"],
-                                consts["e_factor"], consts["peak"], stream) != 0:
+        if lib.power_sim_launch(u.data_ptr(), rows.data_ptr(), t, h, split,
+                                *scalars, stream) != 0:
             fail("power_sim: the timed launch returned a CUDA error")
 
     k = timer.device_ms(kernel)
     p = timer.device_ms(lambda: ref.power_sim_ref(u, r=POWER_KW["r"], **consts))
-    return dict(ms=k["ms"], plain_ms=p["ms"], kernel_rounds=k, plain_rounds=p,
-                wrapper_wall_ms=timer.wall_ms(lambda: ops.power_sim(u, **POWER_KW)),
-                bytes=4 * (t * h + 3 * t), ops=9 * t * h + 6 * t)
+    out = dict(ms=k["ms"], plain_ms=p["ms"], kernel_rounds=k, plain_rounds=p,
+               wrapper_wall_ms=timer.wall_ms(lambda: ops.power_sim(u, **POWER_KW)),
+               split=split, bytes=4 * (t * h + 3 * t), ops=9 * t * h + 6 * t,
+               sfu_ops=2 * t * h)
+    return out
 
 
 def time_flash(torch, timer, ref, build, dev, b, hq, hkv, s, _skv, d) -> dict:

@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Kernel time of ``des_readout`` and ``power_sim`` for checkouts of the port, in turns, on one card.
+
+Run from the repository root with the roots of the checkouts to compare,
+for example a parent commit unpacked into a directory that ``.gitignore``
+lists (``git archive``) and this tree, in the order parent, this, this,
+parent:
+
+    python3 kernel_compare.py build/parent . . build/parent
+
+Each argument runs in a process of its own, with that checkout's ``src/``
+first on the path and its own kernel build, on the same seeded work:
+the readout at ``chip_smoke.READOUT_TIMED``'s shapes (A and B as the twin
+calls it: ``u [T, H]`` and scalar parameters; C and D with per-lane rows,
+caps and scalars, ``chip_smoke.lanes_case``, on a random field) and
+``power_sim`` at ``(2016, 277)`` with ``chip_smoke.POWER_KW``.  Every call
+goes through the checkout's own ``ops.des_readout`` and ``ops.power_sim``;
+a checkout whose readout takes no lane axis (it raises on ``[S, T, H]``)
+makes S calls of ``[T, H]``, one lane each.
+
+The time of a call is the device time of the kernels whose name holds
+the kernel's, in a ``torch.profiler`` trace of ``--reps`` calls (of one
+call where a call launches that many kernels): so the wrapper's host
+work and the gaps between S launches do not count, and two designs
+compare kernel against kernel.  ``--rounds`` traces give the median
+round, the least and the greatest; the checkout's ``ops.LAUNCHES`` gives
+the launches a call.  One JSON line per checkout.  The script needs a card:
+without one it exits 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parent
+
+#: power_sim's shape: the E2 horizon
+POWER_SHAPE = (2016, 277)
+
+#: traces taken again a shape, at most, where one lost a launch
+MAX_RETRIES = 10
+
+#: the readout's operands that ``chip_smoke.lanes_case`` shares between lanes
+SHARED = ("intensity", "ambient", "price")
+
+
+def kernel_us(torch, ops, fn, name: str, reps: int, rounds: int) -> dict:
+    """Device us a call of ``fn`` in the kernels whose name holds ``name``:
+    the median of ``rounds`` traces, the least and the greatest, and the
+    launches a call, as the checkout's ``ops.LAUNCHES[name]`` counts them.
+    A trace holds ``reps`` calls, or one where a call launches ``reps``
+    kernels or more.  A trace that lost a launch (a trace on an H100 lost
+    18 of 20) is taken again, up to ``MAX_RETRIES`` times a shape."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = ops.LAUNCHES[name]
+    fn()
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES[name] - before
+    reps = max(1, reps // launches)
+    times, retries = [], 0
+    while len(times) < rounds:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)), e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
+        seen = sum(n for _, n in rows)
+        if seen == launches * reps:
+            times.append(sum(us for us, _ in rows) / reps)
+            continue
+        retries += 1
+        if retries > MAX_RETRIES:
+            raise RuntimeError(f"{name}: a trace held {seen} of {launches * reps} "
+                               f"launches, {retries} times")
+    return dict(us=statistics.median(times), min_us=min(times), max_us=max(times),
+                launches=launches, reps=reps, retries=retries)
+
+
+def one(root: pathlib.Path, reps: int, rounds: int) -> dict:
+    """Both kernels through ``root``'s port on the same work."""
+    sys.path.insert(0, str(HERE))
+    sys.path.insert(0, str(root / "src"))
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import _build, ops
+
+    _build.build(("des_readout", "power_sim"))
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    field = torch.as_tensor(rng.uniform(0.0, 1.15, (2016, 277)).astype(np.float32),
+                            device=dev)
+    out: dict = {"root": str(root), "readout": {}}
+    for label, (s, t, h) in cs.READOUT_TIMED.items():
+        if s == 1:
+            u = field[:t, :h].contiguous()
+            calls = [(u, dict(p_idle=70.0, p_max=350.0, r=2.0, peak_tflops=120.0))]
+        else:   # lane i's window moved by 36 bins, as chip_smoke.py's C and D
+            bins = (torch.arange(t, device=dev)[None, :]
+                    + 36 * torch.arange(s, device=dev)[:, None]) % field.shape[0]
+            u = field[bins][:, :, torch.arange(h, device=dev) % field.shape[1]].contiguous()
+            hosts = [64 + 24 * i for i in range(s)] if (s, t, h) == (16, 576, 424) else None
+            kw = cs.lanes_case(torch, np, u, seed=s + t + h, hosts=hosts)
+            calls = [(u, kw)]
+            try:
+                ops.des_readout(u, **kw)
+            except (ValueError, TypeError):     # no lane axis: a call a lane
+                calls = [(u[i], {k: v if k in SHARED else
+                                 float(v[i]) if v.dim() == 1 else v[i]
+                                 for k, v in kw.items()}) for i in range(s)]
+        outs = [ops.des_readout(x, **k) for x, k in calls]
+        stat = kernel_us(torch, ops, lambda: [ops.des_readout(x, **k) for x, k in calls],
+                         "des_readout", reps, rounds)
+        stat["sum_power_w"] = float(sum(o["power_w"].double().sum() for o in outs))
+        out["readout"][label] = stat
+    u = field[:POWER_SHAPE[0], :POWER_SHAPE[1]].contiguous()
+    out["power_sim"] = kernel_us(torch, ops, lambda: ops.power_sim(u, **cs.POWER_KW),
+                                 "power_sim", reps, rounds)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="+", help="checkout roots, run in this order")
+    ap.add_argument("--reps", type=int, default=20, help="calls a trace")
+    ap.add_argument("--rounds", type=int, default=5, help="traces a shape")
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_compare: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if args.one:
+        print(json.dumps(one(pathlib.Path(args.roots[0]).resolve(), args.reps,
+                             args.rounds)))
+        return 0
+    for root in args.roots:
+        proc = subprocess.run([sys.executable, __file__, "--one", "--reps",
+                               str(args.reps), "--rounds", str(args.rounds), root],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(f"kernel_compare: {root} failed:\n{proc.stderr[-4000:]}",
+                  file=sys.stderr)
+            return 1
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,10 +15,15 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.ref import READOUT_FIELDS
 from repro_torch.kernels.calib_mape import calib_mape_grid_cuda
 from repro_torch.kernels.des_readout import (
+    COLUMNS,
+    INT_OPERANDS,
+    LANE_SCALARS,
     MODEL_IDS,
     PRECISION_IDS,
+    ROWS,
     des_readout_cuda,
 )
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -69,22 +74,29 @@ def calib_mape_grid(u_th: Tensor, real_power: Tensor, p_idle: Tensor,
     return out if batched else out[0]
 
 
+def _uniform(x) -> bool:
+    """A number the same for every lane, bin and host, read on the host."""
+    if isinstance(x, Tensor):
+        return x.dim() == 0 and x.device.type == "cpu"
+    return np.ndim(x) == 0 and not isinstance(x, (str, bytes))
+
+
 def pack_readout(
     u_th: Tensor,
     *,
     p_idle,
     p_max,
     r,
-    mask: Tensor | None = None,
+    mask=None,
     cap_t=None,
     intensity=None,
     ambient=None,
     price=None,
-    peak_tflops: float = 1.0,
-    pue_base: float = 1.0,
-    pue_amb_coeff: float = 0.0,
-    pue_amb_ref: float = 18.0,
-    pue_load_coeff: float = 0.0,
+    peak_tflops=1.0,
+    pue_base=1.0,
+    pue_amb_coeff=0.0,
+    pue_amb_ref=18.0,
+    pue_load_coeff=0.0,
     fail_start=None,
     fail_end=None,
     fail_kill=None,
@@ -92,54 +104,94 @@ def pack_readout(
     precision: str = "f32",
     dt_seconds: float = 300.0,
 ) -> tuple[Tensor, dict]:
-    """The readout's operands on ``u_th``'s device, as both versions take them.
+    """The readout's operands, as both versions take them.
 
-    Scalar or ``[H]`` power parameters broadcast to host rows; absent axes
-    take the kernel's sentinels (no mask, ``+inf`` cap, zero carbon/price
-    columns, hosts that never fail).
+    ``u_th`` is ``[T, H]`` or, with a scenario (lane) axis, ``[S, T, H]``;
+    it comes back as a contiguous float32 ``[S, T, H]`` (S = 1 for
+    ``[T, H]``).  Operands broadcast by numpy's rules: host rows
+    (``p_idle/p_max/r/mask/fail_*``) to ``[S, H]``, bin columns
+    (``cap_t/intensity/ambient/price``) to ``[S, T]``, lane scalars
+    (``peak_tflops`` and the PUE parameters) to ``[S]`` (a per-lane scalar
+    of a row or column is ``[S, 1]``; ``[T, H]`` takes no lane axis).  Each
+    comes back as a float32 (``fail_start``/``fail_end``: int32) view of
+    that lane shape on ``u_th``'s device, stride 0 where it is shared, or,
+    when it is one number (a Python or numpy scalar, a 0-d CPU tensor), as
+    that Python number: no device tensor, no host-to-device copy.  Absent
+    axes take the kernel's sentinels (no mask, ``+inf`` cap, zero
+    carbon/price columns, hosts that never fail).
     """
     if model not in MODEL_IDS:
         raise ValueError(f"unknown power model {model!r}")
     if precision not in PRECISION_IDS:
         raise ValueError(f"unknown precision policy {precision!r}")
+    if u_th.dim() not in (2, 3):
+        raise ValueError(f"u_th must be [T, H] or [S, T, H], got {tuple(u_th.shape)}")
+    if not u_th.is_floating_point():
+        raise TypeError(f"u_th must be floating point, got {u_th.dtype}")
     dev = u_th.device
-    t, h = u_th.shape
+    lead = tuple(u_th.shape[:-2])
+    t, h = u_th.shape[-2:]
+    shapes = {**{k: (h,) for k in ROWS}, **{k: (t,) for k in COLUMNS},
+              **{k: () for k in LANE_SCALARS}}
 
-    def row(x, dtype=torch.float32):
-        x = torch.as_tensor(x, device=dev).to(dtype)
-        return x.broadcast_to((h,)).contiguous()
+    def operand(name, x):
+        is_int = name in INT_OPERANDS
+        kind = "integer" if is_int else "real"
+        if _uniform(x):
+            x = x.item() if isinstance(x, Tensor) else np.asarray(x).item()
+            if isinstance(x, complex) or (is_int and isinstance(x, float)):
+                raise TypeError(f"{name} must be {kind}, got {x!r}")
+            if is_int and not np.iinfo(np.int32).min <= x <= NEVER:
+                raise ValueError(f"{name} {x} is outside int32")
+            return int(x) if is_int else float(x)
+        x = torch.as_tensor(x, device=dev)
+        if x.is_complex() or (is_int and x.is_floating_point()):
+            raise TypeError(f"{name} must be {kind}, got {x.dtype}")
+        want = lead + shapes[name]
+        try:
+            x = x.to(torch.int32 if is_int else torch.float32).broadcast_to(want)
+        except RuntimeError:
+            raise ValueError(f"{name} of shape {tuple(x.shape)} does not "
+                             f"broadcast to {want}") from None
+        return x if lead else x[None]
 
-    def col(x, fill=0.0):
-        x = torch.as_tensor(fill if x is None else x, device=dev)
-        return x.to(torch.float32).broadcast_to((t,)).contiguous()
-
-    operands = dict(
-        p_idle=row(p_idle), p_max=row(p_max), r=row(r),
-        mask=row(1.0 if mask is None else mask),
-        fail_start=row(NEVER if fail_start is None else fail_start, torch.int32),
-        fail_end=row(0 if fail_end is None else fail_end, torch.int32),
-        fail_kill=row(0.0 if fail_kill is None else fail_kill),
-        cap=col(cap_t, float("inf")), intensity=col(intensity),
-        ambient=col(ambient), price=col(price),
-        peak_tflops=float(peak_tflops), pue_base=float(pue_base),
-        pue_load_coeff=float(pue_load_coeff),
-        pue_amb_coeff=float(pue_amb_coeff), pue_amb_ref=float(pue_amb_ref),
-        model=model, precision=precision, dt_seconds=float(dt_seconds))
-    return u_th.to(torch.float32).contiguous(), operands
+    given = dict(
+        p_idle=p_idle, p_max=p_max, r=r, mask=1.0 if mask is None else mask,
+        fail_start=NEVER if fail_start is None else fail_start,
+        fail_end=0 if fail_end is None else fail_end,
+        fail_kill=0.0 if fail_kill is None else fail_kill,
+        cap=float("inf") if cap_t is None else cap_t,
+        intensity=0.0 if intensity is None else intensity,
+        ambient=0.0 if ambient is None else ambient,
+        price=0.0 if price is None else price,
+        peak_tflops=peak_tflops, pue_base=pue_base,
+        pue_load_coeff=pue_load_coeff, pue_amb_coeff=pue_amb_coeff,
+        pue_amb_ref=pue_amb_ref)
+    operands = {k: operand(k, x) for k, x in given.items()}
+    operands.update(model=model, precision=precision, dt_seconds=float(dt_seconds))
+    u = u_th.to(torch.float32).contiguous()
+    return (u if lead else u[None]), operands
 
 
 def des_readout(u_th: Tensor, **kw) -> dict[str, Tensor]:
-    """Fused DES readout: ``{field: [T] f32}`` for every ``READOUT_FIELDS``.
+    """Fused DES readout: ``{field: f32}`` for every ``READOUT_FIELDS``.
 
-    Keyword operands as :func:`pack_readout` takes them.
+    ``u_th`` ``[T, H]`` gives ``[T]`` leaves; ``[S, T, H]`` gives ``[S, T]``
+    leaves, lane by lane as the JAX package's ``jax.vmap`` of its kernel
+    over scenarios, in one launch.  Keyword operands as
+    :func:`pack_readout` takes them.
     """
     kind = _device_kind(u_th)
     u, operands = pack_readout(u_th, **kw)
     if kind == "cpu":
-        return ref.des_readout_ref(u, **operands)
-    out = des_readout_cuda(u, **operands)
-    LAUNCHES["des_readout"] += 1
-    return out
+        out = ref.des_readout_ref(u, **operands)
+    elif u.shape[0] * u.shape[1] == 0:
+        out = dict(zip(READOUT_FIELDS, u.new_empty((len(READOUT_FIELDS),
+                                                    *u.shape[:2])).unbind(0)))
+    else:
+        out = des_readout_cuda(u, **operands)
+        LAUNCHES["des_readout"] += 1
+    return out if u_th.dim() == 3 else {k: v[0] for k, v in out.items()}
 
 
 def power_sim(u_th: Tensor, *, p_idle: float, p_max: float, r: float,

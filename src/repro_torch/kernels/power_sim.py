@@ -6,14 +6,18 @@ Replaces: ``repro/kernels/power_sim.py:power_sim_pallas`` (body
 Bound on an H100: bytes.  The kernel reads the ``[T, H]`` utilization
 field once and writes three ``[T]`` rows; per element it does a clip, a
 ``logf``/``expf`` pair and a few adds.  At the E2 horizon (2016 bins x 277
-hosts, 2.2 MB) that is 0.67 us of HBM time.
+hosts, 2.2 MB) that is 0.67 us of HBM time and 0.27 us of the
+special-function units.
 
-Design: one block of 256 threads per bin row, threads striding over the
-hosts with two register sums (the power shape and u), a shared-memory tree
-reduction in fixed order and one thread for the per-bin tail.  No float
-atomics, so results are bitwise repeatable.  The scalar constants come
-folded in double from :func:`repro_torch.kernels.ref.power_sim_constants`,
-as the TPU kernel folds its static Python floats.
+Design (``csrc/power_sim.cu``), the DES readout's: blocks of 8 warps, a
+warp per bin with lanes striding over the hosts and several loads in
+flight, an xor-shuffle butterfly, and each row of the block's results
+written as consecutive floats; where the bins are too few to fill the
+card, :func:`repro_torch.kernels._launch.warp_split` gives each bin 2,
+4 or 8 warps, whose totals add in warp order.  No float atomics, so
+results are bitwise repeatable.  The scalar constants come folded in
+double from :func:`repro_torch.kernels.ref.power_sim_constants`, as the
+TPU kernel folds its static Python floats.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import warp_split
 
 Tensor = torch.Tensor
 
@@ -52,8 +57,9 @@ def power_sim_cuda(u_th: Tensor, *, r: float, base: float, span: float,
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.power_sim_launch(
-                u_th.data_ptr(), out.data_ptr(), t, h, float(r), float(base),
-                float(span), float(e_factor), float(peak), stream)
+                u_th.data_ptr(), out.data_ptr(), t, h, warp_split(1, t, h),
+                float(r), float(base), float(span), float(e_factor),
+                float(peak), stream)
         if err != 0:
             raise RuntimeError(f"power_sim launch failed: CUDA error {err}")
     return out[0], out[1], out[2]

@@ -163,42 +163,66 @@ def ssd_chunk_ref(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor,
     return y, st
 
 
-def des_readout_ref(u_th: Tensor, *, p_idle: Tensor, p_max: Tensor,
-                    r: Tensor, mask: Tensor, fail_start: Tensor,
-                    fail_end: Tensor, fail_kill: Tensor, cap: Tensor,
-                    intensity: Tensor, ambient: Tensor, price: Tensor,
-                    peak_tflops: float, pue_base: float,
-                    pue_load_coeff: float, pue_amb_coeff: float,
-                    pue_amb_ref: float, model: str, precision: str,
+def des_readout_ref(u_th: Tensor, *, p_idle, p_max, r, mask, fail_start,
+                    fail_end, fail_kill, cap, intensity, ambient, price,
+                    peak_tflops, pue_base, pue_load_coeff, pue_amb_coeff,
+                    pue_amb_ref, model: str, precision: str,
                     dt_seconds: float) -> dict[str, Tensor]:
-    """The fused per-bin readout, unfused: 9 ``[T]`` float32 leaves.
+    """The fused per-bin readout, unfused: 9 ``[S, T]`` float32 leaves.
 
-    Operands are already broadcast by :func:`repro_torch.kernels.ops.pack_readout`:
-    host rows ``[H]`` (``p_idle/p_max/r`` f32, ``mask`` f32 0/1,
+    ``u_th`` is ``[S, T, H]`` and the operands are as
+    :func:`repro_torch.kernels.ops.pack_readout` gives them: host rows
+    ``[S, H]`` (``p_idle/p_max/r`` f32, ``mask`` f32 0/1,
     ``fail_start/fail_end`` int32 with the ``int32.max`` never-fails
-    sentinel, ``fail_kill`` f32 0/1) and bin columns ``[T]`` (``cap`` with
+    sentinel, ``fail_kill`` f32 0/1), bin columns ``[S, T]`` (``cap`` with
     the ``+inf`` uncapped sentinel, ``intensity/ambient/price`` zeros when
-    absent).  Mirrors ``repro.kernels.des_readout._tile_readout``.
+    absent), lane scalars ``[S]``, each of them a tensor or one Python
+    number.  The lanes broadcast, as ``jax.vmap`` of
+    ``repro.kernels.des_readout._tile_readout`` over scenarios computes
+    them, lane by lane.  The four host sums are float64 sums of exact
+    terms rounded once to float32 (the JAX kernel's are float32 sums), so
+    they do not depend on the order of summation and the kernel takes the
+    same ones: the linear throttle cancels where a cap sits just above the
+    idle floor, and there two float32 orders disagree beyond the
+    tolerance.
     """
     if precision not in ("f32", "bf16"):
         raise ValueError(f"unknown precision policy {precision!r}")
+
+    def val(x, dtype=torch.float32):
+        # a Python number as a 0-d float32 (int32) host tensor: rounded like
+        # the kernel's parameter, and used by device ops without a copy
+        return x if isinstance(x, Tensor) else torch.tensor(x, dtype=dtype)
+
+    def row(x, dtype=torch.float32):          # [S, H] -> [S, 1, H]
+        x = val(x, dtype)
+        return x[:, None, :] if x.dim() else x
+
+    def lane(x):                              # [S] -> [S, 1]
+        x = val(x)
+        return x[:, None] if x.dim() else x
+
     u = u_th.float()
-    t = u.shape[0]
+    t = u.shape[1]
     t_ids = torch.arange(t, dtype=torch.int32, device=u.device)[:, None]
-    off = (fail_kill > 0.0) & (t_ids >= fail_start) & (t_ids < fail_end)
-    on = torch.where(off, 0.0, 1.0) * mask                          # [T, H]
+    off = ((row(fail_kill) > 0.0) & (t_ids >= row(fail_start, torch.int32))
+           & (t_ids < row(fail_end, torch.int32)))
+    on = (torch.where(off, 0.0, 1.0) * row(mask)).expand(u.shape)   # [S, T, H]
     uc = u.clamp(0.0, 1.0)
-    host_p = p_idle + (p_max - p_idle) * shape_term(uc, r, model)
-    it_demand = (host_p * on).sum(dim=1)
-    idle_floor = (p_idle * on).sum(dim=1)
-    util_raw = (u * on).sum(dim=1) / on.sum(dim=1).clamp(min=1.0)
-    # float32 scalars as 0-d host tensors: rounded like the kernel's float
-    # parameters, and used by device ops without a host-to-device copy
-    f32 = dict(dtype=torch.float32)
+    pi = row(p_idle)
+    host_p = pi + (row(p_max) - pi) * shape_term(uc, row(r), model)
+    # float64 sums of exact terms, rounded once, as the kernel takes them
+    # (csrc/des_readout.cu): independent of the order of summation
+    on_d = on.double()
+    it_demand, idle_floor, u_on, n_on = (
+        (x * on_d).sum(dim=-1).float() for x in
+        (host_p.double(), pi.double(), u.double(), torch.ones((), dtype=torch.float64)))
+    util_raw = u_on / n_on.clamp(min=1.0)                          # [S, T]
+    cap, intensity, ambient, price = (val(x) for x in (cap, intensity, ambient,
+                                                      price))
     peak, p_base, p_load, p_amb, p_ref = (
-        torch.tensor(v, **f32) for v in (peak_tflops, pue_base,
-                                         pue_load_coeff, pue_amb_coeff,
-                                         pue_amb_ref))
+        lane(x) for x in (peak_tflops, pue_base, pue_load_coeff,
+                          pue_amb_coeff, pue_amb_ref))
     load = util_raw.clamp(0.0, 1.0)
     pue = p_base + p_load * (1.0 - load)
     pue = pue + p_amb * (ambient - p_ref).clamp(min=0.0)
@@ -207,7 +231,9 @@ def des_readout_ref(u_th: Tensor, *, p_idle: Tensor, p_max: Tensor,
     exceeded = demand > cap
     power = torch.minimum(demand, cap)
     throttle = ((cap - floor) / (demand - floor).clamp(min=1e-9)).clamp(0.0, 1.0)
-    e = power * torch.tensor(dt_seconds / 3600.0, **f32) / 1000.0
+    # a true division, as the kernel's: PyTorch on the card multiplies by
+    # the reciprocal of a scalar divisor, which can round one ulp apart
+    e = power * val(dt_seconds / 3600.0) / torch.full_like(power, 1000.0)
     util = torch.where(exceeded, util_raw * throttle, util_raw)
     if precision == "bf16":
         tf16 = util.to(BF16) * peak.to(BF16)

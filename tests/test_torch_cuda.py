@@ -7,8 +7,9 @@ the JAX package, so it runs on a GPU machine that has only PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 It covers what ``chip_smoke.py`` does not: the wrappers' operand checks
-and their launch counting, and that ``chip_smoke.py``'s flash-attention
-and calib checks fail on faults planted in copies of those kernels.
+and their launch counting, the readout's lanes at every warp split, and
+that ``chip_smoke.py``'s flash-attention, calib and readout checks fail
+on faults planted in copies of those kernels.
 ``chip_smoke.py`` holds each kernel against its plain version on the card
 and runs the closed loop there and on the CPU.
 """
@@ -30,6 +31,7 @@ from repro_torch.kernels.calib_mape import (  # noqa: E402
     calib_mape_grid_cuda,
     launch,
 )
+from repro_torch.kernels import des_readout  # noqa: E402
 from repro_torch.kernels.des_readout import des_readout_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.power_sim import power_sim_cuda  # noqa: E402
@@ -69,6 +71,7 @@ def test_kernel_wrappers_count_one_launch_per_call(dev):
     ops.calib_mape_grid(u, real, pi, pm, r)          # batched: one launch
     ops.calib_mape_grid(u[0], real[0], pi, pm, r)
     ops.des_readout(u[0], p_idle=70.0, p_max=350.0, r=2.0)
+    ops.des_readout(u, p_idle=pi[:4], p_max=350.0, r=r[:3, None])   # lanes: one launch
     power = dict(p_idle=70.0, p_max=350.0, r=2.0, peak_tflops=1.0,
                  dt_seconds=300.0)
     ops.power_sim(u[0], **power)
@@ -76,7 +79,7 @@ def test_kernel_wrappers_count_one_launch_per_call(dev):
     ops.flash_attention(q, q[:, :2], q[:, :2])          # GQA views: copied, one launch
     ssd = _ssd_operands(dev)
     ops.ssd_chunk(*ssd)
-    counts = {"calib_mape_grid": 2, "des_readout": 1, "power_sim": 1,
+    counts = {"calib_mape_grid": 2, "des_readout": 2, "power_sim": 1,
               "flash_attention": 1, "ssd_chunk": 1}
     assert ops.LAUNCHES == counts
     ops.des_readout(u[0].cpu(), p_idle=70.0, p_max=350.0, r=2.0)   # plain version
@@ -104,9 +107,23 @@ def test_kernel_wrappers_reject_bad_operands(dev):
     x, operands = ops.pack_readout(u[0, :8, :], p_idle=pi[:4], p_max=pm[:4],
                                    r=2.0, cap_t=real[0, :8])
     with pytest.raises(ValueError, match="cap"):
-        des_readout_cuda(x, **dict(operands, cap=operands["cap"][:-1]))
+        des_readout_cuda(x, **dict(operands, cap=operands["cap"][:, :-1]))
+    with pytest.raises(ValueError, match="fail_start"):
+        des_readout_cuda(x, **dict(operands, fail_start=pi[None, :4]))
+    with pytest.raises(ValueError, match="p_idle"):
+        des_readout_cuda(x, **dict(operands, p_idle=operands["p_idle"].cpu()))
     with pytest.raises(ValueError, match="contiguous"):
-        des_readout_cuda(x.T.contiguous().T, **operands)
+        des_readout_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), **operands)
+    with pytest.raises(ValueError, match="lanes"):
+        des_readout_cuda(x[:0], **operands)
+    readout = _build.load("des_readout").des_readout_launch
+    for split in (0, 3, 16):                        # not a warp split
+        with pytest.raises(RuntimeError, match="launch failed"):
+            des_readout.launch(readout, x, operands, split=split)
+    for split in (0, 3):
+        assert _build.load("power_sim").power_sim_launch(
+            u.data_ptr(), scratch.data_ptr(), 4, 4, split, 2.0, 1.0, 1.0, 1.0, 1.0,
+            stream) != 0
 
 
 def test_flash_and_power_sim_wrappers_reject_bad_operands(dev):
@@ -321,5 +338,82 @@ def test_calib_check_fails_on_planted_faults(dev, tmp_path):
             if not ok:
                 failed.append(f"{label} ({err:.3g})")
         print(f"calib fault {name!r}: fails {len(failed)} of {len(cases)} cases: "
+              + "; ".join(failed))
+        assert (not failed) == (name == "none"), (name, failed)
+
+
+def test_readout_lanes_are_independent_at_every_split(dev):
+    """Each lane of a batched launch equals, bit for bit, the launch of that
+    lane alone at the same warp split, at splits 1, 2, 4 and 8, and every
+    split agrees with the plain version; so does power_sim at every split."""
+    from repro_torch.kernels import ref
+
+    cs = _chip_smoke()
+    entry = _build.load("des_readout").des_readout_launch
+    rng = np.random.default_rng(3)
+    u = torch.as_tensor(rng.uniform(0, 1.15, (3, 20, 1100)).astype(np.float32), device=dev)
+    kw = cs.lanes_case(torch, np, u, 4)
+    x, operands = ops.pack_readout(u, **kw)
+    want = ref.des_readout_ref(x, **operands)
+    for split in (1, 2, 4, 8):
+        got = des_readout.launch(entry, x, operands, split=split)
+        err, bad = cs.readout_agrees(torch, dict(zip(ref.READOUT_FIELDS, got.unbind(0))),
+                                     want, "f32")
+        assert bad is None, (split, bad, err)
+        for i in range(3):
+            xi, oi = ops.pack_readout(u[i:i + 1], **{
+                k: v[i:i + 1] if torch.is_tensor(v) and v.shape[0] == 3 else v
+                for k, v in kw.items()})
+            solo = des_readout.launch(entry, xi, oi, split=split)
+            assert torch.equal(solo[:, 0], got[:, i]), (split, i)
+    power = _build.load("power_sim").power_sim_launch
+    field = u[0].contiguous()
+    consts = dict(r=2.3, base=1100 * 70.0, span=280.0, e_factor=1 / 12000, peak=120.0)
+    want = ref.power_sim_ref(field, **consts)
+    stream = torch.cuda.current_stream().cuda_stream
+    for split in (1, 2, 4, 8):
+        out = torch.empty((3, 20), device=dev)
+        assert power(field.data_ptr(), out.data_ptr(), 20, 1100, split, *consts.values(),
+                     stream) == 0
+        for g, w in zip(out, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-2)
+
+
+#: faults planted in a copy of the readout kernel, as (text, replacement)
+#: in its source; "none" is the unchanged copy
+READOUT_FAULTS = {
+    "none": ("", ""),
+    "lanes' host rows swapped": (
+        "        const long long h = h0 + i;\n",
+        "        const long long h = h0 + i;\n"
+        "        const long long s = (blockIdx.y + 1) % a.S;\n"),
+    "last host chunk skipped": (
+        "h0 < a.H; h0 += kHostChunk", "h0 < a.H && !(a.H > kHostChunk && "
+        "h0 + kHostChunk >= a.H); h0 += kHostChunk"),
+    "split drops a warp's partial": (
+        "if (p < split) v +=", "if (p < split - 1) v +="),
+}
+
+
+def test_readout_check_fails_on_planted_faults(dev, tmp_path):
+    """``chip_smoke.py``'s readout check (``readout_cases``,
+    ``readout_agrees``, opendc in f32) passes the unchanged copy of the
+    kernel and fails each planted fault in at least one case.  Prints the
+    cases each fault fails."""
+    from repro_torch.kernels import ref
+
+    cs = _chip_smoke()
+    cases = cs.readout_cases(torch, np, dev)
+    for name, entry in _build_copies("des_readout", READOUT_FAULTS, tmp_path).items():
+        failed = []
+        for label, u, kw in cases:
+            x, operands = ops.pack_readout(u, **kw)
+            got = des_readout.launch(entry, x, operands)
+            torch.cuda.synchronize()
+            err, bad = cs.readout_agrees(torch, dict(zip(ref.READOUT_FIELDS, got.unbind(0))),
+                                         ref.des_readout_ref(x, **operands), "f32")
+            if bad:
+                failed.append(f"{label} ({bad}, {err:.3g})")
+        print(f"readout fault {name!r}: fails {len(failed)} of {len(cases)} cases: "
               + "; ".join(failed))
         assert (not failed) == (name == "none"), (name, failed)
