@@ -6,8 +6,9 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (``--profile`` adds ``torch.profiler`` traces of the DES, of the
-calibrated and the joint E2 runs, of one SmolLM-360M prefill call and of
-16 serve steps, and of one Mamba2-370M and one Zamba2-1.2B prefill call:
+calibrated and the joint E2 runs, of one what-if call at D, of one
+SmolLM-360M prefill call and of 16 serve steps, and of one Mamba2-370M
+and one Zamba2-1.2B prefill call:
 device busy time, idle share, top kernels, and the ``ssd_chunk`` and
 flash-attention shares of the SSM prefills' busy time.)
 
@@ -34,12 +35,19 @@ Phases (each passes or the script exits non-zero without a result line):
    ``ssd_chunk`` at the JAX SSD sweep's shapes, at both Mamba2-family
    prefill shapes and at a ragged 200-row chunk, at those last three again
    with a long memory and at the longest chunks, 255 and 511 rows, rtol/atol
-   1e-4), and run each kernel twice for bitwise-equal results;
+   1e-4; ``des_place`` at ``place_cases``: E2's week as the main path
+   places it, under 4 policies x backfill {0, 8} and with a 16-host outage
+   beside a degraded window, the what-if batches C and D, one host and one
+   job, a bin that hits ``max_starts_per_bin``, backfill windows up to 31,
+   ``job_start``/``job_host``/attempts equal to the plain version run on
+   CPU copies), and run each kernel twice for bitwise-equal results;
 4. drive the twin's main path, experiment E2 at the paper's SURF-SARA size
    (277 hosts x 16 cores, 7 days, seed 22): uncalibrated, calibrated
    (r only) and joint calibration with one refine round, with the kernels'
    launch counts reset just before and read just after (one
-   ``des_readout`` launch a window); then the calibrated windows once
+   ``des_readout`` launch a window, one ``des_place`` launch a horizon:
+   two a run, the twin's DES and the ground-truth telemetry's);
+   then the calibrated windows once
    more under ``torch.profiler``, whose host-to-device copies and
    device-to-host reads may not exceed ``WINDOW_TRANSFERS``;
 5. rerun the calibrated experiment on the CPU and require that the DES
@@ -48,25 +56,38 @@ Phases (each passes or the script exits non-zero without a result line):
 6. the fleet power map (``ops.power_sim``, which no library path calls)
    on the calibrated card run's own utilization field, counted, and held
    against that run's DES readout;
-7. the LM serving paths at full width and depth in bf16, for SmolLM-360M
+7. the what-if path (``whatif_phase``): ``Orchestrator.evaluate_whatif``
+   on the calibrated E2 twin with examples/whatif_scaling.py's 19
+   candidates and a diurnal carbon trace (20 lanes, one ``des_place``
+   launch), held against the CPU rerun's calibrated twin (schedules and
+   counts equal, prediction within rtol 1e-5, summaries' integers and
+   proposal kinds equal); ``run_scenarios(fused_readout=True)`` at C (16
+   lanes of 64 + 24 i hosts over 2 days) and D (E2's week under 64 lanes),
+   one ``des_place`` and one ``des_readout`` launch a call, held against
+   the unfused readout on the card (rtol 2e-4, the oracle's bar) and
+   against a CPU rerun (schedules equal, floats within rtol 1e-5); wall
+   seconds a call and the DES's share;
+8. the LM serving paths at full width and depth in bf16, for SmolLM-360M
    (dense), Mamba2-370M (SSM) and Zamba2-1.2B (hybrid):
    ``make_prefill_step`` on ``[4, 2048]`` tokens with each call's kernel
    launches counted (``LM_PATHS``: 32 flash-attention; 48 ``ssd_chunk``;
    38 ``ssd_chunk`` and 6 flash-attention), then ``launch/serve.py``'s
    ``main`` at ``--reduce 1 --batch 4 --prompt-len 32 --gen 64``;
-8. each LM at full width, cut in depth, f32 (``CARD_VS_CPU``): prefill
+9. each LM at full width, cut in depth, f32 (``CARD_VS_CPU``): prefill
    logits (S=256) and 8 greedy serve steps on the card against the same
    on the CPU;
-9. time each kernel, its plain version and, where one exists, the one
+10. time each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same (SDPA for attention), at the main
    paths' shapes (device time, median of 5 rounds of up to 20 calls, with
    the rounds' spread; ``calib_mape_grid`` also at the joint grid's own
    candidates, with all 9216 r distinct, and at the per-host refit;
    ``des_readout`` at ``READOUT_TIMED``, the lane shapes on the calibrated
    run's own field; ``power_sim`` on the E2 horizon and on readout D's
-   number of elements), each beside its
+   number of elements; ``des_place`` at the E2 horizon, C and D, its plain
+   version by wall time at the E2 horizon), each beside its
    bound: bytes, FMA-pipe and special-function (expf, logf) floors, the
-   largest of them; and an empty kernel (``torch.cuda._sleep(0)``, one
+   largest of them (``des_place``'s: its longest lane's attempts times the
+   barrier round trip of its block, timed alone); and an empty kernel (``torch.cuda._sleep(0)``, one
    thread), the launch floor of the same timer.
 
 The second-to-last line of standard output is the ``kernels`` JSON record,
@@ -104,7 +125,7 @@ E2_DAYS = 7.0
 E2_SEED = 22
 
 #: the kernels the twin's E2 path launches
-E2_KERNELS = ("calib_mape_grid", "des_readout")
+E2_KERNELS = ("calib_mape_grid", "des_readout", "des_place")
 
 #: the card every phase runs on
 DEVICE = "cuda"
@@ -491,6 +512,178 @@ def readout_cases(torch, np, dev) -> list:
     return cases
 
 
+#: the placement cases of E2's week: 4 policies x backfill {0, 8}, and a
+#: 16-host outage (hosts 0-15, bins 576-720) beside a degraded window
+#: (hosts 16-31, bins 300-900) under worst fit and best fit with backfill 4
+E2_OUTAGE = ((0, 16, 576, 720, "outage"), (16, 32, 300, 900, "degraded"))
+
+#: the what-if batches: C, the JAX package's (16 lanes of 64 + 24 i hosts
+#: over 2 days, benchmarks/whatif_batch.py:70-77, padded to 424 hosts), and
+#: D, E2's week under 64 lanes: 4 policies x backfill {0, 4} x {no failure,
+#: hosts 0-15 out at bins 576-720} x hosts {277, 240} x {uncapped, capped at
+#: WHATIF_D_CAP_W}; the capped half repeats the uncapped half's placement
+WHATIF_C_DAYS, WHATIF_C_HOSTS = 2.0, 424
+WHATIF_D_CAP_W = 45_000.0
+
+
+def failures(fault, spec):
+    """``HostFailure`` windows (``fault`` is ``repro_torch.runtime.fault``)
+    from ``(first host, end host, start bin, end bin, kind)`` rows."""
+    return tuple(fault.HostFailure(h, a, b, kind)
+                 for lo, hi, a, b, kind in spec for h in range(lo, hi))
+
+
+def whatif_c(psc) -> list:
+    return [psc.Scenario(name=f"h{64 + 24 * i}", num_hosts=64 + 24 * i) for i in range(16)]
+
+
+def whatif_d(psc, fault) -> list:
+    out = []
+    for cap in (None, WHATIF_D_CAP_W):
+        for hosts in (277, 240):
+            for fail in ((), failures(fault, E2_OUTAGE[:1])):
+                for depth in (0, 4):
+                    for policy in ("first_fit", "best_fit", "worst_fit", "random_fit"):
+                        out.append(psc.Scenario(
+                            name=f"{policy}-b{depth}-h{hosts}{'-out' if fail else ''}"
+                                 f"{'-cap' if cap else ''}",
+                            num_hosts=hosts, policy=policy, backfill_depth=depth,
+                            failures=fail, power_cap_w=cap))
+    return out
+
+
+def whatif_candidates(psc) -> list:
+    """The 19 candidates of examples/whatif_scaling.py:59-72: 4 policies x
+    hosts {64, 128, 200, 277} (backfill 8 except worst fit), a carbon-aware
+    cap, and shifts of 3 h and 6 h."""
+    cands = [psc.Scenario(name=f"{p}-h{h}", policy=p, num_hosts=h,
+                          backfill_depth=0 if p == "worst_fit" else 8)
+             for h in (64, 128, 200, 277)
+             for p in ("best_fit", "first_fit", "random_fit", "worst_fit")]
+    return cands + [
+        psc.Scenario(name="carbon-cap", carbon_cap_base_w=48_000.0, carbon_cap_slope=-60.0),
+        psc.Scenario(name="shift-3h", shift_bins=36),
+        psc.Scenario(name="shift-6h", shift_bins=72)]
+
+
+def place_inputs(ss) -> tuple[tuple, dict]:
+    """``ops.des_place``'s operands of a ScenarioSet, as the DES passes them."""
+    w = ss.workload
+    kw = dict(max_backfill=ss.max_backfill)
+    if ss.has_failures:
+        kw.update(fail_start=ss.fail_start, fail_end=ss.fail_end, fail_kill=ss.fail_kill)
+    return (w.submit_bin, w.duration_bins, w.cores, w.valid, ss.host_mask_s,
+            ss.cores_per_host, ss.policy_id, ss.backfill_depth), kw
+
+
+def random_place_case(torch, np, seed, s, j, h, t, mb, fails, dev) -> tuple[tuple, dict]:
+    """Random placement operands: a contended trace a lane, 1..h active
+    hosts, 6-11 cores a host, every policy, depths up to ``mb``, and with
+    ``fails`` outage and drain windows on 40 % of the hosts."""
+    rng = np.random.default_rng(seed)
+    x = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    args = (x(np.sort(rng.integers(0, max(t // 2, 1), (s, j)), axis=1).astype(np.int32)),
+            x(rng.integers(0, 9, (s, j)).astype(np.int32)),
+            x(rng.integers(1, 9, (s, j)).astype(np.int32)),
+            x(rng.uniform(size=(s, j)) < 0.95),
+            x(np.arange(h)[None, :] < rng.integers(1, h + 1, (s, 1))),
+            x(rng.integers(6, 12, s).astype(np.int32)),
+            x(rng.integers(0, 4, s).astype(np.int32)),
+            x(rng.integers(0, mb + 1, s).astype(np.int32)))
+    kw = dict(max_backfill=mb)
+    if fails:
+        fs = np.where(rng.uniform(size=(s, h)) < 0.4, rng.integers(0, t, (s, h)),
+                      np.iinfo(np.int32).max).astype(np.int32)
+        fe = np.minimum(fs.astype(np.int64) + rng.integers(1, max(t // 2, 2), (s, h)),
+                        np.iinfo(np.int32).max).astype(np.int32)
+        kw.update(fail_start=x(fs), fail_end=x(fe), fail_kill=x(rng.uniform(size=(s, h)) < 0.6))
+    return args, kw
+
+
+def place_cases(torch, np, dev) -> list:
+    """``(label, args, kw, unique)`` of the des_place checks: E2's week
+    (the main path's one lane; 4 policies x backfill {0, 8}; the outage
+    and degraded windows), the what-if batches C and D, one host and one
+    job, a bin that hits ``max_starts_per_bin``, and backfill windows up
+    to 31 with random failures.  ``unique`` lanes lead; lane i repeats
+    lane ``i % unique``."""
+    from repro_torch.core import scenarios as psc
+    from repro_torch.runtime import fault
+    from repro_torch.traces.schema import DatacenterConfig, Workload
+    from repro_torch.traces.surf import BINS_PER_DAY, SurfTraceSpec, make_surf22_like
+
+    dc = DatacenterConfig()
+    t_e2 = int(E2_DAYS * BINS_PER_DAY)
+    w = make_surf22_like(SurfTraceSpec(days=E2_DAYS, seed=E2_SEED), dc, device=dev)
+    w_c = make_surf22_like(SurfTraceSpec(days=WHATIF_C_DAYS), dc, device=dev)
+    t_c = int(WHATIF_C_DAYS * BINS_PER_DAY)
+    out = []
+
+    def batch(label, wl, scs, t, unique=None, **build):
+        ss = psc.build_scenario_set(wl, dc, scs, **build)
+        args, kw = place_inputs(ss)
+        out.append((label, args, dict(kw, t_bins=t), unique or len(scs)))
+
+    batch("E2 week, the main path's lane (worst fit)", w, [psc.Scenario()], t_e2)
+    batch("E2 week, 4 policies x backfill {0, 8}", w,
+          [psc.Scenario(policy=p, backfill_depth=d) for d in (0, 8)
+           for p in ("first_fit", "best_fit", "worst_fit", "random_fit")], t_e2)
+    batch("E2 week, hosts 0-15 out, 16-31 degraded", w,
+          [psc.Scenario(failures=failures(fault, E2_OUTAGE)),
+           psc.Scenario(policy="best_fit", backfill_depth=4,
+                        failures=failures(fault, E2_OUTAGE))], t_e2)
+    batch("C: 16 lanes of 64 + 24 i hosts, 2 days", w_c, whatif_c(psc), t_c,
+          max_hosts=WHATIF_C_HOSTS)
+    batch("D: E2 week under 64 lanes", w, whatif_d(psc, fault), t_e2, unique=32)
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
+    one = Workload(i32([[2]]), i32([[3]]), i32([[4]]), torch.ones((1, 1, 1), device=dev),
+                   torch.ones((1, 1), dtype=torch.bool, device=dev))
+    out.append(("H=1 J=1", (one.submit_bin, one.duration_bins, one.cores, one.valid,
+                            torch.ones((1, 1), dtype=torch.bool, device=dev), i32([4]),
+                            i32([0]), i32([0])), dict(max_backfill=0, t_bins=8), 1))
+    crowd = (i32(np.zeros((2, 40))), i32(np.full((2, 40), 3)), i32(np.ones((2, 40))),
+             torch.ones((2, 40), dtype=torch.bool, device=dev),
+             torch.ones((2, 4), dtype=torch.bool, device=dev), i32([16, 16]), i32([2, 3]),
+             i32([0, 2]))
+    out.append(("a bin that hits max_starts_per_bin (5)", crowd,
+                dict(max_backfill=2, t_bins=12, max_starts_per_bin=5), 2))
+    for i, (s, j, h, t, mb, fails) in enumerate([(6, 400, 32, 72, 31, True),
+                                                  (8, 60, 5, 40, 3, True),
+                                                  (8, 120, 9, 64, 0, False)]):
+        args, kw = random_place_case(torch, np, 300 + i, s, j, h, t, mb, fails, dev)
+        out.append((f"random S={s} J={j} H={h} T={t} max_backfill={mb}"
+                    f"{' with failures' if fails else ''}", args, dict(kw, t_bins=t), s))
+    return out
+
+
+def check_place(torch, np, ops, cases) -> tuple[float, dict]:
+    """des_place on the card against its plain version on CPU copies of
+    the same operands, at ``place_cases``: ``job_start`` and ``job_host``
+    equal (``torch.equal``), and the attempts; twice each on the card for
+    bitwise-equal results.  Returns the largest absolute difference (0)
+    and each case's attempts."""
+    attempts = {}
+    for label, args, kw, unique in cases:
+        got = ops.des_place(*args, **kw)
+        again = ops.des_place(*args, **kw)
+        torch.cuda.synchronize()
+        cpu = {k: v[:unique].cpu() if isinstance(v, torch.Tensor) else v
+               for k, v in kw.items()}
+        want = ops.des_place(*(a[:unique].cpu() for a in args), **cpu)
+        lanes = torch.arange(args[0].shape[0]) % unique
+        for name, g, a, wv in zip(("job_start", "job_host", "attempts"), got, again, want):
+            if not torch.equal(g.cpu(), wv[lanes]):
+                fail(f"des_place {label} {name}: card and plain version differ in "
+                     f"{int((g.cpu() != wv[lanes]).sum())} entries")
+            if not torch.equal(g, a):
+                fail(f"des_place {label} {name}: two runs differ")
+        attempts[label] = got[2].tolist()
+        log(f"des_place {label}: job_start, job_host and attempts equal to the plain "
+            f"version (torch.equal), bitwise repeatable; attempts a lane "
+            f"{min(attempts[label])}-{max(attempts[label])}")
+    return 0.0, attempts
+
+
 def readout_agrees(torch, got, want, precision) -> tuple[float, str | None]:
     """``(max |err| of the f32 leaves, the first leaf beyond its bar or
     None)``: rtol 1e-5 atol 1e-6, bf16 tflops/efficiency within one bf16
@@ -591,6 +784,8 @@ def main() -> int:
     errs["flash_attention"] = check_flash(torch, np, ops, ref, dev)
     errs["power_sim"] = check_power_sim(torch, np, ops, dev)
     errs["ssd_chunk"] = check_ssd(torch, np, ops, ref, dev)
+    cases = place_cases(torch, np, dev)
+    errs["des_place"], details["place_attempts"] = check_place(torch, np, ops, cases)
 
     # 4) the main path: E2 at full size, kernels counted
     dc = DatacenterConfig()
@@ -600,15 +795,15 @@ def main() -> int:
         f"{dc.cores_per_host} cores, {t_bins} bins")
     joint_cfg = OrchestratorConfig(
         calibration=CalibrationSpec(mode="joint", refine_iters=1))
-    runs, sims = {}, {}
+    runs, orchs = {}, {}
     ops.reset_launches()
     t_main = time.time()
     for name, cal, cfg in (("uncalibrated", False, None),
                            ("calibrated", True, None),
                            ("joint", True, joint_cfg)):
         t0 = time.time()
-        res, sims[name] = e2_run(w, dc, t_bins, calibrate=cal, cfg=cfg,
-                                 device="cuda")
+        res, orchs[name] = e2_run(w, dc, t_bins, calibrate=cal, cfg=cfg,
+                                  device="cuda")
         wall = time.time() - t0
         runs[name] = res
         rep = res.slo_reports[0]
@@ -634,6 +829,11 @@ def main() -> int:
             fail(f"kernel {k} was not launched on the main path")
     if launches["des_readout"] != len(runs) * (t_bins // 36):
         fail(f"E2: {launches['des_readout']} des_readout launches, expected one a window")
+    # two horizons a run: the twin's own DES and the DES behind the
+    # ground-truth telemetry (TraceGroundTruth)
+    if launches["des_place"] != 2 * len(runs):
+        fail(f"E2: {launches['des_place']} des_place launches, expected one a horizon, "
+             "two a run")
     if not runs["calibrated"].overall_mape < runs["uncalibrated"].overall_mape:
         fail("E2: calibration did not lower the MAPE")
     details["window_transfers"] = window_transfers(torch, w, dc, t_bins)
@@ -641,9 +841,10 @@ def main() -> int:
     # 5) the calibrated run again on the CPU: the schedule its windows were
     # predicted from and its parameter stream equal the card run's own
     t0 = time.time()
-    cpu, sim_cpu = e2_run(w.to("cpu"), dc, t_bins, calibrate=True, cfg=None,
-                          device="cpu")
-    gpu, sim_gpu = runs["calibrated"], sims["calibrated"]
+    cpu, cpu_orch = e2_run(w.to("cpu"), dc, t_bins, calibrate=True, cfg=None,
+                           device="cpu")
+    gpu, gpu_orch = runs["calibrated"], orchs["calibrated"]
+    sim_cpu, sim_gpu = cpu_orch._ensure_sim(), gpu_orch._ensure_sim()
     for k in ("job_start", "job_host", "queue_len", "running"):
         if not torch.equal(getattr(sim_gpu, k).cpu(), getattr(sim_cpu, k)):
             fail(f"DES {k}: card and CPU schedules differ")
@@ -664,18 +865,26 @@ def main() -> int:
     # 6) the fleet power map on the card run's own horizon, counted
     launches.update(power_sim_path(torch, ops, sim_gpu.u_th, gpu.records[-1].params, dc))
 
-    # 7) the LM serving paths at full size, each prefill counted
+    # 7) the what-if path: evaluate_whatif on the calibrated twin, then the
+    # fused run_scenarios at C and D, each call's launches counted from 0
+    details["whatif"] = whatif_phase(torch, np, ops, w, dc, t_bins, gpu_orch, cpu_orch,
+                                     profile=args.profile)
+    for v in details["whatif"].values():
+        for k in ("des_place", "des_readout"):
+            launches[k] += v["launches"][k]
+
+    # 8) the LM serving paths at full size, each prefill counted
     for arch, per_call in LM_PATHS.items():
         run = details[f"lm_prefill {arch}"] = lm_prefill(torch, ops, arch, per_call)
         for k in per_call:
             launches[k] += run["launches"][k]
         details[f"lm_serve {arch}"] = lm_serve(torch, ops, arch)
 
-    # 8) the LMs on the card against the LMs on the CPU, f32
+    # 9) the LMs on the card against the LMs on the CPU, f32
     for arch in CARD_VS_CPU:
         details[f"lm_card_vs_cpu {arch}"] = lm_card_vs_cpu(torch, np, arch)
 
-    # 9) kernel times at the main paths' shapes (device time, queue kept full)
+    # 10) kernel times at the main paths' shapes (device time, queue kept full)
     timer = DeviceTimer(torch)
     kernels, shapes = [], {}
     calib_lib = _build.load("calib_mape")
@@ -834,6 +1043,16 @@ def main() -> int:
     shapes["ssd BC=64 Q=128 H=32 P=64 G=1 N=128 (Mamba2-370M prefill)"] = main
     shapes["ssd BC=64 Q=128 H=64 P=64 G=1 N=64 (Zamba2-1.2B prefill)"] = time_ssd(
         torch, timer, ref, _build, dev, *SSD_ZAMBA2)
+    details["place_times"] = place = time_place(torch, timer, ref, dev, cases)
+    main = place["E2 week, the main path's lane (worst fit)"]
+    kernels.append(dict(
+        name="des_place", route="cuda",
+        source="src/repro_torch/kernels/csrc/des_place.cu",
+        replaces="src/repro/core/desim.py:308",
+        launches=launches["des_place"],
+        max_abs_err=errs["des_place"], ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None))
     for v in shapes.values():
         work = (v["bytes"], v["ops"], v.get("peak_ops", PEAK_F32_FLOPS),
                 v.get("sfu_ops", 0), sfu_per_s)
@@ -876,14 +1095,15 @@ def main() -> int:
 def e2_run(w, dc, t_bins, *, calibrate, cfg, device):
     """``run_surf_experiment`` spelled out through the ``DigitalTwin``
     facade, so that the twin's own DES output (the schedule its windows
-    were predicted from) can be read: returns the result and that output."""
+    were predicted from) and its calibrated state can be read: returns the
+    result and the twin's orchestrator."""
     from repro_torch.core import DigitalTwin, OrchestratorConfig, TraceGroundTruth
 
     cfg = dataclasses.replace(cfg or OrchestratorConfig(), calibrate=calibrate,
                               device=device)
     twin = DigitalTwin(w, dc, t_bins, cfg)
     truth = TraceGroundTruth(twin.orchestrator.workload, dc, t_bins)
-    return twin.run(truth.window), twin.orchestrator._ensure_sim()
+    return twin.run(truth.window), twin.orchestrator
 
 
 def profile_e2(torch, w, dc, t_bins) -> dict:
@@ -1135,6 +1355,223 @@ def check_power_sim(torch, np, ops, dev) -> float:
         log(f"power_sim T={t} H={h}: power/energy/tflops within rtol 1e-4 "
             "atol 1e-2 of the plain version, bitwise repeatable")
     return worst
+
+
+def lanes_des(psc, ss, t_bins):
+    """The DES of a ScenarioSet's lanes alone, as ``run_scenarios`` runs it."""
+    fail = (dict(fail_start=ss.fail_start, fail_end=ss.fail_end, fail_kill=ss.fail_kill)
+            if ss.has_failures else {})
+    return psc.simulate_utilization_masked(
+        ss.workload, ss.host_mask_s, ss.cores_per_host, max_hosts=ss.max_hosts,
+        t_bins=t_bins, policy_id=ss.policy_id, backfill_depth=ss.backfill_depth,
+        max_backfill=ss.max_backfill, **fail)
+
+
+def call_and_des_seconds(torch, call, des, turns: int = 3) -> tuple[float, float]:
+    """Median wall seconds, each up to a device synchronize, of ``call``
+    and of ``des`` (its DES alone), timed in turns."""
+    times = ([], [])
+    for _ in range(turns):
+        for fn, out in zip((call, des), times):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def same_sim(torch, a, b, label) -> None:
+    for k in ("job_start", "job_host", "queue_len", "running"):
+        if not torch.equal(getattr(a, k).cpu(), getattr(b, k).cpu()):
+            fail(f"what-if {label}: {k} differs")
+
+
+def close_pred(torch, got, want, rtol, label, atol=0.0) -> float:
+    """Largest relative difference of the prediction leaves; fails beyond
+    ``rtol`` (``atol`` where a leaf is near 0)."""
+    worst = 0.0
+    for k in ("power_w", "energy_kwh", "tflops", "utilization", "efficiency", "gco2",
+              "power_demand_w", "pue", "energy_cost"):
+        g, w = getattr(got, k), getattr(want, k)
+        if (g is None) != (w is None):
+            fail(f"what-if {label}: leaf {k} present on one side only")
+        if g is None:
+            continue
+        g, w = g.cpu().double(), w.cpu().double()
+        if not torch.allclose(g, w, rtol=rtol, atol=atol):
+            fail(f"what-if {label}: {k} max rel diff "
+                 f"{float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())} beyond rtol {rtol}")
+        worst = max(worst, float(((g - w).abs() / w.abs().clamp(min=1e-30)).max()))
+    return worst
+
+
+def summary_ints(s) -> tuple:
+    return tuple(v for v in s.__dict__.values() if isinstance(v, (int, str)))
+
+
+def whatif_phase(torch, np, ops, w, dc, t_bins, card_orch, cpu_orch,
+                 profile: bool = False) -> dict:
+    """The what-if path on the card: (a) ``Orchestrator.evaluate_whatif`` on
+    the calibrated E2 twin with the example's 19 candidates, against the
+    CPU rerun's calibrated twin; (b) ``run_scenarios(fused_readout=True)``
+    at C and D, against the unfused readout on the card and a CPU rerun;
+    (c) wall seconds a call and the DES's share of them (medians of three
+    turns; the DES timed alone on the same lanes).  Launches are counted
+    per call, from 0.  With ``profile``, a ``torch.profiler`` trace of one
+    call at D (device busy time, idle share, top kernels)."""
+    from repro_torch.core import Orchestrator, OrchestratorConfig
+    from repro_torch.core import scenarios as psc
+    from repro_torch.core.power import PowerParams
+    from repro_torch.runtime import fault
+    from repro_torch.traces.carbon import make_diurnal_carbon
+    from repro_torch.traces.price import make_diurnal_price
+    from repro_torch.traces.surf import BINS_PER_DAY, SurfTraceSpec, make_surf22_like
+
+    out = {}
+    ci = make_diurnal_carbon(t_bins)
+    twins = {}
+    for dev, src in (("cuda", card_orch), ("cpu", cpu_orch)):
+        twins[dev] = Orchestrator(w.to(dev), dc, t_bins, OrchestratorConfig(device=dev),
+                                  carbon_intensity=ci)
+        twins[dev].state = src.state        # the calibrated twin
+    cands = whatif_candidates(psc)
+    ops.reset_launches()
+    card = twins["cuda"].evaluate_whatif(cands)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if launches["des_place"] != 1:
+        fail(f"what-if (a): {launches['des_place']} des_place launches, expected 1")
+    t0 = time.perf_counter()
+    cpu = twins["cpu"].evaluate_whatif(cands)
+    cpu_s = time.perf_counter() - t0
+    same_sim(torch, card.sim, cpu.sim, "(a) card vs CPU")
+    rel = close_pred(torch, card.prediction, cpu.prediction, 1e-5, "(a) card vs CPU")
+    if [summary_ints(s) for s in card.summaries] != [summary_ints(s) for s in cpu.summaries]:
+        fail("what-if (a): summaries' integer fields differ between card and CPU")
+    kinds = [p.kind.value for p in card.proposals]
+    if kinds != [p.kind.value for p in cpu.proposals]:
+        fail("what-if (a): proposal kinds differ between card and CPU")
+    ss = psc.build_scenario_set(twins["cuda"].workload, dc,
+                                [psc.Scenario(name="baseline")] + cands,
+                                twins["cuda"].state.params)
+    wall, des = call_and_des_seconds(torch, lambda: twins["cuda"].evaluate_whatif(cands),
+                                     lambda: lanes_des(psc, ss, t_bins))
+    out["a"] = dict(lanes=len(cands) + 1, launches=launches, wall_s=wall, des_s=des,
+                    des_share=des / wall, cpu_rerun_s=cpu_s, max_rel_pred=rel,
+                    proposals=kinds)
+    log(f"what-if (a) evaluate_whatif, {len(cands) + 1} lanes on the calibrated E2 twin: "
+        f"schedules equal to the CPU rerun's, prediction within rtol 1e-5 (max rel "
+        f"{rel:.3g}), {len(kinds)} proposals {sorted(set(kinds))}; launches {launches}; "
+        f"{wall:.4f} s a call, DES {des:.4f} s (share {des / wall:.3f}); CPU rerun "
+        f"{cpu_s:.1f} s")
+
+    w_c = make_surf22_like(SurfTraceSpec(days=WHATIF_C_DAYS), dc, device="cpu")
+    t_c = int(WHATIF_C_DAYS * BINS_PER_DAY)
+    for label, wl, scs, t, mh in (("C", w_c, whatif_c(psc), t_c, WHATIF_C_HOSTS),
+                                  ("D", w.to("cpu"), whatif_d(psc, fault), t_bins, None)):
+        traces = dict(carbon_intensity=make_diurnal_carbon(t), price=make_diurnal_price(t))
+        sets = {dev: psc.build_scenario_set(wl.to(dev), dc, scs, PowerParams(), max_hosts=mh)
+                for dev in ("cuda", "cpu")}
+
+        def run(dev, fused):
+            s_ = sets[dev]
+            return psc.run_scenarios(s_, max_hosts=s_.max_hosts, t_bins=t,
+                                     fused_readout=fused, **traces)
+
+        ops.reset_launches()
+        sim, pred = run("cuda", True)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        if launches["des_place"] != 1 or launches["des_readout"] != 1:
+            fail(f"what-if {label}: launches {launches}, expected one des_place and "
+                 "one des_readout")
+        sim_u, pred_u = run("cuda", False)
+        same_sim(torch, sim, sim_u, f"{label} fused vs unfused")
+        oracle = close_pred(torch, pred, pred_u, 2e-4, f"{label} fused vs unfused", atol=1e-6)
+        t0 = time.perf_counter()
+        sim_c, pred_c = run("cpu", True)
+        cpu_s = time.perf_counter() - t0
+        same_sim(torch, sim, sim_c, f"{label} card vs CPU")
+        rel = close_pred(torch, pred, pred_c, 1e-5, f"{label} card vs CPU")
+        wall, des = call_and_des_seconds(torch, lambda: run("cuda", True),
+                                         lambda: lanes_des(psc, sets["cuda"], t))
+        s_, j_ = sets["cuda"].workload.submit_bin.shape
+        out[label] = dict(lanes=s_, jobs=j_, hosts=sets["cuda"].max_hosts, bins=t,
+                          launches=launches, wall_s=wall, des_s=des, des_share=des / wall,
+                          cpu_rerun_s=cpu_s, max_rel_vs_unfused=oracle,
+                          max_rel_vs_cpu=rel)
+        if profile and label == "D":
+            out[label]["profile"] = traced(torch, lambda: run("cuda", True),
+                                           match=("des_place_kernel", "des_readout_kernel"))
+            log_profile({"what-if D call": out[label]["profile"]})
+        log(f"what-if {label}: run_scenarios(fused_readout=True), {s_} lanes x {j_} jobs x "
+            f"{sets['cuda'].max_hosts} hosts x {t} bins: launches {launches}; fused vs "
+            f"unfused max rel {oracle:.3g} (rtol 2e-4), card vs CPU schedules equal and "
+            f"max rel {rel:.3g} (rtol 1e-5); {wall:.4f} s a call, DES {des:.4f} s "
+            f"(share {des / wall:.3f}); CPU rerun {cpu_s:.1f} s")
+    return out
+
+
+def time_place(torch, timer, ref, dev, cases) -> dict:
+    """des_place at the E2 horizon (the main path's lane), C and D: device
+    ms a launch (its scratch zeroing included), attempts, us an attempt,
+    and the bound: a lane's attempts times the barrier round trip of its
+    block (``des_place.barrier_launch``, timed alone), the largest lane's,
+    or the bytes it must move, whichever is larger; the plain version's
+    wall time on the card at the E2 horizon (it reads the card once per
+    attempt, so only a host clock times it)."""
+    from repro_torch.kernels import des_place
+
+    probe = torch.zeros(1, dtype=torch.int32, device=dev)
+    rounds = 100_000
+    round_trip = {}
+
+    def barrier_ms(warps):
+        if warps not in round_trip:
+            def launch():
+                if des_place.barrier_launch(rounds, warps, probe) != 0:
+                    fail("des_place barrier probe: the launch returned a CUDA error")
+            round_trip[warps] = timer.device_ms(launch, reps=5)["ms"] / rounds
+        return round_trip[warps]
+
+    out = {}
+    for label, args, kw, _ in cases:
+        if not label.startswith(("E2 week, the main path's", "C:", "D:")):
+            continue
+        call = dict(kw, max_starts_per_bin=kw.get("max_starts_per_bin", 64))
+
+        def kernel():
+            return des_place.des_place_cuda(*args, **call)
+
+        attempts = kernel()[2]
+        k = timer.device_ms(kernel, reps=5)
+        rt = barrier_ms(kw["max_backfill"] + 1)
+        most = int(attempts.max())
+        n_bytes = (sum(a.element_size() * a.numel() for a in args)
+                   + sum(v.element_size() * v.numel() for v in kw.values()
+                         if isinstance(v, torch.Tensor))
+                   + 8 * args[0].numel() + 4 * args[0].shape[0])
+        bound_ms = max(most * rt, n_bytes / PEAK_BYTES_PER_S * 1e3)
+        out[label] = dict(ms=k["ms"], kernel_rounds=k, lanes=args[0].shape[0],
+                          attempts_total=int(attempts.sum()), attempts_max=most,
+                          us_per_attempt=k["ms"] * 1e3 / most,
+                          barrier_round_trip_us=rt * 1e3, bytes=n_bytes,
+                          bound_ms=bound_ms,
+                          bound_by="operations" if most * rt * 1e3 >= n_bytes
+                          / PEAK_BYTES_PER_S * 1e6 else "bytes")
+        if label.startswith("E2"):
+            plain = dict(kw, max_starts_per_bin=64)
+            out[label]["plain_ms"] = timer.wall_ms(
+                lambda: ref.des_place_ref(*args, **plain), reps=1)
+        log(f"des_place {label}: {k['ms']:.3f} ms a launch (rounds {k['min_ms']:.3f}-"
+            f"{k['max_ms']:.3f}), {most} attempts in the longest lane, "
+            f"{out[label]['us_per_attempt']:.3f} us an attempt; barrier round trip "
+            f"{rt * 1e3:.4f} us ({kw['max_backfill'] + 1} warps), bound "
+            f"{bound_ms:.4f} ms ({out[label]['bound_by']})"
+            + (f"; plain version on the card {out[label]['plain_ms']:.1f} ms"
+               if "plain_ms" in out[label] else ""))
+    return out
 
 
 def power_sim_path(torch, ops, u_th, params, dc) -> dict:

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Experiment E2's cost per window for checkouts of the port, in turns, on one card.
+"""Experiment E2's cost per window and per DES horizon for checkouts of the
+port, in turns, on one card.
 
 Run from the repository root with the roots of the checkouts to compare,
 for example a parent commit unpacked into a directory that ``.gitignore``
@@ -13,7 +14,9 @@ first on the path and its own kernel build: E2 at the paper's size (277
 hosts x 16 cores, 7 days, seed 22) uncalibrated, calibrated and in joint
 mode with one refine round, ``--runs`` times each.  One JSON line per
 checkout gives, per mode and run, the mean and the median ms per window
-over the 56 windows (``WindowRecord.sim_seconds``) and the overall MAPE.
+over the 56 windows (``WindowRecord.sim_seconds``), the seconds of the
+run's full-horizon DES (``TwinRunResult.des_seconds``, device-synchronized)
+and the overall MAPE.
 The first run of a process carries its warm-up.  The script needs a card:
 without one it exits 2.
 """
@@ -39,7 +42,8 @@ def one(root: pathlib.Path, runs: int) -> dict:
     from repro_torch.traces.schema import DatacenterConfig
     from repro_torch.traces.surf import BINS_PER_DAY, SurfTraceSpec, make_surf22_like
 
-    _build.build(("calib_mape", "des_readout"))
+    _build.build(tuple(k for k in ("calib_mape", "des_readout", "des_place")
+                       if k in _build.ENTRY_POINTS))
     dc = DatacenterConfig()
     t_bins = int(7 * BINS_PER_DAY)
     w = make_surf22_like(SurfTraceSpec(days=7.0, seed=22), dc, device="cuda")
@@ -56,7 +60,7 @@ def one(root: pathlib.Path, runs: int) -> dict:
             ms = [r.sim_seconds * 1e3 for r in res.records]
             out.setdefault(name, []).append(dict(
                 mean_ms=statistics.fmean(ms), median_ms=statistics.median(ms),
-                mape=res.overall_mape))
+                des_s=res.des_seconds, mape=res.overall_mape))
     return out
 
 

@@ -4,8 +4,9 @@ Port of ``repro.core.orchestrator``.  All per-window math is one
 :func:`~repro_torch.core.state.twin_step` on ``self.state``; this shell owns
 telemetry I/O (the :class:`~repro_torch.core.telemetry.TelemetryStore`),
 wall-clock pacing, run records, float64 sustainability bookkeeping and the
-SLO-aware proposals routed through the human-in-the-loop gate.  The
-what-if, optimizer and proposal-applying surface comes with later slices.
+SLO-aware proposals routed through the human-in-the-loop gate, and the
+batched what-if sweep (:meth:`Orchestrator.evaluate_whatif`).  The
+optimizer and proposal-applying surface comes with a later slice.
 
 Acceleration factor (paper §2.3): ratio between simulated and wall time;
 ``None`` runs as fast as compute allows.
@@ -23,8 +24,14 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.calibrate import CalibrationSpec
 from repro_torch.core.desim import Prediction, SimOutput, simulate_utilization
-from repro_torch.core.feedback import HITLGate, propose_from_state
+from repro_torch.core.feedback import (
+    HITLGate,
+    Proposal,
+    propose_from_scenario,
+    propose_from_state,
+)
 from repro_torch.core.power import PowerParams, mape
+from repro_torch.core.scenarios import Scenario, ScenarioSummary, evaluate_scenarios
 from repro_torch.core.slo import NFR1, BiasTracker, SLOMonitor
 from repro_torch.core.state import (
     SimSlice,
@@ -86,6 +93,30 @@ class WindowRecord:
     gco2: float | None = None
     energy_cost: float | None = None
     proposals: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class WhatIfResult:
+    """Outcome of one batched what-if sweep.
+
+    ``summaries[0]`` is the baseline (current topology) when the sweep ran
+    with ``include_baseline=True``; otherwise the summaries are the user's
+    scenarios only (the baseline is still evaluated, so every candidate is
+    compared against the current configuration).  ``proposals`` are
+    already submitted to the orchestrator's HITL gate.
+    """
+
+    summaries: list[ScenarioSummary]
+    proposals: list[Proposal]
+    sim: SimOutput              # batched, leaves [S, ...]
+    prediction: Prediction      # batched, leaves [S, ...]
+
+
+def _drop_first_lane(x):
+    """A batched SimOutput or Prediction without lane 0."""
+    return dataclasses.replace(x, **{
+        f.name: getattr(x, f.name)[1:] for f in dataclasses.fields(x)
+        if getattr(x, f.name) is not None})
 
 
 def _f64(x: torch.Tensor) -> np.ndarray:
@@ -277,6 +308,61 @@ class Orchestrator:
             if wall > spent:
                 self.clock.sleep(min(wall - spent, 1.0))  # capped for tests
         return rec
+
+    def evaluate_whatif(
+        self,
+        scenarios: "list[Scenario] | tuple[Scenario, ...]",
+        *,
+        include_baseline: bool = True,
+        max_hosts: int | None = None,
+    ) -> WhatIfResult:
+        """Evaluate S candidate configurations as one batch on the twin's
+        device.
+
+        Uses the *calibrated* power parameters, so outcomes reflect the
+        live datacenter.  A baseline scenario (the current topology, worst
+        fit, no backfill) always runs beside the candidates and every
+        candidate is compared against it; each that improves a
+        sustainability metric without breaking SLOs, cuts queue wait with
+        another scheduler, or runs into its power cap becomes a proposal
+        through the HITL gate.  ``include_baseline`` only decides whether
+        the baseline appears in the returned summaries and outputs (as
+        entry 0).  An explicit ``max_hosts`` is raised to at least the
+        current host count, so the padded host axis fits the baseline.
+        """
+        scs = [self._with_pue(s)
+               for s in [Scenario(name="baseline")] + list(scenarios)]
+        if max_hosts is not None:
+            max_hosts = max(int(max_hosts), self.dc.num_hosts)
+        _, sim, pred, summaries = evaluate_scenarios(
+            self.workload, self.dc, scs,
+            t_bins=self.t_bins, base_params=self.state.params,
+            max_hosts=max_hosts, model=self.cfg.power_model,
+            carbon_intensity=self.carbon_intensity,
+            ambient_c=self.ambient_c,
+            price=self.price,
+        )
+        window = len(self.records)
+        baseline = summaries[0]
+        proposals: list[Proposal] = []
+        for s in summaries[1:]:
+            for p in propose_from_scenario(window, s, baseline):
+                proposals.append(self.gate.submit(p))
+        if not include_baseline:
+            sim, pred = _drop_first_lane(sim), _drop_first_lane(pred)
+            summaries = summaries[1:]
+        return WhatIfResult(summaries=summaries, proposals=proposals,
+                            sim=sim, prediction=pred)
+
+    def _with_pue(self, s: Scenario) -> Scenario:
+        """Apply the orchestrator's facility PUE model to a scenario that
+        sets none, so what-if comparisons stay facility against facility."""
+        p = self.cfg.pue
+        if p is None or s.pue_base is not None:
+            return s
+        return dataclasses.replace(
+            s, pue_base=p.base, pue_amb_coeff=p.amb_coeff,
+            pue_amb_ref=p.amb_ref, pue_load_coeff=p.load_coeff)
 
     def run(self, num_windows: int | None = None) -> list[WindowRecord]:
         n = num_windows if num_windows is not None else self.num_windows

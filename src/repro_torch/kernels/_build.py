@@ -42,12 +42,16 @@ ENTRY_POINTS = {
     "flash_attention": ("flash_attention_launch",
                         [_P] * 4 + [_I] * 8 + [_F] + [_P]),
     "ssd_chunk": ("ssd_chunk_launch", [_P] * 8 + [_I] * 6 + [_P]),
+    "des_place": ("des_place_launch", [_P] * 2),
 }
 
 #: further C functions of a kernel library, each returning an int: the
-#: limits a wrapper checks shapes against, stated once in the source
+#: limits a wrapper checks shapes against, stated once in the source, and
+#: des_place's barrier probe (its CUDA error code)
 QUERIES = {
     "ssd_chunk": {"ssd_chunk_max_p": [], "ssd_chunk_max_q": [_I]},
+    "des_place": {"des_place_max_hosts": [],
+                  "des_place_barrier_launch": [_I, _I, _P, _P]},
 }
 
 #: ptxas report (registers, shared memory, spills) of each build

@@ -1,0 +1,146 @@
+"""DES placement kernel: every what-if lane's schedule in one launch, CUDA
+for Hopper.
+
+Replaces: the placement scan of ``repro/core/desim.py``
+(``simulate_utilization_masked``: ``lax.scan`` over bins around a
+``while_loop`` of placement attempts, ``place_one``), which the JAX
+package keeps on the device and vmaps over scenarios.  It has no Pallas
+kernel; before this kernel the port ran it on the host with one
+device read per attempt.
+
+Bound on an H100: latency.  A lane's attempts form one dependent chain,
+each reading the free cores the one before wrote, so a lane takes at
+least its attempts times one barrier round trip (two ``__syncthreads``
+with a thread-0 decision between, timed alone by ``barrier_launch``);
+lanes run side by side, a block each.
+
+Design (``csrc/des_place.cu``): one block per lane, a warp for the head
+job and one per backfill candidate, each striding over the hosts and
+reducing int64 keys ``(fits ? score : -1) * H + (H - 1 - h)`` with
+``__shfl_xor_sync``; ``free[H]`` and the bin's online flags in shared
+memory; thread 0 alone decides, updates ``free`` and writes the schedule
+and the release table (``[S, T + 1, H]`` int32 scratch, zeroed here).
+Integer arithmetic only: the kernel equals :func:`repro_torch.kernels.ref.des_place_ref`
+bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+Tensor = torch.Tensor
+
+#: backfill candidates a lane may scan: the skip mask is 32 bits
+MAX_BACKFILL = 31
+
+
+class PlaceArgs(ctypes.Structure):
+    """``PlaceArgs`` of ``csrc/des_place.cu``, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "submit", "dur", "cores", "valid", "mask", "cores_per_host", "policy",
+        "depth", "fail_start", "fail_end", "fail_kill", "release", "job_start",
+        "job_host", "attempts")]
+        + [(name, ctypes.c_int) for name in (
+            "S", "J", "H", "T", "max_starts", "max_backfill")])
+
+
+def max_hosts() -> int:
+    """Hosts a lane may have: what the kernel's shared memory holds, as
+    ``csrc/des_place.cu`` states it (``kMaxHosts``)."""
+    return int(_build.load("des_place").des_place_max_hosts())
+
+
+def _i32(x: Tensor) -> Tensor:
+    return x.to(torch.int32).contiguous()
+
+
+def _u8(x: Tensor) -> Tensor:
+    return x.to(torch.bool).contiguous().view(torch.uint8)
+
+
+def operands(submit, dur, cores, valid, host_mask, cores_per_host, policy_id,
+             depth, *, t_bins: int, fail_start=None, fail_end=None,
+             fail_kill=None) -> dict:
+    """The kernel's operands as contiguous int32 / uint8 tensors, with the
+    zeroed release table and the outputs (``job_start``/``job_host`` -1,
+    ``attempts`` 0), all on ``submit``'s device."""
+    dev = submit.device
+    s, j = submit.shape
+    h = host_mask.shape[1]
+    out = dict(submit=_i32(submit), dur=_i32(dur), cores=_i32(cores),
+               valid=_u8(valid), mask=_u8(host_mask),
+               cores_per_host=_i32(cores_per_host), policy=_i32(policy_id),
+               depth=_i32(depth))
+    if fail_start is not None:
+        out.update(fail_start=_i32(fail_start), fail_end=_i32(fail_end),
+                   fail_kill=_u8(fail_kill))
+    out.update(
+        release=torch.zeros((s, t_bins + 1, h), dtype=torch.int32, device=dev),
+        job_start=torch.full((s, j), -1, dtype=torch.int32, device=dev),
+        job_host=torch.full((s, j), -1, dtype=torch.int32, device=dev),
+        attempts=torch.zeros((s,), dtype=torch.int32, device=dev))
+    return out
+
+
+def launch(entry, o: dict, *, t_bins: int, max_starts_per_bin: int,
+           max_backfill: int) -> tuple[Tensor, Tensor, Tensor]:
+    """Run the C entry point ``entry`` (``des_place_launch`` of a built
+    library) on :func:`operands`' dict ``o``; returns ``(job_start,
+    job_host, attempts)``.  Raises if the launch fails."""
+    s, j = o["submit"].shape
+    ptr = lambda k: o[k].data_ptr() if k in o else None  # noqa: E731
+    args = PlaceArgs(**{k: ptr(k) for k, _ in PlaceArgs._fields_[:15]},
+                     S=s, J=j, H=o["mask"].shape[1], T=t_bins,
+                     max_starts=max_starts_per_bin, max_backfill=max_backfill)
+    dev = o["submit"].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = entry(ctypes.addressof(args), stream)
+    if err != 0:
+        raise RuntimeError(f"des_place launch failed: CUDA error {err}")
+    return o["job_start"], o["job_host"], o["attempts"]
+
+
+def des_place_cuda(submit: Tensor, dur: Tensor, cores: Tensor, valid: Tensor,
+                   host_mask: Tensor, cores_per_host: Tensor, policy_id: Tensor,
+                   depth: Tensor, *, t_bins: int, max_starts_per_bin: int,
+                   max_backfill: int, fail_start=None, fail_end=None,
+                   fail_kill=None) -> tuple[Tensor, Tensor, Tensor]:
+    """``(job_start [S, J], job_host [S, J], attempts [S])`` int32 on the
+    card, in one launch.
+
+    Job arrays ``[S, J]`` (S, J > 0), ``host_mask`` ``[S, H]`` (and the failure arrays,
+    all three or none), ``cores_per_host``/``policy_id``/``depth`` ``[S]``,
+    all CUDA tensors on one device; H at most :func:`max_hosts`.
+    """
+    dev = submit.device
+    if dev.type != "cuda":
+        raise ValueError(f"des_place_cuda needs CUDA tensors, got {dev}")
+    given = [submit, dur, cores, valid, host_mask, cores_per_host, policy_id,
+             depth] + [x for x in (fail_start, fail_end, fail_kill) if x is not None]
+    if any(x.device != dev for x in given):
+        raise ValueError("des_place operands must all lie on one device")
+    h = host_mask.shape[1]
+    most = max_hosts()
+    if h > most:
+        raise ValueError(f"{h} hosts exceed the {most} a lane's shared memory holds")
+    o = operands(submit, dur, cores, valid, host_mask, cores_per_host, policy_id,
+                 depth, t_bins=t_bins, fail_start=fail_start, fail_end=fail_end,
+                 fail_kill=fail_kill)
+    entry = _build.load("des_place").des_place_launch
+    return launch(entry, o, t_bins=t_bins, max_starts_per_bin=max_starts_per_bin,
+                  max_backfill=max_backfill)
+
+
+def barrier_launch(rounds: int, warps: int, out: Tensor) -> int:
+    """Launch the kernel library's barrier probe (``rounds`` attempts'
+    barrier round trips in one block of ``warps`` warps, no work between);
+    returns the CUDA error code."""
+    lib = _build.load("des_place")
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    return int(lib.des_place_barrier_launch(rounds, warps, out.data_ptr(), stream))

@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import READOUT_FIELDS
 from repro_torch.kernels.calib_mape import calib_mape_grid_cuda
+from repro_torch.kernels.des_place import MAX_BACKFILL, des_place_cuda
 from repro_torch.kernels.des_readout import (
     COLUMNS,
     INT_OPERANDS,
@@ -34,7 +35,7 @@ Tensor = torch.Tensor
 
 LAUNCHES: dict[str, int] = {"calib_mape_grid": 0, "des_readout": 0,
                             "power_sim": 0, "flash_attention": 0,
-                            "ssd_chunk": 0}
+                            "ssd_chunk": 0, "des_place": 0}
 
 #: failure-start sentinel of hosts that never fail
 NEVER = int(np.iinfo(np.int32).max)
@@ -248,4 +249,55 @@ def ssd_chunk(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor,
     out = ssd_chunk_cuda(x.contiguous(), dt.contiguous(), a_log, b.contiguous(),
                          c.contiguous(), d_skip)
     LAUNCHES["ssd_chunk"] += 1
+    return out
+
+
+def des_place(submit: Tensor, dur: Tensor, cores: Tensor, valid: Tensor,
+              host_mask: Tensor, cores_per_host: Tensor, policy_id: Tensor,
+              depth: Tensor, *, t_bins: int, max_starts_per_bin: int = 64,
+              max_backfill: int = 0, fail_start=None, fail_end=None,
+              fail_kill=None) -> tuple[Tensor, Tensor, Tensor]:
+    """DES placement of S lanes: ``(job_start, job_host)`` ``[S, J]`` and
+    the placement attempts ``[S]``, int32, in one launch.
+
+    Job arrays ``[S, J]`` (submit bin, duration, cores, valid), the active
+    hosts ``host_mask [S, H]``, ``cores_per_host``, ``policy_id`` (clipped
+    to the four policies) and ``depth`` (clipped to ``max_backfill``, at
+    most 31) ``[S]``, and the failure arrays ``[S, H]`` (start, end, kill;
+    all three or none).  The rules are :func:`ref.des_place_ref`'s.
+    """
+    if not 0 <= max_backfill <= MAX_BACKFILL:
+        raise ValueError(f"max_backfill must be in [0, {MAX_BACKFILL}], got {max_backfill}")
+    fails = (fail_start, fail_end, fail_kill)
+    if any(x is None for x in fails) and any(x is not None for x in fails):
+        raise ValueError("fail_start/fail_end/fail_kill must be supplied together")
+    if submit.dim() != 2 or host_mask.dim() != 2:
+        raise ValueError(f"submit must be [S, J] and host_mask [S, H]; got "
+                         f"{tuple(submit.shape)} / {tuple(host_mask.shape)}")
+    s, j = submit.shape
+    h = host_mask.shape[1]
+    want = dict(dur=(s, j), cores=(s, j), valid=(s, j), host_mask=(s, h),
+                cores_per_host=(s,), policy_id=(s,), depth=(s,),
+                fail_start=(s, h), fail_end=(s, h), fail_kill=(s, h))
+    given = dict(dur=dur, cores=cores, valid=valid, host_mask=host_mask,
+                 cores_per_host=cores_per_host, policy_id=policy_id, depth=depth,
+                 fail_start=fail_start, fail_end=fail_end, fail_kill=fail_kill)
+    for k, x in given.items():
+        if x is not None and tuple(x.shape) != want[k]:
+            raise ValueError(f"{k} must be {want[k]}, got {tuple(x.shape)}")
+    if h == 0 or t_bins < 0 or max_starts_per_bin < 0:
+        raise ValueError(f"need H > 0, t_bins >= 0 and max_starts_per_bin >= 0; "
+                         f"got {h}, {t_bins}, {max_starts_per_bin}")
+    kw = dict(t_bins=t_bins, max_starts_per_bin=max_starts_per_bin,
+              max_backfill=max_backfill, fail_start=fail_start,
+              fail_end=fail_end, fail_kill=fail_kill)
+    args = (submit, dur, cores, valid, host_mask, cores_per_host, policy_id, depth)
+    if _device_kind(submit) == "cpu":
+        return ref.des_place_ref(*args, **kw)
+    if s * j == 0:
+        return (torch.full((s, j), -1, dtype=torch.int32, device=submit.device),
+                torch.full((s, j), -1, dtype=torch.int32, device=submit.device),
+                torch.zeros((s,), dtype=torch.int32, device=submit.device))
+    out = des_place_cuda(*args, **kw)
+    LAUNCHES["des_place"] += 1
     return out

@@ -8,6 +8,7 @@ against its plain version on the card.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -246,3 +247,211 @@ def des_readout_ref(u_th: Tensor, *, p_idle, p_max, r, mask, fail_start,
     cost = e * price
     return dict(zip(READOUT_FIELDS,
                     (power, e, tflops, util, eff, gco2, demand, pue, cost)))
+
+
+#: placement policy ids, as ``repro_torch.core.desim.PLACEMENT_POLICIES``
+#: numbers them: first fit, best fit, worst fit, random fit
+FIRST_FIT, BEST_FIT, WORST_FIT, RANDOM_FIT = range(4)
+
+#: bias making best-fit scores positive (above the -1 "does not fit" sentinel)
+BEST_FIT_BIAS = 1 << 24
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: Tensor, c: int) -> Tensor:
+    """``(x * c) mod 2**32`` for int64 ``x`` in [0, 2**32) without overflow.
+
+    Torch has no full uint32 arithmetic, so the JAX package's uint32 mixing
+    is emulated in int64: the multiply is split at 16 bits so no partial
+    product leaves the int64 range.
+    """
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def hash_scores(host_idx: Tensor, t: int, salt: int) -> Tensor:
+    """Deterministic per-host pseudo-random scores for random fit.
+
+    The seed-free integer mix of (bin, placements so far in the bin, host
+    index) of ``repro.core.desim._hash_scores``; int64 in, int64 out.
+    """
+    x = (_mul32(host_idx.to(torch.int64), 0x9E3779B1)
+         ^ ((int(t) * 0x85EBCA77) & _M32)
+         ^ ((int(salt) * 0xC2B2AE3D) & _M32))
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x & 0x7FFFFF
+
+
+def _policy_score(free: Tensor, policy: int, t: int, salt: int,
+                  idx: Tensor) -> Tensor:
+    """The policy's ``[H]`` int64 host score (all >= 0; higher wins)."""
+    h = idx.shape[0]
+    if policy == FIRST_FIT:
+        return h - idx
+    if policy == BEST_FIT:
+        return BEST_FIT_BIAS - free.to(torch.int64).clamp(max=BEST_FIT_BIAS - 1)
+    if policy == WORST_FIT:
+        return free.to(torch.int64)
+    return hash_scores(idx, t, salt)
+
+
+def _policy_host(score: Tensor, fits: Tensor, idx: Tensor) -> Tensor:
+    """Argmax of the score over fitting hosts; ties go to the lowest index.
+
+    The tie-break is part of the key (``score * H + (H - 1 - idx)``) so it
+    does not rest on how ``argmax`` orders equal values.  With no fitting
+    host every key is ``-1 * H + ...`` and host 0 wins, as ``jnp.argmax``
+    of an all ``-1`` row gives.
+    """
+    h = idx.shape[0]
+    key = torch.where(fits, score, torch.full_like(score, -1)) * h + (h - 1 - idx)
+    return key.argmax(dim=-1)
+
+
+def _place_lane(submit, dur, cores, valid, mask, cph: int, policy: int,
+                depth: int, fail, *, t_bins: int, max_starts: int,
+                max_backfill: int) -> tuple[list, list, int]:
+    """One lane of :func:`des_place_ref`: ``(job_start, job_host, attempts)``.
+
+    The scheduling state (free cores, the release table, the online mask)
+    lives on the lane's device and every fit test and host choice is
+    computed there; each attempt reads ``(head fits?, chosen host, ...)``
+    back to decide the next step.  The immutable job arrays the control
+    flow reads are copied to the host once.
+    """
+    dev = mask.device
+    j = submit.shape[0]
+    max_hosts = mask.shape[0]
+    submit_h = submit.cpu().numpy().astype(np.int64)
+    valid_h = valid.cpu().numpy().astype(bool)
+    cores_h = cores.cpu().numpy().astype(np.int64)
+    dur_h = np.maximum(dur.cpu().numpy().astype(np.int64), 1)
+    idx = torch.arange(max_hosts, dtype=torch.int64, device=dev)
+    if fail is not None:
+        fs, fe, fk = fail
+        fs_h = fs.cpu().numpy().astype(np.int64)
+        fe_h = fe.cpu().numpy().astype(np.int64)
+        fk_h = fk.cpu().numpy().astype(bool)
+
+    free = torch.where(mask, cph, 0).to(torch.int32)
+    release = torch.zeros((t_bins + 1, max_hosts), dtype=torch.int32, device=dev)
+    job_start = np.full(j, -1, np.int64)
+    job_host = np.full(j, -1, np.int64)
+    next_job, skip, attempts = 0, 0, 0  # skip bit d: job next_job + d started
+    d_off = np.arange(1, max_backfill + 1)
+
+    def head_ready(nj: int, t: int) -> bool:
+        return nj < j and submit_h[nj] <= t and bool(valid_h[nj])
+
+    for t in range(t_bins):
+        # 1) completions: cores banked in the release table at placement
+        free = free + release[t]
+        online = mask & ~((fs <= t) & (t < fe)) if fail is not None else mask
+        # 2) placement: each attempt places one job or blocks the bin
+        n = 0
+        blocked = False
+        placed: list[tuple[int, int]] = []
+        while not blocked and n < max_starts and head_ready(next_job, t):
+            attempts += 1
+            score = _policy_score(free, policy, t, n, idx)
+            fits_h = (free >= int(cores_h[next_job])) & online
+            parts = [fits_h.any()[None], _policy_host(score, fits_h, idx)[None]]
+            if max_backfill > 0:
+                cand = next_job + d_off
+                jid_c = np.minimum(cand, j - 1)
+                need_c = torch.as_tensor(cores_h[jid_c], device=dev)
+                fits_c = (free[None, :] >= need_c[:, None]) & online[None, :]
+                parts += [fits_c.any(dim=1), _policy_host(score, fits_c, idx)]
+            res = torch.cat([p.to(torch.int64) for p in parts]).tolist()
+            head_fits, host, jid, d_sel = bool(res[0]), int(res[1]), next_job, 0
+            if not head_fits and max_backfill > 0:
+                k = max_backfill
+                already = ((skip >> d_off) & 1).astype(bool)
+                startable = ((cand < j) & (submit_h[jid_c] <= t) & valid_h[jid_c]
+                             & ~already & (d_off <= depth)
+                             & np.asarray(res[2:2 + k], bool))
+                if startable.any():
+                    d_sel = int(np.argmax(startable))
+                    jid, host = int(jid_c[d_sel]), int(res[2 + k + d_sel])
+                    d_sel += 1
+            if head_fits or d_sel:
+                free[host] -= int(cores_h[jid])
+                placed.append((jid, host))
+                n += 1
+            if head_fits:
+                # advance past the head and any backfilled successors
+                next_job, skip = next_job + 1, skip >> 1
+                while skip & 1:
+                    next_job, skip = next_job + 1, skip >> 1
+            elif d_sel:
+                skip |= 1 << d_sel
+            else:
+                blocked = True
+
+        # 3) record this bin's placements and bank their core releases
+        if placed:
+            jids = np.array([p[0] for p in placed])
+            hosts = np.array([p[1] for p in placed])
+            job_start[jids] = t
+            job_host[jids] = hosts
+            end = t + dur_h[jids]
+            if fail is not None:
+                killed = fk_h[hosts] & (t < fs_h[hosts]) & (end > fs_h[hosts])
+                end = np.where(killed, fe_h[hosts], end)
+            end = np.minimum(end, t_bins)
+            release.index_put_(
+                (torch.as_tensor(end, device=dev),
+                 torch.as_tensor(hosts, device=dev)),
+                torch.as_tensor(cores_h[jids], dtype=torch.int32, device=dev),
+                accumulate=True)
+    return job_start, job_host, attempts
+
+
+def des_place_ref(submit: Tensor, dur: Tensor, cores: Tensor, valid: Tensor,
+                  host_mask: Tensor, cores_per_host: Tensor, policy_id: Tensor,
+                  depth: Tensor, *, t_bins: int, max_starts_per_bin: int,
+                  max_backfill: int, fail_start=None, fail_end=None,
+                  fail_kill=None) -> tuple[Tensor, Tensor, Tensor]:
+    """DES placement, lane by lane: ``(job_start [S, J], job_host [S, J],
+    attempts [S])`` int32.
+
+    Per lane ``s`` and bin ``t``: cores of jobs ending at ``t`` return;
+    then placement attempts run while the FCFS head job is submitted and
+    valid, the bin is not blocked and fewer than ``max_starts_per_bin``
+    jobs were placed in it.  An attempt places the head on the best
+    fitting online host of the lane's policy (ties to the lowest index;
+    random fit salted with the placements so far in the bin), or else the
+    first of the head's next ``min(depth[s], max_backfill)`` successors
+    that is submitted, valid, not started and fits (a backfill), or else
+    blocks the bin.  A job's cores come back at ``min(t + max(dur, 1),
+    t_bins)``, or at its host's outage end when it lands before the
+    outage (``fail_kill``) and runs into it.  Hosts in ``[fail_start,
+    fail_end)`` take no placement; hosts with ``host_mask`` false none at
+    all.  ``attempts`` counts the attempts (each places a job or blocks
+    its bin).  ``csrc/des_place.cu`` computes the same, every lane in one
+    launch.
+    """
+    lanes, j = submit.shape
+    dev = submit.device
+    job_start = torch.full((lanes, j), -1, dtype=torch.int32, device=dev)
+    job_host = torch.full((lanes, j), -1, dtype=torch.int32, device=dev)
+    attempts = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    policy = policy_id.clamp(0, 3).tolist()
+    depth = depth.clamp(max=max_backfill).tolist()
+    cph = cores_per_host.tolist()
+    for s in range(lanes):
+        fail = (None if fail_start is None else
+                (fail_start[s].to(torch.int32), fail_end[s].to(torch.int32),
+                 fail_kill[s].to(torch.bool)))
+        js, jh, n = _place_lane(
+            submit[s], dur[s], cores[s], valid[s], host_mask[s].to(torch.bool),
+            int(cph[s]), int(policy[s]), int(depth[s]), fail, t_bins=t_bins,
+            max_starts=max_starts_per_bin, max_backfill=max_backfill)
+        job_start[s] = torch.as_tensor(js, dtype=torch.int32)
+        job_host[s] = torch.as_tensor(jh, dtype=torch.int32)
+        attempts[s] = n
+    return job_start, job_host, attempts

@@ -1,7 +1,7 @@
 """Grid carbon-intensity traces (gCO2 per kWh).
 
-Port of the parts of ``repro.traces.carbon`` the closed loop touches:
-validation and the synthetic diurnal generator (numpy, seeded exactly as
+Port of ``repro.traces.carbon``: validation, the CSV loader resampled to
+the horizon, and the synthetic diurnal generator (numpy, seeded exactly as
 the JAX package).
 """
 
@@ -36,13 +36,58 @@ def validate_carbon_intensity(intensity: np.ndarray,
             f"carbon intensity must be >= 0 gCO2/kWh (min {arr.min():.1f})")
     if t_bins is not None and arr.shape[0] != t_bins:
         raise ValueError(
-            f"carbon intensity has {arr.shape[0]} bins, horizon needs {t_bins}")
+            f"carbon intensity has {arr.shape[0]} bins, horizon needs {t_bins}"
+            " (use load_carbon_intensity(..., t_bins=...) to resample)")
     if float(arr.max()) > TYPICAL_RANGE[1]:
         warnings.warn(
             f"carbon intensity peaks at {arr.max():.0f} gCO2/kWh, above the "
             f"typical grid band {TYPICAL_RANGE} — check the input units",
             stacklevel=2)
     return np.ascontiguousarray(arr)
+
+
+def _resample(arr: np.ndarray, t_bins: int) -> np.ndarray:
+    """Fit a trace to the horizon: tile a shorter (periodic) trace,
+    truncate a longer one."""
+    if arr.shape[0] == t_bins:
+        return arr
+    if arr.shape[0] > t_bins:
+        return arr[:t_bins]
+    reps = -(-t_bins // arr.shape[0])
+    return np.tile(arr, reps)[:t_bins]
+
+
+def read_trace_csv(path: str) -> np.ndarray:
+    """The values of a one-column or ``timestamp,value`` CSV-ish file.
+
+    The last column of each row is taken, in file order; empty lines,
+    ``#`` comments and one non-numeric header row are skipped.
+    """
+    vals: list[float] = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            cell = line.split(",")[-1].strip()
+            try:
+                vals.append(float(cell))
+            except ValueError:
+                if vals:
+                    raise ValueError(
+                        f"{path}: non-numeric row {line!r} after data rows")
+                continue  # header row
+    return np.asarray(vals, np.float32)
+
+
+def load_carbon_intensity(path: str, t_bins: int | None = None) -> np.ndarray:
+    """Load a ``[T]`` gCO2/kWh trace from a CSV-ish file
+    (:func:`read_trace_csv`); with ``t_bins`` it is tiled if shorter
+    (intensity is diurnal-periodic) and truncated if longer."""
+    arr = validate_carbon_intensity(read_trace_csv(path))
+    if t_bins is not None:
+        arr = _resample(arr, t_bins)
+    return arr
 
 
 def make_diurnal_carbon(

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 #: industry-standard sampling granularity used throughout the paper (§3.3).
@@ -52,6 +53,12 @@ class Workload:
         return Workload(*(None if x is None else x.to(device)
                           for x in dataclasses.astuple(self)))
 
+    def cpu_hours(self) -> torch.Tensor:
+        """Total CPU-hours per job (core-hours, the SURF-22 reporting unit)."""
+        hours = self.duration_bins.to(torch.float32) * (SAMPLE_SECONDS / 3600.0)
+        return torch.where(self.valid, hours * self.cores.to(torch.float32),
+                           torch.zeros_like(hours))
+
 
 @dataclasses.dataclass(frozen=True)
 class DatacenterConfig:
@@ -70,3 +77,59 @@ class DatacenterConfig:
         return (
             self.num_hosts * self.cores_per_host * self.ghz * 1e9 * self.flops_per_cycle
         ) / 1e12
+
+
+def pad_workload(w: Workload, to_jobs: int) -> Workload:
+    """Pad a workload to a fixed job count (padding jobs are invalid and
+    never submitted: submit sentinel ``int32.max // 4``)."""
+    j = w.num_jobs
+    if j >= to_jobs:
+        return w
+    pad = to_jobs - j
+
+    def _pad(x, fill):
+        tail = torch.full((pad, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)
+        return torch.cat([x, tail])
+
+    return Workload(
+        submit_bin=_pad(w.submit_bin, np.iinfo(np.int32).max // 4),
+        duration_bins=_pad(w.duration_bins, 1),
+        cores=_pad(w.cores, 1),
+        util_levels=_pad(w.util_levels, 0.0),
+        valid=_pad(w.valid, False),
+        deferrable=(None if w.deferrable is None
+                    else _pad(w.deferrable, False)),
+    )
+
+
+def stack_workloads(ws: "list[Workload] | tuple[Workload, ...]") -> Workload:
+    """Stack S workloads into one batched Workload with leaves ``[S, J, ...]``.
+
+    Workloads with differing job counts are first padded
+    (:func:`pad_workload`) to the common maximum.  ``deferrable`` is
+    stacked when every workload has it, and dropped (all deferrable) when
+    none has; a mix raises.
+    """
+    if not ws:
+        raise ValueError("need at least one workload to stack")
+    to_jobs = max(w.num_jobs for w in ws)
+    padded = [pad_workload(w, to_jobs) for w in ws]
+    has_defer = {w.deferrable is not None for w in padded}
+    if len(has_defer) > 1:
+        raise ValueError("cannot stack workloads with and without deferrable")
+    fields = [f.name for f in dataclasses.fields(Workload)]
+    return Workload(**{
+        k: (None if getattr(padded[0], k) is None
+            else torch.stack([getattr(w, k) for w in padded]))
+        for k in fields})
+
+
+def host_mask(num_hosts, max_hosts: int) -> torch.Tensor:
+    """Active-host mask(s) ``[..., max_hosts]`` for a padded host axis.
+
+    ``num_hosts`` may be a scalar (one mask) or an ``[S]`` vector (a mask
+    per scenario); the mask lies on ``num_hosts``' device (a tensor's, or
+    the CPU).
+    """
+    n = torch.as_tensor(num_hosts, dtype=torch.int32)
+    return torch.arange(max_hosts, dtype=torch.int32, device=n.device) < n[..., None]

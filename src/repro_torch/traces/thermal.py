@@ -1,6 +1,8 @@
 """Ambient-temperature validation and the dynamic PUE/cooling model.
 
-Port of the parts of ``repro.traces.thermal`` the closed loop touches:
+Port of ``repro.traces.thermal``: ambient-temperature validation, the CSV
+loader and the synthetic diurnal generator (numpy, seeded exactly as the
+JAX package), and the PUE model
 
     pue_t = base + amb_coeff * max(ambient_t - amb_ref, 0)
                  + load_coeff * (1 - load_frac_t)
@@ -15,6 +17,12 @@ import warnings
 
 import numpy as np
 import torch
+
+from repro_torch.traces.carbon import _resample, read_trace_csv
+from repro_torch.traces.schema import SAMPLE_SECONDS
+
+#: day length in 5-min bins
+BINS_PER_DAY = int(24 * 3600 / SAMPLE_SECONDS)  # 288
 
 #: plausible outdoor-air band, °C; values outside trigger a units warning.
 TYPICAL_RANGE = (-40.0, 60.0)
@@ -32,7 +40,8 @@ def validate_ambient(ambient: np.ndarray,
         raise ValueError("ambient trace contains non-finite values")
     if t_bins is not None and arr.shape[0] != t_bins:
         raise ValueError(
-            f"ambient trace has {arr.shape[0]} bins, horizon needs {t_bins}")
+            f"ambient trace has {arr.shape[0]} bins, horizon needs {t_bins}"
+            " (use load_ambient(..., t_bins=...) to resample)")
     if float(arr.min()) < TYPICAL_RANGE[0] or float(arr.max()) > TYPICAL_RANGE[1]:
         warnings.warn(
             f"ambient trace spans [{arr.min():.0f}, {arr.max():.0f}] °C, "
@@ -40,6 +49,39 @@ def validate_ambient(ambient: np.ndarray,
             "check the input units (Kelvin/Fahrenheit?)",
             stacklevel=2)
     return np.ascontiguousarray(arr)
+
+
+def load_ambient(path: str, t_bins: int | None = None) -> np.ndarray:
+    """Load a ``[T]`` °C ambient trace from a CSV-ish file
+    (:func:`repro_torch.traces.carbon.read_trace_csv`); with ``t_bins`` it
+    is tiled or truncated to the horizon."""
+    arr = validate_ambient(read_trace_csv(path))
+    if t_bins is not None:
+        arr = _resample(arr, t_bins)
+    return arr
+
+
+def make_diurnal_ambient(
+    t_bins: int,
+    *,
+    base: float = 16.0,
+    amplitude: float = 8.0,
+    wander_daily_sigma: float = 0.5,
+    seed: int | None = 0,
+) -> np.ndarray:
+    """Synthetic diurnal ambient-temperature trace ``[t_bins]`` (°C): a
+    sinusoid peaking mid-afternoon plus a per-day additive wander
+    (``seed=None`` disables it)."""
+    if t_bins <= 0:
+        raise ValueError(f"t_bins must be positive, got {t_bins}")
+    tod = (np.arange(t_bins) % BINS_PER_DAY) / BINS_PER_DAY
+    out = base + amplitude * np.sin(2.0 * np.pi * (tod * 24.0 - 9.0) / 24.0)
+    if seed is not None and wander_daily_sigma > 0:
+        rng = np.random.default_rng(seed)
+        n_days = -(-t_bins // BINS_PER_DAY)
+        daily = rng.normal(0.0, wander_daily_sigma, n_days)
+        out = out + np.repeat(daily, BINS_PER_DAY)[:t_bins]
+    return validate_ambient(out.astype(np.float32), t_bins)
 
 
 @dataclasses.dataclass(frozen=True)

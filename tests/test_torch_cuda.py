@@ -8,8 +8,8 @@ the JAX package, so it runs on a GPU machine that has only PyTorch:
 
 It covers what ``chip_smoke.py`` does not: the wrappers' operand checks
 and their launch counting, the readout's lanes at every warp split, and
-that ``chip_smoke.py``'s flash-attention, calib and readout checks fail
-on faults planted in copies of those kernels.
+that ``chip_smoke.py``'s flash-attention, calib, readout and placement
+checks fail on faults planted in copies of those kernels.
 ``chip_smoke.py`` holds each kernel against its plain version on the card
 and runs the closed loop there and on the CPU.
 """
@@ -65,6 +65,19 @@ def _ssd_operands(dev, bc=2, q=24, h=4, p=8, g=2, n=16):
             _uniform(rng, -1, 1, (bc, q, g, n), dev), _uniform(rng, 0.5, 1.5, h, dev))
 
 
+def _place_operands(dev, s=5, j=30, h=7, t=24):
+    """des_place operands: S lanes of J jobs on up to H hosts, T bins,
+    backfill depth up to 2, no failures."""
+    rng = np.random.default_rng(3)
+    x = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    args = (x(np.sort(rng.integers(0, t // 2, (s, j)), axis=1).astype(np.int32)),
+            x(rng.integers(1, 6, (s, j)).astype(np.int32)),
+            x(rng.integers(1, 6, (s, j)).astype(np.int32)),
+            x(np.ones((s, j), bool)), x(np.arange(h)[None] < rng.integers(2, h + 1, (s, 1))),
+            x(np.full(s, 8, np.int32)), x(np.arange(s) % 4), x(np.arange(s) % 3))
+    return args, dict(t_bins=t, max_backfill=2)
+
+
 def test_kernel_wrappers_count_one_launch_per_call(dev):
     u, real, pi, pm, r = _calib_operands(dev, b=3)
     ops.reset_launches()
@@ -79,13 +92,17 @@ def test_kernel_wrappers_count_one_launch_per_call(dev):
     ops.flash_attention(q, q[:, :2], q[:, :2])          # GQA views: copied, one launch
     ssd = _ssd_operands(dev)
     ops.ssd_chunk(*ssd)
+    place_args, place_kw = _place_operands(dev)
+    ops.des_place(*place_args, **place_kw)                  # 5 lanes: one launch
+    ops.des_place(*(a[:1] for a in place_args), **place_kw)
     counts = {"calib_mape_grid": 2, "des_readout": 2, "power_sim": 1,
-              "flash_attention": 1, "ssd_chunk": 1}
+              "flash_attention": 1, "ssd_chunk": 1, "des_place": 2}
     assert ops.LAUNCHES == counts
     ops.des_readout(u[0].cpu(), p_idle=70.0, p_max=350.0, r=2.0)   # plain version
     ops.power_sim(u[0].cpu(), **power)
     ops.flash_attention(q.cpu(), q[:, :2].cpu(), q[:, :2].cpu())
     ops.ssd_chunk(*(t.cpu() for t in ssd))
+    ops.des_place(*(a.cpu() for a in place_args), **place_kw)
     assert ops.LAUNCHES == counts
 
 
@@ -415,5 +432,75 @@ def test_readout_check_fails_on_planted_faults(dev, tmp_path):
             if bad:
                 failed.append(f"{label} ({bad}, {err:.3g})")
         print(f"readout fault {name!r}: fails {len(failed)} of {len(cases)} cases: "
+              + "; ".join(failed))
+        assert (not failed) == (name == "none"), (name, failed)
+
+
+def test_des_place_wrapper_rejects_bad_operands(dev):
+    """The host count beyond the kernel's shared memory, a backfill window
+    beyond 31 and failure arrays given in part raise; so do operands on
+    another device."""
+    from repro_torch.kernels import des_place
+
+    args, kw = _place_operands(dev)
+    most = des_place.max_hosts()
+    assert most == 8192
+    wide = torch.ones((5, most + 1), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.des_place(*args[:4], wide, *args[5:], **kw)
+    with pytest.raises(ValueError, match="max_backfill"):
+        ops.des_place(*args, **dict(kw, max_backfill=32))
+    fs = torch.zeros((5, 7), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="together"):
+        ops.des_place(*args, **kw, fail_start=fs, fail_end=fs)
+    with pytest.raises(ValueError, match="one device"):
+        des_place.des_place_cuda(*args[:5], args[5].cpu(), *args[6:], t_bins=24,
+                                 max_starts_per_bin=64, max_backfill=2)
+    o = des_place.operands(*args, t_bins=24)
+    entry = _build.load("des_place").des_place_launch
+    with pytest.raises(RuntimeError, match="launch failed"):   # window beyond 31
+        des_place.launch(entry, o, t_bins=24, max_starts_per_bin=64, max_backfill=40)
+
+
+#: faults planted in a copy of the placement kernel, as (text, replacement)
+#: in its source; "none" is the unchanged copy
+PLACE_FAULTS = {
+    "none": ("", ""),
+    "ties to the highest index": (
+        "int tie_break(int h, int H) { return H - 1 - h; }",
+        "int tie_break(int h, int H) { return h; }"),
+    "random-fit salt counts attempts": ("s_salt = placed;", "s_salt = attempts;"),
+    "kill rule dropped": ("if (fail && fk[host] && t < fs[host] && end > fs[host])",
+                          "if (false)"),
+}
+
+
+def test_place_check_fails_on_planted_faults(dev, tmp_path):
+    """``chip_smoke.py``'s placement check (``place_cases``: schedules
+    equal to the plain version on CPU copies) passes the unchanged copy of
+    the kernel and fails each planted fault in at least one case.  Prints
+    the cases each fault fails."""
+    from repro_torch.kernels import des_place
+
+    cs = _chip_smoke()
+    cases = cs.place_cases(torch, np, dev)
+    wants = []
+    for label, args, kw, unique in cases:
+        cpu = {k: v[:unique].cpu() if isinstance(v, torch.Tensor) else v
+               for k, v in kw.items()}
+        want = ops.des_place(*(a[:unique].cpu() for a in args), **cpu)
+        wants.append([w[torch.arange(args[0].shape[0]) % unique] for w in want])
+    for name, entry in _build_copies("des_place", PLACE_FAULTS, tmp_path).items():
+        failed = []
+        for (label, args, kw, _), want in zip(cases, wants):
+            fails = {k: kw[k] for k in ("fail_start", "fail_end", "fail_kill") if k in kw}
+            o = des_place.operands(*args, t_bins=kw["t_bins"], **fails)
+            got = des_place.launch(entry, o, t_bins=kw["t_bins"],
+                                   max_starts_per_bin=kw.get("max_starts_per_bin", 64),
+                                   max_backfill=kw["max_backfill"])
+            torch.cuda.synchronize()
+            if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+                failed.append(label)
+        print(f"place fault {name!r}: fails {len(failed)} of {len(cases)} cases: "
               + "; ".join(failed))
         assert (not failed) == (name == "none"), (name, failed)

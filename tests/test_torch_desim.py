@@ -23,6 +23,7 @@ from repro.traces.thermal import dynamic_pue as jdynamic_pue  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import desim  # noqa: E402
 from repro_torch.core.power import PowerParams  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.traces.schema import DatacenterConfig  # noqa: E402
 from repro_torch.traces.thermal import PUEParams, dynamic_pue  # noqa: E402
 
@@ -126,7 +127,7 @@ def test_hash_scores_match_uint32_reference():
     """int64 emulation of the uint32 mix equals the Python replica."""
     hosts = torch.arange(0, 4096, 37, dtype=torch.int64)
     for t, salt in [(0, 0), (5, 3), (2015, 63), (123456, 17)]:
-        got = desim._hash_scores(hosts, t, salt).tolist()
+        got = ref.hash_scores(hosts, t, salt).tolist()
         assert got == [_rand_score(h, t, salt) for h in hosts.tolist()]
 
 

@@ -185,9 +185,16 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     for got, want in zip(ops.ssd_chunk(x, dt, a, b, c, d),
                          ref.ssd_chunk_ref(x, dt, a, b, c, d)):
         assert torch.equal(got, want)
+    lanes = [torch.tensor([[0, 0, 1]], dtype=torch.int32), torch.ones(1, 3, dtype=torch.int32),
+             torch.ones(1, 3, dtype=torch.int32), torch.ones(1, 3, dtype=torch.bool),
+             torch.ones(1, 2, dtype=torch.bool), torch.tensor([2]), torch.tensor([2]),
+             torch.tensor([0])]
+    start, host, attempts = ops.des_place(*lanes, t_bins=4)
+    assert start.tolist() == [[0, 0, 1]] and host.tolist() == [[0, 1, 0]]
+    assert attempts.tolist() == [3]          # two placements at bin 0, one at bin 1
     assert ops.LAUNCHES == {"calib_mape_grid": 0, "des_readout": 0,
                             "power_sim": 0, "flash_attention": 0,
-                            "ssd_chunk": 0}
+                            "ssd_chunk": 0, "des_place": 0}
     with pytest.raises(ValueError, match="no kernel"):
         ops.calib_mape_grid(*(torch.from_numpy(a).to("meta")
                               for a in (u, real, pi, pm, r)))
