@@ -39,6 +39,7 @@ Phases (each passes or the script exits non-zero without a result line):
    places it, under 4 policies x backfill {0, 8} and with a 16-host outage
    beside a degraded window, the what-if batches C and D, one host and one
    job, a bin that hits ``max_starts_per_bin``, backfill windows up to 31,
+   700 hosts (more than the 512 whose scores a lane takes in one batch),
    ``job_start``/``job_host``/attempts equal to the plain version run on
    CPU copies), and run each kernel twice for bitwise-equal results;
 4. drive the twin's main path, experiment E2 at the paper's SURF-SARA size
@@ -83,12 +84,15 @@ Phases (each passes or the script exits non-zero without a result line):
    candidates, with all 9216 r distinct, and at the per-host refit;
    ``des_readout`` at ``READOUT_TIMED``, the lane shapes on the calibrated
    run's own field; ``power_sim`` on the E2 horizon and on readout D's
-   number of elements; ``des_place`` at the E2 horizon, C and D, its plain
-   version by wall time at the E2 horizon), each beside its
-   bound: bytes, FMA-pipe and special-function (expf, logf) floors, the
-   largest of them (``des_place``'s: its longest lane's attempts times the
-   barrier round trip of its block, timed alone); and an empty kernel (``torch.cuda._sleep(0)``, one
-   thread), the launch floor of the same timer.
+   number of elements; ``des_place`` at the E2 horizon, C and D, and with
+   no placement (the bins alone), its plain version by wall time at the
+   E2 horizon), each beside its bound: bytes, FMA-pipe and
+   special-function (expf, logf) floors, the largest of them
+   (``des_place``'s: its longest lane's attempts plus its bins times one
+   decision step, timed alone, or the earlier design's attempts times its
+   block's barrier round trip, whichever is smaller); and an empty kernel
+   (``torch.cuda._sleep(0)``, one thread), the launch floor of the same
+   timer.
 
 The second-to-last line of standard output is the ``kernels`` JSON record,
 the last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -126,6 +130,10 @@ E2_SEED = 22
 
 #: the kernels the twin's E2 path launches
 E2_KERNELS = ("calib_mape_grid", "des_readout", "des_place")
+
+#: traces of E2's DES taken again, at most, where one lost its des_place
+#: launch (``--profile``)
+MAX_TRACE_RETRIES = 10
 
 #: the card every phase runs on
 DEVICE = "cuda"
@@ -605,8 +613,9 @@ def place_cases(torch, np, dev) -> list:
     (the main path's one lane; 4 policies x backfill {0, 8}; the outage
     and degraded windows), the what-if batches C and D, one host and one
     job, a bin that hits ``max_starts_per_bin``, and backfill windows up
-    to 31 with random failures.  ``unique`` lanes lead; lane i repeats
-    lane ``i % unique``."""
+    to 31 with random failures, on up to 700 hosts (more than 512, the
+    most whose scores a lane takes in one batch of registers).  ``unique``
+    lanes lead; lane i repeats lane ``i % unique``."""
     from repro_torch.core import scenarios as psc
     from repro_torch.runtime import fault
     from repro_torch.traces.schema import DatacenterConfig, Workload
@@ -649,7 +658,8 @@ def place_cases(torch, np, dev) -> list:
                 dict(max_backfill=2, t_bins=12, max_starts_per_bin=5), 2))
     for i, (s, j, h, t, mb, fails) in enumerate([(6, 400, 32, 72, 31, True),
                                                   (8, 60, 5, 40, 3, True),
-                                                  (8, 120, 9, 64, 0, False)]):
+                                                  (8, 120, 9, 64, 0, False),
+                                                  (4, 500, 700, 96, 8, True)]):
         args, kw = random_place_case(torch, np, 300 + i, s, j, h, t, mb, fails, dev)
         out.append((f"random S={s} J={j} H={h} T={t} max_backfill={mb}"
                     f"{' with failures' if fails else ''}", args, dict(kw, t_bins=t), s))
@@ -1112,7 +1122,9 @@ def profile_e2(torch, w, dc, t_bins) -> dict:
 
     ``torch.profiler`` traces the DES and each 56-window loop separately; the
     device's busy share is the summed device time of its kernels and copies
-    over the host's wall time.
+    over the host's wall time.  A trace of the DES that lost its
+    ``des_place`` launch is taken again, up to ``MAX_TRACE_RETRIES``
+    times, so that its idle share is the DES's own.
     """
     from repro_torch.core import (
         CalibrationSpec, DigitalTwin, OrchestratorConfig, TraceGroundTruth)
@@ -1124,10 +1136,20 @@ def profile_e2(torch, w, dc, t_bins) -> dict:
     truth = TraceGroundTruth(w, dc, t_bins)
     for t in (twin, joint):
         t.orchestrator._ensure_sim()      # the DES is traced on its own
+
+    def des():
+        return simulate_utilization(w, num_hosts=dc.num_hosts,
+                                    cores_per_host=dc.cores_per_host, t_bins=t_bins)
+
+    for retries in range(MAX_TRACE_RETRIES + 1):
+        des_trace = traced(torch, des, match=("des_place_kernel",))
+        if des_trace["shares"]["des_place_kernel"] > 0:
+            break
+    else:
+        fail(f"profile: {MAX_TRACE_RETRIES + 1} traces of E2's DES lost its des_place launch")
+    des_trace["retries"] = retries
     out = dict(
-        des=traced(torch, lambda: simulate_utilization(
-            w, num_hosts=dc.num_hosts, cores_per_host=dc.cores_per_host,
-            t_bins=t_bins)),
+        des=des_trace,
         calibrated_windows=traced(torch, lambda: twin.run(truth.window)),
         joint_windows=traced(torch, lambda: joint.run(truth.window)))
     log_profile(out)
@@ -1515,25 +1537,29 @@ def whatif_phase(torch, np, ops, w, dc, t_bins, card_orch, cpu_orch,
 
 def time_place(torch, timer, ref, dev, cases) -> dict:
     """des_place at the E2 horizon (the main path's lane), C and D: device
-    ms a launch (its scratch zeroing included), attempts, us an attempt,
-    and the bound: a lane's attempts times the barrier round trip of its
-    block (``des_place.barrier_launch``, timed alone), the largest lane's,
-    or the bytes it must move, whichever is larger; the plain version's
-    wall time on the card at the E2 horizon (it reads the card once per
-    attempt, so only a host clock times it)."""
+    ms a launch (its scratch zeroing included), the same operands with
+    ``max_starts_per_bin=0`` (the bins alone), the longest lane's
+    attempts, us an attempt ((launch - bins alone) / those attempts), and
+    two bounds, each raised to the bytes it must move where those take
+    longer: (attempts + bins) x one decision step (``des_place.step_launch``,
+    one warp, timed alone), and the earlier block design's, attempts x its
+    barrier round trip (``des_place.barrier_launch``, a block of
+    ``max_backfill + 1`` warps); ``bound_ms`` is the smaller.  The plain
+    version's wall time on the card at the E2 horizon (it reads the card
+    once per attempt, so only a host clock times it)."""
     from repro_torch.kernels import des_place
 
     probe = torch.zeros(1, dtype=torch.int32, device=dev)
     rounds = 100_000
-    round_trip = {}
+    probes = {}
 
-    def barrier_ms(warps):
-        if warps not in round_trip:
-            def launch():
-                if des_place.barrier_launch(rounds, warps, probe) != 0:
-                    fail("des_place barrier probe: the launch returned a CUDA error")
-            round_trip[warps] = timer.device_ms(launch, reps=5)["ms"] / rounds
-        return round_trip[warps]
+    def probe_ms(key, launch):
+        if key not in probes:
+            def run():
+                if launch() != 0:
+                    fail(f"des_place {key} probe: the launch returned a CUDA error")
+            probes[key] = timer.device_ms(run, reps=5)["ms"] / rounds
+        return probes[key]
 
     out = {}
     for label, args, kw, _ in cases:
@@ -1541,36 +1567,46 @@ def time_place(torch, timer, ref, dev, cases) -> dict:
             continue
         call = dict(kw, max_starts_per_bin=kw.get("max_starts_per_bin", 64))
 
-        def kernel():
-            return des_place.des_place_cuda(*args, **call)
+        def kernel(c=call):
+            return des_place.des_place_cuda(*args, **c)
 
         attempts = kernel()[2]
         k = timer.device_ms(kernel, reps=5)
-        rt = barrier_ms(kw["max_backfill"] + 1)
-        most = int(attempts.max())
+        bins = timer.device_ms(lambda: kernel(dict(call, max_starts_per_bin=0)), reps=5)
+        step = probe_ms("step", lambda: des_place.step_launch(rounds, probe))
+        warps = kw["max_backfill"] + 1
+        rt = probe_ms(f"barrier {warps}", lambda: des_place.barrier_launch(rounds, warps, probe))
+        most, t_bins = int(attempts.max()), kw["t_bins"]
         n_bytes = (sum(a.element_size() * a.numel() for a in args)
                    + sum(v.element_size() * v.numel() for v in kw.values()
                          if isinstance(v, torch.Tensor))
                    + 8 * args[0].numel() + 4 * args[0].shape[0])
-        bound_ms = max(most * rt, n_bytes / PEAK_BYTES_PER_S * 1e3)
-        out[label] = dict(ms=k["ms"], kernel_rounds=k, lanes=args[0].shape[0],
+        bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        step_ms, barrier_ms = (most + t_bins) * step, most * rt
+        bound_ms = max(min(step_ms, barrier_ms), bytes_ms)
+        out[label] = dict(ms=k["ms"], kernel_rounds=k, bins_ms=bins["ms"], bins_rounds=bins,
+                          lanes=args[0].shape[0], bins=t_bins,
                           attempts_total=int(attempts.sum()), attempts_max=most,
-                          us_per_attempt=k["ms"] * 1e3 / most,
-                          barrier_round_trip_us=rt * 1e3, bytes=n_bytes,
-                          bound_ms=bound_ms,
-                          bound_by="operations" if most * rt * 1e3 >= n_bytes
-                          / PEAK_BYTES_PER_S * 1e6 else "bytes")
+                          us_per_attempt=(k["ms"] - bins["ms"]) * 1e3 / most,
+                          step_us=step * 1e3, barrier_round_trip_us=rt * 1e3,
+                          bytes=n_bytes, step_bound_ms=max(step_ms, bytes_ms),
+                          barrier_bound_ms=max(barrier_ms, bytes_ms), bound_ms=bound_ms,
+                          x_bound=k["ms"] / bound_ms,
+                          bound_by="operations" if min(step_ms, barrier_ms) >= bytes_ms
+                          else "bytes")
         if label.startswith("E2"):
             plain = dict(kw, max_starts_per_bin=64)
             out[label]["plain_ms"] = timer.wall_ms(
                 lambda: ref.des_place_ref(*args, **plain), reps=1)
+        v = out[label]
         log(f"des_place {label}: {k['ms']:.3f} ms a launch (rounds {k['min_ms']:.3f}-"
-            f"{k['max_ms']:.3f}), {most} attempts in the longest lane, "
-            f"{out[label]['us_per_attempt']:.3f} us an attempt; barrier round trip "
-            f"{rt * 1e3:.4f} us ({kw['max_backfill'] + 1} warps), bound "
-            f"{bound_ms:.4f} ms ({out[label]['bound_by']})"
-            + (f"; plain version on the card {out[label]['plain_ms']:.1f} ms"
-               if "plain_ms" in out[label] else ""))
+            f"{k['max_ms']:.3f}), bins alone {bins['ms']:.3f} ms, {most} attempts in the "
+            f"longest lane, {v['us_per_attempt']:.4f} us an attempt; decision step "
+            f"{step * 1e3:.4f} us, bound {v['step_bound_ms']:.4f} ms; barrier round trip "
+            f"{rt * 1e3:.4f} us ({warps} warps), bound {v['barrier_bound_ms']:.4f} ms; "
+            f"{v['x_bound']:.1f}x the smaller ({v['bound_by']})"
+            + (f"; plain version on the card {v['plain_ms']:.1f} ms"
+               if "plain_ms" in v else ""))
     return out
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Experiment E2's cost per window and per DES horizon for checkouts of the
-port, in turns, on one card.
+"""Experiment E2's cost per window and per DES horizon, and a what-if call's,
+for checkouts of the port, in turns, on one card.
 
 Run from the repository root with the roots of the checkouts to compare,
 for example a parent commit unpacked into a directory that ``.gitignore``
@@ -16,7 +16,11 @@ mode with one refine round, ``--runs`` times each.  One JSON line per
 checkout gives, per mode and run, the mean and the median ms per window
 over the 56 windows (``WindowRecord.sim_seconds``), the seconds of the
 run's full-horizon DES (``TwinRunResult.des_seconds``, device-synchronized)
-and the overall MAPE.
+and the overall MAPE; then the what-if batch D of ``chip_smoke.py`` (E2's
+week under 64 lanes, ``run_scenarios(fused_readout=True)``): the median
+wall seconds a call and of its DES alone (``chip_smoke.call_and_des_seconds``,
+``--runs`` turns after a warm-up call) and the schedule's sums, so that the
+checkouts are seen to place alike.
 The first run of a process carries its warm-up.  The script needs a card:
 without one it exits 2.
 """
@@ -31,10 +35,19 @@ import subprocess
 import sys
 
 
+HERE = pathlib.Path(__file__).resolve().parent
+
+
 def one(root: pathlib.Path, runs: int) -> dict:
-    """E2 through ``root``'s port, ``runs`` times in each mode."""
+    """E2 through ``root``'s port, ``runs`` times in each mode, then the
+    what-if batch D."""
+    sys.path.insert(0, str(HERE))
     sys.path.insert(0, str(root / "src"))
     import dataclasses
+
+    import torch
+
+    import chip_smoke as cs
 
     from repro_torch.core import (
         CalibrationSpec, DigitalTwin, OrchestratorConfig, TraceGroundTruth)
@@ -61,7 +74,31 @@ def one(root: pathlib.Path, runs: int) -> dict:
             out.setdefault(name, []).append(dict(
                 mean_ms=statistics.fmean(ms), median_ms=statistics.median(ms),
                 des_s=res.des_seconds, mape=res.overall_mape))
+    out["whatif_d"] = whatif_d(torch, cs, w, dc, t_bins, runs)
     return out
+
+
+def whatif_d(torch, cs, w, dc, t_bins, runs: int) -> dict:
+    """``chip_smoke.py``'s what-if call at D on the card: median wall s a
+    call and of its DES alone, and the schedule's sums."""
+    from repro_torch.core import scenarios as psc
+    from repro_torch.core.power import PowerParams
+    from repro_torch.runtime import fault
+    from repro_torch.traces.carbon import make_diurnal_carbon
+    from repro_torch.traces.price import make_diurnal_price
+
+    ss = psc.build_scenario_set(w, dc, cs.whatif_d(psc, fault), PowerParams())
+    traces = dict(carbon_intensity=make_diurnal_carbon(t_bins), price=make_diurnal_price(t_bins))
+
+    def call():
+        return psc.run_scenarios(ss, max_hosts=ss.max_hosts, t_bins=t_bins,
+                                 fused_readout=True, **traces)
+
+    sim, _ = call()
+    wall, des = cs.call_and_des_seconds(torch, call, lambda: cs.lanes_des(psc, ss, t_bins),
+                                        turns=runs)
+    return dict(lanes=ss.workload.submit_bin.shape[0], wall_s=wall, des_s=des,
+                schedule_sums=[int(sim.job_start.long().sum()), int(sim.job_host.long().sum())])
 
 
 def main() -> int:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Kernel time of ``des_readout`` and ``power_sim`` for checkouts of the port, in turns, on one card.
+"""Kernel time of ``des_readout``, ``power_sim`` and ``des_place`` for checkouts of the port, in turns, on one card.
 
 Run from the repository root with the roots of the checkouts to compare,
 for example a parent commit unpacked into a directory that ``.gitignore``
@@ -13,10 +13,11 @@ first on the path and its own kernel build, on the same seeded work:
 the readout at ``chip_smoke.READOUT_TIMED``'s shapes (A and B as the twin
 calls it: ``u [T, H]`` and scalar parameters; C and D with per-lane rows,
 caps and scalars, ``chip_smoke.lanes_case``, on a random field) and
-``power_sim`` at ``(2016, 277)`` with ``chip_smoke.POWER_KW``.  Every call
-goes through the checkout's own ``ops.des_readout`` and ``ops.power_sim``;
-a checkout whose readout takes no lane axis (it raises on ``[S, T, H]``)
-makes S calls of ``[T, H]``, one lane each.
+``power_sim`` at ``(2016, 277)`` with ``chip_smoke.POWER_KW``, and
+``des_place`` at ``chip_smoke.place_cases``' E2 horizon, C and D.  Every
+call goes through the checkout's own ``ops.des_readout``, ``ops.power_sim``
+and ``ops.des_place``; a checkout whose readout takes no lane axis (it
+raises on ``[S, T, H]``) makes S calls of ``[T, H]``, one lane each.
 
 The time of a call is the device time of the kernels whose name holds
 the kernel's, in a ``torch.profiler`` trace of ``--reps`` calls (of one
@@ -24,7 +25,11 @@ call where a call launches that many kernels): so the wrapper's host
 work and the gaps between S launches do not count, and two designs
 compare kernel against kernel.  ``--rounds`` traces give the median
 round, the least and the greatest; the checkout's ``ops.LAUNCHES`` gives
-the launches a call.  One JSON line per checkout.  The script needs a card:
+the launches a call.  ``des_place`` is timed with CUDA events instead
+(``chip_smoke.DeviceTimer``: the median of ``--rounds`` rounds of 5 calls,
+the wrapper's scratch zeroing and packing included), since a trace of
+the DES has lost its launch; its schedules' sums are printed beside, so
+that the checkouts are seen to place alike.  One JSON line per checkout.  The script needs a card:
 without one it exits 2.
 """
 
@@ -47,6 +52,9 @@ MAX_RETRIES = 10
 
 #: the readout's operands that ``chip_smoke.lanes_case`` shares between lanes
 SHARED = ("intensity", "ambient", "price")
+
+#: ``chip_smoke.place_cases`` labels timed for des_place, by the label's start
+PLACE_TIMED = ("E2 week, the main path's", "C:", "D:")
 
 
 def kernel_us(torch, ops, fn, name: str, reps: int, rounds: int) -> dict:
@@ -96,7 +104,7 @@ def one(root: pathlib.Path, reps: int, rounds: int) -> dict:
     import chip_smoke as cs
     from repro_torch.kernels import _build, ops
 
-    _build.build(("des_readout", "power_sim"))
+    _build.build(("des_readout", "power_sim", "des_place"))
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     field = torch.as_tensor(rng.uniform(0.0, 1.15, (2016, 277)).astype(np.float32),
@@ -127,6 +135,15 @@ def one(root: pathlib.Path, reps: int, rounds: int) -> dict:
     u = field[:POWER_SHAPE[0], :POWER_SHAPE[1]].contiguous()
     out["power_sim"] = kernel_us(torch, ops, lambda: ops.power_sim(u, **cs.POWER_KW),
                                  "power_sim", reps, rounds)
+    timer = cs.DeviceTimer(torch)
+    out["des_place"] = {}
+    for label, args, kw, _ in cs.place_cases(torch, np, dev):
+        if label.startswith(PLACE_TIMED):
+            start, host, attempts = ops.des_place(*args, **kw)
+            stat = timer.device_ms(lambda: ops.des_place(*args, **kw), reps=5, rounds=rounds)
+            stat.update(attempts_max=int(attempts.max()),
+                        schedule_sums=[int(start.long().sum()), int(host.long().sum())])
+            out["des_place"][label] = stat
     return out
 
 

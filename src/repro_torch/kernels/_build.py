@@ -47,11 +47,12 @@ ENTRY_POINTS = {
 
 #: further C functions of a kernel library, each returning an int: the
 #: limits a wrapper checks shapes against, stated once in the source, and
-#: des_place's barrier probe (its CUDA error code)
+#: des_place's barrier and decision-step probes (their CUDA error codes)
 QUERIES = {
     "ssd_chunk": {"ssd_chunk_max_p": [], "ssd_chunk_max_q": [_I]},
     "des_place": {"des_place_max_hosts": [],
-                  "des_place_barrier_launch": [_I, _I, _P, _P]},
+                  "des_place_barrier_launch": [_I, _I, _P, _P],
+                  "des_place_step_launch": [_I, _P, _P]},
 }
 
 #: ptxas report (registers, shared memory, spills) of each build

@@ -9,19 +9,25 @@ kernel; before this kernel the port ran it on the host with one
 device read per attempt.
 
 Bound on an H100: latency.  A lane's attempts form one dependent chain,
-each reading the free cores the one before wrote, so a lane takes at
-least its attempts times one barrier round trip (two ``__syncthreads``
-with a thread-0 decision between, timed alone by ``barrier_launch``);
-lanes run side by side, a block each.
+each reading the free cores the one before wrote, and so do its bins, so
+a lane takes at least (attempts + bins) times one decision step (a
+shared store, ``__syncwarp``, a load and two ``redux.sync``, timed alone
+by :func:`step_launch`); lanes run side by side, a block each.
 
-Design (``csrc/des_place.cu``): one block per lane, a warp for the head
-job and one per backfill candidate, each striding over the hosts and
-reducing int64 keys ``(fits ? score : -1) * H + (H - 1 - h)`` with
-``__shfl_xor_sync``; ``free[H]`` and the bin's online flags in shared
-memory; thread 0 alone decides, updates ``free`` and writes the schedule
-and the release table (``[S, T + 1, H]`` int32 scratch, zeroed here).
-Integer arithmetic only: the kernel equals :func:`repro_torch.kernels.ref.des_place_ref`
-bit for bit.
+Design (``csrc/des_place.cu``): one block per lane, and one warp of it
+decides, with the lane's state in registers: each lane of the warp owns
+host groups of four, scores them from shared memory and the warp takes
+the argmax with two ``redux.sync`` (the largest score, then the lowest
+host holding it).  The job fields sit in a window of shared memory
+refilled with ``cp.async`` (:func:`operands` packs them as ``[S, J, 4]``
+int32: ready bin, duration, cores, 0), the failure rows beside the free
+cores, and the next bin's release row is prefetched.  Backfill
+candidates are scored, by up to 8 warps, only when the head fits
+nowhere.
+The release table (``[S, T, HP]`` int32 scratch, HP = H rounded up to 4,
+zeroed here) takes an integer ``red.global.add`` per placement.
+Integer arithmetic only: the kernel equals
+:func:`repro_torch.kernels.ref.des_place_ref` bit for bit.
 """
 
 from __future__ import annotations
@@ -37,16 +43,18 @@ Tensor = torch.Tensor
 #: backfill candidates a lane may scan: the skip mask is 32 bits
 MAX_BACKFILL = 31
 
+#: a job's ready bin where it never starts (not valid)
+NEVER = 2**31 - 1
+
 
 class PlaceArgs(ctypes.Structure):
     """``PlaceArgs`` of ``csrc/des_place.cu``, field for field."""
 
-    _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "submit", "dur", "cores", "valid", "mask", "cores_per_host", "policy",
-        "depth", "fail_start", "fail_end", "fail_kill", "release", "job_start",
-        "job_host", "attempts")]
-        + [(name, ctypes.c_int) for name in (
-            "S", "J", "H", "T", "max_starts", "max_backfill")])
+    POINTERS = ("jobs", "mask", "cores_per_host", "policy", "depth", "fail_start",
+                "fail_end", "fail_kill", "release", "job_start", "job_host", "attempts")
+    _fields_ = ([(name, ctypes.c_void_p) for name in POINTERS]
+                + [(name, ctypes.c_int) for name in (
+                    "S", "J", "H", "T", "max_starts", "max_backfill")])
 
 
 def max_hosts() -> int:
@@ -66,21 +74,24 @@ def _u8(x: Tensor) -> Tensor:
 def operands(submit, dur, cores, valid, host_mask, cores_per_host, policy_id,
              depth, *, t_bins: int, fail_start=None, fail_end=None,
              fail_kill=None) -> dict:
-    """The kernel's operands as contiguous int32 / uint8 tensors, with the
-    zeroed release table and the outputs (``job_start``/``job_host`` -1,
-    ``attempts`` 0), all on ``submit``'s device."""
+    """The kernel's operands as contiguous int32 / uint8 tensors: the job
+    table ``[S, J, 4]`` (ready bin, the submit bin or :data:`NEVER` where
+    not valid; duration; cores; 0), the zeroed release table ``[S, T,
+    HP]`` (HP = H rounded up to 4) and the outputs (``job_start``/``job_host``
+    -1, ``attempts`` 0), all on ``submit``'s device."""
     dev = submit.device
     s, j = submit.shape
     h = host_mask.shape[1]
-    out = dict(submit=_i32(submit), dur=_i32(dur), cores=_i32(cores),
-               valid=_u8(valid), mask=_u8(host_mask),
+    ready = torch.where(valid.to(torch.bool), submit.to(torch.int32), NEVER)
+    jobs = torch.stack([ready, _i32(dur), _i32(cores), torch.zeros_like(ready)], dim=-1)
+    out = dict(jobs=jobs, mask=_u8(host_mask),
                cores_per_host=_i32(cores_per_host), policy=_i32(policy_id),
                depth=_i32(depth))
     if fail_start is not None:
         out.update(fail_start=_i32(fail_start), fail_end=_i32(fail_end),
                    fail_kill=_u8(fail_kill))
     out.update(
-        release=torch.zeros((s, t_bins + 1, h), dtype=torch.int32, device=dev),
+        release=torch.zeros((s, t_bins, -(-h // 4) * 4), dtype=torch.int32, device=dev),
         job_start=torch.full((s, j), -1, dtype=torch.int32, device=dev),
         job_host=torch.full((s, j), -1, dtype=torch.int32, device=dev),
         attempts=torch.zeros((s,), dtype=torch.int32, device=dev))
@@ -92,12 +103,12 @@ def launch(entry, o: dict, *, t_bins: int, max_starts_per_bin: int,
     """Run the C entry point ``entry`` (``des_place_launch`` of a built
     library) on :func:`operands`' dict ``o``; returns ``(job_start,
     job_host, attempts)``.  Raises if the launch fails."""
-    s, j = o["submit"].shape
+    s, j = o["jobs"].shape[:2]
     ptr = lambda k: o[k].data_ptr() if k in o else None  # noqa: E731
-    args = PlaceArgs(**{k: ptr(k) for k, _ in PlaceArgs._fields_[:15]},
+    args = PlaceArgs(**{k: ptr(k) for k in PlaceArgs.POINTERS},
                      S=s, J=j, H=o["mask"].shape[1], T=t_bins,
                      max_starts=max_starts_per_bin, max_backfill=max_backfill)
-    dev = o["submit"].device
+    dev = o["jobs"].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(ctypes.addressof(args), stream)
@@ -138,9 +149,19 @@ def des_place_cuda(submit: Tensor, dur: Tensor, cores: Tensor, valid: Tensor,
 
 
 def barrier_launch(rounds: int, warps: int, out: Tensor) -> int:
-    """Launch the kernel library's barrier probe (``rounds`` attempts'
-    barrier round trips in one block of ``warps`` warps, no work between);
+    """Launch the kernel library's barrier probe (``rounds`` round trips of
+    the earlier block design's attempt, two ``__syncthreads`` around a
+    thread-0 write, in one block of ``warps`` warps, no work between);
     returns the CUDA error code."""
     lib = _build.load("des_place")
     stream = torch.cuda.current_stream(out.device).cuda_stream
     return int(lib.des_place_barrier_launch(rounds, warps, out.data_ptr(), stream))
+
+
+def step_launch(rounds: int, out: Tensor) -> int:
+    """Launch the kernel library's decision-step probe (``rounds`` steps of
+    one warp, each a shared store, ``__syncwarp``, a load and two
+    ``redux.sync`` on the step before); returns the CUDA error code."""
+    lib = _build.load("des_place")
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    return int(lib.des_place_step_launch(rounds, out.data_ptr(), stream))

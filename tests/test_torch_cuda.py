@@ -467,11 +467,17 @@ def test_des_place_wrapper_rejects_bad_operands(dev):
 PLACE_FAULTS = {
     "none": ("", ""),
     "ties to the highest index": (
-        "int tie_break(int h, int H) { return H - 1 - h; }",
-        "int tie_break(int h, int H) { return h; }"),
-    "random-fit salt counts attempts": ("s_salt = placed;", "s_salt = attempts;"),
-    "kill rule dropped": ("if (fail && fk[host] && t < fs[host] && end > fs[host])",
+        "idx[i] = v[i] == top ? i : 4 * R;\n    const int first = tree_min(idx);",
+        "idx[i] = v[i] == top ? i : -1;\n    const int first = tree_max(idx);"),
+    "random-fit salt counts attempts": ("const int salt = placed;",
+                                        "const int salt = attempts;"),
+    "kill rule dropped": ("if (fail && flag[host] && t < fs[host] && end > fs[host])",
                           "if (false)"),
+    "window refilled one job late": ("fill(hi);", "fill(hi + 1);"),
+    "host min turned into a max": (
+        "__reduce_min_sync(kAll, best == m ? static_cast<unsigned>(best_host) : UINT_MAX)",
+        "__reduce_max_sync(kAll, best == m ? static_cast<unsigned>(best_host) : 0u)"),
+    "release into the prefetched row dropped": ("if (owner && soon) late[host] += need;", ""),
 }
 
 

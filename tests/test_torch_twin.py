@@ -329,7 +329,8 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / name for name in ("chip_smoke.py", "e2_compare.py", "kernel_compare.py")]
+    files += [ROOT / name for name in ("chip_smoke.py", "e2_compare.py", "kernel_compare.py",
+                                       "place_profile.py")]
     assert len(files) > 20
     for f in files:
         for name in _imports(f):
