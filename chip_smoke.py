@@ -131,6 +131,19 @@ E2_SEED = 22
 #: the kernels the twin's E2 path launches
 E2_KERNELS = ("calib_mape_grid", "des_readout", "des_place")
 
+#: phase 11's search (examples/whatif_scaling.py:120-133): the objective's
+#: weights, the carbon-aware cap and shift ranges, the optimizer's batches
+SEARCH_OBJECTIVE = dict(w_gco2_kg=1.0, w_wait=0.5, w_unplaced=50.0, w_throttled=0.1)
+SEARCH_RANGES = dict(carbon_cap_base_w=(35_000.0, 80_000.0), carbon_cap_slope=(-80.0, 0.0),
+                     shift_bins=(0, 72))
+SEARCH_CONFIG = dict(batch_size=16, generations=3)
+#: (c), the search on the card against the CPU, cut in depth: E2's hosts
+#: over 2 days, a 2-level grid and 2 refinement generations
+SEARCH_CPU_DAYS, SEARCH_CPU_CONFIG = 2.0, dict(batch_size=16, generations=2, init_levels=2)
+#: (d), stage 3: the window after which an approved scheduler change is
+#: applied to the resident twin
+STAGE3_APPLY_AT = 28
+
 #: traces of E2's DES taken again, at most, where one lost its des_place
 #: launch (``--profile``)
 MAX_TRACE_RETRIES = 10
@@ -739,6 +752,9 @@ def check_readout(torch, np, ops, ref, dev) -> float:
     return worst
 
 
+T_START = time.time()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -893,6 +909,12 @@ def main() -> int:
     # 9) the LMs on the card against the LMs on the CPU, f32
     for arch in CARD_VS_CPU:
         details[f"lm_card_vs_cpu {arch}"] = lm_card_vs_cpu(torch, np, arch)
+
+    # 11) the optimizer and stage 3 on the card (run before the kernel
+    # timings, so that its launches count in the kernels line)
+    details["search"] = search_phase(torch, np, ops, w, dc, t_bins, gpu_orch, gpu)
+    for k, n in details["search"]["launches"].items():
+        launches[k] += n
 
     # 10) kernel times at the main paths' shapes (device time, queue kept full)
     timer = DeviceTimer(torch)
@@ -1092,6 +1114,8 @@ def main() -> int:
         details["profile"] = profile_e2(torch, w, dc, t_bins)
         details["profile_lm"] = profile_lm(torch)
         details["profile_ssm"] = profile_ssm(torch)
+    details["script_seconds"] = time.time() - T_START
+    log(f"chip_smoke: {details['script_seconds']:.1f} s in all")
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
 
     print(card)
@@ -1532,6 +1556,370 @@ def whatif_phase(torch, np, ops, w, dc, t_bins, card_orch, cpu_orch,
             f"unfused max rel {oracle:.3g} (rtol 2e-4), card vs CPU schedules equal and "
             f"max rel {rel:.3g} (rtol 1e-5); {wall:.4f} s a call, DES {des:.4f} s "
             f"(share {des / wall:.3f}); CPU rerun {cpu_s:.1f} s")
+    return out
+
+
+# -- phase 11: the optimizer and stage 3 --------------------------------------
+
+def search_space(psc, opt):
+    """examples/whatif_scaling.py:120-133's space: the 4 policies (backfill
+    0 for worst fit, 8 for the others) under a carbon-aware cap and shifts."""
+    from repro_torch.core.desim import PLACEMENT_POLICIES
+
+    return opt.SearchSpace(
+        structures=tuple(psc.Scenario(name=p, policy=p,
+                                      backfill_depth=0 if p == "worst_fit" else 8)
+                         for p in sorted(PLACEMENT_POLICIES)),
+        **SEARCH_RANGES)
+
+
+def knobs(sc):
+    """A scenario's knobs: the scenario without its name."""
+    return dataclasses.replace(sc, name="")
+
+
+def history_rows(res) -> list:
+    """Every evaluation of a search as comparable values (knobs, name,
+    objective, feasibility, breakdown, generation, lane)."""
+    return [(c.scenario, c.objective, c.feasible, tuple(c.breakdown.items()),
+             c.generation, c.lane) for c in res.history]
+
+
+class BatchProbe:
+    """Wraps the optimizer's ``build_scenario_set`` and ``run_scenarios``
+    while a search runs: each batch's peak ``torch.cuda.max_memory_allocated``
+    (reset as the batch's set is built), the evaluator's wall seconds up to a
+    device synchronize, and the batch's ScenarioSet (for its DES alone,
+    timed afterwards)."""
+
+    def __init__(self, torch, opt):
+        self.torch, self.opt, self.batches = torch, opt, []
+
+    def __enter__(self):
+        torch, opt = self.torch, self.opt
+        build, run = opt.build_scenario_set, opt.run_scenarios
+        self._saved = build, run
+
+        def probed_build(*a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.batches.append(dict(t0=time.perf_counter(),
+                                     allocated_mb=torch.cuda.memory_allocated() / 2**20))
+            ss = build(*a, **kw)
+            self.batches[-1]["ss"] = ss
+            return ss
+
+        def probed_run(*a, **kw):
+            t0 = time.perf_counter()
+            out = run(*a, **kw)
+            torch.cuda.synchronize()
+            b = self.batches[-1]
+            b["run_s"] = time.perf_counter() - t0
+            b["peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+            return out
+
+        opt.build_scenario_set, opt.run_scenarios = probed_build, probed_run
+        return self
+
+    def __exit__(self, *exc):
+        self.opt.build_scenario_set, self.opt.run_scenarios = self._saved
+
+
+def search_ties(a, b, rtol) -> str | None:
+    """Where two searches' histories first part, whether a near-tie explains
+    it: the incumbents up to that batch agree within ``rtol`` and two
+    distinct feasible knob points already evaluated lie within ``rtol`` of
+    each other at the incumbent's objective.  Returns a description of the
+    tie, or ``None`` when the histories do not part."""
+    for i, (x, y) in enumerate(zip(a.history, b.history)):
+        if x.scenario == y.scenario:
+            continue
+        seen = [c for c in b.history[:i] if c.feasible]
+        best = min(c.objective for c in seen)
+        near = {knobs(c.scenario) for c in seen
+                if abs(c.objective - best) <= rtol * abs(best)}
+        if len(near) < 2:
+            fail(f"search (c): evaluation {i} differs ({x.scenario.name} on the card, "
+                 f"{y.scenario.name} on the CPU) with no near-tie behind it")
+        return (f"histories part at evaluation {i}: {len(near)} knob points within "
+                f"rtol {rtol} of the incumbent's objective {best!r}")
+    return None
+
+
+def search_phase(torch, np, ops, w, dc, t_bins, card_orch, card_run) -> dict:
+    """Phase 11, the optimizer and stage 3 on the card.
+
+    (a) ``Orchestrator.optimize_whatif`` on the calibrated E2 twin with
+    examples/whatif_scaling.py's search, twice (histories equal bit for bit;
+    the second run under ``torch.profiler`` for the device-to-host copies),
+    with each batch's wall seconds, peak memory and DES alone; (b)
+    ``optimize(fused_readout=True, generations=0)``: one ``des_readout`` and
+    one ``des_place`` launch a batch, objectives within rtol 2e-4 of (a)'s
+    at the same knobs; (c) the search at E2's width over 2 days on the card
+    and on the CPU; (d) E2 calibrated with the resident DES equal to the
+    external cache, then an approved scheduler change applied mid-run, on
+    the card and on the CPU.  Returns the details and the launches counted
+    on the path."""
+    import importlib
+
+    from repro_torch.core import DigitalTwin, Orchestrator, OrchestratorConfig, TraceGroundTruth
+    from repro_torch.core import feedback as fb
+    from repro_torch.core import scenarios as psc
+    from repro_torch.core.power import PowerParams
+    from repro_torch.traces.carbon import make_diurnal_carbon
+    from repro_torch.traces.surf import BINS_PER_DAY, SurfTraceSpec, make_surf22_like
+
+    opt = importlib.import_module("repro_torch.core.optimize")
+    out, path_launches = {}, {k: 0 for k in ("des_place", "des_readout", "calib_mape_grid")}
+    ci = make_diurnal_carbon(t_bins)
+    space = search_space(psc, opt)
+    objective = opt.ObjectiveSpec(**SEARCH_OBJECTIVE)
+    config = opt.OptimizerConfig(**SEARCH_CONFIG)
+
+    def twin():
+        orch = Orchestrator(w, dc, t_bins, OrchestratorConfig(device="cuda"),
+                            carbon_intensity=ci)
+        orch.state = card_orch.state          # the calibrated E2 twin
+        return orch
+
+    # (a) the operator's search, at full size, twice
+    orch = twin()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    with BatchProbe(torch, opt) as probe:
+        t0 = time.perf_counter()
+        first = orch.optimize_whatif(space, objective, key=0, config=config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    res = first.result
+    if launches["des_place"] != res.batches or launches["des_readout"] != 0:
+        fail(f"search (a): launches {launches}, expected one des_place a batch "
+             f"({res.batches}) and no des_readout (unfused)")
+    for k in path_launches:
+        path_launches[k] += launches[k]
+    des = []                        # each batch's DES alone, synchronized
+    for b in probe.batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lanes_des(psc, b["ss"], t_bins)
+        torch.cuda.synchronize()
+        des.append(time.perf_counter() - t0)
+    ends = [b["t0"] for b in probe.batches[1:]] + [probe.batches[0]["t0"] + wall]
+    batch_s = [e - b["t0"] for b, e in zip(probe.batches, ends)]
+    held = {}
+    prof = traced(torch, lambda: held.setdefault(
+        "res", twin().optimize_whatif(space, objective, key=0, config=config).result))
+    if history_rows(held["res"]) != history_rows(res):
+        fail("search (a): two runs of the same search on the card differ")
+    best, base = res.best, res.baseline
+    kinds = [p.kind.value for p in first.proposals]
+    out["a"] = dict(
+        batches=res.batches, candidates=res.candidates, evaluations=res.evaluations,
+        wall_s=wall, s_per_batch=wall / res.batches, batch_s=batch_s,
+        run_scenarios_s=[b["run_s"] for b in probe.batches], des_s=des,
+        des_share=sum(des) / wall, launches=launches,
+        dtoh_per_batch=prof["transfers"]["DtoH"] / res.batches,
+        htod_per_batch=prof["transfers"]["HtoD"] / res.batches,
+        profiled_wall_s=prof["wall_s"], device_idle_share=prof["device_idle_share"],
+        peak_mb=[b["peak_mb"] for b in probe.batches],
+        allocated_before_mb=probe.batches[0]["allocated_mb"],
+        winner=dict(name=best.scenario.name, policy=best.scenario.policy,
+                    backfill_depth=best.scenario.backfill_depth,
+                    carbon_cap_base_w=best.scenario.carbon_cap_base_w,
+                    carbon_cap_slope=best.scenario.carbon_cap_slope,
+                    shift_bins=best.scenario.shift_bins, objective=best.objective,
+                    breakdown=best.breakdown),
+        baseline=dict(objective=base.objective, breakdown=base.breakdown),
+        incumbent_objective=res.incumbent_objective.tolist(), proposals=kinds)
+    a = out["a"]
+    log(f"search (a) optimize_whatif on the calibrated E2 twin: {res.batches} batches of "
+        f"{config.batch_size} lanes, {res.candidates} candidates, {res.evaluations} "
+        f"evaluations; {wall:.3f} s ({a['s_per_batch']:.4f} s a batch, batches "
+        f"{min(batch_s):.4f}-{max(batch_s):.4f}); run_scenarios "
+        f"{min(a['run_scenarios_s']):.4f}-{max(a['run_scenarios_s']):.4f} s; DES "
+        f"{sum(des):.4f} s (share {a['des_share']:.3f}); launches {launches}; "
+        f"{a['dtoh_per_batch']:.1f} device-to-host and {a['htod_per_batch']:.1f} "
+        f"host-to-device copies a batch (profiled run {prof['wall_s']:.3f} s, idle share "
+        f"{prof['device_idle_share']:.4f}); peak allocated {min(a['peak_mb']):.1f}-"
+        f"{max(a['peak_mb']):.1f} MiB a batch ({a['allocated_before_mb']:.1f} MiB before)")
+    log(f"search (a) winner {best.scenario.name}: {best.scenario.policy}/backfill "
+        f"{best.scenario.backfill_depth}, carbon cap {best.scenario.carbon_cap_base_w!r} W "
+        f"{best.scenario.carbon_cap_slope!r} W/(gCO2/kWh), shift {best.scenario.shift_bins}; "
+        f"objective {best.objective!r} against the baseline's {base.objective!r} "
+        f"(gCO2 {best.breakdown['gco2_kg']!r} / {base.breakdown['gco2_kg']!r} kg); "
+        f"proposals {kinds}; the second run equal bit for bit")
+
+    # (b) the fused readout on the search path: generation 0 of (a)
+    ops.reset_launches()
+    fused = opt.optimize(orch.workload, dc, space, objective, t_bins=t_bins,
+                         base_params=orch.state.params, carbon_intensity=ci, key=0,
+                         config=dataclasses.replace(config, generations=0),
+                         fused_readout=True)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if launches["des_place"] != fused.batches or launches["des_readout"] != fused.batches:
+        fail(f"search (b): launches {launches}, expected one des_place and one "
+             f"des_readout a batch ({fused.batches})")
+    for k in path_launches:
+        path_launches[k] += launches[k]
+    seen = {knobs(c.scenario): c for c in res.history if c.generation == 0}
+    worst = 0.0
+    for c in fused.history:
+        ref_c = seen.get(knobs(c.scenario))
+        if ref_c is None:
+            fail(f"search (b): {c.scenario.name} has no generation-0 counterpart in (a)")
+        if c.feasible != ref_c.feasible:
+            fail(f"search (b): feasibility of {c.scenario.name} differs from (a)'s")
+        rel = abs(c.objective - ref_c.objective) / abs(ref_c.objective)
+        if not rel <= 2e-4:
+            fail(f"search (b): {c.scenario.name} objective {c.objective!r} against "
+                 f"{ref_c.objective!r}, beyond rtol 2e-4")
+        worst = max(worst, rel)
+    out["b"] = dict(batches=fused.batches, launches=launches, max_rel_objective=worst)
+    log(f"search (b) fused readout, generation 0: {fused.batches} batches, launches "
+        f"{launches}; objectives within rtol 2e-4 of (a)'s (max rel {worst:.3g}), "
+        f"feasibility equal")
+
+    # (c) card against CPU, E2's hosts over 2 days
+    t_c = int(SEARCH_CPU_DAYS * BINS_PER_DAY)
+    w_c = make_surf22_like(SurfTraceSpec(days=SEARCH_CPU_DAYS, seed=E2_SEED), dc, device="cpu")
+    params = PowerParams(*(float(getattr(card_orch.state.params, f))
+                           for f in ("p_idle", "p_max", "r")))
+    cfg_c = opt.OptimizerConfig(**SEARCH_CPU_CONFIG)
+    ci_c = make_diurnal_carbon(t_c)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = opt.optimize(w_c.to(dev), dc, space, objective, t_bins=t_c,
+                                 base_params=params, carbon_intensity=ci_c, key=0,
+                                 config=cfg_c)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev + "_s"] = time.perf_counter() - t0
+    card, cpu = runs["cuda"], runs["cpu"]
+    tie = search_ties(card, cpu, 1e-5)
+    worst = 0.0
+    for x, y in zip(card.history, cpu.history):
+        if tie is not None and x.scenario != y.scenario:
+            break
+        if (x.scenario, x.feasible, x.generation, x.lane) != \
+                (y.scenario, y.feasible, y.generation, y.lane):
+            fail(f"search (c): {x.scenario.name}: knobs, feasibility or lane differ")
+        for f in ("unplaced_jobs", "makespan_bins", "mean_wait_bins", "p99_wait_bins"):
+            if x.breakdown[f] != y.breakdown[f]:
+                fail(f"search (c): {x.scenario.name} {f} {x.breakdown[f]} on the card, "
+                     f"{y.breakdown[f]} on the CPU")
+        rel = abs(x.objective - y.objective) / abs(y.objective)
+        if not rel <= 1e-5:
+            fail(f"search (c): {x.scenario.name} objective beyond rtol 1e-5 ({rel:.3g})")
+        worst = max(worst, rel)
+    if tie is None and card.best.scenario != cpu.best.scenario:
+        fail("search (c): the card's and the CPU's incumbents differ")
+    out["c"] = dict(days=SEARCH_CPU_DAYS, bins=t_c, hosts=dc.num_hosts,
+                    batches=card.batches, card_s=runs["cuda_s"], cpu_s=runs["cpu_s"],
+                    max_rel_objective=worst, tie=tie,
+                    card_best=card.best.scenario.name, cpu_best=cpu.best.scenario.name,
+                    card_best_objective=card.best.objective,
+                    cpu_best_objective=cpu.best.objective)
+    log(f"search (c) card against CPU, {dc.num_hosts} hosts x {t_c} bins, "
+        f"{card.batches} batches ({SEARCH_CPU_CONFIG}): knobs, names, feasibility and the "
+        f"schedule's terms equal, objectives max rel {worst:.3g} (rtol 1e-5), incumbent "
+        f"{card.best.scenario.name} / {cpu.best.scenario.name}"
+        + (f" ({tie})" if tie else "")
+        + f"; card {runs['cuda_s']:.2f} s, CPU {runs['cpu_s']:.1f} s")
+
+    # (d) stage 3: the resident DES equals the external cache, then an
+    # approved scheduler change applied mid-run, on the card and the CPU
+    resident, res_orch = e2_run(w, dc, t_bins, calibrate=True,
+                                cfg=OrchestratorConfig(sim_in_state=True), device="cuda")
+    ext_field = card_orch._ensure_sim().u_th
+    if not np.array_equal(resident.per_window_mape, card_run.per_window_mape):
+        fail("stage 3 (d): the resident DES's MAPE stream differs from the external cache's")
+    for f in ("p_idle", "p_max", "r"):
+        a_ = [float(getattr(r.params, f)) for r in resident.records]
+        b_ = [float(getattr(r.params, f)) for r in card_run.records]
+        if a_ != b_:
+            fail(f"stage 3 (d): parameter stream {f} differs from the external cache's")
+    if not torch.equal(res_orch.state.sim_u, ext_field):
+        fail("stage 3 (d): the resident DES field differs from the external cache's")
+    proposal = next((p for p in first.proposals
+                     if p.kind is fb.ProposalKind.SCHEDULER_CHANGE), None)
+    source = "the search's winner"
+    if proposal is None:
+        source = "fixed"
+        proposal = fb.Proposal(fb.ProposalKind.SCHEDULER_CHANGE, STAGE3_APPLY_AT, "fixed",
+                               impact={"policy": "best_fit", "backfill_depth": 4})
+    impact = dict(policy=proposal.impact["policy"],
+                  backfill_depth=proposal.impact["backfill_depth"])
+    stage3 = {}
+    for dev in ("cuda", "cpu"):
+        wl = w if dev == "cuda" else w.to("cpu")
+        t0 = time.perf_counter()
+        dt = DigitalTwin(wl, dc, t_bins, OrchestratorConfig(sim_in_state=True, device=dev))
+        o = dt.orchestrator
+        truth = TraceGroundTruth(wl, dc, t_bins)
+
+        def windows(rng):
+            for win in rng:
+                o.store.ingest(truth.window(win, o.cfg.bins_per_window))
+                o.run_window(win)
+
+        windows(range(STAGE3_APPLY_AT))
+        p = fb.Proposal(fb.ProposalKind.SCHEDULER_CHANGE, STAGE3_APPLY_AT, proposal.detail,
+                        impact=dict(impact), approved=True)
+        ops.reset_launches()
+        o.apply_proposal(p)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        ops.reset_launches()
+        windows(range(STAGE3_APPLY_AT, o.num_windows))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        after = dict(ops.LAUNCHES)
+        if dev == "cuda":
+            rest = o.num_windows - STAGE3_APPLY_AT
+            if counts["des_place"] != 1 or counts["des_readout"] != 0:
+                fail(f"stage 3 (d): apply_proposal launched {counts}, expected one des_place")
+            if after["des_readout"] != rest or after["calib_mape_grid"] != rest:
+                fail(f"stage 3 (d): {after} over {rest} windows, expected one des_readout "
+                     "and one calib_mape_grid a window")
+            for k in path_launches:
+                path_launches[k] += counts[k] + after[k]
+        stage3[dev] = dict(orch=o, seconds=time.perf_counter() - t0, apply=counts,
+                           after=after)
+    g, c = stage3["cuda"]["orch"], stage3["cpu"]["orch"]
+    for f in ("p_idle", "p_max", "r"):
+        a_ = [float(getattr(r.params, f)) for r in g.records]
+        b_ = [float(getattr(r.params, f)) for r in c.records]
+        if a_ != b_:
+            fail(f"stage 3 (d): parameter stream {f}: card and CPU differ")
+    mg, mc = g.per_window_mape(), c.per_window_mape()
+    if not np.allclose(mg, mc, rtol=1e-5, atol=0.0, equal_nan=True):
+        fail("stage 3 (d): MAPE stream: card and CPU beyond rtol 1e-5")
+    if not torch.equal(g.state.sim_u.cpu(), c.state.sim_u):
+        fail("stage 3 (d): the re-run resident DES field differs between card and CPU")
+    moved = not torch.equal(g.state.sim_u, ext_field)
+    out["d"] = dict(
+        resident_equals_external=True, proposal_source=source, impact=impact,
+        apply_at=STAGE3_APPLY_AT, apply_launches=stage3["cuda"]["apply"],
+        after_launches=stage3["cuda"]["after"], field_moved=moved,
+        card_s=stage3["cuda"]["seconds"], cpu_s=stage3["cpu"]["seconds"],
+        mape_after=[float(x) for x in mg[STAGE3_APPLY_AT:]],
+        max_rel_mape=float(np.nanmax(np.abs(mg - mc) / np.abs(mc))),
+        overall_mape=g.overall_mape())
+    d = out["d"]
+    log(f"stage 3 (d): E2 calibrated with the resident DES equals the external cache bit "
+        f"for bit (MAPE stream, parameter stream, DES field); {source} scheduler change "
+        f"{impact} applied after window {STAGE3_APPLY_AT}: apply launches "
+        f"{d['apply_launches']}, then {d['after_launches']} over "
+        f"{g.num_windows - STAGE3_APPLY_AT} windows; the field moved: {moved}; card and "
+        f"CPU parameter streams equal, MAPE max rel {d['max_rel_mape']:.3g} (rtol 1e-5), "
+        f"overall MAPE {d['overall_mape']:.6f} %; card {d['card_s']:.2f} s, CPU "
+        f"{d['cpu_s']:.1f} s")
+    out["launches"] = path_launches
+    log(f"search and stage 3 launches: {path_launches}")
     return out
 
 

@@ -56,12 +56,21 @@ def twin_state_from_numpy(leaves, cfg: TwinConfig) -> TwinState:
     ``leaves`` is the state's flat leaf list: ``params``, ``base_params``
     and ``cand`` as three ``(p_idle, p_max, r)`` groups, then ``hist_u``,
     ``hist_p``, ``hist_n``, ``window``, ``slo_samples``, ``slo_compliant``,
-    ``bias_under``, ``bias_over``, ``bias_ties`` (18 arrays).
+    ``bias_under``, ``bias_over``, ``bias_ties`` (18 arrays), and with
+    ``cfg.sim_bins > 0`` the resident DES field ``sim_u`` (19 arrays).
     """
     leaves = [np.asarray(x) for x in leaves]
-    if len(leaves) != 18:
-        raise ValueError(f"expected 18 state leaves, got {len(leaves)}")
+    want = 19 if cfg.sim_bins > 0 else 18
+    if len(leaves) != want:
+        raise ValueError(f"expected {want} state leaves "
+                         f"(cfg.sim_bins={cfg.sim_bins}), got {len(leaves)}")
     dev = resolve_device(cfg.device)
+    sim_u = None
+    if want == 19:
+        sim_u = _t(leaves[18], np.float32, dev)
+        if tuple(sim_u.shape) != (cfg.sim_bins, cfg.dc.num_hosts):
+            raise ValueError(f"sim_u must be [{cfg.sim_bins}, {cfg.dc.num_hosts}]; "
+                             f"got {tuple(sim_u.shape)}")
 
     def params(i):
         return PowerParams(*(_t(x, np.float32, dev) for x in leaves[i:i + 3]))
@@ -72,7 +81,7 @@ def twin_state_from_numpy(leaves, cfg: TwinConfig) -> TwinState:
         hist_u=_t(rest["hist_u"], np.float32, dev),
         hist_p=_t(rest["hist_p"], np.float32, dev),
         **{k: _t(rest[k], np.int32, dev) for k in _COUNT_FIELDS[2:]},
-        cfg=cfg)
+        sim_u=sim_u, cfg=cfg)
 
 
 def lm_params_from_numpy(tree, cfg: ModelConfig,

@@ -1,7 +1,15 @@
 """The twin core of the port: DES, power models, calibration, the closed
-loop and the batched what-if engine."""
+loop, the batched what-if engine, the scenario optimizer and the
+multi-model combiner."""
 
-from repro_torch.core.calibrate import CalibrationSpec, calibrate_traced, candidate_grid
+from repro_torch.core.calibrate import (
+    CalibrationResult,
+    CalibrationSpec,
+    SelfCalibrator,
+    calibrate_traced,
+    calibrate_window,
+    candidate_grid,
+)
 from repro_torch.core.desim import (
     Prediction,
     SimOutput,
@@ -13,17 +21,38 @@ from repro_torch.core.feedback import (
     HITLGate,
     Proposal,
     ProposalKind,
+    propose_from_optimum,
     propose_from_scenario,
     propose_from_state,
 )
+from repro_torch.core.optimize import (
+    Candidate,
+    ObjectiveSpec,
+    OptimizeResult,
+    OptimizerConfig,
+    SearchSpace,
+    optimize,
+    score_batch,
+)
 from repro_torch.core.orchestrator import (
     Clock,
+    OptimizeWhatIfResult,
     Orchestrator,
     OrchestratorConfig,
     WhatIfResult,
     WindowRecord,
 )
-from repro_torch.core.power import PowerParams, mape
+from repro_torch.core.power import (
+    POWER_MODELS,
+    PowerParams,
+    carbon_gco2,
+    datacenter_power,
+    energy_kwh,
+    linear_power,
+    mape,
+    opendc_power,
+    validate_power_params,
+)
 from repro_torch.core.scenarios import (
     Scenario,
     ScenarioSet,
@@ -33,18 +62,49 @@ from repro_torch.core.scenarios import (
     run_scenarios,
     summarize_scenarios,
 )
+from repro_torch.core.slo import NFR1, SLO, BiasTracker, SLOMonitor
+from repro_torch.core.state import (
+    SimSlice,
+    TelemetrySlice,
+    TwinConfig,
+    TwinState,
+    WindowOutput,
+    empty_telemetry,
+    init_twin_state,
+    make_telemetry,
+    twin_step,
+)
+from repro_torch.core.telemetry import (
+    AMBIENT_KEY,
+    CARBON_INTENSITY_KEY,
+    PRICE_KEY,
+    TelemetryStore,
+    TelemetryWindow,
+    clip_to_window,
+)
 from repro_torch.core.twin import DigitalTwin, TraceGroundTruth, TwinRunResult, run_surf_experiment
 
 __all__ = [
-    "CalibrationSpec", "calibrate_traced", "candidate_grid",
+    "CalibrationResult", "CalibrationSpec", "SelfCalibrator",
+    "calibrate_traced", "calibrate_window", "candidate_grid",
     "Prediction", "SimOutput", "predict_metrics", "simulate",
     "simulate_utilization",
-    "HITLGate", "Proposal", "ProposalKind", "propose_from_scenario",
-    "propose_from_state",
+    "HITLGate", "Proposal", "ProposalKind",
+    "propose_from_optimum", "propose_from_scenario", "propose_from_state",
+    "Candidate", "ObjectiveSpec", "OptimizeResult", "OptimizerConfig",
+    "SearchSpace", "optimize", "score_batch",
+    "OptimizeWhatIfResult",
     "Clock", "Orchestrator", "OrchestratorConfig", "WhatIfResult",
     "WindowRecord",
-    "PowerParams", "mape",
     "Scenario", "ScenarioSet", "ScenarioSummary", "build_scenario_set",
     "evaluate_scenarios", "run_scenarios", "summarize_scenarios",
+    "POWER_MODELS", "PowerParams", "carbon_gco2", "datacenter_power",
+    "energy_kwh", "linear_power", "mape", "opendc_power",
+    "validate_power_params",
+    "NFR1", "SLO", "BiasTracker", "SLOMonitor",
+    "SimSlice", "TelemetrySlice", "TwinConfig", "TwinState", "WindowOutput",
+    "empty_telemetry", "init_twin_state", "make_telemetry", "twin_step",
+    "AMBIENT_KEY", "CARBON_INTENSITY_KEY", "PRICE_KEY", "TelemetryStore",
+    "TelemetryWindow", "clip_to_window",
     "DigitalTwin", "TraceGroundTruth", "TwinRunResult", "run_surf_experiment",
 ]

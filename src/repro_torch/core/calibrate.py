@@ -7,7 +7,10 @@ through the ``calib_mape_grid`` kernel (:mod:`repro_torch.kernels.ops`).
 
 Faithful mode (the paper): a 1-D grid over the exponent ``r``.
 Beyond-paper mode: a 3-D grid over ``(r, p_idle, p_max)``, iterative zoom
-refinement, and a per-host refit.
+refinement, and a per-host refit.  :func:`calibrate_traced` is the
+twin core's cycle (no host round trip); :func:`calibrate_window` and
+:class:`SelfCalibrator` are the host-side cycle and the pipelined
+calibrator.
 """
 
 from __future__ import annotations
@@ -218,3 +221,112 @@ def _per_host_refit(
     best_mape = torch.where(torch.isnan(per_host_mape), fleet_mape,
                             per_host_mape)
     return rows, best_mape
+
+
+@dataclasses.dataclass(frozen=True)
+class CalibrationResult:
+    params: PowerParams          # scalar best parameters
+    mape: float                  # best candidate's window MAPE [%]
+    evaluated: int               # number of candidates evaluated
+    mapes: np.ndarray            # [C] all candidate MAPEs (diagnostics)
+
+
+def calibrate_window(
+    u_th: Tensor,
+    real_power: Tensor,
+    spec: CalibrationSpec,
+    base: PowerParams,
+) -> CalibrationResult:
+    """One calibration cycle (one C-event in Fig. 3), host-side.
+
+    Runs on ``u_th``'s device: the grid is built there and scored by the
+    ``calib_mape_grid`` kernel, and the MAPEs come back to the host, where
+    the argmin and the refine rounds' bounds are taken.  An all-zero-power
+    window has no defined MAPE: every candidate scores NaN and ``base`` is
+    kept.
+    """
+    if not isinstance(u_th, Tensor):
+        raise TypeError("calibrate_window: u_th must be a torch.Tensor (the "
+                        f"cycle runs on its device), got {type(u_th)!r}")
+    dev = u_th.device
+    real_power = torch.as_tensor(real_power, dtype=torch.float32, device=dev)
+    cand = candidate_grid(spec, base, device=dev)
+    mapes_np = evaluate_candidates(u_th, real_power, cand).cpu().numpy()
+    total = int(mapes_np.shape[0])
+    if not np.isfinite(mapes_np).any():
+        return CalibrationResult(base, float("nan"), total, mapes_np)
+
+    def point(c: PowerParams, i: int) -> PowerParams:
+        return PowerParams(p_idle=float(c.p_idle[i]), p_max=float(c.p_max[i]),
+                           r=float(c.r[i]))
+
+    best = int(np.argmin(mapes_np))
+    best_params = point(cand, best)
+    best_mape = float(mapes_np[best])
+
+    # beyond-paper: iterative zoom refinement around the incumbent
+    cur = spec
+    for _ in range(spec.refine_iters):
+        span_r = (cur.r_hi - cur.r_lo) * spec.refine_shrink
+        span_s = (cur.scale_hi - cur.scale_lo) * spec.refine_shrink
+        cur = dataclasses.replace(
+            cur,
+            r_lo=max(1.0, best_params.r - span_r / 2),
+            r_hi=best_params.r + span_r / 2,
+            scale_lo=1.0 - span_s / 2,
+            scale_hi=1.0 + span_s / 2,
+        )
+        cand = candidate_grid(cur, best_params, device=dev)
+        m = evaluate_candidates(u_th, real_power, cand).cpu().numpy()
+        total += int(m.shape[0])
+        b = int(np.argmin(m))
+        if float(m[b]) < best_mape:
+            best_mape = float(m[b])
+            best_params = point(cand, b)
+    return CalibrationResult(best_params, best_mape, total, mapes_np)
+
+
+class SelfCalibrator:
+    """Pipelined calibrator: results from window k feed simulation of k+1.
+
+    The paper's two-thread timeline (Fig. 3), deterministically: call
+    :meth:`observe` when window-k telemetry lands and
+    :meth:`params_for_next` when the engine starts window k+1.  The last
+    ``history_windows`` windows are kept on the host and calibrated on
+    ``device`` (``"cuda"`` needs a card).
+    """
+
+    def __init__(self, spec: CalibrationSpec, base: PowerParams,
+                 device: "str | torch.device" = "cuda",
+                 history_windows: int = 4):
+        self.spec = spec
+        self.base = base
+        self.device = resolve_device(device)
+        self.history_windows = history_windows
+        self._pending = base       # result of the latest completed cycle
+        self._u: list[np.ndarray] = []
+        self._p: list[np.ndarray] = []
+        self.history: list[CalibrationResult] = []
+
+    def observe(self, u_th, real_power) -> CalibrationResult:
+        """Ingest window telemetry, run one calibration cycle."""
+        def host(x):
+            return (x.detach().cpu().numpy() if isinstance(x, Tensor)
+                    else np.asarray(x))
+
+        self._u.append(host(u_th))
+        self._p.append(host(real_power))
+        self._u = self._u[-self.history_windows:]
+        self._p = self._p[-self.history_windows:]
+        u = torch.as_tensor(np.concatenate(self._u, axis=0), dtype=torch.float32,
+                            device=self.device)
+        p = torch.as_tensor(np.concatenate(self._p, axis=0), dtype=torch.float32,
+                            device=self.device)
+        res = calibrate_window(u, p, self.spec, self.base)
+        self.history.append(res)
+        self._pending = res.params
+        return res
+
+    def params_for_next(self) -> PowerParams:
+        """Parameters the simulation engine should use for the next window."""
+        return self._pending

@@ -1,9 +1,10 @@
 """SLO-aware feedback with a human-in-the-loop gate (port of ``repro.core.feedback``).
 
 The twin emits proposals and never touches the physical twin directly;
-major changes need explicit human approval.  Ported here: the closed
-loop's rules (:func:`propose_from_state`) and the what-if engine's
-(:func:`propose_from_scenario`); the optimizer's come with that slice.
+major changes need explicit human approval.  The rules: the closed
+loop's (:func:`propose_from_state`), the what-if engine's
+(:func:`propose_from_scenario`) and the scenario optimizer's
+(:func:`propose_from_optimum`).
 """
 
 from __future__ import annotations
@@ -302,4 +303,93 @@ def propose_from_scenario(
                     "cap_exceeded_bins": summary.cap_exceeded_bins,
                     "peak_power_w": summary.peak_power_w,
                     "peak_demand_w": summary.peak_demand_w}))
+    return out
+
+
+def propose_from_optimum(
+    window: int,
+    summary: "ScenarioSummary",
+    baseline: "ScenarioSummary",
+    *,
+    objective: float,
+    baseline_objective: float,
+    breakdown: dict,
+    baseline_breakdown: dict,
+    **thresholds,
+) -> list[Proposal]:
+    """Route a *searched* operating point through the proposal rules.
+
+    The scenario optimizer (:mod:`repro_torch.core.optimize`) hands the winning
+    candidate here with its scalarized objective breakdown; every proposal
+    the ordinary what-if rules emit for it
+    (:func:`propose_from_scenario`, ``thresholds`` forwarded) gains the
+    search provenance an approver needs: the winner's objective vs the
+    baseline's and the per-term breakdown (gCO2, energy, SLO penalties).
+
+    When the searched optimum improves the objective but trips none of the
+    threshold-based rules (savings below the per-metric thresholds, or
+    spread across several metrics), a CARBON_REDUCTION proposal is emitted
+    anyway — the whole point of searching is that the optimizer may land on
+    an operating point no single-metric rule would have flagged.  A winner
+    identical to the baseline configuration proposes nothing.
+    """
+    out = propose_from_scenario(window, summary, baseline, **thresholds)
+    improved = (math.isfinite(objective)
+                and objective < baseline_objective)
+    same_config = (
+        summary.num_hosts == baseline.num_hosts
+        and summary.cores_per_host == baseline.cores_per_host
+        and summary.policy == baseline.policy
+        and summary.backfill_depth == baseline.backfill_depth
+        and summary.shift_bins == baseline.shift_bins
+        and summary.power_cap_w == baseline.power_cap_w
+        and summary.carbon_cap_base_w == baseline.carbon_cap_base_w
+        and summary.carbon_cap_slope == baseline.carbon_cap_slope
+        and summary.failure_events == baseline.failure_events)
+    if not out and improved and not same_config:
+        knobs = []
+        if summary.policy != baseline.policy or \
+                summary.backfill_depth != baseline.backfill_depth:
+            knobs.append(f"scheduler {summary.policy}"
+                         f"/backfill={summary.backfill_depth}")
+        if summary.num_hosts != baseline.num_hosts:
+            knobs.append(f"{summary.num_hosts} hosts")
+        if summary.cores_per_host != baseline.cores_per_host:
+            knobs.append(f"{summary.cores_per_host} cores/host")
+        if summary.shift_bins != baseline.shift_bins:
+            knobs.append(f"shift deferrable jobs by {summary.shift_bins} bins")
+        if summary.power_cap_w is not None:
+            knobs.append(f"cap {summary.power_cap_w/1e3:.1f} kW")
+        if summary.carbon_cap_base_w is not None:
+            knobs.append(
+                f"carbon-aware cap {summary.carbon_cap_base_w/1e3:.1f} kW "
+                f"{summary.carbon_cap_slope:+.1f} W/(gCO2/kWh)")
+        # pick the kind from the breakdown: a winner whose gain is dollars
+        # (cost down, carbon flat or worse) is a COST_REDUCTION; everything
+        # else keeps the historical CARBON_REDUCTION label.
+        def _gain(key):
+            try:
+                return (float(baseline_breakdown.get(key))
+                        - float(breakdown.get(key)))
+            except (TypeError, ValueError):
+                return math.nan
+        cost_gain = _gain("energy_cost")
+        carbon_gain = _gain("gco2_kg")
+        kind = (ProposalKind.COST_REDUCTION
+                if math.isfinite(cost_gain) and cost_gain > 0
+                and (not math.isfinite(carbon_gain) or carbon_gain <= 0)
+                else ProposalKind.CARBON_REDUCTION)
+        out.append(Proposal(
+            kind, window,
+            f"searched optimum '{summary.name}': "
+            f"{', '.join(knobs) or 'candidate'} "
+            f"improves the operating objective to {objective:.3f} "
+            f"(vs baseline {baseline_objective:.3f})",
+            impact={"scenario": summary.name}))
+    for p in out:
+        p.impact["objective"] = objective
+        p.impact["objective_baseline"] = baseline_objective
+        p.impact["objective_breakdown"] = dict(breakdown)
+        p.impact["objective_breakdown_baseline"] = dict(baseline_breakdown)
+        p.impact["searched_optimum"] = summary.name
     return out

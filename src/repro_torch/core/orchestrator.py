@@ -4,9 +4,11 @@ Port of ``repro.core.orchestrator``.  All per-window math is one
 :func:`~repro_torch.core.state.twin_step` on ``self.state``; this shell owns
 telemetry I/O (the :class:`~repro_torch.core.telemetry.TelemetryStore`),
 wall-clock pacing, run records, float64 sustainability bookkeeping and the
-SLO-aware proposals routed through the human-in-the-loop gate, and the
-batched what-if sweep (:meth:`Orchestrator.evaluate_whatif`).  The
-optimizer and proposal-applying surface comes with a later slice.
+SLO-aware proposals routed through the human-in-the-loop gate, the
+batched what-if sweep (:meth:`Orchestrator.evaluate_whatif`), the searched
+what-if (:meth:`Orchestrator.optimize_whatif`) and the application of an
+approved structural proposal to the twin (:meth:`Orchestrator.apply_proposal`,
+paper stage 3).
 
 Acceleration factor (paper §2.3): ratio between simulated and wall time;
 ``None`` runs as fast as compute allows.
@@ -23,12 +25,26 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.calibrate import CalibrationSpec
-from repro_torch.core.desim import Prediction, SimOutput, simulate_utilization
+from repro_torch.core.desim import (
+    PLACEMENT_POLICIES,
+    Prediction,
+    SimOutput,
+    simulate_utilization,
+)
 from repro_torch.core.feedback import (
     HITLGate,
     Proposal,
+    ProposalKind,
+    propose_from_optimum,
     propose_from_scenario,
     propose_from_state,
+)
+from repro_torch.core.optimize import (
+    ObjectiveSpec,
+    OptimizeResult,
+    OptimizerConfig,
+    SearchSpace,
+    optimize,
 )
 from repro_torch.core.power import PowerParams, mape
 from repro_torch.core.scenarios import Scenario, ScenarioSummary, evaluate_scenarios
@@ -66,6 +82,11 @@ class OrchestratorConfig:
     #: where the twin runs: "cuda" (hand-written kernels) or "cpu"
     device: str = "cuda"
     pue: PUEParams | None = None
+    #: resident DES (paper stage 3): the full-horizon utilization field
+    #: lives in ``TwinState.sim_u`` and ``twin_step`` slices its own
+    #: window, so an applied proposal (:meth:`Orchestrator.apply_proposal`)
+    #: re-seeds the twin's own simulation.  Off by default.
+    sim_in_state: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +131,20 @@ class WhatIfResult:
     proposals: list[Proposal]
     sim: SimOutput              # batched, leaves [S, ...]
     prediction: Prediction      # batched, leaves [S, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizeWhatIfResult:
+    """Outcome of one searched what-if: the optimum plus its HITL routing.
+
+    ``result`` is the :class:`~repro_torch.core.optimize.OptimizeResult`
+    (incumbent, baseline, evaluation history, convergence trace);
+    ``proposals`` are already submitted to the orchestrator's HITL gate and
+    carry the optimum's objective breakdown against the baseline's.
+    """
+
+    result: OptimizeResult
+    proposals: list[Proposal]
 
 
 def _drop_first_lane(x):
@@ -165,6 +200,10 @@ class Orchestrator:
         self.store = TelemetryStore(cfg.bins_per_window)
         self.gate = gate or HITLGate()
         self.records: list[WindowRecord] = []
+        # scheduler knobs the twin's DES runs under; structural proposals
+        # (apply_proposal) are the only writers after construction
+        self.policy: str | None = None
+        self.backfill_depth: int = 0
         self._sim: SimOutput | None = None
         #: seconds the last full-horizon DES took (device synchronized)
         self.des_seconds: float | None = None
@@ -178,8 +217,11 @@ class Orchestrator:
             device=str(self.device),
             slos=(NFR1,),
             pue=cfg.pue,
+            sim_bins=self.t_bins if cfg.sim_in_state else 0,
         )
-        self.state: TwinState = init_twin_state(self.twin_cfg, base_params)
+        sim_u = self._ensure_sim().u_th if cfg.sim_in_state else None
+        self.state: TwinState = init_twin_state(self.twin_cfg, base_params,
+                                                sim_u=sim_u)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -200,7 +242,8 @@ class Orchestrator:
                            ties=int(self.state.bias_ties))
 
     def _ensure_sim(self) -> SimOutput:
-        """Full-horizon DES utilization field, computed once per topology."""
+        """Full-horizon DES utilization field, computed once per topology
+        and scheduler (``self.policy``, ``self.backfill_depth``)."""
         if self._sim is None:
             t0 = self.clock.now()
             self._sim = simulate_utilization(
@@ -208,10 +251,16 @@ class Orchestrator:
                 num_hosts=self.dc.num_hosts,
                 cores_per_host=self.dc.cores_per_host,
                 t_bins=self.t_bins,
+                policy=self.policy,
+                backfill_depth=self.backfill_depth,
             )
             self._sync()
             self.des_seconds = self.clock.now() - t0
         return self._sim
+
+    def invalidate(self) -> None:
+        """Drop the cached DES output (topology or scheduler changed)."""
+        self._sim = None
 
     @property
     def num_windows(self) -> int:
@@ -259,10 +308,12 @@ class Orchestrator:
                  else empty_telemetry(self.cfg.bins_per_window,
                                       self.dc.num_hosts, device=self.device))
 
+        # in resident-DES mode the step slices its own window from
+        # state.sim_u, the field apply_proposal last seeded
         t0 = self.clock.now()
         self.state, out = twin_step(
             self.state, telem, SimSlice(
-                u_th=sim.u_th[sl],
+                u_th=None if self.cfg.sim_in_state else sim.u_th[sl],
                 carbon_intensity=self._trace_slice(self.carbon_intensity, sl),
                 ambient_c=amb_w,
                 price=self._trace_slice(self.price, sl)))
@@ -353,6 +404,136 @@ class Orchestrator:
             summaries = summaries[1:]
         return WhatIfResult(summaries=summaries, proposals=proposals,
                             sim=sim, prediction=pred)
+
+    def apply_proposal(self, p: Proposal) -> None:
+        """Apply an approved structural proposal to this twin (stage 3).
+
+        ``SCHEDULER_CHANGE`` swaps the DES scheduler (placement policy and
+        backfill depth); ``SCALE_UP`` / ``SCALE_DOWN_IDLE`` resize the
+        topology.  The full-horizon DES then re-runs under the new
+        configuration and the core is rebuilt around it
+        (:meth:`_rebuild_state`); in resident-DES mode that re-seeds the
+        state's own ``sim_u``.  Raises for an unapproved proposal and for
+        kinds with no structural meaning here (caps and time shifts are
+        scenario axes; recalibration is automatic).
+        """
+        if p.approved is not True:
+            raise ValueError(
+                f"proposal {p.kind.value}@w{p.window} is not approved — "
+                "route it through the HITL gate before applying")
+        if p.kind is ProposalKind.SCHEDULER_CHANGE:
+            self.policy = p.impact.get("policy", self.policy)
+            self.backfill_depth = int(
+                p.impact.get("backfill_depth", self.backfill_depth))
+        elif p.kind in (ProposalKind.SCALE_UP, ProposalKind.SCALE_DOWN_IDLE):
+            if "num_hosts" not in p.impact:
+                raise ValueError(
+                    f"{p.kind.value} proposal carries no num_hosts impact")
+            n = int(p.impact["num_hosts"])
+            if n <= 0:
+                raise ValueError(f"proposed num_hosts must be >= 1; got {n}")
+            self.dc = dataclasses.replace(self.dc, num_hosts=n)
+        else:
+            raise ValueError(
+                f"{p.kind.value} is not a structural proposal this twin can "
+                "apply (power caps / load shifting are scenario axes; "
+                "recalibration is automatic)")
+        p.applied = True
+        self.invalidate()
+        self._rebuild_state()
+
+    def _rebuild_state(self) -> None:
+        """Rebuild the core around the current ``self.dc`` and scheduler.
+
+        The run's accumulators (window, SLO counts, bias split) migrate.
+        The calibrated parameters migrate and become the new base: per-host
+        rows keep their first ``min(old, new)`` hosts and growth takes the
+        rows' mean.  The calibration history migrates only while the host
+        count is unchanged.  In resident-DES mode the new state is seeded
+        with the re-run DES horizon.
+        """
+        old = self.state
+        old_h = old.cfg.dc.num_hosts
+        h = self.dc.num_hosts
+        self.twin_cfg = dataclasses.replace(self.twin_cfg, dc=self.dc)
+        sim_u = self._ensure_sim().u_th if self.cfg.sim_in_state else None
+
+        def row(x):
+            v = np.asarray(x.detach().cpu().numpy(), np.float32)
+            if v.ndim == 0:
+                return v
+            out = np.full((h,), float(v.mean()), np.float32)
+            out[:min(v.size, h)] = v[:h]
+            return out
+
+        params = PowerParams(p_idle=row(old.params.p_idle),
+                             p_max=row(old.params.p_max),
+                             r=row(old.params.r))
+        state = init_twin_state(self.twin_cfg, params, sim_u=sim_u)
+        keep = dict(window=old.window,
+                    slo_samples=old.slo_samples,
+                    slo_compliant=old.slo_compliant,
+                    bias_under=old.bias_under,
+                    bias_over=old.bias_over,
+                    bias_ties=old.bias_ties)
+        if h == old_h:
+            keep.update(hist_u=old.hist_u, hist_p=old.hist_p,
+                        hist_n=old.hist_n)
+        self.state = dataclasses.replace(state, **keep)
+
+    def default_search_space(self) -> SearchSpace:
+        """A software-only search space for the current twin: the current
+        topology under every placement policy (backfill 4 for all but
+        worst fit), deferrable jobs shifted by up to 3 hours; cap axes off."""
+        structures = tuple(
+            Scenario(name=p, policy=p,
+                     backfill_depth=0 if p == "worst_fit" else 4)
+            for p in sorted(PLACEMENT_POLICIES))
+        return SearchSpace(structures=structures, shift_bins=(0, 36))
+
+    def optimize_whatif(
+        self,
+        space: SearchSpace | None = None,
+        objective: ObjectiveSpec | None = None,
+        *,
+        key: "int | torch.Generator" = 0,
+        config: OptimizerConfig = OptimizerConfig(),
+    ) -> OptimizeWhatIfResult:
+        """Search the scenario space and route the optimum through the gate.
+
+        The space defaults to :meth:`default_search_space`; the search runs
+        on the twin's device with its calibrated parameters
+        (``self.state.params``) and forecasts.  Without a carbon forecast
+        the default objective weights energy instead of gCO2.  The winner
+        goes through :func:`~repro_torch.core.feedback.propose_from_optimum`
+        against the baseline and its proposals are submitted to the gate.
+        """
+        if space is None:
+            space = self.default_search_space()
+        if self.cfg.pue is not None:
+            space = dataclasses.replace(
+                space,
+                structures=tuple(self._with_pue(s) for s in space.structures))
+        if objective is None:
+            objective = (ObjectiveSpec() if self.carbon_intensity is not None
+                         else ObjectiveSpec(w_gco2_kg=0.0, w_energy_kwh=1.0))
+        res = optimize(
+            self.workload, self.dc, space, objective,
+            t_bins=self.t_bins, base_params=self.state.params,
+            carbon_intensity=self.carbon_intensity,
+            ambient_c=self.ambient_c, price=self.price,
+            key=key, config=config, model=self.cfg.power_model,
+        )
+        window = len(self.records)
+        proposals = [
+            self.gate.submit(p) for p in propose_from_optimum(
+                window, res.best_summary, res.baseline_summary,
+                objective=res.best.objective,
+                baseline_objective=res.baseline.objective,
+                breakdown=res.best.breakdown,
+                baseline_breakdown=res.baseline.breakdown,
+            )]
+        return OptimizeWhatIfResult(result=res, proposals=proposals)
 
     def _with_pue(self, s: Scenario) -> Scenario:
         """Apply the orchestrator's facility PUE model to a scenario that

@@ -48,6 +48,11 @@ class TwinConfig:
     device: str = "cuda"
     slos: tuple[SLO, ...] = (NFR1,)
     pue: PUEParams | None = None
+    #: full-horizon DES resident in the state: when positive, ``TwinState``
+    #: carries a ``[sim_bins, H]`` utilization field (``sim_u``) and
+    #: ``twin_step`` slices its own window from it when the caller passes
+    #: ``SimSlice(u_th=None)``; 0 keeps the shell feeding window slices.
+    sim_bins: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +64,9 @@ class TwinState:
     candidate grid; ``hist_u [K, Tw, H]`` / ``hist_p [K, Tw]`` the
     chronological calibration history (zero-padded at the tail);
     ``hist_n``, ``window``, the bias counts are 0-d int32 tensors and
-    ``slo_samples``/``slo_compliant`` ``[n_slo]`` int32 tensors.
+    ``slo_samples``/``slo_compliant`` ``[n_slo]`` int32 tensors;
+    ``sim_u`` the ``[sim_bins, H]`` float32 DES utilization field, ``None``
+    unless ``cfg.sim_bins > 0``.
     """
 
     params: PowerParams
@@ -74,6 +81,7 @@ class TwinState:
     bias_under: Tensor
     bias_over: Tensor
     bias_ties: Tensor
+    sim_u: Tensor | None = None
     cfg: TwinConfig = TwinConfig()
 
 
@@ -115,11 +123,12 @@ class SimSlice:
     """The simulation engine's window slice the core predicts from.
 
     ``u_th`` is the window's ``[Tw, H]`` slice of the DES utilization field;
-    ``carbon_intensity`` / ``ambient_c`` / ``price`` are optional ``[Tw]``
-    forecast slices.
+    with ``TwinConfig.sim_bins > 0`` it may be ``None``, and ``twin_step``
+    slices the window from ``state.sim_u`` itself.  ``carbon_intensity`` /
+    ``ambient_c`` / ``price`` are optional ``[Tw]`` forecast slices.
     """
 
-    u_th: Tensor
+    u_th: Tensor | None = None
     carbon_intensity: Tensor | None = None
     ambient_c: Tensor | None = None
     price: Tensor | None = None
@@ -163,11 +172,14 @@ def _scalar_param(x, name: str, dev: torch.device,
 
 
 def init_twin_state(cfg: TwinConfig,
-                    base_params: PowerParams = PowerParams()) -> TwinState:
+                    base_params: PowerParams = PowerParams(),
+                    sim_u=None) -> TwinState:
     """Fresh ``TwinState`` on ``cfg.device``: base parameters, empty history.
 
     The candidate grid is built host-side once (:func:`candidate_grid`) and
-    carried in the state.
+    carried in the state.  With ``cfg.sim_bins > 0`` the state carries the
+    full-horizon DES utilization field: pass ``sim_u`` (``[sim_bins, H]``)
+    to seed it, or leave it ``None`` for a zero field.
     """
     dev = resolve_device(cfg.device)
     k, tw, h = cfg.history_windows, cfg.bins_per_window, cfg.dc.num_hosts
@@ -176,8 +188,20 @@ def init_twin_state(cfg: TwinConfig,
         p_idle=_scalar_param(base_params.p_idle, "p_idle", dev, hosts),
         p_max=_scalar_param(base_params.p_max, "p_max", dev, hosts),
         r=_scalar_param(base_params.r, "r", dev, hosts))
+    if cfg.sim_bins > 0:
+        if sim_u is None:
+            sim_u = torch.zeros((cfg.sim_bins, h), device=dev)
+        else:
+            sim_u = torch.as_tensor(sim_u, dtype=torch.float32).to(dev).clone()
+            if tuple(sim_u.shape) != (cfg.sim_bins, h):
+                raise ValueError(
+                    f"sim_u must be [{cfg.sim_bins}, {h}] "
+                    f"(cfg.sim_bins x num_hosts); got {tuple(sim_u.shape)}")
+    elif sim_u is not None:
+        raise ValueError("sim_u given but cfg.sim_bins == 0")
     i32 = dict(dtype=torch.int32, device=dev)
     return TwinState(
+        sim_u=sim_u,
         params=PowerParams(*(x.clone() for x in (base.p_idle, base.p_max, base.r))),
         base_params=base,
         cand=candidate_grid(cfg.calibration, base, device=dev),
@@ -213,14 +237,27 @@ def twin_step(state: TwinState, telemetry: TelemetrySlice,
     """One window of the continuous twinning cycle (paper Fig. 3).
 
     S_k: predict the window with the pipelined parameters
-    (``state.params``).  With valid telemetry: score the prediction (MAPE),
-    update the SLO and bias counts, push the observation into the history
-    and run C_k, the grid-search calibration, so S_{k+1} predicts with
-    fresh parameters.
+    (``state.params``), from ``sim_slice.u_th`` or, when that is ``None``,
+    from the window's slice of ``state.sim_u``.  With valid telemetry:
+    score the prediction (MAPE), update the SLO and bias counts, push the
+    observation into the history and run C_k, the grid-search calibration,
+    so S_{k+1} predicts with fresh parameters.
     """
     cfg = state.cfg
     params = state.params
-    pred = predict_metrics(sim_slice.u_th, params, cfg.dc,
+    u_win = sim_slice.u_th
+    if u_win is None:
+        if state.sim_u is None:
+            raise ValueError(
+                "SimSlice.u_th is None but the state carries no sim_u "
+                "(TwinConfig.sim_bins == 0)")
+        # the window's own slice, its start clamped into the field as
+        # ``lax.dynamic_slice`` clamps it; indexed on the device, no read
+        tw = cfg.bins_per_window
+        start = (state.window.long() * tw).clamp(0, cfg.sim_bins - tw)
+        u_win = state.sim_u.index_select(
+            0, start + torch.arange(tw, device=state.sim_u.device))
+    pred = predict_metrics(u_win, params, cfg.dc,
                            model=cfg.power_model,
                            carbon_intensity=sim_slice.carbon_intensity,
                            ambient_c=sim_slice.ambient_c,

@@ -332,6 +332,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files += [ROOT / name for name in ("chip_smoke.py", "e2_compare.py", "kernel_compare.py",
                                        "place_profile.py")]
     assert len(files) > 20
+    assert ROOT / "src" / "repro_torch" / "core" / "optimize.py" in files
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
