@@ -21,17 +21,22 @@ Phases (each passes or the script exits non-zero without a result line):
    main paths' shapes and at ragged ones (``calib_mape_grid`` at
    ``calib_cases``: the E2 window with 64 and 9216 random candidates, the
    E2 joint grid as built and shuffled, the per-host refit, T=97, T=1,
-   C=1, H=2500, zero-real bins and an all-zero window, rtol 1e-4 atol
-   1e-3; flash attention at the JAX
+   C=1, H=2500, zero-real bins and an all-zero window, and the per-lane
+   candidate rows of a fleet (``calib_lane_cases``: 64 lanes at E2's
+   window, 16 lanes of refined joint grids, the per-host rows of 8 lanes),
+   rtol 1e-4 atol 1e-3, with a fleet's lanes equal bit for bit to the
+   calls each lane makes alone; flash attention at the JAX
    attention sweep's shapes, the bf16 tensor-core route at every head dim,
    ragged, decode, Skv > Sq and non-causal shapes, and SmolLM-360M's and
    Zamba2-1.2B's prefill shapes in bf16 and f32, each against the plain
    version in f32 at a bar set by the route's rounding (``FLASH_CASES``);
    ``des_readout`` at ``READOUT_2D`` and, with per-lane operands, at
    ``READOUT_LANES`` (the what-if batch, a week under 64 lanes, one lane,
-   one bin, one host, five host chunks, every warp split), 4 power models
-   x 2 precisions, rtol 1e-5 atol 1e-6 (bf16 performance leaves within one
-   bf16 ulp);
+   one bin, one host, five host chunks, every warp split, the serving
+   fleet's window) and at the fleet's window as its step gives it
+   (``[S, 1]`` rows or one number each, a per-lane carbon column), 4 power
+   models x 2 precisions, rtol 1e-5 atol 1e-6 (bf16 performance leaves
+   within one bf16 ulp);
    ``ssd_chunk`` at the JAX SSD sweep's shapes, at both Mamba2-family
    prefill shapes and at a ragged 200-row chunk, at those last three again
    with a long memory and at the longest chunks, 255 and 511 rows, rtol/atol
@@ -81,7 +86,8 @@ Phases (each passes or the script exits non-zero without a result line):
    PyTorch call that computes the same (SDPA for attention), at the main
    paths' shapes (device time, median of 5 rounds of up to 20 calls, with
    the rounds' spread; ``calib_mape_grid`` also at the joint grid's own
-   candidates, with all 9216 r distinct, and at the per-host refit;
+   candidates, with all 9216 r distinct, at the per-host refit, and with
+   per-lane candidate rows at the fleet's window, 64 x ``[144, 277]``;
    ``des_readout`` at ``READOUT_TIMED``, the lane shapes on the calibrated
    run's own field; ``power_sim`` on the E2 horizon and on readout D's
    number of elements; ``des_place`` at the E2 horizon, C and D, and with
@@ -92,9 +98,31 @@ Phases (each passes or the script exits non-zero without a result line):
    decision step, timed alone, or the earlier design's attempts times its
    block's barrier round trip, whichever is smaller); and an empty kernel
    (``torch.cuda._sleep(0)``, one thread), the launch floor of the same
-   timer.
+   timer;
+11. (``search_phase``) the optimizer and stage 3 on the card, run before
+   the kernel timings so that its launches count in the kernels line;
+12. (``serve_phase``, also before the timings) the streaming twin service
+   (paper stage 1) at E2's width: (a) a 64-lane ``TwinService``, 56
+   synthetic tenants and 8 replaying E2's ground truth under the diurnal
+   carbon trace with their own base parameters (so the lanes' candidate
+   rows differ), events shuffled and submitted in chunks, then 16 tenants
+   repeating synthetic streams from the cache: every window equals a solo
+   card ``twin_step`` bit for bit, streams in order, one ``des_readout``
+   and one ``calib_mape_grid`` launch a batch; (b) the joint grid with one
+   refine round on 16 lanes, two ``calib_mape_grid`` a batch, lanes equal
+   solo; (c) kill and restore through a ``SessionStore`` equal to the
+   uninterrupted run; (d) (b) on the CPU, parameters and counts equal,
+   floats within rtol 1e-5; (e) a state blob from the card to the CPU and
+   back, and E2 checkpointed after window 28 and resumed equal to phase
+   4's run; (f) ``run_fleet`` of the 8 replay tenants over E2's 56
+   windows, 56 launches of each kernel; (g) wall seconds a batch, fill,
+   warm tenant-windows a second at full fill, the host's time in
+   ``encode_result`` and ``digest_arrays``, and one profiled batch,
+   retaken while its trace is short of a copy the host issued (its busy
+   time is then logged as a lower bound).
 
-The second-to-last line of standard output is the ``kernels`` JSON record,
+The seconds each phase took are logged after the kernel timings
+(``phase seconds``).  The second-to-last line of standard output is the ``kernels`` JSON record,
 the last line ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  The script needs no network and starts
 no process that outlives it (``nvcc`` and ``nvidia-smi`` are waited for).
@@ -147,6 +175,10 @@ STAGE3_APPLY_AT = 28
 #: traces of E2's DES taken again, at most, where one lost its des_place
 #: launch (``--profile``)
 MAX_TRACE_RETRIES = 10
+#: phase 12's profiled batch taken again, at most, where its trace is short
+#: of a copy the host issued: a process whose traces lose the batch's
+#: host-to-device copies has lost them in every retake, so few are tried
+SERVE_TRACE_RETRIES = 2
 
 #: the card every phase runs on
 DEVICE = "cuda"
@@ -204,6 +236,9 @@ FLASH_CASES = [
 #: (here every r distinct), the per-host refit (B=277, H=1), a ragged
 #: window (T=97), one bin, one candidate, and 2500 hosts (five host chunks
 #: of the kernel); ``calib_cases`` adds the E2 joint grid itself
+#: the fleet's calibration window: 64 lanes of E2's history, 64 candidates
+#: a lane (phase 12's service)
+CALIB_FLEET = (64, 144, 277, 64)
 CALIB_SHAPES = [(1, 144, 277, 64), (1, 144, 277, 9216), (277, 144, 1, 64),
                 (1, 97, 33, 130), (2, 1, 277, 64), (1, 144, 277, 1),
                 (3, 300, 2500, 5)]
@@ -224,10 +259,16 @@ READOUT_2D = [(36, 277), (97, 13), (2016, 277)]
 #: (``lanes_case``): the JAX package's what-if batch (16 scenarios of 64 +
 #: 24 i hosts over 2 days, benchmarks/whatif_batch.py), a week of the
 #: paper's cluster under 64 what-if lanes, one lane, one bin, one host,
-#: five host chunks of the kernel (H = 5000), 33 hosts, 130 hosts; with
+#: five host chunks of the kernel (H = 5000), 33 hosts, 130 hosts, and the
+#: serving fleet's window (64 lanes of 36 bins x 277 hosts); with
 #: READOUT_2D they take every warp split (1, 2, 4, 8)
 READOUT_LANES = [(16, 576, 424), (64, 2016, 277), (1, 36, 277), (5, 1, 277),
-                 (7, 50, 1), (3, 40, 5000), (4, 97, 33), (2, 300, 130)]
+                 (7, 50, 1), (3, 40, 5000), (4, 97, 33), (2, 300, 130),
+                 (64, 36, 277)]
+
+#: the serving fleet's window as ``state.twin_step_lanes`` gives it to the
+#: readout: (lanes, bins, hosts)
+READOUT_FLEET = (64, 36, 277)
 
 #: des_readout timings, label -> (S, T, H): A and B as the E2 path calls
 #: the kernel (scalar parameters, no scenario axis, random u), C and D
@@ -407,7 +448,41 @@ def calib_cases(torch, np, dev) -> list:
          (u, real, *(x[perm].contiguous() for x in joint))),
         ("B=1 T=144 H=277 C=64 every third bin zero", (u, some_zero, pi, pm, r)),
         ("B=1 T=144 H=277 C=64 all bins zero", (u, torch.zeros_like(real), pi, pm, r)),
-    ]
+    ] + list(calib_lane_cases(torch, np, dev).items())
+
+
+def calib_lane_cases(torch, np, dev) -> dict:
+    """The per-lane (candidate row) calib cases of a fleet, by label: 64
+    lanes at E2's window with random rows (``CALIB_FLEET``), 16 lanes of
+    joint grids refined around their own incumbents (as a refine round of
+    ``calibrate_traced_lanes`` builds them), and the per-host refit of 8
+    lanes, ``[8 x 277]`` rows over 8 candidate rows."""
+    from repro_torch.core import CalibrationSpec
+    from repro_torch.core.calibrate import _grid_traced_lanes
+    from repro_torch.core.power import PowerParams
+
+    rng = np.random.default_rng(6)
+
+    def rows(lo, hi, shape):
+        return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32), device=dev)
+
+    b, t, h, c = CALIB_FLEET
+    u, real = calib_inputs(torch, np, b, t, h, 1, seed=7, device=dev)[:2]
+    spec = CalibrationSpec(mode="joint", refine_iters=1)
+    best = PowerParams(p_idle=rows(60, 80, 16), p_max=rows(300, 400, 16), r=rows(1.5, 5.5, 16))
+    span_r = (spec.r_hi - spec.r_lo) * spec.refine_shrink
+    span_s = (spec.scale_hi - spec.scale_lo) * spec.refine_shrink
+    grid = _grid_traced_lanes(spec, best, torch.clamp(best.r - span_r / 2, min=1.0),
+                              best.r + span_r / 2, 1.0 - span_s / 2, 1.0 + span_s / 2)
+    ph_u, ph_real = calib_inputs(torch, np, 8 * h, t, 1, 1, seed=8, device=dev)[:2]
+    return {
+        f"B={b} T={t} H={h} C={c} per-lane rows (the fleet)":
+            (u, real, rows(50, 90, (b, c)), rows(250, 450, (b, c)), rows(1, 6, (b, c))),
+        f"B=16 T={t} H={h} C={grid.r.shape[1]} refined joint rows":
+            (u[:16], real[:16], grid.p_idle, grid.p_max, grid.r),
+        f"B=8x{h} T={t} H=1 C={c} per-host refit rows [8, {c}]":
+            (ph_u, ph_real, rows(50, 90, (8, c)), rows(250, 450, (8, c)), rows(1, 6, (8, c))),
+    }
 
 
 def calib_agrees(torch, got, want) -> tuple[float, bool]:
@@ -436,6 +511,25 @@ def check_calib(torch, np, ops, ref, dev) -> float:
         worst = max(worst, err)
         log(f"calib_mape_grid {label}: max |err| {err:.3g} (rtol 1e-4, atol 1e-3), "
             "bitwise repeatable")
+    # a fleet's lane gives what that lane's own call gives: the solo window
+    # [T, H] with [C] candidates, the solo per-host refit [H, T, 1]
+    lanes = calib_lane_cases(torch, np, dev)
+    u, real, pi, pm, r = next(iter(lanes.values()))
+    fleet = ops.calib_mape_grid(u, real, pi, pm, r)
+    for d in (0, 37, u.shape[0] - 1):
+        if not torch.equal(fleet[d].view(torch.int32), ops.calib_mape_grid(
+                u[d], real[d], pi[d], pm[d], r[d]).view(torch.int32)):
+            fail(f"calib_mape_grid: lane {d} of B={u.shape[0]} differs from its B=1 call")
+    u, real, pi, pm, r = list(lanes.values())[2]
+    h = u.shape[0] // pi.shape[0]
+    per_host = ops.calib_mape_grid(u, real, pi, pm, r)
+    for d in (0, 5):
+        rows = slice(d * h, (d + 1) * h)
+        if not torch.equal(per_host[rows].view(torch.int32), ops.calib_mape_grid(
+                u[rows], real[rows], pi[d], pm[d], r[d]).view(torch.int32)):
+            fail(f"calib_mape_grid: lane {d}'s per-host rows differ from its own call")
+    log("calib_mape_grid: lanes 0, 37 and 63 of the fleet call equal their B=1 calls, "
+        "and lanes 0 and 5 of the per-host rows their B=277 calls, bit for bit")
     return worst
 
 
@@ -512,7 +606,10 @@ def readout_cases(torch, np, dev) -> list:
     [0, 1.15), per-lane operands); the what-if batch's lane i masks all
     but its first 64 + 24 i hosts.  Then two cases whose host rows are each
     one number, the kernel's path that stages none: the E2 window, and 3
-    lanes with every host down in bins 10-19."""
+    lanes with every host down in bins 10-19.  Last, the serving fleet's
+    window (``READOUT_FLEET``) in the two forms a fleet step can give it:
+    each lane's power parameters as ``[S, 1]`` rows, and one number for
+    every lane, both under a per-lane carbon column ``[S, T]``."""
     cases = [(f"T={t} H={h}", *readout_case(torch, np, t, h, seed=t + h, device=dev))
              for t, h in READOUT_2D]
     for s, t, h in READOUT_LANES:
@@ -530,6 +627,17 @@ def readout_cases(torch, np, dev) -> list:
     cases.append(("S=3 T=40 H=277 rows one number each, all hosts down in bins 10-19", u,
                   dict(lanes_case(torch, np, u, 7), **rows, fail_start=10, fail_end=20,
                        fail_kill=1.0)))
+    s, t, h = READOUT_FLEET
+    rng = np.random.default_rng(8)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    u = f(rng.uniform(0.0, 1.15, (s, t, h)))
+    carbon = dict(intensity=f(rng.uniform(50.0, 600.0, (s, t))), peak_tflops=120.0)
+    cases.append((f"S={s} T={t} H={h} the fleet step's operands: [S, 1] rows, carbon [S, T]",
+                  u, dict(carbon, p_idle=f(rng.uniform(40.0, 90.0, (s, 1))),
+                          p_max=f(rng.uniform(200.0, 420.0, (s, 1))),
+                          r=f(rng.uniform(1.2, 3.4, (s, 1))))))
+    cases.append((f"S={s} T={t} H={h} rows one number each, carbon [S, T]", u,
+                   dict(carbon, p_idle=65.0, p_max=330.0, r=2.4)))
     return cases
 
 
@@ -785,6 +893,14 @@ def main() -> int:
 
     dev = torch.device("cuda")
     details: dict = {}
+    phase_s: dict = {}
+    since = [T_START]
+
+    def phase_done(name: str) -> None:
+        """Record the seconds since the last phase ended under ``name``."""
+        now = time.time()
+        phase_s[name] = now - since[0]
+        since[0] = now
 
     # 1) the card
     card = card_line()
@@ -803,6 +919,7 @@ def main() -> int:
     log(f"build: {build_s:.1f} s")
     details["build_seconds"] = build_s
     details["ptxas"] = dict(_build.BUILD_LOG)
+    phase_done("1-2 card and build")
 
     # 3) each kernel against its plain version on the card
     errs = {"calib_mape_grid": check_calib(torch, np, ops, ref, dev),
@@ -812,6 +929,7 @@ def main() -> int:
     errs["ssd_chunk"] = check_ssd(torch, np, ops, ref, dev)
     cases = place_cases(torch, np, dev)
     errs["des_place"], details["place_attempts"] = check_place(torch, np, ops, cases)
+    phase_done("3 kernel checks")
 
     # 4) the main path: E2 at full size, kernels counted
     dc = DatacenterConfig()
@@ -863,6 +981,7 @@ def main() -> int:
     if not runs["calibrated"].overall_mape < runs["uncalibrated"].overall_mape:
         fail("E2: calibration did not lower the MAPE")
     details["window_transfers"] = window_transfers(torch, w, dc, t_bins)
+    phase_done("4 E2 on the card")
 
     # 5) the calibrated run again on the CPU: the schedule its windows were
     # predicted from and its parameter stream equal the card run's own
@@ -887,9 +1006,11 @@ def main() -> int:
         f"rtol 1e-5 (max rel {float(np.nanmax(np.abs(gpu.per_window_mape - cpu.per_window_mape) / np.abs(cpu.per_window_mape))):.3g}), "
         f"u_th bitwise equal: {u_equal}, {time.time() - t0:.1f} s")
     details["cpu_rerun_u_th_bitwise"] = u_equal
+    phase_done("5 E2 on the CPU")
 
     # 6) the fleet power map on the card run's own horizon, counted
     launches.update(power_sim_path(torch, ops, sim_gpu.u_th, gpu.records[-1].params, dc))
+    phase_done("6 power_sim path")
 
     # 7) the what-if path: evaluate_whatif on the calibrated twin, then the
     # fused run_scenarios at C and D, each call's launches counted from 0
@@ -898,6 +1019,7 @@ def main() -> int:
     for v in details["whatif"].values():
         for k in ("des_place", "des_readout"):
             launches[k] += v["launches"][k]
+    phase_done("7 what-if")
 
     # 8) the LM serving paths at full size, each prefill counted
     for arch, per_call in LM_PATHS.items():
@@ -905,16 +1027,26 @@ def main() -> int:
         for k in per_call:
             launches[k] += run["launches"][k]
         details[f"lm_serve {arch}"] = lm_serve(torch, ops, arch)
+    phase_done("8 LM serving paths")
 
     # 9) the LMs on the card against the LMs on the CPU, f32
     for arch in CARD_VS_CPU:
         details[f"lm_card_vs_cpu {arch}"] = lm_card_vs_cpu(torch, np, arch)
+    phase_done("9 LM card vs CPU")
 
     # 11) the optimizer and stage 3 on the card (run before the kernel
     # timings, so that its launches count in the kernels line)
     details["search"] = search_phase(torch, np, ops, w, dc, t_bins, gpu_orch, gpu)
     for k, n in details["search"]["launches"].items():
         launches[k] += n
+    phase_done("11 search and stage 3")
+
+    # 12) the streaming twin service (paper stage 1) on the card, before the
+    # kernel timings so that its launches count in the kernels line
+    details["serve"] = serve_phase(torch, np, ops, w, dc, t_bins, gpu)
+    for k, n in details["serve"]["launches"].items():
+        launches[k] += n
+    phase_done("12 serving")
 
     # 10) kernel times at the main paths' shapes (device time, queue kept full)
     timer = DeviceTimer(torch)
@@ -923,8 +1055,8 @@ def main() -> int:
     readout_lib = _build.load("des_readout")
     stream = torch.cuda.current_stream().cuda_stream
 
-    def timed(kernel, plain, **extra):
-        k, p = timer.device_ms(kernel), timer.device_ms(plain)
+    def timed(kernel, plain, plain_reps=20, **extra):
+        k, p = timer.device_ms(kernel), timer.device_ms(plain, reps=plain_reps)
         return dict(ms=k["ms"], plain_ms=p["ms"], kernel_rounds=k,
                     plain_rounds=p, **extra)
 
@@ -933,8 +1065,9 @@ def main() -> int:
 
     def calib_case(u, real, pi, pm, r):
         b, t, h = u.shape
-        c = r.shape[0]
-        tile = calib_mape.bin_tile(b, t, h, c)
+        c = r.shape[-1]
+        group = calib_mape.candidate_group(b, r)
+        tile = calib_mape.bin_tile(group, t, h, c)
         partial = torch.empty((b, -(-t // tile), c), device=dev)
         out = torch.empty((b, c), device=dev)
 
@@ -942,18 +1075,23 @@ def main() -> int:
             if calib_lib.calib_mape_grid_launch(
                     u.data_ptr(), real.data_ptr(), pi.data_ptr(), pm.data_ptr(),
                     r.data_ptr(), partial.data_ptr(), out.data_ptr(), b, t, h, c,
-                    tile, stream) != 0:
+                    tile, group, stream) != 0:
                 fail("calib_mape_grid: the timed launch returned a CUDA error")
 
-        # one logf per (b, t, h), one expf per (b, t, h, distinct r)
-        n_r = int(torch.unique(r.view(torch.int32)).numel())
-        n_sfu = b * t * h * (n_r + 1)
+        # one logf per (b, t, h), one expf per (b, t, h, distinct r of the
+        # row's candidates)
+        n_r = sum(int(torch.unique(row.view(torch.int32)).numel())
+                  for row in r.reshape(-1, c))
+        n_sfu = t * h * (b + group * n_r)
+        # the plain version loops over candidate rows, one row's kernels
+        # after another: two calls a round fill the stream's launch queue
         return timed(
             kernel, lambda: ref.calib_mape_grid_ref(u, real, pi, pm, r),
+            plain_reps=2 if r.dim() == 2 else 20,
             wrapper_wall_ms=timer.wall_ms(lambda: ops.calib_mape_grid(u, real, pi, pm, r)),
-            bin_tile=tile, distinct_r=n_r, sfu_ops=n_sfu,
-            bytes=4 * (b * t * h + b * t + 3 * c + b * c),
-            ops=2 * b * t * h * n_r + 8 * b * t * c + 4 * b * t * h)
+            bin_tile=tile, group=group, distinct_r=n_r, sfu_ops=n_sfu,
+            bytes=4 * (b * t * h + b * t + 3 * r.numel() + b * c),
+            ops=2 * group * t * h * n_r + 8 * b * t * c + 4 * b * t * h)
 
     field = sim_gpu.u_th          # the calibrated card run's own [2016, 277] field
 
@@ -1012,6 +1150,9 @@ def main() -> int:
         *calib_inputs(torch, np, 1, 144, 277, 9216, 1, dev))
     shapes["calib B=277 T=144 H=1 C=64 (per-host refit)"] = calib_case(
         *calib_inputs(torch, np, 277, 144, 1, 64, 1, dev))
+    fleet_case = next(iter(calib_lane_cases(torch, np, dev).values()))
+    shapes["calib B=64 T=144 H=277 C=64 per-lane rows (the fleet's window)"] = calib_case(
+        *fleet_case)
     floor = timer.device_ms(lambda: torch.cuda._sleep(0))
     details["launch_floor"] = floor
     log(f"launch floor (an empty kernel, torch.cuda._sleep(0)): {floor['ms'] * 1e3:.3f} us "
@@ -1107,6 +1248,7 @@ def main() -> int:
         log(f"extra shape {k}: {json.dumps(v)}")
     details["kernels"] = kernels
     details["shapes"] = shapes
+    phase_done("10 kernel timings")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1114,6 +1256,9 @@ def main() -> int:
         details["profile"] = profile_e2(torch, w, dc, t_bins)
         details["profile_lm"] = profile_lm(torch)
         details["profile_ssm"] = profile_ssm(torch)
+        phase_done("--profile traces")
+    details["phase_seconds"] = phase_s
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     details["script_seconds"] = time.time() - T_START
     log(f"chip_smoke: {details['script_seconds']:.1f} s in all")
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
@@ -1270,7 +1415,10 @@ def traced(torch, fn, match: tuple[str, ...] = ()) -> dict:
 
     Only device-side events count (kernels, copies, memsets): a host-side
     operator also carries its kernels' device time, and counting both
-    would count that time twice.
+    would count that time twice.  ``runtime_copies`` counts the copies the
+    host issued (CUDA runtime ``cudaMemcpy*`` calls); the trace is
+    ``complete`` when it holds a device copy event for each of them (a
+    trace can lose device events, and then its busy time is a lower bound).
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1281,16 +1429,21 @@ def traced(torch, fn, match: tuple[str, ...] = ()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
+    rows, runtime_copies = [], 0
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
         if ev.device_type == DeviceType.CUDA and dev_us > 0:
             rows.append((ev.key, dev_us, ev.count))
+        elif ev.device_type == DeviceType.CPU and ev.key.startswith(("cudaMemcpy", "cuMemcpy")):
+            runtime_copies += ev.count
     rows.sort(key=lambda x: -x[1])
     busy = sum(r[1] for r in rows) / 1e6
+    device_copies = sum(n for k, _, n in rows if k.startswith("Memcpy "))
     out = dict(wall_s=wall, device_busy_s=busy,
                device_idle_share=1.0 - busy / wall if wall else None,
+               runtime_copies=runtime_copies, device_copies=device_copies,
+               complete=runtime_copies > 0 and device_copies == runtime_copies,
                transfers={d: sum(n for k, _, n in rows if k.startswith(f"Memcpy {d}"))
                           for d in ("HtoD", "DtoH")},
                top=[dict(name=k[:80], device_ms=v / 1e3, count=n)
@@ -1920,6 +2073,465 @@ def search_phase(torch, np, ops, w, dc, t_bins, card_orch, card_run) -> dict:
         f"{d['cpu_s']:.1f} s")
     out["launches"] = path_launches
     log(f"search and stage 3 launches: {path_launches}")
+    return out
+
+
+# -- phase 12: the streaming twin service --------------------------------------
+
+#: phase 12's service (a): 64 lanes; 56 synthetic tenants of 8 windows each
+#: and 8 tenants replaying E2's ground truth, each with its own base
+#: parameters (p_idle and p_max scaled); then 16 tenants repeating the
+#: first 16 synthetic streams, served from the cache
+SERVE_LANES = 64
+SERVE_SYNTH = 56
+SERVE_SYNTH_WINDOWS = 8
+SERVE_SCALES = tuple(0.90 + 0.04 * i for i in range(8))
+SERVE_REPEATS = 16
+#: events submitted between serving rounds (fill varies from 64 down to 8)
+SERVE_CHUNK = 128
+#: (b) the joint grid with one refine round: 16 lanes x 16 tenants x 4 windows
+SERVE_JOINT = dict(tenants=16, windows=4)
+#: (c) kill and restore: 16 tenants x 8 windows, checkpointed after window 3
+SERVE_RESTORE = dict(tenants=16, windows=8, cut=4)
+#: (e) the E2 orchestrator checkpointed after this window
+SERVE_E2_CUT = 28
+
+
+def serve_leaves(np, out) -> list:
+    """A WindowOutput's leaves as numpy (None kept), in a fixed order:
+    every prediction leaf, mape, calib_mape, params_used, params_next,
+    window."""
+    pred = [getattr(out.prediction, f.name) for f in dataclasses.fields(out.prediction)]
+    rest = [out.mape, out.calib_mape]
+    for g in (out.params_used, out.params_next):
+        rest += [g.p_idle, g.p_max, g.r]
+    rest.append(out.window)
+    return [None if x is None else (x.detach().cpu().numpy() if hasattr(x, "detach")
+                                   else np.asarray(x))
+            for x in pred + rest]
+
+
+def serve_equal(np, got: list, want: list) -> bool:
+    """Bit for bit, NaN where NaN, the same absent leaves."""
+    return len(got) == len(want) and all(
+        (a is None) == (b is None) and (a is None or (
+            a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()))
+        for a, b in zip(got, want))
+
+
+def serve_close(np, got: list, want: list, rtol: float) -> tuple[bool, float]:
+    """Parameters and window (the last 7 leaves) exact, the rest within
+    ``rtol``; the largest relative error of the rest."""
+    worst, ok = 0.0, len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if (a is None) != (b is None):
+            return False, float("inf")
+        if a is None:
+            continue
+        if i >= len(got) - 7:
+            ok &= bool(np.array_equal(a, b))
+            continue
+        a64, b64 = a.astype(np.float64), b.astype(np.float64)
+        both = np.isnan(a64) & np.isnan(b64)
+        rel = np.where(both, 0.0, np.abs(a64 - b64) / np.maximum(np.abs(b64), 1e-300))
+        worst = max(worst, float(np.nanmax(rel)) if rel.size else 0.0)
+        ok &= bool(np.allclose(a64, b64, rtol=rtol, atol=0.0, equal_nan=True))
+    return ok, worst
+
+
+def serve_phase(torch, np, ops, w, dc, t_bins, card_run, device="cuda") -> dict:
+    """Phase 12, the streaming twin service on the card (paper stage 1).
+
+    (a) a 64-lane ``TwinService`` at E2's width and window: 56 synthetic
+    tenants and 8 replaying E2's ground truth under the diurnal carbon
+    trace, each replay with its own base parameters (so the lanes'
+    candidate rows differ), events shuffled and submitted in chunks; then
+    16 tenants repeating synthetic streams, from the cache.  Every window
+    equals a solo card ``twin_step`` of its stream bit for bit; a batch
+    launches one ``des_readout`` and one ``calib_mape_grid``.  (b) the
+    joint grid with one refine round, 16 lanes: two ``calib_mape_grid`` a
+    batch, lanes equal solo.  (c) kill and restore through a
+    ``SessionStore``.  (d) (b) on the CPU.  (e) state blobs across
+    devices, and the E2 orchestrator checkpointed after window 28 and
+    resumed.  (f) ``run_fleet`` of the 8 replay tenants over E2's 56
+    windows.  (g) wall seconds, fill, warm tenant-windows a second, and
+    one profiled batch (device busy and idle, copies, host time in
+    ``encode_result`` and ``digest_arrays``).  ``device`` is the card; the
+    CPU (a rehearsal at a small ``dc``) runs the same checks.
+    """
+    import tempfile
+
+    from repro_torch.core import (
+        CalibrationSpec, DigitalTwin, OrchestratorConfig, TraceGroundTruth)
+    from repro_torch.core.power import PowerParams
+    from repro_torch.core.state import (
+        SimSlice, TelemetrySlice, TwinConfig, init_twin_state, make_telemetry,
+        state_from_bytes, state_leaves, state_to_bytes, twin_step)
+    from repro_torch.core.twin import run_fleet, stack_twin_states
+    from repro_torch.serve import ServeConfig, SyntheticProducer, TraceReplayProducer, TwinService
+    from repro_torch.serve import service as service_mod
+    from repro_torch.traces.carbon import make_diurnal_carbon
+
+    out: dict = {}
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    bins = 36
+    ci = np.asarray(make_diurnal_carbon(t_bins), np.float32)
+    truth = TraceGroundTruth(w, dc, t_bins)
+    n_e2 = t_bins // bins
+
+    class CarbonSynthetic(SyntheticProducer):
+        """A synthetic tenant whose windows carry the diurnal carbon column."""
+
+        def _window_event(self, window):
+            ev = super()._window_event(window)
+            return dataclasses.replace(
+                ev, carbon_intensity=ci[window * bins:(window + 1) * bins].copy())
+
+    def twin_cfg(where=device, **kw):
+        return TwinConfig(bins_per_window=bins, dc=dc, history_windows=4,
+                          device=where, **kw)
+
+    def serve_cfg(where=device, lanes=SERVE_LANES, **kw):
+        return ServeConfig(twin=twin_cfg(where, **kw), lanes=lanes, queue_capacity=4096,
+                           cache_entries=2048, columns=("carbon_intensity",))
+
+    def synthetic(name, seed, windows):
+        return CarbonSynthetic(name, hosts=dc.num_hosts, bins_per_window=bins,
+                               num_windows=windows, seed=seed,
+                               util_mean=0.3 + 0.02 * (seed % 10))
+
+    def scaled(s):
+        base = PowerParams()
+        return PowerParams(p_idle=base.p_idle * s, p_max=base.p_max * s, r=base.r)
+
+    def solo(cfg, base, events):
+        """A tenant's stream through solo ``twin_step`` on ``cfg.device``."""
+        st = init_twin_state(cfg, base)
+        got = {}
+        where = cfg.device
+        for ev in sorted(events, key=lambda e: e.window):
+            st, o = twin_step(st, make_telemetry(ev.u_th, ev.power_w, device=where),
+                              SimSlice(u_th=torch.from_numpy(ev.sim_u).to(where),
+                                       carbon_intensity=torch.from_numpy(
+                                           ev.carbon_intensity).to(where)))
+            got[ev.window] = serve_leaves(np, o)
+        return got
+
+    def serve_shuffled(svc, events, seed=42, chunk=SERVE_CHUNK):
+        rng = np.random.default_rng(seed)
+        events = list(events)
+        rng.shuffle(events)
+        for i in range(0, len(events), chunk):
+            for ev in events[i:i + chunk]:
+                if not svc.submit(ev):
+                    fail("serve: the bounded queue rejected an event")
+            svc.run_until_idle(pump=False)
+        return svc.drain()
+
+    def check_order(results, lengths, label):
+        by = {}
+        for r in results:
+            by.setdefault(r.tenant, []).append(r.window)
+        for t, n in lengths.items():
+            if by.get(t) != list(range(n)):
+                fail(f"serve {label}: tenant {t} emitted windows {by.get(t)}, not 0..{n - 1}")
+        return by
+
+    # (a) the operator's service
+    cfg_a = serve_cfg()
+    streams, bases = {}, {}
+    for i in range(SERVE_SYNTH):
+        name = f"syn{i:02d}"
+        streams[name] = synthetic(name, i, SERVE_SYNTH_WINDOWS).poll(float("inf"))
+        bases[name] = PowerParams()
+    for j, s in enumerate(SERVE_SCALES):
+        name = f"e2-{j}"
+        streams[name] = TraceReplayProducer(name, truth, bins, carbon_intensity=ci).poll(
+            float("inf"))
+        bases[name] = scaled(s)
+    svc = TwinService(cfg_a)
+    for t in streams:
+        svc.admit(t, init_twin_state(cfg_a.twin, bases[t]))
+    ops.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    results = serve_shuffled(svc, [ev for evs in streams.values() for ev in evs])
+    sync()
+    wall = time.perf_counter() - t0
+    batches, fill = svc.stats.batches, svc.stats.fill_ratio
+    launches = {k: ops.LAUNCHES[k] for k in ("des_readout", "calib_mape_grid")}
+    if launches != {"des_readout": batches, "calib_mape_grid": batches}:
+        fail(f"serve (a): {launches} over {batches} batches, not one of each a batch")
+    if any(ops.LAUNCHES[k] for k in ops.LAUNCHES if k not in launches):
+        fail(f"serve (a): launched other kernels: {dict(ops.LAUNCHES)}")
+    # the second group: 16 tenants repeating synthetic streams, from the cache
+    repeats = {}
+    for i in range(SERVE_REPEATS):
+        svc.evict(f"syn{i:02d}")
+        name = f"rep{i:02d}"
+        svc.admit(name)
+        repeats[name] = [dataclasses.replace(ev, tenant=name) for ev in streams[f"syn{i:02d}"]]
+        bases[name] = PowerParams()
+    results += serve_shuffled(svc, [ev for evs in repeats.values() for ev in evs])
+    if svc.stats.batches != batches or svc.stats.windows_cached != SERVE_REPEATS * SERVE_SYNTH_WINDOWS:
+        fail(f"serve (a): the repeated streams took {svc.stats.batches - batches} batches and "
+             f"{svc.stats.windows_cached} cache hits, not 0 and "
+             f"{SERVE_REPEATS * SERVE_SYNTH_WINDOWS}")
+    path_launches = dict(ops.LAUNCHES)
+    lengths = {t: len(evs) for t, evs in {**streams, **repeats}.items()}
+    check_order(results, lengths, "(a)")
+    t_solo = time.perf_counter()
+    refs = {t: solo(cfg_a.twin, bases[t], evs) for t, evs in streams.items()}
+    for i in range(SERVE_REPEATS):
+        refs[f"rep{i:02d}"] = refs[f"syn{i:02d}"]
+    for r in results:
+        if not serve_equal(np, serve_leaves(np, r.output), refs[r.tenant][r.window]):
+            fail(f"serve (a): {r.tenant} window {r.window} ({'cached' if r.cached else 'computed'}) "
+                 "differs from the solo card twin_step")
+    out["a"] = dict(
+        tenant_windows=len(results), batches=batches, fill_ratio=fill, wall_s=wall,
+        s_per_batch=wall / batches, windows_cached=svc.stats.windows_cached,
+        launches=launches, solo_s=time.perf_counter() - t_solo)
+    log(f"serve (a): {len(results)} tenant-windows of {len(lengths)} tenants ({SERVE_LANES} "
+        f"lanes, {dc.num_hosts} hosts x {bins} bins, 8 lanes with their own base parameters), "
+        f"{batches} batches, fill {fill:.4f}, {wall:.2f} s ({wall / batches * 1e3:.1f} ms a "
+        f"batch), {svc.stats.windows_cached} windows from the cache; launches {launches}: one "
+        "des_readout and one calib_mape_grid a batch; every window equals the solo card "
+        "twin_step bit for bit")
+
+    # (e) a card state's blob loads on the CPU and back, dtype-exact
+    lane_state = svc.evict("e2-3").state
+    blob = state_to_bytes(lane_state)
+    on_cpu = state_from_bytes(blob, device="cpu")
+    back = state_from_bytes(state_to_bytes(on_cpu), device=device)
+    for a, b, c in zip(state_leaves(lane_state), state_leaves(on_cpu), state_leaves(back)):
+        if not (a.dtype == b.dtype == c.dtype and torch.equal(a.cpu(), b)
+                and torch.equal(a, c)):
+            fail("serve (e): a state blob does not cross card -> CPU -> card bit for bit")
+    if state_to_bytes(on_cpu) != blob:
+        fail("serve (e): the CPU copy's blob differs from the card state's")
+
+    # (f) run_fleet: the 8 replay tenants over E2's 56 windows
+    fleet = stack_twin_states([init_twin_state(cfg_a.twin, scaled(s)) for s in SERVE_SCALES])
+    u = torch.from_numpy(np.stack([truth.u_th[k * bins:(k + 1) * bins] for k in range(n_e2)]))
+    p = torch.from_numpy(np.stack([truth.power[k * bins:(k + 1) * bins]
+                                   for k in range(n_e2)]).astype(np.float32))
+    c = torch.from_numpy(np.stack([ci[k * bins:(k + 1) * bins] for k in range(n_e2)]))
+    d = len(SERVE_SCALES)
+    lane_axis = lambda x: x[:, None].expand(x.shape[0], d, *x.shape[1:]).contiguous().to(dev)  # noqa: E731
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    _, fouts = run_fleet(
+        fleet, TelemetrySlice(u_th=lane_axis(u), power_w=lane_axis(p),
+                              valid=torch.ones((n_e2, d), dtype=torch.bool, device=dev)),
+        SimSlice(u_th=lane_axis(u), carbon_intensity=lane_axis(c)))
+    sync()
+    fleet_s = time.perf_counter() - t0
+    fl = {k: ops.LAUNCHES[k] for k in ("des_readout", "calib_mape_grid")}
+    if fl != {"des_readout": n_e2, "calib_mape_grid": n_e2}:
+        fail(f"serve (f): run_fleet launched {fl}, not {n_e2} of each")
+    for k in fl:
+        path_launches[k] += fl[k]
+    host = serve_leaves(np, fouts)
+    for j in range(d):
+        for k in range(n_e2):
+            got = [None if x is None else x[k, j] for x in host]
+            if not serve_equal(np, got, refs[f"e2-{j}"][k]):
+                fail(f"serve (f): run_fleet lane {j} window {k} differs from its solo run")
+    out["f"] = dict(lanes=d, windows=n_e2, launches=fl, wall_s=fleet_s)
+    log(f"serve (f): run_fleet of {d} lanes over {n_e2} windows: {fl} launches (not "
+        f"{d} x {n_e2}), every lane equals its solo run bit for bit, {fleet_s:.2f} s")
+
+    # (b) the joint grid with one refine round, and (d) the same on the CPU
+    joint = CalibrationSpec(mode="joint", refine_iters=1)
+    jt = {f"jt{i:02d}": (synthetic(f"jt{i:02d}", 100 + i, SERVE_JOINT["windows"]),
+                         scaled(0.90 + 0.02 * i))
+          for i in range(SERVE_JOINT["tenants"])}
+    jt_events = {t: p_.poll(float("inf")) for t, (p_, _) in jt.items()}
+    by_device = {}
+    for where in (device, "cpu"):
+        cfg_b = serve_cfg(where, lanes=SERVE_JOINT["tenants"], calibration=joint)
+        svc_b = TwinService(cfg_b)
+        for t, (_, base) in jt.items():
+            svc_b.admit(t, init_twin_state(cfg_b.twin, base))
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = serve_shuffled(svc_b, [ev for evs in jt_events.values() for ev in evs])
+        secs = time.perf_counter() - t0
+        check_order(res, {t: SERVE_JOINT["windows"] for t in jt}, f"(b) {where}")
+        finals = {t: [x.cpu() for x in state_leaves(svc_b.evict(t).state)] for t in jt}
+        by_device[where] = (res, finals, svc_b.stats.batches, dict(ops.LAUNCHES), secs)
+    res_b, finals_b, batches_b, launches_b, secs_b = by_device[device]
+    want = {"des_readout": batches_b, "calib_mape_grid": 2 * batches_b}
+    if {k: launches_b[k] for k in want} != want:
+        fail(f"serve (b): {launches_b} over {batches_b} batches, not {want}")
+    for k in want:
+        path_launches[k] += launches_b[k]
+    jrefs = {t: solo(twin_cfg(calibration=joint), jt[t][1], jt_events[t]) for t in jt}
+    for r in res_b:
+        if not serve_equal(np, serve_leaves(np, r.output), jrefs[r.tenant][r.window]):
+            fail(f"serve (b): {r.tenant} window {r.window} differs from the solo card twin_step")
+    res_d, finals_d, _, _, secs_d = by_device["cpu"]
+    cpu_out = {(r.tenant, r.window): serve_leaves(np, r.output) for r in res_d}
+    worst_d = 0.0
+    for r in res_b:
+        ok, rel = serve_close(np, serve_leaves(np, r.output), cpu_out[(r.tenant, r.window)], 1e-5)
+        worst_d = max(worst_d, rel)
+        if not ok:
+            fail(f"serve (d): {r.tenant} window {r.window}: card and CPU differ beyond the "
+                 "bar (parameters exact, floats rtol 1e-5)")
+    for t in jt:
+        if not all(torch.equal(a, b) for a, b in zip(finals_b[t], finals_d[t])):
+            fail(f"serve (d): {t}'s final state (parameters, history, counts) differs "
+                 "between card and CPU")
+    out["b"] = dict(batches=batches_b, launches={k: launches_b[k] for k in want},
+                    wall_s=secs_b)
+    out["d"] = dict(cpu_s=secs_d, max_rel=worst_d)
+    log(f"serve (b): joint grid + 1 refine round, {len(jt)} lanes x {SERVE_JOINT['windows']} "
+        f"windows, {batches_b} batches, launches {out['b']['launches']} (two calib_mape_grid a "
+        f"batch), lanes equal solo bit for bit, {secs_b:.2f} s; (d) the CPU rerun: parameter "
+        f"streams and counts equal, floats max rel {worst_d:.3g} (rtol 1e-5), {secs_d:.1f} s")
+
+    # (c) kill and restore through a SessionStore
+    n_t, n_w, cut = SERVE_RESTORE["tenants"], SERVE_RESTORE["windows"], SERVE_RESTORE["cut"]
+    r_events = {f"syn{i:02d}": synthetic(f"syn{i:02d}", i, n_w).poll(float("inf"))
+                for i in range(n_t)}
+
+    ref_svc = TwinService(cfg_a)
+    for t in r_events:
+        ref_svc.admit(t)
+    ref_c = {(r.tenant, r.window): r for r in serve_shuffled(
+        ref_svc, [ev for evs in r_events.values() for ev in evs], seed=7)}
+    first = TwinService(cfg_a)
+    for t in r_events:
+        first.admit(t)
+    got_c = serve_shuffled(first, [ev for evs in r_events.values() for ev in evs
+                                   if ev.window < cut], seed=7)
+    with tempfile.TemporaryDirectory() as root:
+        first.checkpoint(root)
+        del first
+        restored = TwinService(cfg_a)
+        if sorted(restored.restore(root)) != sorted(r_events):
+            fail("serve (c): the restored service has other tenants")
+        for i, t in enumerate(r_events):
+            restored.attach(synthetic(t, i, n_w))
+        got_c += restored.run_until_idle()
+    if restored.stats.stale_dropped != n_t * cut:
+        fail(f"serve (c): {restored.stats.stale_dropped} stale replays dropped, not {n_t * cut}")
+    union = {(r.tenant, r.window): r for r in got_c}
+    if set(union) != set(ref_c):
+        fail("serve (c): the interrupted run emitted other windows than the uninterrupted one")
+    for key, r in union.items():
+        if not serve_equal(np, serve_leaves(np, r.output), serve_leaves(np, ref_c[key].output)):
+            fail(f"serve (c): {key} after restore differs from the uninterrupted run")
+    out["c"] = dict(tenants=n_t, windows=n_w, cut=cut, stale_dropped=restored.stats.stale_dropped)
+    log(f"serve (c): {n_t} tenants x {n_w} windows, checkpointed after window {cut - 1} and "
+        f"restored: the union equals the uninterrupted run bit for bit, "
+        f"{restored.stats.stale_dropped} stale replays dropped")
+
+    # (e) the calibrated E2 orchestrator checkpointed mid-run and resumed
+    with tempfile.TemporaryDirectory() as root:
+        path = f"{root}/e2.ckpt"
+        head = DigitalTwin(w, dc, t_bins, OrchestratorConfig(device=device))
+        head.run(truth.window, num_windows=SERVE_E2_CUT)
+        head.orchestrator.save_state(path)
+        tail = DigitalTwin(w, dc, t_bins, OrchestratorConfig(device=device))
+        tail.orchestrator.restore_state(path)
+    orch = tail.orchestrator
+    for k in range(SERVE_E2_CUT, n_e2):
+        orch.store.ingest(truth.window(k, bins))
+        orch.run_window(k)
+    full = card_run.records[SERVE_E2_CUT:]
+    if not np.array_equal(np.array([r.mape for r in orch.records]),
+                          np.array([r.mape for r in full])):
+        fail("serve (e): the resumed E2 MAPE stream differs from the uninterrupted run")
+    for f in ("p_idle", "p_max", "r"):
+        if [float(getattr(r.params, f)) for r in orch.records] != \
+                [float(getattr(r.params, f)) for r in full]:
+            fail(f"serve (e): the resumed E2 parameter stream {f} differs")
+    out["e"] = dict(cut=SERVE_E2_CUT, windows=len(full))
+    log(f"serve (e): a card state's blob crosses to the CPU and back bit for bit; E2 "
+        f"checkpointed after window {SERVE_E2_CUT - 1} resumes equal to phase 4's run "
+        f"(parameter stream exact, MAPE bit for bit over {len(full)} windows)")
+
+    # (g) warm throughput at full fill, the host's split, one profiled batch
+    warm = TwinService(cfg_a)
+    for t in streams:
+        warm.admit(t, init_twin_state(cfg_a.twin, bases[t]))
+    host_s = {"encode_result": 0.0, "digest_arrays": 0.0}
+    saved = {k: getattr(service_mod, k) for k in host_s}
+
+    def timed_host(name):
+        fn = saved[name]
+
+        def wrapper(*a, **kw):
+            t1 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host_s[name] += time.perf_counter() - t1
+        return wrapper
+
+    events = [ev for evs in streams.values() for ev in evs if ev.window < SERVE_SYNTH_WINDOWS]
+    try:
+        for k in host_s:
+            setattr(service_mod, k, timed_host(k))
+        sync()
+        t0 = time.perf_counter()
+        for ev in events:
+            warm.submit(ev)
+        warm.run_until_idle(pump=False)
+        sync()
+        warm_s = time.perf_counter() - t0
+    finally:
+        for k, fn in saved.items():
+            setattr(service_mod, k, fn)
+    if warm.stats.batches != SERVE_SYNTH_WINDOWS or len(warm.drain()) != len(events):
+        fail(f"serve (g): the warm run took {warm.stats.batches} batches")
+    # a trace that lost device events is taken again on a fresh service:
+    # busy time and idle share come from a trace that holds every copy
+    lost = []
+    for retries in range(SERVE_TRACE_RETRIES + 1):
+        prof = TwinService(cfg_a)
+        for t in streams:
+            prof.admit(t, init_twin_state(cfg_a.twin, bases[t]))
+        for t, evs in streams.items():
+            prof.submit(evs[0])
+        trace = traced(torch, lambda: prof.run_until_idle(pump=False))
+        if prof.stats.batches != 1 or trace["device_busy_s"] <= 0:
+            fail("serve (g): the profiled batch is not one batch on the device")
+        if trace["complete"] or dev.type != "cuda":
+            break
+        lost.append(trace["runtime_copies"] - trace["device_copies"])
+    trace["retries"], trace["copies_lost_by_retry"] = retries, lost
+    out["g"] = dict(
+        warm_tenant_windows=len(events), warm_s=warm_s,
+        warm_tenant_windows_per_s=len(events) / warm_s, warm_batches=warm.stats.batches,
+        warm_s_per_batch=warm_s / warm.stats.batches,
+        host_s_per_batch={k: v / warm.stats.batches for k, v in host_s.items()},
+        rest_s_per_batch=(warm_s - sum(host_s.values())) / warm.stats.batches,
+        batch_trace=trace)
+    g = out["g"]
+    log(f"serve (g): warm, full fill: {len(events)} tenant-windows in {warm_s:.2f} s = "
+        f"{g['warm_tenant_windows_per_s']:.1f} tenant-windows/s ({g['warm_s_per_batch'] * 1e3:.1f} "
+        f"ms a 64-lane batch: encode_result {g['host_s_per_batch']['encode_result'] * 1e3:.1f} ms, "
+        f"digest_arrays {g['host_s_per_batch']['digest_arrays'] * 1e3:.1f} ms, the rest "
+        f"{g['rest_s_per_batch'] * 1e3:.1f} ms); one profiled batch: wall "
+        f"{trace['wall_s'] * 1e3:.1f} ms, device busy {trace['device_busy_s'] * 1e3:.3f} ms"
+        f"{'' if trace['complete'] else ' (a lower bound: the trace lost device events)'}, "
+        f"idle share {trace['device_idle_share']:.4f}, {trace['transfers']['HtoD']} "
+        f"host-to-device and {trace['transfers']['DtoH']} device-to-host copies, "
+        f"{trace['device_copies']} of the {trace['runtime_copies']} copies the host issued "
+        f"traced, {retries} retries")
+    for row in trace["top"][:6]:
+        log(f"    {row['device_ms']:.3f} ms x{row['count']}  {row['name']}")
+    out["launches"] = path_launches
+    log(f"serve launches: {path_launches}")
     return out
 
 

@@ -13,7 +13,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.power import PowerParams
-from repro_torch.core.state import TwinConfig, TwinState
+from repro_torch.core.state import TwinConfig, TwinState, state_from_leaves
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.lm import model_specs
 from repro_torch.traces.schema import Workload
@@ -45,11 +45,6 @@ def power_params_from_numpy(p, device: "str | torch.device" = "cuda") -> PowerPa
                        r=_t(p.r, np.float32, dev))
 
 
-#: TwinState fields in leaf order after the three PowerParams groups
-_COUNT_FIELDS = ("hist_u", "hist_p", "hist_n", "window", "slo_samples",
-                 "slo_compliant", "bias_under", "bias_over", "bias_ties")
-
-
 def twin_state_from_numpy(leaves, cfg: TwinConfig) -> TwinState:
     """A :class:`TwinState` on ``cfg.device`` from flat state leaves.
 
@@ -58,30 +53,10 @@ def twin_state_from_numpy(leaves, cfg: TwinConfig) -> TwinState:
     ``hist_p``, ``hist_n``, ``window``, ``slo_samples``, ``slo_compliant``,
     ``bias_under``, ``bias_over``, ``bias_ties`` (18 arrays), and with
     ``cfg.sim_bins > 0`` the resident DES field ``sim_u`` (19 arrays).
+    A fleet's leaves (the JAX package's ``stack_twin_states``) lead with
+    ``[D]`` and give a fleet state.
     """
-    leaves = [np.asarray(x) for x in leaves]
-    want = 19 if cfg.sim_bins > 0 else 18
-    if len(leaves) != want:
-        raise ValueError(f"expected {want} state leaves "
-                         f"(cfg.sim_bins={cfg.sim_bins}), got {len(leaves)}")
-    dev = resolve_device(cfg.device)
-    sim_u = None
-    if want == 19:
-        sim_u = _t(leaves[18], np.float32, dev)
-        if tuple(sim_u.shape) != (cfg.sim_bins, cfg.dc.num_hosts):
-            raise ValueError(f"sim_u must be [{cfg.sim_bins}, {cfg.dc.num_hosts}]; "
-                             f"got {tuple(sim_u.shape)}")
-
-    def params(i):
-        return PowerParams(*(_t(x, np.float32, dev) for x in leaves[i:i + 3]))
-
-    rest = dict(zip(_COUNT_FIELDS, leaves[9:18]))
-    return TwinState(
-        params=params(0), base_params=params(3), cand=params(6),
-        hist_u=_t(rest["hist_u"], np.float32, dev),
-        hist_p=_t(rest["hist_p"], np.float32, dev),
-        **{k: _t(rest[k], np.int32, dev) for k in _COUNT_FIELDS[2:]},
-        sim_u=sim_u, cfg=cfg)
+    return state_from_leaves(leaves, cfg)
 
 
 def lm_params_from_numpy(tree, cfg: ModelConfig,

@@ -1,6 +1,6 @@
 """The twin core of the port: DES, power models, calibration, the closed
-loop, the batched what-if engine, the scenario optimizer and the
-multi-model combiner."""
+loop and its checkpoints, fleets of twins, the batched what-if engine, the
+scenario optimizer and the multi-model combiner."""
 
 from repro_torch.core.calibrate import (
     CalibrationResult,
@@ -71,8 +71,13 @@ from repro_torch.core.state import (
     WindowOutput,
     empty_telemetry,
     init_twin_state,
+    load_state,
     make_telemetry,
+    save_state,
+    state_from_bytes,
+    state_to_bytes,
     twin_step,
+    twin_step_lanes,
 )
 from repro_torch.core.telemetry import (
     AMBIENT_KEY,
@@ -82,7 +87,18 @@ from repro_torch.core.telemetry import (
     TelemetryWindow,
     clip_to_window,
 )
-from repro_torch.core.twin import DigitalTwin, TraceGroundTruth, TwinRunResult, run_surf_experiment
+from repro_torch.core.twin import (
+    DigitalTwin,
+    TraceGroundTruth,
+    TwinRunResult,
+    fleet_step,
+    fleet_step_masked,
+    index_twin_state,
+    run_fleet,
+    run_surf_experiment,
+    stack_twin_states,
+    update_twin_state_lane,
+)
 
 __all__ = [
     "CalibrationResult", "CalibrationSpec", "SelfCalibrator",
@@ -103,8 +119,12 @@ __all__ = [
     "validate_power_params",
     "NFR1", "SLO", "BiasTracker", "SLOMonitor",
     "SimSlice", "TelemetrySlice", "TwinConfig", "TwinState", "WindowOutput",
-    "empty_telemetry", "init_twin_state", "make_telemetry", "twin_step",
+    "empty_telemetry", "init_twin_state", "load_state", "make_telemetry",
+    "save_state", "state_from_bytes", "state_to_bytes", "twin_step",
+    "twin_step_lanes",
     "AMBIENT_KEY", "CARBON_INTENSITY_KEY", "PRICE_KEY", "TelemetryStore",
     "TelemetryWindow", "clip_to_window",
     "DigitalTwin", "TraceGroundTruth", "TwinRunResult", "run_surf_experiment",
+    "fleet_step", "fleet_step_masked", "index_twin_state", "run_fleet",
+    "stack_twin_states", "update_twin_state_lane",
 ]

@@ -16,6 +16,7 @@ calibrator.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Literal
 
 import numpy as np
@@ -78,9 +79,22 @@ def candidate_grid(spec: CalibrationSpec, base: PowerParams,
 
 def evaluate_candidates(u_th: Tensor, real_power: Tensor,
                         cand: PowerParams) -> Tensor:
-    """MAPE [%] of every candidate over the window, ``[C]`` (or ``[B, C]``)."""
+    """MAPE [%] of every candidate over the window, ``[C]`` (or ``[B, C]``
+    for a ``[B, T, H]`` window; candidates ``[C]`` shared by every row, or
+    ``[L, C]`` rows, each shared by ``B / L`` consecutive rows)."""
     return ops.calib_mape_grid(u_th, real_power, cand.p_idle, cand.p_max,
                                cand.r)
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(n: int, device: torch.device) -> Tensor:
+    """``[1 - s, s]`` with ``s = i / (n - 1)``, ``[2, n]`` float32, formed on
+    the host by true division and copied to ``device`` once per ``(n,
+    device)``: a division by a number on the card multiplies by its
+    reciprocal, one ulp off at some ``i``, so a grid formed there would
+    differ from the CPU's.  Callers only read the cached tensor."""
+    s = np.arange(n, dtype=np.float32) / np.float32(n - 1)
+    return torch.from_numpy(np.stack([np.float32(1.0) - s, s])).to(device)
 
 
 def _linspace(lo, hi, n: int, like: Tensor) -> Tensor:
@@ -88,13 +102,14 @@ def _linspace(lo, hi, n: int, like: Tensor) -> Tensor:
 
     Refine rounds only; it may differ from ``jnp.linspace`` in the last
     ulp, so refined parameters agree with the JAX package to a tolerance.
+    The card and the CPU form the same values (:func:`_weights`).
     """
     lo = torch.as_tensor(lo, dtype=torch.float32, device=like.device)
     hi = torch.as_tensor(hi, dtype=torch.float32, device=like.device)
     if n == 1:
         return lo.reshape(1)
-    step = torch.arange(n, dtype=torch.float32, device=like.device) / (n - 1)
-    out = lo * (1.0 - step) + hi * step
+    w = _weights(n, like.device)
+    out = lo * w[0] + hi * w[1]
     out[-1] = hi
     return out
 
@@ -218,6 +233,154 @@ def _per_host_refit(
                        r=row(host.r, fleet_params.r))
     combined = opendc_power(u_th, rows).sum(dim=-1)            # [T]
     per_host_mape = mape(real_power, combined)
+    best_mape = torch.where(torch.isnan(per_host_mape), fleet_mape,
+                            per_host_mape)
+    return rows, best_mape
+
+
+# -- the fleet's calibration: D lanes' cycles in one launch a round ------------
+
+def _linspace_rows(lo: Tensor, hi: Tensor, n: int) -> Tensor:
+    """:func:`_linspace` row by row: ``[D]`` bounds give ``[D, n]``, each row
+    the values :func:`_linspace` gives for that row's bounds."""
+    if n == 1:
+        return lo[:, None].clone()
+    w = _weights(n, lo.device)
+    out = lo[:, None] * w[0] + hi[:, None] * w[1]
+    out[:, -1] = hi
+    return out
+
+
+def _grid_traced_lanes(spec: CalibrationSpec, best: PowerParams,
+                       r_lo: Tensor, r_hi: Tensor, s_lo, s_hi) -> PowerParams:
+    """:func:`_grid_traced` for D lanes at once: ``best`` holds ``[D]``
+    incumbents and ``r_lo/r_hi`` ``[D]`` bounds; the scale bounds are the
+    same for every lane.  Gives ``[D, C]`` candidate rows, each row the
+    grid :func:`_grid_traced` builds for that lane."""
+    r = _linspace_rows(r_lo, r_hi, spec.r_points)                 # [D, R]
+    pi_base, pm_base = best.p_idle, best.p_max                    # [D]
+    d = r.shape[0]
+    if spec.mode == "r_only":
+        c = spec.r_points
+        return PowerParams(p_idle=pi_base[:, None].expand(d, c).contiguous(),
+                           p_max=pm_base[:, None].expand(d, c).contiguous(), r=r)
+    s = _linspace(s_lo, s_hi, spec.scale_points, r)               # [S]
+    n = spec.scale_points
+    rr = r[:, :, None, None].expand(d, spec.r_points, n, n)
+    p_idle = (s[None, None, :, None] * pi_base[:, None, None, None]).expand_as(rr)
+    p_max = (s[None, None, None, :] * pm_base[:, None, None, None]).expand_as(rr)
+    p_idle, p_max = p_idle.reshape(d, -1), p_max.reshape(d, -1)
+    return PowerParams(p_idle=p_idle, p_max=torch.maximum(p_max, p_idle),
+                       r=rr.reshape(d, -1))
+
+
+def _pick_rows(cand: PowerParams, b: Tensor) -> PowerParams:
+    """Candidate ``b[d]`` of each lane's row: ``[D, C]`` leaves, ``[D]``
+    (or ``[D, K]``) indices."""
+    idx = b if b.dim() == 2 else b[:, None]
+
+    def take(x):
+        got = x.gather(1, idx)
+        return got if b.dim() == 2 else got[:, 0]
+
+    return PowerParams(p_idle=take(cand.p_idle), p_max=take(cand.p_max),
+                       r=take(cand.r))
+
+
+def calibrate_traced_lanes(
+    u_th: Tensor,
+    real_power: Tensor,
+    cand: PowerParams,
+    spec: CalibrationSpec,
+    base: PowerParams,
+) -> tuple[PowerParams, Tensor]:
+    """:func:`calibrate_traced` for a fleet of D twins, lanes written out.
+
+    ``u_th`` ``[D, T, H]``, ``real_power`` ``[D, T]``, each lane's
+    candidate grid ``cand`` as ``[D, C]`` rows and its base parameters
+    ``base`` (``[D]``, or ``[D, H]`` rows with ``spec.per_host``).  Every
+    round scores all D lanes' candidates in one ``calib_mape_grid`` launch
+    (per-lane rows; each lane's refine round builds its own grid around
+    its incumbent), and the per-host refit scores the D x H host problems
+    in one more.  Each lane is the computation :func:`calibrate_traced`
+    does for it alone; the kernel tiles a lane as it tiles that call, so
+    on the card the two agree bit for bit.
+    """
+    mapes = evaluate_candidates(u_th, real_power, cand)          # [D, C]
+    b = _argmin_nan_last(mapes)
+    best = _pick_rows(cand, b)
+    best_mape = mapes.gather(1, b[:, None])[:, 0]
+    any_finite = torch.isfinite(mapes).any(dim=-1)
+
+    r_lo, r_hi = spec.r_lo, spec.r_hi
+    s_lo, s_hi = spec.scale_lo, spec.scale_hi
+    for _ in range(spec.refine_iters):
+        span_r = (r_hi - r_lo) * spec.refine_shrink
+        span_s = (s_hi - s_lo) * spec.refine_shrink
+        r_lo = torch.clamp(best.r - span_r / 2, min=1.0)
+        r_hi = best.r + span_r / 2
+        s_lo, s_hi = 1.0 - span_s / 2, 1.0 + span_s / 2
+        cand2 = _grid_traced_lanes(spec, best, r_lo, r_hi, s_lo, s_hi)
+        m2 = evaluate_candidates(u_th, real_power, cand2)
+        b2 = _argmin_nan_last(m2)
+        m2b = m2.gather(1, b2[:, None])[:, 0]
+        better = torch.isfinite(m2b) & (torch.isnan(best_mape) | (m2b < best_mape))
+        won = _pick_rows(cand2, b2)
+        best = PowerParams(
+            p_idle=torch.where(better, won.p_idle, best.p_idle),
+            p_max=torch.where(better, won.p_max, best.p_max),
+            r=torch.where(better, won.r, best.r))
+        best_mape = torch.where(better, m2b, best_mape)
+        any_finite = any_finite | torch.isfinite(m2).any(dim=-1)
+
+    def keep(chosen, fallback):
+        fb = fallback.float()
+        fb = fb.mean(dim=-1) if fb.dim() == 2 else fb
+        return torch.where(any_finite, chosen, fb)
+
+    params = PowerParams(p_idle=keep(best.p_idle, base.p_idle),
+                         p_max=keep(best.p_max, base.p_max),
+                         r=keep(best.r, base.r))
+    if spec.per_host:
+        return _per_host_refit_lanes(u_th, real_power, cand, params, best_mape)
+    return params, best_mape
+
+
+def _per_host_refit_lanes(
+    u_th: Tensor,
+    real_power: Tensor,
+    cand: PowerParams,
+    fleet_params: PowerParams,
+    fleet_mape: Tensor,
+) -> tuple[PowerParams, Tensor]:
+    """:func:`_per_host_refit` for D lanes: the D x H problems of ``[T, 1]``
+    go to the kernel as one launch, each host scored over its lane's
+    candidate row.  Gives ``[D, H]`` rows and ``[D]`` MAPEs."""
+    d, t, h = u_th.shape
+    lane = PowerParams(*(x[:, None, None] for x in (fleet_params.p_idle,
+                                                    fleet_params.p_max,
+                                                    fleet_params.r)))
+    pred = opendc_power(u_th, lane)                             # [D, T, H]
+    total = pred.sum(dim=-1, keepdim=True)
+    share = pred / total.clamp(min=1e-9)
+    target = real_power[..., None] * share                      # [D, T, H]
+    m = evaluate_candidates(
+        u_th.transpose(1, 2).contiguous().reshape(d * h, t, 1),
+        target.transpose(1, 2).contiguous().reshape(d * h, t),
+        cand).reshape(d, h, -1)                                 # [D, H, C]
+    b = _argmin_nan_last(m)                                     # [D, H]
+    host_finite = torch.isfinite(m).any(dim=-1)
+    host = _pick_rows(cand, b)
+
+    def row(hp, fp):
+        return torch.where(host_finite, hp.float(), fp[:, None])
+
+    rows = PowerParams(p_idle=row(host.p_idle, fleet_params.p_idle),
+                       p_max=row(host.p_max, fleet_params.p_max),
+                       r=row(host.r, fleet_params.r))
+    combined = opendc_power(u_th, PowerParams(
+        *(x[:, None, :] for x in (rows.p_idle, rows.p_max, rows.r)))).sum(dim=-1)
+    per_host_mape = mape(real_power, combined, dim=-1)
     best_mape = torch.where(torch.isnan(per_host_mape), fleet_mape,
                             per_host_mape)
     return rows, best_mape

@@ -55,7 +55,9 @@ from repro_torch.core.state import (
     TwinState,
     empty_telemetry,
     init_twin_state,
+    load_state,
     make_telemetry,
+    save_state,
     twin_step,
 )
 from repro_torch.core.telemetry import (
@@ -240,6 +242,20 @@ class Orchestrator:
         return BiasTracker(under=int(self.state.bias_under),
                            over=int(self.state.bias_over),
                            ties=int(self.state.bias_ties))
+
+    def save_state(self, path: str) -> None:
+        """Checkpoint the twin core (:func:`repro_torch.core.state.save_state`)."""
+        save_state(self.state, path)
+
+    def restore_state(self, path: str) -> None:
+        """Resume from a checkpoint, onto this orchestrator's device; the
+        config must match this orchestrator's."""
+        state = load_state(path, device=self.twin_cfg.device)
+        if state.cfg != self.twin_cfg:
+            raise ValueError(
+                "checkpointed TwinConfig differs from this orchestrator's "
+                f"configuration:\n  saved: {state.cfg}\n  here:  {self.twin_cfg}")
+        self.state = state
 
     def _ensure_sim(self) -> SimOutput:
         """Full-horizon DES utilization field, computed once per topology

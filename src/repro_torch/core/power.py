@@ -154,15 +154,19 @@ def carbon_gco2(energy_kwh_t: Tensor, intensity) -> Tensor:
         intensity, dtype=energy_kwh_t.dtype, device=energy_kwh_t.device)
 
 
-def mape(real: Tensor, sim: Tensor, eps: float = 1e-9) -> Tensor:
+def mape(real: Tensor, sim: Tensor, eps: float = 1e-9,
+         dim: int | None = None) -> Tensor:
     """Mean Absolute Percentage Error, % (paper §3.2).
 
     Denominator ``|real| + eps``; zero-real bins are excluded from the
     mean, and an all-zero ``real`` gives NaN (undefined, surfaced).
+    ``dim`` takes one MAPE a row along that dimension (a fleet's lanes)
+    instead of one over every element.
     """
     nonzero = real.abs() > eps
-    n = nonzero.sum()
+    n = nonzero.sum() if dim is None else nonzero.sum(dim)
     ape = ((real - sim) / (real.abs() + eps)).abs()
-    total = torch.where(nonzero, ape, torch.zeros_like(ape)).sum()
+    kept = torch.where(nonzero, ape, torch.zeros_like(ape))
+    total = kept.sum() if dim is None else kept.sum(dim)
     out = total / n.clamp(min=1).to(total.dtype)
     return torch.where(n > 0, out, torch.full_like(out, float("nan"))) * 100.0

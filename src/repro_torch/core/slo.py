@@ -89,6 +89,30 @@ def observe_bias(under, over, ties, real: torch.Tensor, sim: torch.Tensor,
             ties + (sim == real).sum().to(torch.int32))
 
 
+def observe_slos_lanes(slos: tuple[SLO, ...], samples: torch.Tensor,
+                       compliant: torch.Tensor, value: torch.Tensor,
+                       valid: torch.Tensor, metric: str = "mape"):
+    """:func:`observe_slos` for a fleet: ``[D, len(slos)]`` counts, a ``[D]``
+    metric and a ``[D]`` bool ``valid`` (lanes without telemetry keep
+    their counts), with no read on the host."""
+    if not slos:
+        return samples, compliant
+    on = torch.tensor([s.metric == metric for s in slos], dtype=torch.int32,
+                      device=samples.device) * valid.to(torch.int32)[:, None]
+    holds = torch.stack([slo_holds(s, value).to(torch.int32) for s in slos], dim=-1)
+    return samples + on, compliant + holds * on
+
+
+def observe_bias_lanes(under, over, ties, real: torch.Tensor, sim: torch.Tensor,
+                       valid: torch.Tensor):
+    """:func:`observe_bias` for a fleet: ``[D]`` counts, ``[D, T]`` series and
+    a ``[D]`` bool ``valid``."""
+    on = valid.to(torch.int32)
+    return (under + (sim < real).sum(-1).to(torch.int32) * on,
+            over + (sim > real).sum(-1).to(torch.int32) * on,
+            ties + (sim == real).sum(-1).to(torch.int32) * on)
+
+
 class SLOMonitor:
     """Streams per-sample metric values against a set of SLOs."""
 

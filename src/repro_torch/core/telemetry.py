@@ -2,18 +2,22 @@
 
 Telemetry arrives asynchronously and is windowed: records are clipped to
 the window of operation before the simulator sees them, and consumers
-read consistent snapshots keyed by window index.  Persistence
-(``flush``/``load``) is not ported yet: its codec needs msgpack.
+read consistent snapshots keyed by window index.  The store persists as
+one codec-tagged blob (:mod:`repro_torch.core.codec`), the JAX package's
+format: either package reads the other's files.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 import threading
 from typing import Iterable
 
 import numpy as np
 
+from repro_torch.core import codec
 from repro_torch.traces.schema import SAMPLE_SECONDS
 
 #: extras column: measured grid carbon intensity ``[Tw]`` (gCO2/kWh)
@@ -64,7 +68,7 @@ def clip_to_window(window: int, bins_per_window: int, t0_bin: int,
 
 
 class TelemetryStore:
-    """Windowed, thread-safe, in-memory telemetry store."""
+    """Windowed, thread-safe telemetry store, persisted by :meth:`flush`."""
 
     def __init__(self, bins_per_window: int,
                  sample_seconds: float = SAMPLE_SECONDS):
@@ -100,3 +104,57 @@ class TelemetryStore:
     def windows(self) -> Iterable[int]:
         with self._lock:
             return sorted(self._windows)
+
+    def flush(self, path: str) -> None:
+        """Persist every window through :mod:`repro_torch.core.codec`.
+
+        Columns are :func:`~repro_torch.core.codec.pack_array` records (raw
+        bytes + dtype + shape), so the round trip is bit for bit with the
+        dtypes kept (format version 2).  The file is written beside
+        ``path`` and renamed over it, so a reader never sees half a flush.
+        """
+        cols: dict = {"version": 2,
+                      "bins_per_window": self.bins_per_window,
+                      "sample_seconds": self.sample_seconds, "windows": {}}
+        with self._lock:
+            for w, tw in sorted(self._windows.items()):
+                cols["windows"][w] = {
+                    "t0_bin": tw.t0_bin,
+                    "u_th": codec.pack_array(tw.u_th),
+                    "power_w": codec.pack_array(tw.power_w),
+                    "extras": {k: codec.pack_array(v)
+                               for k, v in tw.extras.items()},
+                }
+        blob = codec.dumps(cols, level=6)
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                f.write(blob)
+            os.replace(tmp, path)  # atomic publish
+        except BaseException:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
+
+    @classmethod
+    def load(cls, path: str) -> "TelemetryStore":
+        """A store from :meth:`flush`'s file, or from a version-1 file (the
+        earlier columns: raw float32 ``u_th`` with its shape, float64
+        ``power_w``, float32 extras)."""
+        with open(path, "rb") as f:
+            cols = codec.loads(f.read())
+        store = cls(cols["bins_per_window"], cols["sample_seconds"])
+        legacy = cols.get("version", 1) < 2
+        for w, rec in cols["windows"].items():
+            if legacy:
+                u = np.frombuffer(rec["u_th"], np.float32).reshape(rec["u_shape"])
+                p = np.frombuffer(rec["power_w"], np.float64)
+                extras = {k: np.frombuffer(v["b"], np.float32).reshape(v["s"])
+                          for k, v in rec["extras"].items()}
+            else:
+                u = codec.unpack_array(rec["u_th"])
+                p = codec.unpack_array(rec["power_w"])
+                extras = {k: codec.unpack_array(v)
+                          for k, v in rec["extras"].items()}
+            store.ingest(TelemetryWindow(int(w), rec["t0_bin"], u, p, extras))
+        return store

@@ -3,7 +3,16 @@
 Wires the physical-twin telemetry source, the Orchestrator and the HITL
 gate into the closed cycle of Figure 1.  ``TraceGroundTruth`` replays a
 workload trace with synthesized hidden-model telemetry (experiments
-E1/E2).  Fleet twinning comes with a later slice.
+E1/E2).
+
+Fleet twinning: D independent datacenters twinned a window at a time by
+one batched step (:func:`fleet_step`, :func:`fleet_step_masked`,
+:func:`run_fleet`), the JAX package's ``jax.vmap(twin_step)`` with the
+lane axis written out (:func:`repro_torch.core.state.twin_step_lanes`).
+A fleet state is a :class:`TwinState` whose leaves lead with ``[D]``.
+Nothing here writes into a fleet's tensors: every function returns new
+ones, so a lane view taken earlier (:func:`index_twin_state`) never
+changes under its holder.
 """
 
 from __future__ import annotations
@@ -12,12 +21,23 @@ import dataclasses
 from typing import Callable
 
 import numpy as np
+import torch
 
 from repro_torch.core.desim import simulate_utilization
 from repro_torch.core.feedback import HITLGate, Proposal
 from repro_torch.core.orchestrator import Orchestrator, OrchestratorConfig, WindowRecord
 from repro_torch.core.power import PowerParams
 from repro_torch.core.slo import SLOReport
+from repro_torch.core.state import (
+    SimSlice,
+    TelemetrySlice,
+    TwinState,
+    WindowOutput,
+    state_leaf_names,
+    state_leaves,
+    state_with_leaves,
+    twin_step_lanes,
+)
 from repro_torch.core.telemetry import TelemetryWindow, clip_to_window
 from repro_torch.traces.surf import GroundTruthSpec, synthesize_ground_truth
 
@@ -121,3 +141,131 @@ def run_surf_experiment(
                        hitl_policy=hitl_policy)
     truth = TraceGroundTruth(twin.orchestrator.workload, dc, t_bins, gt)
     return twin.run(truth.window)
+
+
+# -- fleet twinning: the lane axis of twin_step written out -------------------
+
+def stack_twin_states(states: "list[TwinState] | tuple[TwinState, ...]") -> TwinState:
+    """Stack D independent twins into one fleet state, leaves ``[D, ...]``.
+
+    Every state must share one :class:`TwinConfig` and the same leaf
+    shapes, checked up front: a mismatch names the offending leaf and lane.
+    """
+    if not states:
+        raise ValueError("need at least one TwinState to stack")
+    cfg = states[0].cfg
+    names, ref = state_leaf_names(states[0]), state_leaves(states[0])
+    for lane, s in enumerate(states[1:], start=1):
+        if s.cfg != cfg:
+            raise ValueError(
+                "fleet states must share one TwinConfig (got differing "
+                f"configs:\n  {cfg}\n  {s.cfg})")
+        if state_leaf_names(s) != names:
+            raise ValueError(
+                f"fleet states must share one structure; lane {lane} "
+                "differs from lane 0 (a field present on one side only, "
+                "e.g. sim_u)")
+        for name, a, b in zip(names, ref, state_leaves(s)):
+            if tuple(a.shape) != tuple(b.shape):
+                raise ValueError(
+                    f"fleet states must share leaf shapes; leaf {name} has "
+                    f"shape {tuple(b.shape)} in lane {lane} vs "
+                    f"{tuple(a.shape)} in lane 0")
+    stacked = [torch.stack(xs, dim=0)
+               for xs in zip(*(state_leaves(s) for s in states))]
+    return state_with_leaves(stacked, cfg)
+
+
+def index_twin_state(fleet: TwinState, i: int) -> TwinState:
+    """One twin's state of a fleet state (views of lane ``i``)."""
+    return state_with_leaves([x[i] for x in state_leaves(fleet)], fleet.cfg)
+
+
+def update_twin_state_lane(fleet: TwinState, i: int, state: TwinState, *,
+                           in_place: bool = False) -> TwinState:
+    """A fleet state with lane ``i`` replaced by ``state``.
+
+    The admission half of lane multiplexing (:mod:`repro_torch.serve.batching`);
+    :func:`index_twin_state` is the eviction half.  Config- and
+    shape-checked like :func:`stack_twin_states`.  The fleet's tensors are
+    not written: the result holds new ones, so views of the old fleet
+    (a dispatched batch's successor lanes) keep their values.  With
+    ``in_place=True`` lane ``i`` of the fleet's own tensors is written and
+    ``fleet`` returned: only for a fleet whose tensors nothing else holds.
+    """
+    if state.cfg != fleet.cfg:
+        raise ValueError(
+            "lane state must share the fleet's TwinConfig (got differing "
+            f"configs:\n  {fleet.cfg}\n  {state.cfg})")
+    if state_leaf_names(state) != state_leaf_names(fleet):
+        raise ValueError(
+            f"lane {i} state must share the fleet's structure "
+            "(a field present on one side only, e.g. sim_u)")
+    names = state_leaf_names(fleet)
+    for name, f, s in zip(names, state_leaves(fleet), state_leaves(state)):
+        if tuple(f.shape[1:]) != tuple(s.shape):
+            raise ValueError(
+                f"lane {i} state leaf {name} has shape {tuple(s.shape)}; the "
+                f"fleet carries {tuple(f.shape)} (want {tuple(f.shape[1:])} "
+                "per lane)")
+    leaves = state_leaves(fleet)
+    if not in_place:
+        leaves = [f.clone() for f in leaves]
+    for f, s in zip(leaves, state_leaves(state)):
+        f[i].copy_(s)
+    return fleet if in_place else state_with_leaves(leaves, fleet.cfg)
+
+
+#: the JAX package's names of the fleet step: ``fleet_step(fleet,
+#: telemetry, sim_slices)`` advances every lane, ``fleet_step_masked(...,
+#: lane_active)`` only the active ones (the serving primitive behind
+#: :class:`repro_torch.serve.TwinService`); both are the lane step itself
+fleet_step = twin_step_lanes
+fleet_step_masked = twin_step_lanes
+
+
+def _window(x, w: int):
+    return None if x is None else x[w]
+
+
+def _stack_outputs(outs: "list[WindowOutput]") -> WindowOutput:
+    def st(*xs):
+        return None if xs[0] is None else torch.stack(xs, dim=0)
+
+    def params(ps):
+        return PowerParams(*(st(*(getattr(p, f) for p in ps))
+                             for f in ("p_idle", "p_max", "r")))
+
+    preds = [o.prediction for o in outs]
+    pred = type(preds[0])(**{f.name: st(*(getattr(p, f.name) for p in preds))
+                             for f in dataclasses.fields(preds[0])})
+    return WindowOutput(
+        prediction=pred, mape=st(*(o.mape for o in outs)),
+        calib_mape=st(*(o.calib_mape for o in outs)),
+        params_used=params([o.params_used for o in outs]),
+        params_next=params([o.params_next for o in outs]),
+        window=st(*(o.window for o in outs)))
+
+
+def run_fleet(fleet: TwinState, telemetry: TelemetrySlice,
+              sim_slices: SimSlice) -> tuple[TwinState, WindowOutput]:
+    """Twin a whole fleet over a whole horizon, a batched step a window.
+
+    ``telemetry``/``sim_slices`` leaves lead with ``[W, D, ...]`` (windows,
+    datacenters).  Each window is one :func:`fleet_step`, so the run
+    launches W ``des_readout`` and W x (1 + refine_iters)
+    ``calib_mape_grid``, not D times as many.  Returns the final fleet
+    state and the outputs stacked ``[W, D, ...]``; each lane is its solo
+    run.
+    """
+    n = telemetry.u_th.shape[0]
+    outs = []
+    for w in range(n):
+        fleet, out = fleet_step(
+            fleet,
+            TelemetrySlice(u_th=telemetry.u_th[w], power_w=telemetry.power_w[w],
+                           valid=telemetry.valid[w]),
+            SimSlice(**{f.name: _window(getattr(sim_slices, f.name), w)
+                        for f in dataclasses.fields(sim_slices)}))
+        outs.append(out)
+    return fleet, _stack_outputs(outs)

@@ -36,7 +36,7 @@ _F = ctypes.c_float
 
 #: C entry point and argument types of every kernel library
 ENTRY_POINTS = {
-    "calib_mape": ("calib_mape_grid_launch", [_P] * 7 + [_I] * 5 + [_P]),
+    "calib_mape": ("calib_mape_grid_launch", [_P] * 7 + [_I] * 6 + [_P]),
     "des_readout": ("des_readout_launch", [_P] * 2),
     "power_sim": ("power_sim_launch", [_P] * 2 + [_I] * 3 + [_F] * 5 + [_P]),
     "flash_attention": ("flash_attention_launch",

@@ -1,7 +1,12 @@
 """Grid-search MAPE kernel (the Self-Calibrator's hot spot), CUDA for Hopper.
 
 Replaces: ``repro/kernels/calib_mape.py:calib_mape_grid_pallas`` (body
-``_kernel``), the Pallas TPU kernel behind ``calibrate.evaluate_candidates``.
+``_kernel``), the Pallas TPU kernel behind ``calibrate.evaluate_candidates``,
+and its ``jax.vmap`` over a fleet's lanes (``core/twin.py``), where every
+lane carries its own candidate grid: the candidates come as ``[C]``,
+shared by every batch row, or as ``[L, C]`` rows, row ``l`` shared by the
+``B / L`` consecutive batch rows of its group (a lane, or a lane's hosts in
+the per-host refit), all in one launch.
 
 Bound on an H100: the special-function units.  The utilization window is
 read once (T*H floats, 160 KB for the E2 history of 144 bins x 277 hosts),
@@ -25,9 +30,11 @@ Design (``csrc/calib_mape.cu``), two launches, one count:
   ``real`` and writes ``acc * (100 / n)``, or NaN when n = 0.
 
 :func:`bin_tile` picks the bins per block so that pass 1 launches at least
-two blocks an SM of an H100 where the window has the bins.  No float
-atomics anywhere: the result is bitwise reproducible, so the argmin
-downstream cannot flip between runs.
+two blocks an SM of an H100 where the window has the bins, counting the
+rows of one candidate group (all B rows for shared candidates), so that a
+fleet's lane is tiled, and summed, as that lane's call alone: the two give
+the same bits.  No float atomics anywhere: the result is bitwise
+reproducible, so the argmin downstream cannot flip between runs.
 """
 
 from __future__ import annotations
@@ -86,12 +93,24 @@ def _check(name: str, x: Tensor, device: torch.device, shape: tuple) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def candidate_group(b: int, r: Tensor) -> int:
+    """Batch rows a candidate row serves: ``b`` for shared ``[C]``
+    candidates, ``b / L`` for ``[L, C]`` rows (``L`` must divide ``b``)."""
+    if r.dim() == 1:
+        return b
+    if r.dim() != 2 or r.shape[0] == 0 or b % r.shape[0]:
+        raise ValueError(f"candidates must be [C] or [L, C] with L dividing the "
+                         f"batch {b}; got {tuple(r.shape)}")
+    return b // r.shape[0]
+
+
 def calib_mape_grid_cuda(u_th: Tensor, real_power: Tensor, p_idle: Tensor,
                          p_max: Tensor, r: Tensor) -> Tensor:
     """``[B, C]`` MAPE [%] of every candidate, on the card.
 
-    ``u_th`` ``[B, T, H]``, ``real_power`` ``[B, T]`` and the candidate rows
-    ``[C]`` must be contiguous float32 CUDA tensors on one device.
+    ``u_th`` ``[B, T, H]``, ``real_power`` ``[B, T]`` and the candidates,
+    ``[C]`` or ``[L, C]`` rows with ``L`` dividing ``B``, must be contiguous
+    float32 CUDA tensors on one device.
     """
     dev = u_th.device
     if dev.type != "cuda":
@@ -99,11 +118,11 @@ def calib_mape_grid_cuda(u_th: Tensor, real_power: Tensor, p_idle: Tensor,
     if u_th.dim() != 3:
         raise ValueError(f"u_th must be [B, T, H], got {tuple(u_th.shape)}")
     b, t, h = u_th.shape
-    c = r.shape[0] if r.dim() == 1 else -1
+    candidate_group(b, r)
     _check("u_th", u_th, dev, (b, t, h))
     _check("real_power", real_power, dev, (b, t))
     for name, x in (("p_idle", p_idle), ("p_max", p_max), ("r", r)):
-        _check(name, x, dev, (c,))
+        _check(name, x, dev, tuple(r.shape))
     if not 0 < b <= MAX_BATCH:
         raise ValueError(f"batch {b} outside [1, {MAX_BATCH}]")
     entry = _build.load("calib_mape").calib_mape_grid_launch
@@ -113,19 +132,21 @@ def calib_mape_grid_cuda(u_th: Tensor, real_power: Tensor, p_idle: Tensor,
 def launch(entry, u_th: Tensor, real_power: Tensor, p_idle: Tensor,
            p_max: Tensor, r: Tensor) -> Tensor:
     """Run the C entry point ``entry`` (``calib_mape_grid_launch`` of a
-    built library) on checked operands: the bin tile, the partial scratch
-    and the output are made here.  Raises if the launch fails."""
+    built library) on checked operands: the bin tile (planned for one
+    candidate group's rows), the partial scratch and the output are made
+    here.  Raises if the launch fails."""
     dev = u_th.device
     b, t, h = u_th.shape
-    c = r.shape[0]
-    tile = bin_tile(b, t, h, c)
+    c = r.shape[-1]
+    group = candidate_group(b, r)
+    tile = bin_tile(group, t, h, c)
     partial = torch.empty((b, _cdiv(t, tile), c), dtype=torch.float32, device=dev)
     out = torch.empty((b, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(u_th.data_ptr(), real_power.data_ptr(), p_idle.data_ptr(),
                     p_max.data_ptr(), r.data_ptr(), partial.data_ptr(),
-                    out.data_ptr(), b, t, h, c, tile, stream)
+                    out.data_ptr(), b, t, h, c, tile, group, stream)
     if err != 0:
         raise RuntimeError(f"calib_mape_grid launch failed: CUDA error {err}")
     return out

@@ -1,8 +1,12 @@
 // Grid-search MAPE of every power-model candidate (the Self-Calibrator's
 // hot spot), hand-written for Hopper (sm_90a).
 //
-// Replaces repro/kernels/calib_mape.py:calib_mape_grid_pallas (_kernel).
-// For batch row b and candidate c:
+// Replaces repro/kernels/calib_mape.py:calib_mape_grid_pallas (_kernel),
+// and its jax.vmap over a fleet's lanes, whose candidate rows differ per
+// lane.  The candidates are [B / group, C] rows: batch row b is scored
+// over row b / group (group = B: one [C] set shared by every row; group =
+// 1: a row per batch row; group = H: the per-host refit of a fleet, H rows
+// per lane).  For batch row b and candidate c:
 //     MAPE = 100/n * sum_t [|real_t| > 1e-9] |real_t - sim_t(c)| / (|real_t| + 1e-9)
 // with sim_t(c) = H*p_idle_c + (p_max_c - p_idle_c) * (S2_t - Sr_t(r_c)),
 // S2_t = sum_h 2u and Sr_t(r) = sum_h expf(r * logf(max(u, 1e-30))) over u
@@ -36,7 +40,10 @@
 // of nonzero bins (__syncthreads_count, an integer), then acc * (100/n) or
 // NaN.  No float atomics: the result is the same bit pattern on every run,
 // so the argmin downstream cannot flip.  The wrapper picks the bin tile so
-// that pass 1 launches at least two blocks an SM where the window allows.
+// that pass 1 launches at least two blocks an SM where the window allows,
+// from the rows of one candidate row (group), not from B: a block's work
+// depends only on its own row, so a fleet's lane is summed in the order of
+// that lane's call alone and gives the same bits, whatever the fleet's size.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,7 +75,7 @@ calib_mape_partial_kernel(const float* __restrict__ u,
                           const float* __restrict__ p_max,
                           const float* __restrict__ r,
                           float* __restrict__ partial,
-                          int T, int H, int C, int bin_tile) {
+                          int T, int H, int C, int bin_tile, int group) {
   __shared__ float s_logu[kStage];
   __shared__ float s_two_u[kStage];
   __shared__ float s_sum[kSums];
@@ -88,7 +95,9 @@ calib_mape_partial_kernel(const float* __restrict__ u,
   const int t0 = tile * bin_tile;
   const int nt = min(bin_tile, T - t0);
   const bool active = c < C;
-  const float rc = active ? r[c] : 0.0f;
+  // this batch row's candidate row: [B / group, C], group rows share one
+  const long long cand = static_cast<long long>(b / group) * C + c;
+  const float rc = active ? r[cand] : 0.0f;
   const unsigned bits = __float_as_uint(rc);
 
   // 1. dedup r within the tile: the leader is the first candidate with
@@ -187,8 +196,8 @@ calib_mape_partial_kernel(const float* __restrict__ u,
 
   // 4. this tile's relative errors of each candidate, in bin order
   if (!active) return;
-  const float pi = p_idle[c];
-  const float span = p_max[c] - pi;
+  const float pi = p_idle[cand];
+  const float span = p_max[cand] - pi;
   const float base = static_cast<float>(H) * pi;
   const float* real_tile = real + static_cast<long long>(b) * T + t0;
   float acc = 0.0f;
@@ -225,17 +234,20 @@ calib_mape_finish_kernel(const float* __restrict__ partial,
 
 }  // namespace
 
-// partial is [B, ceil(T / bin_tile), C] scratch, out [B, C].  A bin tile
-// beyond the block's shared memory (kMaxBins, kStage, kSums) or a grid
-// beyond the card's limits is refused with cudaErrorInvalidValue.
+// p_idle, p_max and r are [B / group, C] candidate rows, partial is
+// [B, ceil(T / bin_tile), C] scratch, out [B, C].  A bin tile beyond the
+// block's shared memory (kMaxBins, kStage, kSums), a group that does not
+// divide B, or a grid beyond the card's limits is refused with
+// cudaErrorInvalidValue.
 extern "C" int calib_mape_grid_launch(const float* u, const float* real,
                                       const float* p_idle, const float* p_max,
                                       const float* r, float* partial, float* out,
                                       int B, int T, int H, int C, int bin_tile,
-                                      void* stream) {
+                                      int group, void* stream) {
   if (B < 0 || T < 0 || H < 0 || C < 0 || bin_tile < 1 || bin_tile > kMaxBins ||
       bin_tile * min(H, kHostChunk) > kStage ||
-      bin_tile * (min(C, kThreads) + 1) > kSums || B > 65535) {
+      bin_tile * (min(C, kThreads) + 1) > kSums || B > 65535 || group < 1 ||
+      B % group != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || C == 0) return static_cast<int>(cudaGetLastError());
@@ -245,7 +257,7 @@ extern "C" int calib_mape_grid_launch(const float* u, const float* real,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_tiles > 0) {
     calib_mape_partial_kernel<<<dim3(c_tiles, n_tiles, B), kThreads, 0, s>>>(
-        u, real, p_idle, p_max, r, partial, T, H, C, bin_tile);
+        u, real, p_idle, p_max, r, partial, T, H, C, bin_tile, group);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

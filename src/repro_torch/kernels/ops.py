@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import READOUT_FIELDS
-from repro_torch.kernels.calib_mape import calib_mape_grid_cuda
+from repro_torch.kernels.calib_mape import calib_mape_grid_cuda, candidate_group
 from repro_torch.kernels.des_place import MAX_BACKFILL, des_place_cuda
 from repro_torch.kernels.des_readout import (
     COLUMNS,
@@ -57,12 +57,22 @@ def calib_mape_grid(u_th: Tensor, real_power: Tensor, p_idle: Tensor,
     """Candidate MAPEs [%] over a cached utilization window.
 
     ``u_th`` ``[T, H]`` with ``real_power`` ``[T]`` gives ``[C]``; the
-    batched form ``[B, T, H]`` / ``[B, T]`` gives ``[B, C]`` in one launch.
+    batched form ``[B, T, H]`` / ``[B, T]`` gives ``[B, C]`` in one launch,
+    with the candidates ``p_idle/p_max/r`` either ``[C]``, shared by every
+    row, or ``[L, C]`` rows, row ``l`` serving the ``B / L`` consecutive
+    batch rows of its group (a fleet's lanes, each with its own grid).
     """
     if u_th.dim() not in (2, 3) or real_power.dim() != u_th.dim() - 1:
         raise ValueError(
             f"u_th/real_power must be [T, H]/[T] or [B, T, H]/[B, T]; got "
             f"{tuple(u_th.shape)} / {tuple(real_power.shape)}")
+    if r.dim() == 2 and u_th.dim() == 2:
+        raise ValueError("candidate rows [L, C] need a batched [B, T, H] window")
+    if r.dim() == 2:
+        candidate_group(u_th.shape[0], r)
+    if not p_idle.shape == p_max.shape == r.shape:
+        raise ValueError(f"p_idle/p_max/r must share one shape; got "
+                         f"{tuple(p_idle.shape)} / {tuple(p_max.shape)} / {tuple(r.shape)}")
     if _device_kind(u_th) == "cpu":
         return ref.calib_mape_grid_ref(u_th, real_power, p_idle, p_max, r)
     batched = u_th.dim() == 3

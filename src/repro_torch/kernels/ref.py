@@ -34,12 +34,17 @@ def calib_mape_grid_ref(u_th: Tensor, real_power: Tensor, p_idle: Tensor,
     """Grid-search MAPE [%] of every candidate; ``[B, C]`` (or ``[C]``).
 
     ``u_th`` is ``[T, H]`` or batched ``[B, T, H]`` with ``real_power``
-    ``[T]`` / ``[B, T]``; the candidates ``p_idle/p_max/r`` are ``[C]`` and
-    shared by every batch row.  For candidate c:
+    ``[T]`` / ``[B, T]``; the candidates ``p_idle/p_max/r`` are ``[C]``,
+    shared by every batch row, or ``[L, C]`` rows, row ``l`` serving the
+    ``B / L`` consecutive batch rows of its group.  For candidate c:
     ``sim_t = H*p_idle_c + (p_max_c - p_idle_c) * (S2_t - Sr_t(c))`` with
     ``S2_t = sum_h 2u`` and ``Sr_t(c) = sum_h exp(r_c * log max(u, 1e-30))``
     over u clipped to [0, 1].  Zero-real bins are excluded from the mean
-    and an all-zero row gives NaN for every candidate.
+    and an all-zero row gives NaN for every candidate.  With candidate rows
+    on the CPU, ``Sr`` is formed once per distinct ``r`` of a row (equal
+    bits, as the kernel dedups them: a joint grid's 9216 candidates hold
+    64 values); on the card every candidate's is formed, so that the call
+    never waits for the device (``torch.unique`` would).
     """
     batched = u_th.dim() == 3
     u = u_th if batched else u_th[None]
@@ -48,14 +53,32 @@ def calib_mape_grid_ref(u_th: Tensor, real_power: Tensor, p_idle: Tensor,
     b, t, h = u.shape
     s2 = (2.0 * u).sum(dim=2)                                # [B, T]
     log_u = torch.log(u.clamp(min=LOG_FLOOR))                # [B, T, H]
-    rr = r.float()
-    step = max(1, _CALIB_CHUNK_ELEMS // max(b * t * h, 1))
-    sr = torch.cat([
-        torch.exp(rr[c0:c0 + step, None, None, None] * log_u[None]).sum(dim=3)
-        for c0 in range(0, rr.shape[0], step)], dim=0)        # [C, B, T]
-    pi, pm = p_idle.float(), p_max.float()
-    span = (pm - pi)[:, None, None]
-    sim = h * pi[:, None, None] + span * (s2[None] - sr)     # [C, B, T]
+
+    def sums(rr, log_u):
+        """``sum_h exp(r * log u)`` of ``rr`` ``[C]`` over ``log_u`` ``[G, T, H]``:
+        ``[C, G, T]``, in chunks of candidates."""
+        g = log_u.shape[0]
+        step = max(1, _CALIB_CHUNK_ELEMS // max(g * t * h, 1))
+        return torch.cat([
+            torch.exp(rr[c0:c0 + step, None, None, None] * log_u[None]).sum(dim=3)
+            for c0 in range(0, rr.shape[0], step)], dim=0)
+
+    if r.dim() == 1:
+        sr = sums(r.float(), log_u)                          # [C, B, T]
+        pi, pm = p_idle.float()[:, None], p_max.float()[:, None]
+    else:
+        group = b // r.shape[0]
+        sr = log_u.new_empty((r.shape[1], b, t))
+        for row, r_row in enumerate(r.float()):
+            rows = slice(row * group, (row + 1) * group)
+            if r_row.device.type != "cpu":
+                sr[:, rows] = sums(r_row, log_u[rows])
+                continue
+            bits, slot = torch.unique(r_row.view(torch.int32), return_inverse=True)
+            sr[:, rows] = sums(bits.view(torch.float32), log_u[rows])[slot]
+        pi, pm = (x.float().repeat_interleave(group, dim=0).T for x in (p_idle, p_max))
+    span = (pm - pi)[:, :, None]
+    sim = h * pi[:, :, None] + span * (s2[None] - sr)        # [C, B, T]
     nonzero = real.abs() > 1e-9                              # [B, T]
     n_nz = nonzero.sum(dim=1)                                # [B]
     ape = ((real[None] - sim) / (real[None].abs() + 1e-9)).abs() * nonzero[None]

@@ -120,7 +120,14 @@ def test_kernel_wrappers_reject_bad_operands(dev):
     for tile in (0, MAX_BINS + 1):                  # beyond the block's shared memory
         assert entry(u.data_ptr(), real.data_ptr(), pi.data_ptr(), pm.data_ptr(),
                      r.data_ptr(), scratch.data_ptr(), out.data_ptr(), 1, 16, 4, 8,
-                     tile, stream) != 0
+                     tile, 1, stream) != 0
+    for group in (0, 2):                            # no rows, or not dividing B = 1
+        assert entry(u.data_ptr(), real.data_ptr(), pi.data_ptr(), pm.data_ptr(),
+                     r.data_ptr(), scratch.data_ptr(), out.data_ptr(), 1, 16, 4, 8,
+                     1, group, stream) != 0
+    with pytest.raises(ValueError, match="dividing"):
+        calib_mape_grid_cuda(u, real, pi[None].expand(2, 8).contiguous(), pm[None].expand(
+            2, 8).contiguous(), r[None].expand(2, 8).contiguous())
     x, operands = ops.pack_readout(u[0, :8, :], p_idle=pi[:4], p_max=pm[:4],
                                    r=2.0, cap_t=real[0, :8])
     with pytest.raises(ValueError, match="cap"):
@@ -335,6 +342,8 @@ CALIB_FAULTS = {
         "for (int k = 0; k < n_tiles - (n_tiles > 1); ++k)"),
     "host chunk skipped": (
         "h0 += kHostChunk;", "h0 += (H > kHostChunk ? 2 : 1) * kHostChunk;"),
+    "candidate rows read as shared": (
+        "static_cast<long long>(b / group) * C + c;", "static_cast<long long>(c);"),
 }
 
 
@@ -357,6 +366,31 @@ def test_calib_check_fails_on_planted_faults(dev, tmp_path):
         print(f"calib fault {name!r}: fails {len(failed)} of {len(cases)} cases: "
               + "; ".join(failed))
         assert (not failed) == (name == "none"), (name, failed)
+
+
+def test_calib_candidate_rows_match_plain_and_each_lanes_own_call(dev):
+    """Per-lane candidate rows in one launch (``chip_smoke.calib_lane_cases``:
+    64 lanes at E2's window, 16 lanes of refined joint grids, the per-host
+    rows of 8 lanes) against the plain version at the calib bar, and each
+    lane or lane group equal, bit for bit, to the call that lane makes alone
+    (the solo twin's window, or its per-host refit)."""
+    from repro_torch.kernels import ref
+
+    cs = _chip_smoke()
+    for label, (u, real, pi, pm, r) in cs.calib_lane_cases(torch, np, dev).items():
+        ops.reset_launches()
+        got = ops.calib_mape_grid(u, real, pi, pm, r)
+        assert ops.LAUNCHES["calib_mape_grid"] == 1, label
+        err, ok = cs.calib_agrees(torch, got, ref.calib_mape_grid_ref(u, real, pi, pm, r))
+        assert ok, (label, err)
+        group = u.shape[0] // r.shape[0]
+        for lane in {0, r.shape[0] // 2, r.shape[0] - 1}:
+            rows = slice(lane * group, (lane + 1) * group)
+            alone = (ops.calib_mape_grid(u[lane], real[lane], pi[lane], pm[lane], r[lane])
+                     if group == 1 else
+                     ops.calib_mape_grid(u[rows], real[rows], pi[lane], pm[lane], r[lane]))
+            assert torch.equal(got[rows].reshape(alone.shape).view(torch.int32),
+                               alone.view(torch.int32)), (label, lane)
 
 
 def test_readout_lanes_are_independent_at_every_split(dev):
@@ -409,6 +443,8 @@ READOUT_FAULTS = {
         "h0 + kHostChunk >= a.H); h0 += kHostChunk"),
     "split drops a warp's partial": (
         "if (p < split) v +=", "if (p < split - 1) v +="),
+    "lanes' carbon column read from lane 0": (
+        "ci = f32_at(a.intensity, s, tb);", "ci = f32_at(a.intensity, 0, tb);"),
 }
 
 

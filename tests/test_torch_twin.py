@@ -327,14 +327,33 @@ def _imports(path: pathlib.Path) -> set[str]:
     return names
 
 
+def _optional_imports(path: pathlib.Path) -> set[str]:
+    """Modules imported inside a ``try`` that catches ``ImportError``."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Try) and any(
+                isinstance(h.type, ast.Name) and h.type.id == "ImportError"
+                for h in node.handlers):
+            for stmt in node.body:
+                if isinstance(stmt, ast.Import):
+                    names.update(a.name for a in stmt.names)
+    return names
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """No JAX, no JAX package, no msgpack, no hypothesis; ``zstandard``
+    only as the codec's optional import (the reference's policy)."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / name for name in ("chip_smoke.py", "e2_compare.py", "kernel_compare.py",
-                                       "place_profile.py")]
+                                       "place_profile.py", "smoke_compare.py")]
     assert len(files) > 20
     assert ROOT / "src" / "repro_torch" / "core" / "optimize.py" in files
+    codec = ROOT / "src" / "repro_torch" / "core" / "codec.py"
+    assert _optional_imports(codec) == {"zstandard"}
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
+            if f == codec and top == "zstandard":
+                continue
             assert top not in ("jax", "jaxlib", "repro", "msgpack",
                                "zstandard", "hypothesis"), (f, name)
