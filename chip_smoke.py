@@ -28,8 +28,11 @@ Phases (each passes or the script exits non-zero without a result line):
    calls each lane makes alone; flash attention at the JAX
    attention sweep's shapes, the bf16 tensor-core route at every head dim,
    ragged, decode, Skv > Sq and non-causal shapes, and SmolLM-360M's and
-   Zamba2-1.2B's prefill shapes in bf16 and f32, each against the plain
-   version in f32 at a bar set by the route's rounding (``FLASH_CASES``);
+   Zamba2-1.2B's prefill shapes in bf16 and f32, and the shapes phase
+   13's runs give it, each against the plain
+   version in f32 at a bar set by the route's rounding (``FLASH_CASES``),
+   and there with ``return_lse=True``: the same output bit for bit, the
+   rows' lse against the plain version's (``LSE_RTOL``, ``LSE_ATOL``);
    ``des_readout`` at ``READOUT_2D`` and, with per-lane operands, at
    ``READOUT_LANES`` (the what-if batch, a week under 64 lanes, one lane,
    one bin, one host, five host chunks, every warp split, the serving
@@ -71,7 +74,9 @@ Phases (each passes or the script exits non-zero without a result line):
    lanes of 64 + 24 i hosts over 2 days) and D (E2's week under 64 lanes),
    one ``des_place`` and one ``des_readout`` launch a call, held against
    the unfused readout on the card (rtol 2e-4, the oracle's bar) and
-   against a CPU rerun (schedules equal, floats within rtol 1e-5); wall
+   against a CPU rerun (schedules equal, floats within rtol 1e-5; at D of
+   16 of its 64 lanes, ``WHATIF_D_CPU_LANES``, one per cap, hosts, failure
+   and backfill combination); wall
    seconds a call and the DES's share;
 8. the LM serving paths at full width and depth in bf16, for SmolLM-360M
    (dense), Mamba2-370M (SSM) and Zamba2-1.2B (hybrid):
@@ -119,7 +124,27 @@ Phases (each passes or the script exits non-zero without a result line):
    warm tenant-windows a second at full fill, the host's time in
    ``encode_result`` and ``digest_arrays``, and one profiled batch,
    retaken while its trace is short of a copy the host issued (its busy
-   time is then logged as a lower bound).
+   time is then logged as a lower bound);
+13. (``train_phase``, also before the timings) training on the card: (a)
+   the flash-attention and SSD autograd Functions' outputs, lse and
+   gradients at SmolLM-360M's train shape and a ragged Skv > Sq shape (bf16
+   and f32) and at Mamba2-370M's chunk shape, against the same Function on
+   f32 CPU copies and against the plain version's autograd on the card;
+   (b) ``make_train_step`` on SmolLM-360M and Mamba2-370M at full width and
+   depth, bf16, 6 steps on ``[8, 256]`` tokens (``wq``/``wk`` rescaled):
+   loss, grad norm and lr finite and the loss falling, ms and tokens/s,
+   peak memory, the forward alone, and every step's flash-attention /
+   ``ssd_chunk`` launches (a forward and its recompute under remat: two a
+   layer), step 0 taken twice from one state to see whether the backward
+   is bitwise repeatable, and step 0's loss and gradients at full depth
+   on the card (bf16 and f32) against the CPU in f32; (c)
+   ``launch/train.main`` with a crash injected at step 5 (``TRAIN_MAIN_ARGV``,
+   cut to ``--reduce 4`` because a full-size checkpoint takes minutes to
+   compress; the codec's rate is measured and logged): one restart from
+   the step-4 checkpoint, and against an uninterrupted run the losses,
+   the final state and the checkpoint files equal bit for bit; (d) each
+   LM at full width, cut in depth, f32, 3 train steps on the card against
+   the CPU; (e) examples/live_twin_training_torch.py at its defaults.
 
 The seconds each phase took are logged after the kernel timings
 (``phase seconds``).  The second-to-last line of standard output is the ``kernels`` JSON record,
@@ -200,8 +225,12 @@ PREFILL_FLASH_ZAMBA2 = (PREFILL_B, 32, 32, PREFILL_S, PREFILL_S, 64)
 #: JAX package's sweep (tests/test_kernels.py), f32 at its bar, then the bf16
 #: route (the tensor-core kernel every prefill runs) at the sweep's bf16
 #: shapes, every head dim (16, 32, 128), ragged rows (100, 257), decode
-#: (Sq=1), Skv > Sq, non-causal, and SmolLM-360M's and Zamba2-1.2B's
-#: prefill shapes, and those two again in f32.  An f32 case is held to
+#: (Sq=1), Skv > Sq, non-causal, SmolLM-360M's and Zamba2-1.2B's
+#: prefill shapes, and those two again in f32; then the shapes phase 13's
+#: training runs give the kernel where (a) does not check them: the
+#: reduced SmolLM of ``launch/train.main --reduce 4`` ((c)) and of the
+#: live-twin example (``--reduce 8``, (e)) in bf16, and SmolLM-360M's
+#: width at (d)'s [2, 256] in f32.  An f32 case is held to
 #: ``atol + rtol |want|``: there the f32 kernel (not the main path's) holds
 #: all 32 KV tiles of a row to f32 rounding.  A bf16 case is held to
 #: ``rtol |want| + atol ||p||`` (``flash_bar_use``), ``||p||`` the L2 norm
@@ -229,19 +258,24 @@ FLASH_CASES = [
     (*PREFILL_FLASH, True, False, 2e-5, 2e-4),
     (*PREFILL_FLASH_ZAMBA2, True, True, 1e-2, 1.5e-2),
     (*PREFILL_FLASH_ZAMBA2, True, False, 2e-5, 2e-4),
+    (8, 3, 1, 256, 256, 16, True, True, 1e-2, 1.5e-2),
+    (4, 1, 1, 128, 128, 16, True, True, 1e-2, 1.5e-2),
+    (2, 15, 5, 256, 256, 64, True, False, 2e-5, 2e-4),
 ]
 
 #: calib_mape_grid checks on random candidates, (B, T, H, C): the E2
 #: window with the r-only grid's 64 and the joint grid's 9216 candidates
 #: (here every r distinct), the per-host refit (B=277, H=1), a ragged
-#: window (T=97), one bin, one candidate, and 2500 hosts (five host chunks
-#: of the kernel); ``calib_cases`` adds the E2 joint grid itself
+#: window (T=97), one bin, one candidate, 2500 hosts (five host chunks
+#: of the kernel), and the live-twin example's windows (phase 13 (e): 25,
+#: 50 and 75 steps of 4 virtual hosts, the default 64-point grid);
+#: ``calib_cases`` adds the E2 joint grid itself
 #: the fleet's calibration window: 64 lanes of E2's history, 64 candidates
 #: a lane (phase 12's service)
 CALIB_FLEET = (64, 144, 277, 64)
 CALIB_SHAPES = [(1, 144, 277, 64), (1, 144, 277, 9216), (277, 144, 1, 64),
                 (1, 97, 33, 130), (2, 1, 277, 64), (1, 144, 277, 1),
-                (3, 300, 2500, 5)]
+                (3, 300, 2500, 5), (1, 25, 4, 64), (1, 50, 4, 64), (1, 75, 4, 64)]
 
 #: the special-function units' rate (expf, logf): 16 results a clock per
 #: SM on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
@@ -314,6 +348,8 @@ SSD_ZAMBA2 = (PREFILL_B * PREFILL_S // 128, 128, 64, 64, 1, 64)
 #: the longest ``ssd_chunked`` makes at the configs' ``ssd_chunk`` of 128
 #: (S = 255), and a 511-row chunk, the longest at upstream Mamba2's 256,
 #: where the kernel takes fewer heads per block to fit shared memory.
+#: Last, phase 13 (d)'s shape, Mamba2-370M's width at [2, 256] tokens, in
+#: both forms.
 SSD_RAGGED = (8, 200, 8, 64, 1, 128)
 SSD_LONGEST = (4, 255, 8, 64, 1, 128)
 SSD_LONGEST_256 = (2, 511, 8, 64, 1, 128)
@@ -321,7 +357,8 @@ SSD_CASES = [((2, 16, 2, 8, 1, 16), False), ((3, 32, 4, 16, 2, 24), False),
              ((1, 64, 8, 32, 4, 64), False), (SSD_MAMBA2, False),
              (SSD_ZAMBA2, False), (SSD_RAGGED, False), (SSD_MAMBA2, True),
              (SSD_ZAMBA2, True), (SSD_RAGGED, True), (SSD_LONGEST, True),
-             (SSD_LONGEST_256, True)]
+             (SSD_LONGEST_256, True), ((4, 128, 32, 64, 1, 128), False),
+             ((4, 128, 32, 64, 1, 128), True)]
 SSD_TOL = 1e-4
 
 
@@ -664,6 +701,14 @@ def failures(fault, spec):
 
 def whatif_c(psc) -> list:
     return [psc.Scenario(name=f"h{64 + 24 * i}", num_hosts=64 + 24 * i) for i in range(16)]
+
+
+#: the lanes of D rerun on the CPU: one per (cap, hosts, failure, backfill)
+#: combination, the policy cycling, so every axis value is held against the
+#: CPU; cut from all 64 when phase 13 (training, ~70 s) came, which would
+#: otherwise take the script past its earlier 333-417 s (the 64-lane rerun
+#: took 78-100 s of phase 7)
+WHATIF_D_CPU_LANES = [4 * i + i % 4 for i in range(16)]
 
 
 def whatif_d(psc, fault) -> list:
@@ -1047,6 +1092,13 @@ def main() -> int:
     for k, n in details["serve"]["launches"].items():
         launches[k] += n
     phase_done("12 serving")
+
+    # 13) training on the card (before the kernel timings, so that its
+    # launches count in the kernels line)
+    details["train"] = train_phase(torch, np, ops, ref, card)
+    for k, n in details["train"]["launches"].items():
+        launches[k] += n
+    phase_done("13 training")
 
     # 10) kernel times at the main paths' shapes (device time, queue kept full)
     timer = DeviceTimer(torch)
@@ -1505,14 +1557,26 @@ def flash_bar_use(torch, ref, got, q, k, v, causal: bool, rtol: float,
     return float(err.max()), float((err / bar).max())
 
 
+#: the bar of the lse output (``return_lse=True``) against the plain
+#: version's, both routes: ``LSE_ATOL + LSE_RTOL |want|``.  Both take the
+#: row max and sum in float32 from products that are exact in float32 for
+#: bf16 inputs, so they differ only in the order of the sums and in the
+#: bf16 route's log2-unit max times ln 2
+LSE_RTOL, LSE_ATOL = 1e-5, 1e-4
+
+
 def check_flash(torch, np, ops, ref, dev) -> float:
     """Flash attention against its plain version at ``FLASH_CASES``, twice
-    each for bitwise-equal results.  Returns the largest absolute error."""
+    each for bitwise-equal results, and once more with ``return_lse=True``:
+    the same output bit for bit, the lse against the plain version's at
+    ``LSE_RTOL``/``LSE_ATOL``.  Returns the largest absolute error of the
+    outputs (the lse's is logged)."""
     worst = 0.0
     for i, (b, hq, hkv, sq, skv, d, causal, _, rtol, atol) in enumerate(FLASH_CASES):
         q, k, v = flash_inputs(torch, np, i, dev)
         got = ops.flash_attention(q, k, v, causal=causal)
         again = ops.flash_attention(q, k, v, causal=causal)
+        with_lse, lse = ops.flash_attention(q, k, v, causal=causal, return_lse=True)
         torch.cuda.synchronize()
         case = f"{(b, hq, hkv, sq, skv, d, causal)} {str(q.dtype)[6:]}"
         err, used = flash_bar_use(torch, ref, got, q, k, v, causal, rtol, atol)
@@ -1521,9 +1585,19 @@ def check_flash(torch, np, ops, ref, dev) -> float:
                  f"(rtol {rtol}, atol {atol})")
         if not torch.equal(got, again):
             fail(f"flash_attention {case}: two runs differ bitwise")
+        if not torch.equal(got, with_lse):
+            fail(f"flash_attention {case}: return_lse=True changed the output")
+        _, want_lse = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                              causal=causal, return_lse=True)
+        lse_err = float((lse - want_lse).abs().max())
+        if (lse.dtype != torch.float32 or lse.shape != want_lse.shape
+                or not torch.allclose(lse, want_lse, rtol=LSE_RTOL, atol=LSE_ATOL)):
+            fail(f"flash_attention {case} lse: max |err| {lse_err} beyond rtol "
+                 f"{LSE_RTOL} atol {LSE_ATOL}")
         worst = max(worst, err)
         log(f"flash_attention {case}: max |err| {err:.3g}, bar used {used:.3f} "
-            f"(rtol {rtol}, atol {atol}), bitwise repeatable")
+            f"(rtol {rtol}, atol {atol}), bitwise repeatable; lse max |err| "
+            f"{lse_err:.3g} (rtol {LSE_RTOL}, atol {LSE_ATOL}), output unchanged")
     return worst
 
 
@@ -1580,15 +1654,18 @@ def call_and_des_seconds(torch, call, des, turns: int = 3) -> tuple[float, float
     return statistics.median(times[0]), statistics.median(times[1])
 
 
-def same_sim(torch, a, b, label) -> None:
+def same_sim(torch, a, b, label, lanes=None) -> None:
+    """``a``'s schedule (its lanes ``lanes``, all by default) equals ``b``'s."""
     for k in ("job_start", "job_host", "queue_len", "running"):
-        if not torch.equal(getattr(a, k).cpu(), getattr(b, k).cpu()):
+        x = getattr(a, k) if lanes is None else getattr(a, k)[lanes]
+        if not torch.equal(x.cpu(), getattr(b, k).cpu()):
             fail(f"what-if {label}: {k} differs")
 
 
-def close_pred(torch, got, want, rtol, label, atol=0.0) -> float:
-    """Largest relative difference of the prediction leaves; fails beyond
-    ``rtol`` (``atol`` where a leaf is near 0)."""
+def close_pred(torch, got, want, rtol, label, atol=0.0, lanes=None) -> float:
+    """Largest relative difference of the prediction leaves (``got``'s lanes
+    ``lanes``, all by default); fails beyond ``rtol`` (``atol`` where a leaf
+    is near 0)."""
     worst = 0.0
     for k in ("power_w", "energy_kwh", "tflops", "utilization", "efficiency", "gco2",
               "power_demand_w", "pue", "energy_cost"):
@@ -1597,6 +1674,8 @@ def close_pred(torch, got, want, rtol, label, atol=0.0) -> float:
             fail(f"what-if {label}: leaf {k} present on one side only")
         if g is None:
             continue
+        if lanes is not None:
+            g = g[lanes]
         g, w = g.cpu().double(), w.cpu().double()
         if not torch.allclose(g, w, rtol=rtol, atol=atol):
             fail(f"what-if {label}: {k} max rel diff "
@@ -1667,11 +1746,13 @@ def whatif_phase(torch, np, ops, w, dc, t_bins, card_orch, cpu_orch,
 
     w_c = make_surf22_like(SurfTraceSpec(days=WHATIF_C_DAYS), dc, device="cpu")
     t_c = int(WHATIF_C_DAYS * BINS_PER_DAY)
-    for label, wl, scs, t, mh in (("C", w_c, whatif_c(psc), t_c, WHATIF_C_HOSTS),
-                                  ("D", w.to("cpu"), whatif_d(psc, fault), t_bins, None)):
+    for label, wl, scs, t, mh, cpu_lanes in (
+            ("C", w_c, whatif_c(psc), t_c, WHATIF_C_HOSTS, None),
+            ("D", w.to("cpu"), whatif_d(psc, fault), t_bins, None, WHATIF_D_CPU_LANES)):
         traces = dict(carbon_intensity=make_diurnal_carbon(t), price=make_diurnal_price(t))
-        sets = {dev: psc.build_scenario_set(wl.to(dev), dc, scs, PowerParams(), max_hosts=mh)
-                for dev in ("cuda", "cpu")}
+        cpu_scs = scs if cpu_lanes is None else [scs[i] for i in cpu_lanes]
+        sets = {dev: psc.build_scenario_set(wl.to(dev), dc, lanes, PowerParams(), max_hosts=mh)
+                for dev, lanes in (("cuda", scs), ("cpu", cpu_scs))}
 
         def run(dev, fused):
             s_ = sets[dev]
@@ -1691,14 +1772,15 @@ def whatif_phase(torch, np, ops, w, dc, t_bins, card_orch, cpu_orch,
         t0 = time.perf_counter()
         sim_c, pred_c = run("cpu", True)
         cpu_s = time.perf_counter() - t0
-        same_sim(torch, sim, sim_c, f"{label} card vs CPU")
-        rel = close_pred(torch, pred, pred_c, 1e-5, f"{label} card vs CPU")
+        same_sim(torch, sim, sim_c, f"{label} card vs CPU", lanes=cpu_lanes)
+        rel = close_pred(torch, pred, pred_c, 1e-5, f"{label} card vs CPU", lanes=cpu_lanes)
         wall, des = call_and_des_seconds(torch, lambda: run("cuda", True),
                                          lambda: lanes_des(psc, sets["cuda"], t))
         s_, j_ = sets["cuda"].workload.submit_bin.shape
         out[label] = dict(lanes=s_, jobs=j_, hosts=sets["cuda"].max_hosts, bins=t,
                           launches=launches, wall_s=wall, des_s=des, des_share=des / wall,
-                          cpu_rerun_s=cpu_s, max_rel_vs_unfused=oracle,
+                          cpu_rerun_s=cpu_s, cpu_rerun_lanes=len(cpu_scs),
+                          max_rel_vs_unfused=oracle,
                           max_rel_vs_cpu=rel)
         if profile and label == "D":
             out[label]["profile"] = traced(torch, lambda: run("cuda", True),
@@ -1706,8 +1788,8 @@ def whatif_phase(torch, np, ops, w, dc, t_bins, card_orch, cpu_orch,
             log_profile({"what-if D call": out[label]["profile"]})
         log(f"what-if {label}: run_scenarios(fused_readout=True), {s_} lanes x {j_} jobs x "
             f"{sets['cuda'].max_hosts} hosts x {t} bins: launches {launches}; fused vs "
-            f"unfused max rel {oracle:.3g} (rtol 2e-4), card vs CPU schedules equal and "
-            f"max rel {rel:.3g} (rtol 1e-5); {wall:.4f} s a call, DES {des:.4f} s "
+            f"unfused max rel {oracle:.3g} (rtol 2e-4), card vs CPU ({len(cpu_scs)} lanes) "
+            f"schedules equal and max rel {rel:.3g} (rtol 1e-5); {wall:.4f} s a call, DES {des:.4f} s "
             f"(share {des / wall:.3f}); CPU rerun {cpu_s:.1f} s")
     return out
 
@@ -2722,6 +2804,17 @@ CARD_VS_CPU = {
 }
 
 
+def rescale_qk(cfg, params: dict) -> dict:
+    """``params`` with ``wq`` and ``wk`` (SmolLM's layers, Zamba2's shared
+    block) scaled in place to the fan-in of the d_model they contract
+    (``lm_card_vs_cpu`` says why)."""
+    attn = {"dense": "layers", "hybrid": "shared_attn"}.get(cfg.family)
+    if attn:
+        params[attn]["wq"] *= (cfg.n_heads / cfg.d_model) ** 0.5
+        params[attn]["wk"] *= (cfg.n_kv_heads / cfg.d_model) ** 0.5
+    return params
+
+
 def lm_card_vs_cpu(torch, np, arch: str) -> dict:
     """The arch at full width, cut in depth (``CARD_VS_CPU``), f32: prefill
     logits and 8 greedy serve steps (tokens equal) on the card against the
@@ -2743,12 +2836,9 @@ def lm_card_vs_cpu(torch, np, arch: str) -> dict:
     layers, b, s, tol = CARD_VS_CPU[arch]
     cfg = lm_config(arch, num_layers=layers, dtype="float32")
     steps = 8
-    p_cpu = init_params(param_specs_for(cfg), torch.Generator().manual_seed(7),
-                        torch.float32, "cpu")
-    attn = {"dense": "layers", "hybrid": "shared_attn"}.get(cfg.family)
-    if attn:
-        p_cpu[attn]["wq"] *= (cfg.n_heads / cfg.d_model) ** 0.5
-        p_cpu[attn]["wk"] *= (cfg.n_kv_heads / cfg.d_model) ** 0.5
+    p_cpu = rescale_qk(cfg, init_params(param_specs_for(cfg),
+                                        torch.Generator().manual_seed(7),
+                                        torch.float32, "cpu"))
     p_gpu = _tree_to(p_cpu, DEVICE)
     tokens = torch.as_tensor(np.random.default_rng(8).integers(
         0, cfg.vocab, (b, s)).astype(np.int32))
@@ -2844,14 +2934,15 @@ def time_flash(torch, timer, ref, build, dev, b, hq, hkv, s, _skv, d) -> dict:
     k = torch.randn((b, hkv, s, d), device=dev).to(torch.bfloat16)
     v = torch.randn((b, hkv, s, d), device=dev).to(torch.bfloat16)
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq, s), device=dev)
     scale = d ** -0.5
     lib = build.load("flash_attention")
     stream = torch.cuda.current_stream().cuda_stream
 
-    def kernel():
+    def kernel(lse_ptr=None):
         if lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                      out.data_ptr(), b, hq, hkv, s, s, d, 1, 1,
-                                      scale, stream) != 0:
+                                      out.data_ptr(), lse_ptr, b, hq, hkv, s, s, d,
+                                      1, 1, scale, stream) != 0:
             fail("flash_attention: the timed launch returned a CUDA error")
 
     def library():
@@ -2861,10 +2952,14 @@ def time_flash(torch, timer, ref, build, dev, b, hq, hkv, s, _skv, d) -> dict:
     kernel()
     lib_err = float((library().float() - out.float()).abs().max())
     kt = timer.device_ms(kernel)
+    # the training route's forward: the same launch writing the rows' lse
+    lt_lse = timer.device_ms(lambda: kernel(lse.data_ptr()))
     pt = timer.device_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
     lt = timer.device_ms(library)
-    log(f"flash_attention vs SDPA at the prefill shape: max |diff| {lib_err:.3g}")
+    log(f"flash_attention vs SDPA at the prefill shape: max |diff| {lib_err:.3g}; "
+        f"with the lse output {lt_lse['ms'] * 1e3:.2f} us against {kt['ms'] * 1e3:.2f} us")
     return dict(ms=kt["ms"], plain_ms=pt["ms"], library_ms=lt["ms"],
+                lse_ms=lt_lse["ms"], lse_rounds=lt_lse,
                 kernel_rounds=kt, plain_rounds=pt, library_rounds=lt,
                 sdpa_max_abs_diff=lib_err,
                 bytes=2 * (2 * b * hq * s * d + 2 * b * hkv * s * d),
@@ -2977,6 +3072,502 @@ def sm_max_clock_hz() -> float:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+# -- phase 13: training -----------------------------------------------------------
+
+#: (a) the attention Function's gradient checks, (b, hq, hkv, sq, skv, d,
+#: causal): SmolLM-360M's train shape ([8, 256] tokens) and a ragged
+#: Skv > Sq shape (KV chunks of 40 in the backward, the last one short)
+TRAIN_FLASH_CASES = [(8, 15, 5, 256, 256, 64, True), (2, 4, 2, 100, 130, 64, True)]
+#: the backward's KV chunk in (a)'s ragged case; the model's is lm.KV_CHUNK
+TRAIN_FLASH_CHUNK = 40
+#: (a)'s bars against the f32 CPU run: f32 ``atol + rtol |want|``; bf16
+#: ``2^-6`` of the tensor's largest value (the output and the gradients
+#: are rounded to bf16, and the backward's delta reads the bf16 output)
+TRAIN_F32_TOL = dict(rtol=1e-4, atol=1e-5)
+TRAIN_BF16_FRAC = 2 ** -6
+#: (a) the SSD Function at Mamba2-370M's chunk shape for [8, 256] tokens in
+#: chunks of 128, (BC, Q, H, P, G, N), with a long memory (every row counts)
+TRAIN_SSD = (8 * 256 // 128, 128, 32, 64, 1, 128)
+#: (b) full-width training: batch, sequence, steps
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 6
+#: (b)'s step 0 held at full depth against the CPU in f32 (remat off), on
+#: the first ``TRAIN_REF_B`` rows of its batch: the loss's relative error,
+#: the whole gradient's relative L2 error and each gradient leaf's, for the
+#: card in f32 and the card in bf16 (the route (b) times).  bf16 rounds
+#: every activation, and a leaf whose gradient is a sum of many terms that
+#: cancel (Mamba2's decay, conv and bias leaves) drifts with depth and
+#: width: its bars only catch a gradient lost or turned (relative error
+#: >= 1) and an overflow (inf, NaN); the f32 route's bars catch the rest.
+TRAIN_REF_B = 1
+TRAIN_REF_BARS = {"float32": dict(loss=1e-5, grad=1e-4, leaf=1e-3),
+                  "bfloat16": dict(loss=2e-2, grad=0.75, leaf=0.75)}
+#: (c) ``launch/train.main``: the crash, the checkpoints and the run's size.
+#: ``--reduce 4``, not 1: a full-size SmolLM-360M job state (bf16 params,
+#: f32 moments) is 3.6 GB a checkpoint, which the file format's zlib (level
+#: 6; zstd where ``zstandard`` is installed) compresses at tens of MB/s on
+#: one host core, minutes a save (the rate is measured and logged here)
+TRAIN_MAIN_ARGV = ["--reduce", "4", "--steps", "8", "--ckpt-every", "2",
+                   "--log-every", "1", "--device", DEVICE]
+TRAIN_MAIN_FAIL = 5
+#: (d) card against CPU in f32: arch -> (layers, batch, sequence); 3 steps
+TRAIN_CARD_VS_CPU = {"smollm-360m": (2, 2, 256), "mamba2-370m": (2, 2, 256)}
+TRAIN_CVC_STEPS = 3
+#: (d)'s bars: losses, grad norms (rtol); parameters within 2 lr a step of
+#: each other, and at most 1e-3 of them beyond 1e-5 (Adam's update is ~lr
+#: sign(g): an element whose gradient is at rounding level can move either way)
+TRAIN_CVC_LOSS_RTOL, TRAIN_CVC_GNORM_RTOL = 1e-5, 1e-4
+#: (e) the live-twin example at its own defaults
+LIVE_TWIN_ARGV = ["--device", DEVICE]
+
+
+def _close_use(torch, got, want, dtype) -> tuple[float, float]:
+    """``(max |err|, bar used)`` of a card tensor against its f32 CPU run at
+    phase 13's bar for ``dtype`` (used <= 1 passes)."""
+    got = got.float().cpu()
+    err = (got - want).abs()
+    if dtype == torch.float32:
+        bar = TRAIN_F32_TOL["atol"] + TRAIN_F32_TOL["rtol"] * want.abs()
+    else:
+        bar = TRAIN_BF16_FRAC * float(want.abs().max())
+    return float(err.max()), float((err / bar).max())
+
+
+def train_functions(torch, np, ops, ref) -> dict:
+    """(a) the two autograd Functions' gradients on the card against the same
+    Function on f32 CPU copies and against the plain version's autograd on
+    the card; the lse against the CPU run's."""
+    from repro_torch.models.attention import FlashAttention
+    from repro_torch.models.mamba2 import SSDChunk
+
+    def run(fn, inputs, cts):
+        xs = [x.detach().clone().requires_grad_() for x in inputs]
+        outs = fn(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        torch.autograd.backward(outs, cts)
+        return [o.detach() for o in outs] + [x.grad for x in xs]
+
+    out = {}
+    for i, (b, hq, hkv, sq, skv, d, causal) in enumerate(TRAIN_FLASH_CASES):
+        rng = np.random.default_rng(300 + i)
+        base = [torch.as_tensor(rng.normal(0, 1, s).astype(np.float32))
+                for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d), (b, hq, sq, d))]
+        chunk = TRAIN_FLASH_CHUNK if skv != sq else 1024
+        fn = lambda q, k, v: FlashAttention.apply(q, k, v, causal, d ** -0.5, chunk)  # noqa: E731
+        for dt in (torch.float32, torch.bfloat16):
+            card = [x.to(DEVICE, dt) for x in base]
+            cpu = [x.float().cpu() for x in card]          # the card's inputs, in f32
+            want = run(fn, cpu[:3], (cpu[3],))
+            want_lse = ops.flash_attention(*cpu[:3], causal=causal, return_lse=True)[1]
+            ops.reset_launches()
+            got = run(fn, card[:3], (card[3],))
+            torch.cuda.synchronize()
+            if ops.LAUNCHES["flash_attention"] != 1:
+                fail(f"train flash {i}: {dict(ops.LAUNCHES)} launches, expected 1 flash")
+            plain = run(lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=causal),
+                        [x.float() for x in card[:3]], (card[3].float(),))
+            lse = ops.flash_attention(*card[:3], causal=causal, return_lse=True)[1]
+            tag = f"{(b, hq, hkv, sq, skv, d, causal)} {str(dt)[6:]}"
+            rec = {}
+            for name, g, w, p in zip(("out", "dq", "dk", "dv"), got, want, plain):
+                err, used = _close_use(torch, g, w, dt)
+                p_err, p_used = _close_use(torch, g, p.cpu(), dt)
+                if g.dtype != dt or not used <= 1.0 or not p_used <= 1.0:
+                    fail(f"train flash {tag} {name}: vs CPU max |err| {err} (bar used "
+                         f"{used}), vs plain autograd {p_err} (bar used {p_used})")
+                rec[name] = dict(max_abs_err=err, bar_used=used, plain_max_abs_err=p_err,
+                                 plain_bar_used=p_used)
+            lse_err = float((lse.cpu() - want_lse).abs().max())
+            if not torch.allclose(lse.cpu(), want_lse, rtol=LSE_RTOL, atol=LSE_ATOL):
+                fail(f"train flash {tag} lse: max |err| {lse_err} against the CPU run")
+            rec["lse_max_abs_err"] = lse_err
+            out[f"flash {tag}"] = rec
+            log(f"train flash {tag}: " + ", ".join(
+                f"{k} {v['max_abs_err']:.3g} (bar used {v['bar_used']:.3f}; plain "
+                f"autograd {v['plain_max_abs_err']:.3g})" for k, v in rec.items()
+                if isinstance(v, dict)) + f", lse {lse_err:.3g}")
+
+    bc, q, h, p, g, n = TRAIN_SSD
+    args = [x.cpu() for x in ssd_inputs(torch, np, bc, q, h, p, g, n, seed=310,
+                                        device=DEVICE, long_memory=True)]
+    rng = np.random.default_rng(311)
+    cts = [torch.as_tensor(rng.normal(0, 1, s).astype(np.float32))
+           for s in ((bc, q, h, p), (bc, h, p, n))]
+    want = run(SSDChunk.apply, args, cts)
+    ops.reset_launches()
+    got = run(SSDChunk.apply, [x.to(DEVICE) for x in args], [c.to(DEVICE) for c in cts])
+    torch.cuda.synchronize()
+    if ops.LAUNCHES["ssd_chunk"] != 1:
+        fail(f"train ssd: {dict(ops.LAUNCHES)} launches, expected 1 ssd_chunk")
+    plain = run(ref.ssd_chunk_ref, [x.to(DEVICE) for x in args], [c.to(DEVICE) for c in cts])
+    rec = {}
+    names = ("y", "states", "dx", "ddt", "dA_log", "dB", "dC", "dD")
+    for name, gv, w, pv in zip(names, got, want, plain):
+        scale = float(w.abs().max())
+        err = float((gv.cpu() - w).abs().max())
+        p_err = float((gv - pv).abs().max())
+        if not (err <= SSD_TOL * scale and p_err <= SSD_TOL * scale):
+            fail(f"train ssd {name}: vs CPU max |err| {err}, vs plain autograd {p_err}, "
+                 f"beyond {SSD_TOL} of max |want| {scale}")
+        rec[name] = dict(max_abs_err=err, plain_max_abs_err=p_err, max_abs=scale)
+    out[f"ssd {TRAIN_SSD}"] = rec
+    log(f"train ssd BC={bc} Q={q} H={h} P={p} G={g} N={n} long memory: " + ", ".join(
+        f"{k} {v['max_abs_err']:.3g} of {v['max_abs']:.3g}" for k, v in rec.items())
+        + f" (bar {SSD_TOL} of each max; plain autograd on the card alike)")
+    return out
+
+
+def train_depth_reference(torch, cfg, params, batch, card: str) -> dict:
+    """(b)'s step 0 at full depth against the CPU: the loss and every
+    parameter's gradient at (b)'s initial params on the first
+    ``TRAIN_REF_B`` rows of its first batch, on the card in f32 and in the
+    params' own dtype (the route (b) runs), each against the CPU in f32
+    with remat off (the kernels' plain versions in the forward), at
+    ``TRAIN_REF_BARS``.  Its launches are not counted: a check, not the
+    path."""
+    from repro_torch._tree import flatten
+    from repro_torch.launch.steps import param_specs_for
+    from repro_torch.models import lm
+    from repro_torch.models.common import spec_leaves
+
+    flat, unflatten = flatten(params)
+    names = [k for k, _ in spec_leaves(param_specs_for(cfg))]
+    rows = {k: v[:TRAIN_REF_B] for k, v in batch.items()}
+
+    def loss_and_grads(c, dev, f32: bool):
+        xs = [x.detach().to(dev, torch.float32 if f32 else x.dtype).requires_grad_(True)
+              for x in flat]
+        loss = lm.loss_fn(c, unflatten(xs), {k: v.to(dev) for k, v in rows.items()})[0]
+        grads = torch.autograd.grad(loss, xs)
+        return float(loss.detach()), [g.float().cpu() for g in grads]
+
+    t0 = time.time()
+    want_loss, want = loss_and_grads(
+        dataclasses.replace(cfg, dtype="float32", remat="none"), "cpu", True)
+    cpu_s = time.time() - t0
+    want_norm = math.sqrt(sum(float(w.square().sum()) for w in want))
+    out = dict(rows=TRAIN_REF_B, cpu_loss=want_loss, cpu_grad_norm=want_norm,
+               cpu_seconds=cpu_s)
+    for dtype, c, f32 in (("float32", dataclasses.replace(cfg, dtype="float32"), True),
+                          (cfg.dtype, cfg, False)):
+        loss, got = loss_and_grads(c, DEVICE, f32)
+        norm = math.sqrt(sum(float(g.square().sum()) for g in got))
+        diff = [float((g - w).norm()) for g, w in zip(got, want)]
+        leaf = sorted(((d / max(float(w.norm()), 1e-30), n)
+                       for d, w, n in zip(diff, want, names, strict=True)), reverse=True)
+        rec = dict(loss=loss, loss_rel=abs(loss - want_loss) / abs(want_loss),
+                   grad_norm=norm, grad_norm_rel=abs(norm - want_norm) / want_norm,
+                   grad_rel=math.sqrt(sum(d * d for d in diff)) / want_norm,
+                   grad_leaf_rel_max=leaf[0][0], worst_leaves=leaf[:3])
+        bar = TRAIN_REF_BARS[dtype]
+        if not (rec["loss_rel"] <= bar["loss"] and rec["grad_rel"] <= bar["grad"]
+                and rec["grad_leaf_rel_max"] <= bar["leaf"]):
+            fail(f"train {cfg.name} step 0 at full depth, card {dtype} vs CPU f32: {rec} "
+                 f"(bars {bar})")
+        out[dtype] = rec
+        log(f"train {cfg.name} step 0 at full depth ({cfg.num_layers} layers, "
+            f"[{TRAIN_REF_B}, {rows['tokens'].shape[1]}]), card {dtype} vs CPU f32 (remat "
+            f"off): loss {loss:.6f} vs {want_loss:.6f} (rel {rec['loss_rel']:.3g}, bar "
+            f"{bar['loss']}), grad norm {norm:.6g} vs {want_norm:.6g} (rel "
+            f"{rec['grad_norm_rel']:.3g}), gradient's relative L2 error {rec['grad_rel']:.3g} "
+            f"(bar {bar['grad']}), worst leaves " + ", ".join(
+                f"{n} {r:.3g}" for r, n in leaf[:3]) + f" (bar {bar['leaf']}); CPU "
+            f"{cpu_s:.1f} s ({card})")
+    return out
+
+
+def train_full_width(torch, np, ops, arch: str, card: str) -> dict:
+    """(b) ``make_train_step`` on the arch at full width and depth, bf16,
+    ``TRAIN_STEPS`` steps on ``[TRAIN_B, TRAIN_S]`` tokens, ``wq``/``wk``
+    rescaled (``rescale_qk``: at the random init's scale the dense
+    family's gradient norm grows ~30x every two layers, and clipping
+    leaves ``lr sign(g)``): per step the loss, grad norm and lr (finite),
+    ms, tokens/s, peak memory and the kernel launches, and the loss falls
+    over the steps.  Step 0 is taken twice from one state (bitwise
+    repeatable?) and held at full depth against the CPU
+    (``train_depth_reference``).  The forward alone, the forward and
+    backward, and the AdamW update are timed apart after the steps (their
+    kernels are not counted: checks, not the path)."""
+    from repro_torch._tree import flatten, leaves
+    from repro_torch.data.tokens import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step, param_specs_for
+    from repro_torch.models import lm
+    from repro_torch.models.common import init_params
+    from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_opt_state
+
+    cfg = lm_config(arch)
+    kernel = "ssd_chunk" if cfg.family == "ssm" else "flash_attention"
+    # a forward and its recompute under remat: two launches a layer a step
+    per_step = cfg.num_layers * (1 if cfg.remat == "none" else 2)
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = rescale_qk(cfg, init_params(param_specs_for(cfg), gen,
+                                         getattr(torch, cfg.dtype), DEVICE))
+    opt = init_opt_state(params, opt_cfg)
+    pipe = TokenPipeline(DataConfig(cfg.vocab, TRAIN_S, TRAIN_B, seed=1), device=DEVICE)
+    reference = train_depth_reference(torch, cfg, params, pipe.global_batch(0), card)
+    step = make_train_step(cfg, opt_cfg)
+    rows = []
+    for i in range(TRAIN_STEPS):
+        batch = pipe.global_batch(i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        if i == 0:
+            again = step(params, opt, batch)
+        params, opt, m = step(params, opt, batch)
+        vals = {k: float(m[k]) for k in ("loss", "grad_norm", "lr")}
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.LAUNCHES)
+        if not all(math.isfinite(v) for v in vals.values()):
+            fail(f"train {arch} step {i}: metrics {vals}")
+        want = {k: (per_step * (2 if i == 0 else 1) if k == kernel else 0) for k in launches}
+        if launches != want:
+            fail(f"train {arch} step {i}: launches {launches}, expected {want}")
+        if i == 0:
+            repeat = all(torch.equal(a, b) for a, b in zip(leaves(params), leaves(again[0])))
+            ms /= 2
+            del again
+        rows.append(dict(step=i, ms=ms, tokens_per_second=TRAIN_B * TRAIN_S / ms * 1e3,
+                         peak_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+                         **vals))
+        log(f"train {arch} step {i}: loss {vals['loss']:.4f} grad_norm "
+            f"{vals['grad_norm']:.4g} lr {vals['lr']:.3g}, {ms:.1f} ms "
+            f"({rows[-1]['tokens_per_second']:.0f} tokens/s), peak "
+            f"{rows[-1]['peak_bytes'] / 2**30:.2f} GiB allocated, launches {launches}")
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        fail(f"train {arch}: the loss did not fall in {TRAIN_STEPS} steps: "
+             f"{[r['loss'] for r in rows]}")
+    peak = max(r["peak_bytes"] for r in rows)
+    batch = pipe.global_batch(0)
+    flat, unflatten = flatten(params)
+
+    def forward():
+        with torch.no_grad():
+            return float(lm.loss_fn(cfg, params, batch)[0])
+
+    def gradients():
+        xs = [x.detach().requires_grad_(True) for x in flat]
+        grads = torch.autograd.grad(lm.loss_fn(cfg, unflatten(xs), batch)[0], xs)
+        torch.cuda.synchronize()
+        return unflatten(list(grads))
+
+    grads = gradients()
+
+    def update():
+        apply_updates(params, grads, opt, opt_cfg)
+        torch.cuda.synchronize()
+
+    split = {}
+    for name, fn in (("forward", forward), ("forward_backward", gradients),
+                     ("optimizer", update)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        split[name] = (time.perf_counter() - t0) * 1e3 / 3
+    del grads
+    warm = statistics.median(r["ms"] for r in rows[1:])
+    log(f"train {arch} ({cfg.num_layers} layers x {cfg.d_model}, {cfg.dtype}, remat "
+        f"{cfg.remat!r}) [{TRAIN_B}, {TRAIN_S}]: median {warm:.1f} ms a step "
+        f"({TRAIN_B * TRAIN_S / warm * 1e3:.0f} tokens/s); apart: forward {split['forward']:.1f} "
+        f"ms, forward + backward (recompute included) {split['forward_backward']:.1f} ms, "
+        f"AdamW {split['optimizer']:.1f} ms; peak {peak / 2**30:.2f} GiB allocated, "
+        f"{per_step} {kernel} launches a step, step 0 twice from one state bitwise "
+        f"equal: {repeat} ({card})")
+    del params, opt
+    torch.cuda.empty_cache()
+    return dict(steps=rows, median_ms=warm, split_ms=split, peak_bytes=peak,
+                launches_per_step=per_step, kernel=kernel, bitwise_repeatable=repeat,
+                depth_reference=reference,
+                launches={kernel: sum(r["launches"][kernel] for r in rows)})
+
+
+def codec_rate(torch, np) -> dict:
+    """zlib/zstd throughput of the checkpoint codec on 8 MB of random bf16
+    weights: what one save of a full-size SmolLM-360M job state (bf16
+    params, f32 moments) would take on this host."""
+    from repro_torch.core import codec
+    from repro_torch.launch.steps import param_specs_for
+    from repro_torch.models.common import spec_param_count
+
+    n = spec_param_count(param_specs_for(lm_config("smollm-360m")))
+    state_bytes = n * (2 + 4 + 4)
+    sample = torch.randn(4 * 2**20).to(torch.bfloat16).view(torch.int16).numpy().tobytes()
+    t0 = time.perf_counter()
+    codec.compress(sample, level=3)
+    s = time.perf_counter() - t0
+    rate = len(sample) / s
+    return dict(codec=codec.default_codec().hex(), params=n, state_bytes=state_bytes,
+                bytes_per_second=rate, seconds_per_save=state_bytes / rate)
+
+
+def train_main_phase(torch, np, ops, card: str) -> dict:
+    """(c) ``launch/train.main`` with a crash at step ``TRAIN_MAIN_FAIL``:
+    one restart from the step-4 checkpoint, 8 steps done.  An
+    uninterrupted run with the same checkpoints is the reference: the two
+    runs' losses are equal bit for bit, before the crash and after the
+    restart, and so are their final params and moments and their
+    checkpoint files (steps 4, 6 and 8: the one restored from and the two
+    written after the restart; the file format is deterministic)."""
+    import tempfile
+
+    from repro_torch._tree import leaves
+    from repro_torch.launch import train
+
+    rate = codec_rate(torch, np)
+    log(f"checkpoint codec {rate['codec']}: {rate['bytes_per_second'] / 1e6:.1f} MB/s on "
+        f"8 MB of bf16 weights; a full-size SmolLM-360M job state ({rate['params']} "
+        f"params, {rate['state_bytes'] / 1e9:.2f} GB) would take "
+        f"{rate['seconds_per_save']:.0f} s a save ({card})")
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as tmp:
+        ops.reset_launches()
+        t0 = time.time()
+        res = train.main(TRAIN_MAIN_ARGV + ["--fail-at", str(TRAIN_MAIN_FAIL),
+                                            "--ckpt-dir", f"{tmp}/fail"])
+        wall = time.time() - t0
+        launches = dict(ops.LAUNCHES)
+        clean = train.main(TRAIN_MAIN_ARGV + ["--ckpt-dir", f"{tmp}/clean"])
+        files = {run: {f.name: f.read_bytes() for f in pathlib.Path(tmp, run).glob("ckpt_*")}
+                 for run in ("fail", "clean")}
+    rep = res.report
+    if not (rep.restarts == 1 and rep.restored_from == [4] and rep.steps_done == 8):
+        fail(f"train.main: {rep.restarts} restarts from {rep.restored_from}, "
+             f"{rep.steps_done} steps")
+    # the failed run's losses: steps 0..4, then 4..7 again from the checkpoint
+    before, after = rep.losses[:TRAIN_MAIN_FAIL], rep.losses[TRAIN_MAIN_FAIL:]
+    want = clean.report.losses
+    if clean.report.restarts != 0 or before != want[:TRAIN_MAIN_FAIL] or after != want[4:]:
+        fail(f"train.main: losses {before} + {after} against the uninterrupted run's {want}")
+    states_equal = all(torch.equal(a, b) for a, b in zip(leaves(res.state),
+                                                         leaves(clean.state)))
+    if not states_equal or len(leaves(res.state)) != len(leaves(clean.state)):
+        fail("train.main: the final params/moments differ from the uninterrupted run's")
+    if len(files["fail"]) != 3 or files["fail"] != files["clean"]:
+        fail(f"train.main: checkpoint files {sorted(files['fail'])} differ from the "
+             f"uninterrupted run's {sorted(files['clean'])}")
+    log(f"train.main {' '.join(TRAIN_MAIN_ARGV)} --fail-at {TRAIN_MAIN_FAIL}: "
+        f"{rep.steps_done} steps, {rep.restarts} restart from {rep.restored_from}, "
+        f"{rep.checkpoints} checkpoints; against an uninterrupted run: losses before the "
+        f"crash and after the restart bitwise equal, final params and moments bitwise "
+        f"equal ({len(leaves(res.state))} leaves), checkpoint files {sorted(files['fail'])} "
+        f"byte for byte equal; {wall:.1f} s, launches {launches} ({card})")
+    return dict(restarts=rep.restarts, restored_from=rep.restored_from,
+                steps_done=rep.steps_done, checkpoints=rep.checkpoints,
+                losses=rep.losses, clean_losses=want, losses_bitwise=True,
+                states_bitwise=True, checkpoint_files=sorted(files["fail"]),
+                seconds=wall, launches=launches, codec=rate)
+
+
+def train_card_vs_cpu(torch, np, arch: str, card: str) -> dict:
+    """(d) the arch at full width, cut in depth, f32 (TF32 off on both sides):
+    ``TRAIN_CVC_STEPS`` train steps from the same weights on the same
+    batches on the card and on the CPU; wq/wk rescaled as in
+    ``lm_card_vs_cpu``."""
+    from repro_torch._tree import leaves
+    from repro_torch.data.tokens import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step, param_specs_for
+    from repro_torch.models.common import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    layers, b, s = TRAIN_CARD_VS_CPU[arch]
+    cfg = lm_config(arch, num_layers=layers, dtype="float32")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_CVC_STEPS)
+    p_cpu = rescale_qk(cfg, init_params(param_specs_for(cfg),
+                                        torch.Generator().manual_seed(7),
+                                        torch.float32, "cpu"))
+    state = {"cpu": (p_cpu, init_opt_state(p_cpu, opt_cfg))}
+    p_gpu = _tree_to(p_cpu, DEVICE)
+    state["card"] = (p_gpu, init_opt_state(p_gpu, opt_cfg))
+    pipe = TokenPipeline(DataConfig(cfg.vocab, s, b, seed=9), device="cpu")
+    step = make_train_step(cfg, opt_cfg)
+    t0 = time.time()
+    rows = []
+    for i in range(TRAIN_CVC_STEPS):
+        batch = pipe.global_batch(i)
+        m = {}
+        for run, dev in (("cpu", "cpu"), ("card", DEVICE)):
+            p, o, mm = step(*state[run], {k: v.to(dev) for k, v in batch.items()})
+            state[run] = (p, o)
+            m[run] = {k: float(mm[k]) for k in ("loss", "grad_norm")}
+        rows.append(m)
+        for k, tol in (("loss", TRAIN_CVC_LOSS_RTOL), ("grad_norm", TRAIN_CVC_GNORM_RTOL)):
+            if not abs(m["card"][k] - m["cpu"][k]) <= tol * abs(m["cpu"][k]):
+                fail(f"train card vs CPU {arch} step {i} {k}: {m['card'][k]} vs {m['cpu'][k]}")
+    diffs = torch.cat([(a.cpu() - b_).abs().ravel() for a, b_ in
+                       zip(leaves(state["card"][0]), leaves(state["cpu"][0]))])
+    max_diff, frac = float(diffs.max()), float((diffs > 1e-5).double().mean())
+    if not (max_diff <= 2 * opt_cfg.lr * TRAIN_CVC_STEPS and frac <= 1e-3):
+        fail(f"train card vs CPU {arch}: params max |diff| {max_diff}, {frac} beyond 1e-5")
+    rel = {k: max(abs(r["card"][k] - r["cpu"][k]) / abs(r["cpu"][k]) for r in rows)
+           for k in ("loss", "grad_norm")}
+    log(f"train card vs CPU ({arch} width, {layers} layers, f32, [{b}, {s}], "
+        f"{TRAIN_CVC_STEPS} steps): loss max rel {rel['loss']:.3g} (bar "
+        f"{TRAIN_CVC_LOSS_RTOL}), grad_norm max rel {rel['grad_norm']:.3g} (bar "
+        f"{TRAIN_CVC_GNORM_RTOL}), params max |diff| {max_diff:.3g} (bar "
+        f"{2 * opt_cfg.lr * TRAIN_CVC_STEPS:.3g}), {frac:.3g} of them beyond 1e-5, "
+        f"{time.time() - t0:.1f} s ({card})")
+    del p_gpu, state
+    torch.cuda.empty_cache()
+    return dict(steps=rows, max_rel=rel, params_max_abs_diff=max_diff,
+                params_frac_beyond_1e5=frac)
+
+
+def live_twin_phase(torch, ops, card: str) -> dict:
+    """(e) examples/live_twin_training_torch.py at its defaults on the card
+    (its own closing checks hold), with the kernels it launched."""
+    import importlib.util
+    import tempfile
+
+    path = ROOT / "examples" / "live_twin_training_torch.py"
+    spec = importlib.util.spec_from_file_location("live_twin_training_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as tmp:
+        ops.reset_launches()
+        t0 = time.time()
+        res = mod.main(LIVE_TWIN_ARGV + ["--ckpt-dir", tmp])
+        wall = time.time() - t0
+        launches = dict(ops.LAUNCHES)
+    strag = [dict(window=p.window, **p.impact) for p in res.proposals
+             if p.kind.value == "restart_straggler"]
+    if launches["calib_mape_grid"] < len(res.window_mapes) or launches["flash_attention"] <= 0:
+        fail(f"live twin: launches {launches} for {len(res.window_mapes)} windows")
+    log(f"live twin (defaults): {res.report.steps_done} steps, {res.report.restarts} "
+        f"restart (restored from {res.report.restored_from}), loss {res.losses[0]:.3f} -> "
+        f"{res.losses[-1]:.3f}, window MAPEs {[round(m, 2) for m in res.window_mapes]}, "
+        f"NFR1 {res.nfr1.compliance:.3f}, straggler proposals {strag}, {wall:.1f} s, "
+        f"launches {launches} ({card})")
+    return dict(steps_done=res.report.steps_done, restarts=res.report.restarts,
+                restored_from=res.report.restored_from, first_loss=res.losses[0],
+                last_loss=res.losses[-1], window_mapes=res.window_mapes,
+                nfr1_compliance=res.nfr1.compliance, stragglers=strag, seconds=wall,
+                launches=launches)
+
+
+def train_phase(torch, np, ops, ref, card: str) -> dict:
+    """Phase 13: (a)-(e), each run's launches counted from 0."""
+    out = {"functions": train_functions(torch, np, ops, ref)}
+    launches = {k: 0 for k in ops.LAUNCHES}
+    for arch in ("smollm-360m", "mamba2-370m"):
+        run = out[f"full width {arch}"] = train_full_width(torch, np, ops, arch, card)
+        for k, n in run["launches"].items():
+            launches[k] += n
+    out["main"] = train_main_phase(torch, np, ops, card)
+    for arch in TRAIN_CARD_VS_CPU:
+        out[f"card vs CPU {arch}"] = train_card_vs_cpu(torch, np, arch, card)
+    out["live_twin"] = live_twin_phase(torch, ops, card)
+    for run in (out["main"], out["live_twin"]):
+        for k, n in run["launches"].items():
+            launches[k] += n
+    out["launches"] = launches
+    return out
 
 
 if __name__ == "__main__":

@@ -11,11 +11,13 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch._tree import flatten, leaves
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.power import PowerParams
 from repro_torch.core.state import TwinConfig, TwinState, state_from_leaves
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.lm import model_specs
+from repro_torch.optim.adamw import OptState
 from repro_torch.traces.schema import Workload
 
 
@@ -89,3 +91,35 @@ def lm_params_from_numpy(tree, cfg: ModelConfig,
                 for k in spec}
 
     return convert(tree, model_specs(cfg), "")
+
+
+def opt_state_from_numpy(tree, params, device: "str | torch.device" = "cuda"
+                         ) -> OptState:
+    """An :class:`OptState` on ``device`` from ``(step, mu, nu)`` arrays.
+
+    ``tree`` is the JAX package's ``OptState`` as numpy (or its
+    checkpointed form, a ``[step, mu, nu]`` list); ``mu`` and ``nu`` have
+    the layout of ``params`` (the port's parameter tree, whose leaves give
+    the shapes).  The moments keep their own dtype (bfloat16 moments go
+    through float32, which holds them exactly), the step is int32.
+    """
+    dev = resolve_device(device)
+    step, mu, nu = tree
+    shapes = [tuple(p.shape) for p in leaves(params)]
+    _, unflatten = flatten(params)
+
+    def moments(node, what):
+        flat = leaves(node)
+        if [tuple(np.shape(x)) for x in flat] != shapes:
+            raise ValueError(f"{what} does not have the parameters' layout")
+        out = []
+        for x in flat:
+            a = np.asarray(x)
+            dt = getattr(torch, str(a.dtype))
+            out.append(torch.from_numpy(np.array(a, dtype=np.float32)).to(
+                device=dev, dtype=dt))
+        return unflatten(out)
+
+    return OptState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                      device=dev),
+                    mu=moments(mu, "mu"), nu=moments(nu, "nu"))

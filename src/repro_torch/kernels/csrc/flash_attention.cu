@@ -9,6 +9,10 @@
 // past the diagonal (offset Skv - Sq) or past Skv (the ragged tile), KV
 // tiles strictly above the diagonal are skipped, the output is
 // acc / max(l, 1e-30), and rows that see no key at all are left undefined.
+// Where the caller passes an lse buffer ([B, Hq, Sq] f32), each row also
+// writes its log-sum-exp m + log(max(l, 1e-30)) once, after its last KV
+// tile, from the f32 statistics, in natural-log units of the scaled
+// logits (the JAX package's _flash_fwd_scan, which the backward reads).
 // Both routes sum in a fixed order with no atomics: bitwise repeatable.
 //
 // Bound on an H100 at SmolLM-360M's prefill shape (B=4, Hq=15, Hkv=5,
@@ -64,8 +68,9 @@ constexpr int kThreads = 2 * kQTile;     // two threads per query row
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int Hq,
-                 int Hkv, int Sq, int Skv, int causal, float scale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
+                 int causal, float scale) {
   constexpr int kChunks = D / 8;         // float4 chunks of a thread's half
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);   // [kKTile][D]
@@ -167,6 +172,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (qi >= Sq) return;
   const float lc = fmaxf(l, 1e-30f);
+  if (lse != nullptr && half == 0)
+    lse[(static_cast<long long>(b) * Hq + hq) * Sq + qi] = m + logf(lc);
   float* orow = o + q_base + static_cast<long long>(qi) * D;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
@@ -251,8 +258,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
 template <int D>
 __global__ void __launch_bounds__(kTcThreads)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int Hq,
-                  int Hkv, int Sq, int Skv, int causal, float scale_log2) {
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
+                  int causal, float scale_log2) {
   constexpr int kLd = D + 8;             // padded row: ldmatrix conflict-free
   constexpr int kDSteps = D / 16;        // k-steps of Q K^T
   constexpr int kSBlocks = kKeys / 8;    // n-blocks of S
@@ -405,6 +413,10 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (rows[r] >= Sq) continue;
     const float lc = fmaxf(l[r], 1e-30f);
+    // m is in log2 units of the scaled logits (scale * log2(e) multiplies S)
+    if (lse != nullptr && tig == 0)
+      lse[(static_cast<long long>(b) * Hq + hq) * Sq + rows[r]] =
+          m[r] * 0.6931471805599453f + logf(lc);
     bf16* orow = o + (static_cast<long long>(b) * Hq + hq) * Sq * D +
                  static_cast<long long>(rows[r]) * D;
 #pragma unroll
@@ -425,8 +437,8 @@ int set_smem(Kernel kernel, int smem) {
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+               int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
                cudaStream_t stream) {
   const int smem = 2 * kKTile * D * static_cast<int>(sizeof(float));
   auto kernel = flash_f32_kernel<D>;
@@ -434,14 +446,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + kQTile - 1) / kQTile, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Sq, Skv,
-      causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hkv, Sq,
+      Skv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
                 cudaStream_t stream) {
   // cp.async moves 16-byte chunks: every operand must start 16-byte aligned
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -455,42 +467,47 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + kRows - 1) / kRows, Hq, B);
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hkv, Sq, Skv,
-      causal, scale_log2);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq, Hkv, Sq,
+      Skv, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
-           cudaStream_t stream) {
+           float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int causal,
+           float scale, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    return launch_f32<D>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
   if (dtype == 1)
-    return launch_bf16<D>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    return launch_bf16<D>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's CUDA error code.
+// dtype: 0 = float32, 1 = bfloat16.  lse: a [B, Hq, Sq] f32 buffer for the
+// rows' log-sum-exp, or null for none.  Returns the launch's CUDA error code.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Hq,
-                                      int Hkv, int Sq, int Skv, int D,
-                                      int dtype, int causal, float scale,
-                                      void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int B, int Hq, int Hkv, int Sq, int Skv,
+                                      int D, int dtype, int causal,
+                                      float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, st);
+      return launch<16>(dtype, q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv,
+                         Sq, Skv, causal, scale, st);
     case 32:
-      return launch<32>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, st);
+      return launch<32>(dtype, q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv,
+                         Sq, Skv, causal, scale, st);
     case 64:
-      return launch<64>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, st);
+      return launch<64>(dtype, q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv,
+                         Sq, Skv, causal, scale, st);
     case 128:
-      return launch<128>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, st);
+      return launch<128>(dtype, q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv,
+                         Sq, Skv, causal, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

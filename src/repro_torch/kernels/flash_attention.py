@@ -48,12 +48,16 @@ DTYPE_IDS = {
 
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
-                         scale: float) -> Tensor:
+                         scale: float, return_lse: bool = False
+                         ) -> Tensor | tuple[Tensor, Tensor]:
     """``[B, Hq, Sq, D]`` attention output on the card, in q's dtype.
 
     q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]``: contiguous CUDA tensors
     of one dtype (float32 or bfloat16) on one device, ``Hq % Hkv == 0``
-    and ``D`` in :data:`HEAD_DIMS`.
+    and ``D`` in :data:`HEAD_DIMS`.  With ``return_lse`` the result is
+    ``(out, lse)``: ``lse`` ``[B, Hq, Sq]`` float32 is each row's
+    ``m + log(max(l, 1e-30))`` over the scaled logits, from the kernel's
+    f32 statistics, written by the same launch.
     """
     dev = q.device
     if dev.type != "cuda":
@@ -85,8 +89,10 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     if hq > MAX_GRID_YZ or b > MAX_GRID_YZ:
         raise ValueError(f"Hq {hq} and B {b} must be at most {MAX_GRID_YZ}")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if q.dtype != torch.float32:
         # the bf16 route copies 16-byte chunks: a view that starts off a
         # 16-byte boundary is copied to a fresh (aligned) allocation
@@ -96,8 +102,8 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, hq, hkv, sq, skv, d, DTYPE_IDS[q.dtype], int(bool(causal)),
-            float(scale), stream)
+            None if lse is None else lse.data_ptr(), b, hq, hkv, sq, skv, d,
+            DTYPE_IDS[q.dtype], int(bool(causal)), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    return out
+    return (out, lse) if return_lse else out

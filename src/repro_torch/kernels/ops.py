@@ -227,19 +227,24 @@ def power_sim(u_th: Tensor, *, p_idle: float, p_max: float, r: float,
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-                    scale: float | None = None) -> Tensor:
+                    scale: float | None = None, return_lse: bool = False
+                    ) -> Tensor | tuple[Tensor, Tensor]:
     """GQA flash-attention forward: ``[B, Hq, Sq, D]`` in q's dtype.
 
-    q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]`` (any strides).
+    q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]`` (any strides).  With
+    ``return_lse``: ``(out, lse)``, ``lse`` ``[B, Hq, Sq]`` float32, the
+    rows' log-sum-exp of the scaled logits (what the backward of
+    ``models.attention`` reads), from the same launch.
     """
     if q.dim() != 4:
         raise ValueError(f"q must be [B, Hq, Sq, D], got {tuple(q.shape)}")
     kind = _device_kind(q)
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
     if kind == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                       return_lse=return_lse)
     out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, scale=scale)
+                               causal=causal, scale=scale, return_lse=return_lse)
     LAUNCHES["flash_attention"] += 1
     return out
 

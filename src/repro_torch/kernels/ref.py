@@ -132,13 +132,18 @@ def power_sim_ref(u_th: Tensor, *, r: float, base: float, span: float,
 
 def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
                         causal: bool = True,
-                        scale: float | None = None) -> Tensor:
+                        scale: float | None = None,
+                        return_lse: bool = False
+                        ) -> Tensor | tuple[Tensor, Tensor]:
     """Plain attention with GQA head grouping: ``[B, Hq, Sq, D]`` in q's dtype.
 
     q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]``; query head ``hi``
     reads KV head ``hi // (Hq / Hkv)``.  In f32 after the cast, q scaled
     after it; causal rows see keys ``j <= i + (Skv - Sq)``.  Mirrors
-    ``repro.kernels.ref.flash_attention_ref``.
+    ``repro.kernels.ref.flash_attention_ref``.  With ``return_lse`` also
+    the rows' f32 log-sum-exp ``[B, Hq, Sq]``, ``m + log(max(l, 1e-30))``
+    of the scaled logits as the kernel and the JAX package's
+    ``_flash_fwd_scan`` clamp it (``-1e30`` for a row that sees no key).
     """
     b, hq, s, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -153,7 +158,11 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
         mask = rows >= torch.arange(skv, device=q.device)[None, :]
         logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhst,bhtd->bhsd", probs, vf).to(q.dtype)
+    out = torch.einsum("bhst,bhtd->bhsd", probs, vf).to(q.dtype)
+    if not return_lse:
+        return out
+    # a row with a live key has l >= 1; one with none: m + log(1e-30) = -1e30
+    return out, torch.logsumexp(logits, dim=-1).clamp(min=-1e30)
 
 
 def ssd_chunk_ref(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor,
@@ -164,7 +173,8 @@ def ssd_chunk_ref(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor,
     ``b/c [BC, Q, G, N]``, ``d_skip [H]`` -> ``(y_intra [BC, Q, H, P],
     states [BC, H, P, N])``; head ``h`` reads group ``h // (H / G)``.
     ``y_intra`` already holds ``D * x``.  Mirrors
-    ``repro.kernels.ref.ssd_chunk_ref`` line for line.
+    ``repro.kernels.ref.ssd_chunk_ref`` line for line, but for where the
+    decay is masked (see below), which keeps its gradient finite.
     """
     q, h = x.shape[1], x.shape[2]
     rep = h // b.shape[2]
@@ -177,7 +187,10 @@ def ssd_chunk_ref(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor,
     csum = torch.cumsum(da, dim=1)                            # [BC,Q,H]
     seg = csum[:, :, None, :] - csum[:, None, :, :]           # [BC,Qi,Qj,H]
     mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(mask[None, :, :, None], torch.exp(seg), 0.0)
+    # masked before the exponential (the JAX package masks after it): the
+    # same values, but above the diagonal seg > 0 can overflow exp to inf,
+    # and the where's gradient would then be 0 * inf = NaN
+    decay = torch.exp(seg.masked_fill(~mask[None, :, :, None], float("-inf")))
     cb = torch.einsum("bqhn,bkhn->bqkh", cc, bb)
     att = cb * decay * dtf[:, None, :, :]
     y = torch.einsum("bqkh,bkhp->bqhp", att, xf)

@@ -1,18 +1,28 @@
-"""Step factories: prefill_step / serve_step of the LM.
+"""Step factories: train_step / prefill_step / serve_step of the LM.
 
-The units the serving launcher and ``chip_smoke.py`` share.  Each step
-runs under ``torch.no_grad()``: they serve, nothing here trains.  The
-dense, SSM and hybrid families are ported; ``models.lm`` raises for the
-others (enc-dec included).
+The units the launchers, the live-twin example and ``chip_smoke.py``
+share.  ``train_step`` takes gradients with ``torch.autograd.grad`` over
+the parameter leaves and applies one AdamW step; the prefill and serve
+steps run under ``torch.no_grad()``.  The dense, SSM and hybrid families
+are ported; the enc-dec loss raises ``NotImplementedError`` here and
+``models.lm`` raises for the other families.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch._tree import flatten, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.models.common import dense
+from repro_torch.optim.adamw import AdamWConfig, apply_updates
+
+
+def loss_for(cfg: ModelConfig):
+    if cfg.family == "encdec":
+        raise NotImplementedError("loss_for: the enc-dec family is not ported yet")
+    return lm.loss_fn
 
 
 def param_specs_for(cfg: ModelConfig):
@@ -45,3 +55,53 @@ def make_serve_step(cfg: ModelConfig):
         return torch.argmax(logits, dim=-1).to(torch.int32), state
 
     return serve_step
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, grad_accum: int = 1):
+    """One optimizer step: ``train_step(params, opt_state, batch) ->
+    (params', opt_state', metrics)``, pure (the inputs are not changed).
+
+    metrics: ``loss, ce, moe_aux, tokens, grad_norm, lr`` as tensors.
+    ``grad_accum`` > 1 splits the batch into that many microbatches, one
+    after another, sums their float32 gradients and takes the mean; its
+    metrics are those of the JAX package's accumulating path (``ce`` the
+    mean loss, ``moe_aux`` and ``tokens`` zero).
+    """
+    loss_fn = loss_for(cfg)
+
+    def _grads(params, batch):
+        flat, unflatten = flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in flat]
+        loss, metrics = loss_fn(cfg, unflatten(leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            unflatten(list(grads))
+
+    def train_step(params, opt_state, batch):
+        if grad_accum == 1:
+            loss, metrics, grads = _grads(params, batch)
+        else:
+            def split(x):
+                b = x.shape[0] if x.dim() and x.shape[0] > 3 else None
+                if b is None or b % grad_accum:
+                    raise ValueError("batch not divisible by grad_accum")
+                return x.reshape((grad_accum, b // grad_accum) + tuple(x.shape[1:]))
+
+            micro = {k: split(v) for k, v in batch.items() if k != "positions"}
+            dev = next(iter(micro.values())).device
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(grad_accum):
+                l, _, g = _grads(params, {k: v[i] for k, v in micro.items()})
+                grads = tree_map(lambda a, b_: a + b_.float(), grads, g)
+                loss = loss + l
+            grads = tree_map(lambda g: g / grad_accum, grads)
+            loss = loss / grad_accum
+            metrics = {"ce": loss,
+                       "moe_aux": torch.zeros((), dtype=torch.float32, device=dev),
+                       "tokens": torch.zeros((), dtype=torch.int32, device=dev)}
+        params, opt_state, om = apply_updates(params, grads, opt_state, opt_cfg)
+        return params, opt_state, {"loss": loss, **metrics, **om}
+
+    return train_step

@@ -1,14 +1,46 @@
-"""Training-launcher helpers of the port: ``reduce_config`` only.
+"""Training launcher: real steps on the card (or the CPU), fault-tolerant.
 
-Training itself is not ported; the serving launcher shares this helper
-with the JAX package's training launcher.
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+        --steps 100 --seq 256 --batch 8 --reduce 8 --device cpu
+
+The flags are the JAX launcher's plus ``--device`` (default ``cuda``,
+which needs a card).  Parameters are random, drawn from ``--seed`` by a
+``torch.Generator`` on the device; batches come from the port's
+``TokenPipeline``; ``run_with_restarts`` checkpoints every
+``--ckpt-every`` steps and resumes from the latest checkpoint after each
+failure injected with ``--fail-at``.  ``--reduce N`` divides layer count
+and widths by N (:func:`reduce_config`, shared with the serving
+launcher).  ``--ckpt-dir`` is not cleared first: a directory that holds
+checkpoints resumes from them.  The JAX launcher's enc-dec and VLM
+branches are absent: ``get_config`` lists only the ported (dense, SSM,
+hybrid) architectures.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
+import tempfile
+import time
+from typing import Any
 
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.data.tokens import DataConfig, TokenPipeline
+from repro_torch.launch.steps import make_train_step, param_specs_for
+from repro_torch.models.common import init_params
+from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+from repro_torch.runtime.fault import (
+    FailureInjector,
+    FaultConfig,
+    RunReport,
+    run_with_restarts,
+)
 
 
 def reduce_config(cfg: ModelConfig, factor: int) -> ModelConfig:
@@ -61,3 +93,84 @@ def _scale_sections(cfg: ModelConfig, factor: int):
     h = rest // 2
     w = rest - h
     return (t, h, w)
+
+
+@dataclasses.dataclass
+class TrainResult:
+    cfg: ModelConfig
+    report: RunReport
+    state: dict[str, Any]         # the final {"params", "opt"}
+
+
+def main(argv=None) -> TrainResult:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--reduce", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_torch_train_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--fail-at", type=int, nargs="*", default=[])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+
+    cfg = reduce_config(get_config(args.arch), args.reduce)
+    print(f"arch={cfg.name} reduced x{args.reduce}: L={cfg.num_layers} "
+          f"d={cfg.d_model} vocab={cfg.vocab}", flush=True)
+
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(50, args.steps // 5),
+                          total_steps=args.steps)
+    train_step = make_train_step(cfg, opt_cfg)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch, seed=args.seed),
+                         device=dev)
+
+    def make_state():
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = init_params(param_specs_for(cfg), gen, getattr(torch, cfg.dtype), dev)
+        return {"params": params, "opt": init_opt_state(params, opt_cfg)}
+
+    times = []
+
+    def step_fn(state, step):
+        batch = pipe.global_batch(step)
+        t0 = time.perf_counter()
+        params, opt, metrics = train_step(state["params"], state["opt"], batch)
+        loss = float(metrics["loss"])
+        times.append(time.perf_counter() - t0)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"lr {float(metrics['lr']):.2e} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"{times[-1]*1e3:.0f} ms", flush=True)
+        return {"params": params, "opt": opt}, loss
+
+    final = {}
+
+    def keep_last(step, state):
+        final["state"] = state
+
+    report = run_with_restarts(
+        total_steps=args.steps,
+        make_state=make_state,
+        step_fn=step_fn,
+        fault_cfg=FaultConfig(ckpt_dir=args.ckpt_dir,
+                              ckpt_every=args.ckpt_every),
+        injector=FailureInjector(tuple(args.fail_at)) if args.fail_at else None,
+        on_window=keep_last,
+    )
+    print(f"done: {report.steps_done} steps, {report.restarts} restarts, "
+          f"{report.checkpoints} checkpoints, "
+          f"median step {np.median(times)*1e3:.0f} ms, "
+          f"final loss {report.losses[-1]:.4f}", flush=True)
+    return TrainResult(cfg, report, final.get("state"))
+
+
+if __name__ == "__main__":
+    main()

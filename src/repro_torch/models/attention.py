@@ -7,6 +7,12 @@ kernel (:func:`repro_torch.kernels.ops.flash_attention`, on the kernel's
 [B, H, S, D] layout): a CUDA tensor launches the hand-written kernel, a
 CPU tensor runs its plain version, as ``kernel_backend`` switches the JAX
 package between Pallas and XLA.
+
+Training goes through :class:`FlashAttention`, the counterpart of the JAX
+package's custom VJP ``_flash``: the forward is the same kernel call,
+which also writes each row's log-sum-exp, and the backward is the
+flash-attention-2 backward of ``_flash_vjp_bwd`` in plain torch, per KV
+chunk, recomputing each chunk's scores instead of keeping them.
 """
 
 from __future__ import annotations
@@ -40,9 +46,11 @@ def chunked_attention(
     scale = (d ** -0.5) if scale is None else scale
 
     if kv_len is None:
-        out = kops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, scale=scale)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+            out = FlashAttention.apply(qt, kt, vt, causal, scale, kv_chunk)
+        else:
+            out = kops.flash_attention(qt, kt, vt, causal=causal, scale=scale)
         return out.transpose(1, 2)
 
     qg = (q * scale).reshape(b, s, hkv, g, d)
@@ -54,6 +62,73 @@ def chunked_attention(
     out = _flash_fwd_scan(qg, k, v, causal, kv_chunk, t, s, kv_len)
     return (out.permute(0, 3, 1, 2, 4).reshape(b, s, hkv * g, dv)
             .to(q.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention on the kernel's ``[B, H, S, D]`` layout, with a
+    gradient: ``apply(q, k, v, causal, scale, kv_chunk)``.
+
+    ``forward`` is ``ops.flash_attention(..., return_lse=True)`` (the
+    kernel on a CUDA tensor, its plain version on a CPU one) and keeps q,
+    k, v, the output and the lse.  ``backward`` is :func:`flash_backward`.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, kv_chunk):
+        out, lse = kops.flash_attention(q, k, v, causal=causal, scale=scale,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale, ctx.kv_chunk = causal, scale, kv_chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, causal=ctx.causal,
+                                    scale=ctx.scale, kv_chunk=ctx.kv_chunk)
+        return dq, dk, dv, None, None, None
+
+
+def flash_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
+                   dout: Tensor, *, causal: bool, scale: float,
+                   kv_chunk: int = 1024) -> tuple[Tensor, Tensor, Tensor]:
+    """The flash-attention-2 backward of the JAX package's
+    ``_flash_vjp_bwd``: ``(dq, dk, dv)`` in the inputs' dtypes.
+
+    q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]``, ``out`` the forward's
+    output, ``lse`` ``[B, Hq, Sq]`` its rows' log-sum-exp over the scaled
+    logits.  ``delta = sum dO * O`` per row, then per KV chunk of
+    ``kv_chunk`` keys: ``p = exp(s - lse)``, ``ds = p (dp - delta)``, with
+    dq, dk and dv summed in float32.  ``out`` is the forward's output in
+    q's dtype, where JAX keeps its f32 accumulator: in float32 the two
+    are the same.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dev = q.device
+    qg = q.float().reshape(b, hkv, g, sq, d) * scale
+    do = dout.float().reshape(b, hkv, g, sq, v.shape[-1])
+    delta = (do * out.float().reshape(do.shape)).sum(dim=-1, keepdim=True)
+    lse = lse.reshape(b, hkv, g, sq, 1)
+    q_pos = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+    dq = torch.zeros(qg.shape, dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for c0 in range(0, skv, kv_chunk):
+        kb = k[:, :, c0:c0 + kv_chunk].float()                 # [B, Hkv, C, D]
+        vb = v[:, :, c0:c0 + kv_chunk].float()
+        logits = torch.einsum("bhgsd,bhcd->bhgsc", qg, kb)
+        if causal:
+            k_pos = c0 + torch.arange(kb.shape[2], device=dev)[None, :]
+            logits = logits.masked_fill(~(q_pos >= k_pos), NEG_INF)
+        p = torch.exp(logits - lse)                            # normalized probs
+        dp = torch.einsum("bhgsd,bhcd->bhgsc", do, vb)
+        ds = p * (dp - delta)
+        dq = dq + torch.einsum("bhgsc,bhcd->bhgsd", ds, kb)
+        dks.append(torch.einsum("bhgsc,bhgsd->bhcd", ds, qg))
+        dvs.append(torch.einsum("bhgsc,bhgsd->bhcd", p, do))
+    dq = (dq.to(q.dtype) * scale).reshape(q.shape)
+    return dq, torch.cat(dks, dim=2).to(k.dtype), torch.cat(dvs, dim=2).to(v.dtype)
 
 
 def _flash_fwd_scan(qg: Tensor, k: Tensor, v: Tensor, causal: bool,

@@ -109,3 +109,23 @@ def dense(x: Tensor, w: Tensor) -> Tensor:
     out_shape = w.shape[1:]
     y = torch.matmul(x, w.reshape(w.shape[0], -1))
     return y.reshape(*x.shape[:-1], *out_shape).to(x.dtype)
+
+
+def nll_sum(logits: Tensor, labels: Tensor, ignore: int = -100
+            ) -> tuple[Tensor, Tensor]:
+    """``(sum of the NLL over labels other than ignore, their count)``; the
+    log-sum-exp and the picked logit in float32."""
+    mask = labels != ignore
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    picked = torch.gather(lf, -1, safe[..., None])[..., 0]
+    return ((logz - picked) * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits: Tensor, labels: Tensor, ignore: int = -100
+                  ) -> tuple[Tensor, Tensor]:
+    """Mean CE over non-ignored labels.  Returns (loss, token_count)."""
+    total, n = nll_sum(logits, labels, ignore)
+    n = n.clamp(min=1)
+    return total / n, n

@@ -4,14 +4,21 @@
 Single source of truth per architecture, as in the JAX package:
   model_specs(cfg)        -> ParamSpec tree (init, weight conversion)
   forward(cfg, p, batch)  -> [B, S, vocab] logits
+  loss_fn(...)            -> scalar CE, seq-chunked so the full [B, S, V]
+                             logits tensor never materializes
   decode_state_specs(cfg) -> cache/state ParamSpec tree
   decode_step(...)        -> one-token serve step over the cache
 
 The JAX package scans the stacked ``[L, ...]`` layer parameters; here the
-model loops over ``L``.  Its ``remat`` policy and its ``ShardingCtx`` /
-``activation`` constraints concern training and meshes and have no
-meaning for inference on one card, so they are left out.  The MoE, MLA,
-VLM and enc-dec families raise ``NotImplementedError``.
+model loops over ``L`` (the stacks are unbound once, so a gradient flows
+back to each stack in one op).  ``cfg.remat`` holds as in the JAX
+package while gradients are on: each block, each Mamba2 layer and each
+CE chunk is a ``torch.utils.checkpoint`` region whose activations are
+recomputed in the backward.  ``"full"`` and ``"dots"`` both recompute the
+whole region: JAX's ``"dots"`` policy keeps the matmul outputs instead,
+which changes memory, not the numbers.  The ``ShardingCtx`` /
+``activation`` constraints concern meshes and are left out.  The MoE,
+MLA, VLM and enc-dec families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,15 +27,23 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.blocks import block_specs, dense_ffn, gqa_attention, gqa_decode
-from repro_torch.models.common import ParamSpec, dense, rms_norm, spec_param_count
+from repro_torch.models.common import (
+    ParamSpec,
+    dense,
+    nll_sum,
+    rms_norm,
+    spec_param_count,
+)
 
 Tensor = torch.Tensor
 
-KV_CHUNK = 1024           # KV block of the chunked (cache-length) attention
+LOSS_CHUNK = 1024         # seq tokens per unembed/CE chunk
+KV_CHUNK = 1024           # KV block of the chunked attention (and its backward)
 
 
 def _check_ported(cfg: ModelConfig, what: str) -> None:
@@ -97,6 +112,22 @@ def _depth(stacked: dict[str, Tensor]) -> int:
     return next(iter(stacked.values())).shape[0]
 
 
+def _layers(stacked: dict[str, Tensor]) -> list[dict[str, Tensor]]:
+    """Every layer's parameters, as views of the stack (one ``unbind`` a
+    leaf: its gradient is one stack, not a full-size scatter a layer)."""
+    keys = list(stacked)
+    return [dict(zip(keys, vals))
+            for vals in zip(*(stacked[k].unbind(0) for k in keys))]
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` as a checkpointed region under ``cfg.remat`` while gradients
+    are on (see the module docstring); as is otherwise."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 # -- forward ------------------------------------------------------------------
 
 
@@ -114,9 +145,12 @@ def _block_forward(cfg: ModelConfig, p: dict[str, Tensor], x: Tensor,
 def _mamba_stack(cfg: ModelConfig, stacked: dict[str, Tensor], x: Tensor
                  ) -> Tensor:
     """Pre-norm residual Mamba2 blocks over the stack's leading axis."""
-    for i in range(_depth(stacked)):
-        lp = _layer(stacked, i)
-        x = x + m2.mamba2_forward(lp, cfg, rms_norm(x, lp["norm_in"], cfg.norm_eps))
+    def body(x, lp):
+        return x + m2.mamba2_forward(lp, cfg, rms_norm(x, lp["norm_in"], cfg.norm_eps))
+
+    body = _remat(body, cfg)
+    for lp in _layers(stacked):
+        x = body(x, lp)
     return x
 
 
@@ -140,9 +174,9 @@ def _hybrid_forward(cfg: ModelConfig, params: dict[str, Any], x: Tensor,
                     positions: Tensor) -> Tensor:
     n_groups, _, tail = _hybrid_shape(cfg)
     attend = lambda sp, h: gqa_attention(sp, cfg, h, positions, kv_chunk=KV_CHUNK)  # noqa: E731
-    for gi in range(n_groups):
+    for gi, group in enumerate(_layers(params["groups"])):
         x = _shared_block(cfg, params, gi, x, attend)
-        x = _mamba_stack(cfg, _layer(params["groups"], gi), x)
+        x = _mamba_stack(cfg, group, x)
     if tail:
         x = _mamba_stack(cfg, params["tail"], x)
     return x
@@ -168,9 +202,9 @@ def backbone(cfg: ModelConfig, params: dict[str, Any], batch) -> Tensor:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
     if cfg.family == "dense":
-        layers = params["layers"]
-        for i in range(_depth(layers)):
-            x = _block_forward(cfg, _layer(layers, i), x, positions)
+        block = _remat(lambda x, lp: _block_forward(cfg, lp, x, positions), cfg)
+        for lp in _layers(params["layers"]):
+            x = block(x, lp)
     elif cfg.family == "ssm":
         x = _mamba_stack(cfg, params["layers"], x)
     else:
@@ -185,9 +219,54 @@ def _unembed_matrix(cfg: ModelConfig, params: dict[str, Any]) -> Tensor:
 
 
 def forward(cfg: ModelConfig, params: dict[str, Any], batch) -> Tensor:
-    """Full logits [B, S, vocab]."""
+    """Full logits [B, S, vocab] (use loss_fn for training: it never
+    materializes these)."""
     x = backbone(cfg, params, batch)
     return dense(x, _unembed_matrix(cfg, params))
+
+
+def chunked_ce(cfg: ModelConfig, x: Tensor, w: Tensor, labels: Tensor
+               ) -> tuple[Tensor, Tensor]:
+    """Seq-chunked CE: logits chunks of [B, LOSS_CHUNK, V], never [B, S, V].
+
+    Returns (mean NLL over the non-ignored labels, their count).  The
+    sequence is cut into ``max(S // LOSS_CHUNK, 1)`` equal chunks, as in
+    the JAX package; a length they do not divide raises.
+    """
+    s = x.shape[1]
+    chunk = min(LOSS_CHUNK, s)
+    n = max(s // chunk, 1)
+    chunk = s // n
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not {n} CE chunks of {chunk}")
+    ce_chunk = _remat(lambda xc, yc: _ce_sums(dense(xc, w), yc), cfg)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    tok = torch.zeros((), dtype=torch.int32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        nll_sum, cnt = ce_chunk(x[:, sl], labels[:, sl])
+        loss_sum, tok = loss_sum + nll_sum, tok + cnt
+    return loss_sum / tok.clamp(min=1), tok
+
+
+def loss_fn(cfg: ModelConfig, params: dict[str, Any], batch,
+            aux_weight: float = 0.01) -> tuple[Tensor, dict[str, Tensor]]:
+    """``(total, {"ce", "moe_aux", "tokens"})`` of a batch with ``tokens``
+    and ``labels`` [B, S].  ``moe_aux`` is 0: the ported families have no
+    MoE layer."""
+    x = backbone(cfg, params, batch)
+    loss, tok = chunked_ce(cfg, x, _unembed_matrix(cfg, params), batch["labels"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    total = loss + aux_weight * aux
+    return total, {"ce": loss, "moe_aux": aux, "tokens": tok}
+
+
+def _ce_sums(logits: Tensor, labels: Tensor, ignore: int = -100
+             ) -> tuple[Tensor, Tensor]:
+    """``(sum of the NLL over non-ignored labels in float32, their count
+    int32)``."""
+    total, n = nll_sum(logits, labels, ignore)
+    return total, n.to(torch.int32)
 
 
 # -- decode ---------------------------------------------------------------------

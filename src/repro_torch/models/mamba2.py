@@ -9,6 +9,11 @@ the same function with the quadratic term in jnp; its own test
 (``test_ssd_chunk_kernel_plus_interchunk_matches_full_ssd``) shows the
 kernel to be a drop-in for that part.
 
+Training: the kernel call is an autograd Function (:class:`SSDChunk`)
+whose backward differentiates the kernel's plain version, as JAX
+differentiates its jnp quadratic term; the recurrence's gradient is
+torch's own.
+
 Decode: the O(1) recurrent state update; the "cache" is a fixed-size
 ``[B, H, P, N]`` f32 state plus ``[B, K-1, channels]`` conv windows.
 
@@ -25,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.common import ParamSpec, dense, rms_norm
 
 Tensor = torch.Tensor
@@ -92,6 +97,32 @@ def _project(p: dict[str, Tensor], x: Tensor
     return z, xs, b_, c_, dt
 
 
+class SSDChunk(torch.autograd.Function):
+    """``ops.ssd_chunk`` with a gradient.
+
+    ``forward`` is the kernel on a CUDA tensor (its plain version on a CPU
+    one); ``backward`` recomputes the plain version
+    (:func:`repro_torch.kernels.ref.ssd_chunk_ref`) under autograd and
+    returns its vector-Jacobian product, so the forward runs the kernel
+    once and the backward none.
+    """
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, d_skip):
+        ctx.save_for_backward(x, dt, a_log, b, c, d_skip)
+        return ops.ssd_chunk(x, dt, a_log, b, c, d_skip)
+
+    @staticmethod
+    def backward(ctx, gy, gst):
+        need = ctx.needs_input_grad
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y, st = ref.ssd_chunk_ref(*inputs)
+        wrt = [t for t, n in zip(inputs, need) if n]
+        grads = iter(torch.autograd.grad((y, st), wrt, (gy, gst), allow_unused=True))
+        return tuple(next(grads) if n else None for n in need)
+
+
 def ssd_chunked(
     xh: Tensor,      # [B, S, H, P] conv'd+SiLU'd inputs, head-split
     dt: Tensor,      # [B, S, H] post-softplus, f32
@@ -123,7 +154,7 @@ def ssd_chunked(
     bcq = bsz * n_chunks
     bf = b_.float()
     cf = c_.float()
-    y_intra, states = ops.ssd_chunk(
+    y_intra, states = SSDChunk.apply(
         xh.float().reshape(bcq, chunk, h, pdim), dt.float().reshape(bcq, chunk, h),
         a_log, bf.reshape(bcq, chunk, g, n), cf.reshape(bcq, chunk, g, n),
         d_skip)                              # y_intra holds D * x already

@@ -9,7 +9,10 @@ the JAX package, so it runs on a GPU machine that has only PyTorch:
 It covers what ``chip_smoke.py`` does not: the wrappers' operand checks
 and their launch counting, the readout's lanes at every warp split, and
 that ``chip_smoke.py``'s flash-attention, calib, readout and placement
-checks fail on faults planted in copies of those kernels.
+checks fail on faults planted in copies of those kernels; and, for
+training, the flash-attention and SSD autograd Functions' gradients on
+the card against their CPU runs, the lse output, one counted bf16 train
+step and a card checkpoint restored on the CPU.
 ``chip_smoke.py`` holds each kernel against its plain version on the card
 and runs the closed loop there and on the CPU.
 """
@@ -319,7 +322,7 @@ def test_flash_check_fails_on_planted_faults(dev, tmp_path):
             q, k, v = cs.flash_inputs(torch, np, i, dev)
             got = torch.empty_like(q)
             assert launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(),
-                          b, hq, hkv, sq, skv, d, 1, int(causal), d ** -0.5,
+                          None, b, hq, hkv, sq, skv, d, 1, int(causal), d ** -0.5,
                           stream) == 0
             torch.cuda.synchronize()
             err, used = cs.flash_bar_use(torch, ref, got, q, k, v, causal, rtol, atol)
@@ -546,3 +549,127 @@ def test_place_check_fails_on_planted_faults(dev, tmp_path):
         print(f"place fault {name!r}: fails {len(failed)} of {len(cases)} cases: "
               + "; ".join(failed))
         assert (not failed) == (name == "none"), (name, failed)
+
+
+# -- training: the autograd Functions, a train step, checkpoints ---------------
+
+
+#: the LM's training dtype (weights, not twin math)
+BF16 = torch.bfloat16  # tracecheck: disable=TC005 — bf16 LM training step and checkpoint
+
+
+def _grads_of(fn, inputs, cotangents):
+    xs = [x.detach().clone().requires_grad_() for x in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, cotangents)
+    return [o.detach() for o in outs], [x.grad for x in xs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,skv", [(True, 96), (False, 80)])
+def test_flash_function_grads_on_the_card_match_its_cpu_run(dev, dtype, causal, skv):
+    """The FlashAttention Function (the kernel's forward with its lse, the
+    plain-torch backward) on the card against the same Function on float32
+    CPU copies (the plain forward): f32 at rtol 1e-4 / atol 1e-5, bf16 at
+    2^-6 of each tensor's largest value (its output and gradients are
+    rounded to bf16)."""
+    from repro_torch.models.attention import FlashAttention
+
+    rng = np.random.default_rng(skv)
+    dt = getattr(torch, dtype)
+    shapes = ((2, 6, 64, 32), (2, 2, skv, 32), (2, 2, skv, 32), (2, 6, 64, 32))
+    q, k, v, do = (torch.as_tensor(rng.normal(0, 1, s).astype(np.float32)) for s in shapes)
+    fn = lambda a, b, c: FlashAttention.apply(a, b, c, causal, 32 ** -0.5, 40)  # noqa: E731
+    ops.reset_launches()
+    (out,), grads = _grads_of(fn, [x.to(dev, dt) for x in (q, k, v)], (do.to(dev, dt),))
+    assert ops.LAUNCHES["flash_attention"] == 1
+    (want,), wgrads = _grads_of(fn, [q, k, v], (do,))
+    for got, w in zip([out, *grads], [want, *wgrads]):
+        assert got.dtype == dt
+        got = got.float().cpu()
+        if dtype == "float32":
+            torch.testing.assert_close(got, w, rtol=1e-4, atol=1e-5)
+        else:
+            assert float((got - w).abs().max()) <= 2 ** -6 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_lse_output_matches_plain(dev, dtype):
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(3)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(rng.normal(0, 1, s).astype(np.float32), device=dev).to(dt)
+               for s in ((2, 4, 70, 64), (2, 2, 90, 64), (2, 2, 90, 64)))
+    out, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert torch.equal(out, ops.flash_attention(q, k, v, causal=True))
+    _, want = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True,
+                                      return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 4, 70)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
+
+
+def test_ssd_function_grads_on_the_card_match_its_cpu_run(dev):
+    """SSDChunk (the kernel's forward, the plain version's gradient) on the
+    card against its CPU run, at ``ssd_chunk``'s bar (rtol/atol 1e-4 of
+    each tensor's largest value)."""
+    from repro_torch.models.mamba2 import SSDChunk
+
+    args = [x.cpu() for x in _ssd_operands(dev, bc=3, q=64, h=4, p=16, g=1, n=32)]
+    rng = np.random.default_rng(4)
+    cts = (torch.as_tensor(rng.normal(0, 1, (3, 64, 4, 16)).astype(np.float32)),
+           torch.as_tensor(rng.normal(0, 1, (3, 4, 16, 32)).astype(np.float32)))
+    ops.reset_launches()
+    outs, grads = _grads_of(SSDChunk.apply, [x.to(dev) for x in args], [c.to(dev) for c in cts])
+    assert ops.LAUNCHES["ssd_chunk"] == 1
+    wouts, wgrads = _grads_of(SSDChunk.apply, args, cts)
+    for got, w in zip(outs + grads, wouts + wgrads):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(got.cpu(), w, rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_one_bf16_train_step_counts_its_launches(dev):
+    """A reduced SmolLM (2 layers, bf16, remat "dots") takes one train step
+    on the card: finite metrics, and 2 flash launches a layer (the forward
+    and its recompute in the backward)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step, param_specs_for
+    from repro_torch.launch.train import reduce_config
+    from repro_torch.models.common import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    cfg = dataclasses.replace(reduce_config(get_config("smollm-360m"), 8), num_layers=2)
+    opt_cfg = AdamWConfig(warmup_steps=1, total_steps=4)
+    params = init_params(param_specs_for(cfg), torch.Generator(device=dev).manual_seed(0),
+                         BF16, dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 65), device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    ops.reset_launches()
+    new, opt, m = make_train_step(cfg, opt_cfg)(params, init_opt_state(params, opt_cfg), batch)
+    assert ops.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
+    assert all(ops.LAUNCHES[k] == 0 for k in ops.LAUNCHES if k != "flash_attention")
+    assert all(bool(torch.isfinite(m[k])) for k in ("loss", "grad_norm", "lr"))
+    assert new["embed"].dtype == BF16 and new["embed"].device.type == "cuda"
+    assert int(opt.step) == 1
+
+
+def test_card_checkpoint_restores_on_the_cpu(dev, tmp_path):
+    from repro_torch._tree import leaves
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    params = {"w": torch.randn(5, 3, device=dev).to(BF16),
+              "b": torch.randn(3, device=dev)}
+    state = {"params": params, "opt": init_opt_state(params, AdamWConfig())}
+    ckpt.save(str(tmp_path), 3, state)
+    like = {"params": {k: torch.zeros_like(v, device="cpu") for k, v in params.items()},
+            "opt": init_opt_state({k: torch.zeros_like(v, device="cpu")
+                                   for k, v in params.items()}, AdamWConfig())}
+    step, got = ckpt.restore_as_torch(str(tmp_path), like)
+    assert step == 3
+    for a, b in zip(leaves(got), leaves(state)):
+        assert a.device.type == "cpu" and a.dtype == b.dtype
+        assert torch.equal(a, b.cpu())

@@ -345,7 +345,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     only as the codec's optional import (the reference's policy)."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / name for name in ("chip_smoke.py", "e2_compare.py", "kernel_compare.py",
-                                       "place_profile.py", "smoke_compare.py")]
+                                       "place_profile.py", "smoke_compare.py",
+                                       "examples/live_twin_training_torch.py")]
     assert len(files) > 20
     assert ROOT / "src" / "repro_torch" / "core" / "optimize.py" in files
     codec = ROOT / "src" / "repro_torch" / "core" / "codec.py"
