@@ -28,8 +28,11 @@ Phases (each passes or the script exits non-zero without a result line):
    calls each lane makes alone; flash attention at the JAX
    attention sweep's shapes, the bf16 tensor-core route at every head dim,
    ragged, decode, Skv > Sq and non-causal shapes, and SmolLM-360M's and
-   Zamba2-1.2B's prefill shapes in bf16 and f32, and the shapes phase
-   13's runs give it, each against the plain
+   Zamba2-1.2B's prefill shapes in bf16 and f32, the shapes phase
+   13's runs give it, and phase 14's: each family's prefill attention in
+   bf16 (Seamless's non-causal encoder and cross-attention), the QK/V
+   head-dim pairs (80, 80), (96, 64) and (192, 128) in f32 at their
+   prefill shapes and ragged on both routes, each against the plain
    version in f32 at a bar set by the route's rounding (``FLASH_CASES``),
    and there with ``return_lse=True``: the same output bit for bit, the
    rows' lse against the plain version's (``LSE_RTOL``, ``LSE_ATOL``);
@@ -103,7 +106,8 @@ Phases (each passes or the script exits non-zero without a result line):
    decision step, timed alone, or the earlier design's attempts times its
    block's barrier round trip, whichever is smaller); and an empty kernel
    (``torch.cuda._sleep(0)``, one thread), the launch floor of the same
-   timer;
+   timer; flash attention also at MiniCPM3-4B's and DeepSeek-V2-Lite's
+   prefill shapes (QK/V head dims 96/64 and 192/128);
 11. (``search_phase``) the optimizer and stage 3 on the card, run before
    the kernel timings so that its launches count in the kernels line;
 12. (``serve_phase``, also before the timings) the streaming twin service
@@ -144,7 +148,22 @@ Phases (each passes or the script exits non-zero without a result line):
    the step-4 checkpoint, and against an uninterrupted run the losses,
    the final state and the checkpoint files equal bit for bit; (d) each
    LM at full width, cut in depth, f32, 3 train steps on the card against
-   the CPU; (e) examples/live_twin_training_torch.py at its defaults.
+   the CPU; (e) examples/live_twin_training_torch.py at its defaults;
+14. (``family_phase``, also before the timings) the LM families at full
+   width in bf16, one model at a time, its memory freed after
+   (``FAMILY_PATHS``): Qwen1.5-MoE-A2.7B (MoE), DeepSeek-V2-Lite (MLA + MoE,
+   a dense layer 0), MiniCPM3-4B (MLA), StableLM-3B (head dim 80),
+   Qwen2-VL-7B (M-RoPE, 1024 random patch embeddings, [3, 4, 2048]
+   positions), Seamless-M4T medium (enc-dec, 512 random frames) and
+   Command R+ 104B cut to 8 of its 64 layers (the whole does not fit one
+   card; its full-size parameter count is logged): (a) ``make_prefill_step``
+   on ``[4, 2048]`` tokens, flash launches counted per call (24, 27, 62,
+   32, 28, 36 and 8); (b) ``launch/serve.py`` at ``--reduce 1 --batch 4
+   --prompt-len 32 --gen 16``; (c) each at full width and 2 layers in f32,
+   prefill logits (S=256) and 8 greedy serve steps on the card against the
+   CPU, the MoE configs' expert ids compared first, call by call (a
+   difference only where the CPU's probabilities nearly tie,
+   ``MOE_TIE_GAP``), Seamless's serve state with its encoder's cross K/V.
 
 The seconds each phase took are logged after the kernel timings
 (``phase seconds``).  The second-to-last line of standard output is the ``kernels`` JSON record,
@@ -215,12 +234,25 @@ PREFILL_B, PREFILL_S, PREFILL_CALLS = 4, 2048, 5
 SERVE_ARGV = ["--reduce", "1", "--batch", "4", "--prompt-len", "32",
               "--gen", "64", "--device", DEVICE]
 
-#: the prefills' attention shapes, (b, hq, hkv, sq, skv, d): SmolLM-360M
-#: (GQA) and Zamba2-1.2B's shared block
-PREFILL_FLASH = (PREFILL_B, 15, 5, PREFILL_S, PREFILL_S, 64)
-PREFILL_FLASH_ZAMBA2 = (PREFILL_B, 32, 32, PREFILL_S, PREFILL_S, 64)
+#: the prefills' attention shapes, (b, hq, hkv, sq, skv, d, dv): QK head
+#: dim d, V head dim dv.  SmolLM-360M (GQA) and Zamba2-1.2B's shared block;
+#: then phase 14's families: StableLM-3B (head dim 80), the MLA of
+#: MiniCPM3-4B and DeepSeek-V2-Lite (QK nope + rope, V of its own width),
+#: Qwen2-VL-7B and Command R+ (GQA, 128), Qwen1.5-MoE (128), and
+#: Seamless-M4T's non-causal encoder (512 frames) and cross-attention
+#: (2048 decoder queries against the 512 frames)
+PREFILL_FLASH = (PREFILL_B, 15, 5, PREFILL_S, PREFILL_S, 64, 64)
+PREFILL_FLASH_ZAMBA2 = (PREFILL_B, 32, 32, PREFILL_S, PREFILL_S, 64, 64)
+PREFILL_FLASH_STABLELM = (PREFILL_B, 32, 32, PREFILL_S, PREFILL_S, 80, 80)
+PREFILL_FLASH_MINICPM3 = (PREFILL_B, 40, 40, PREFILL_S, PREFILL_S, 96, 64)
+PREFILL_FLASH_DEEPSEEK = (PREFILL_B, 16, 16, PREFILL_S, PREFILL_S, 192, 128)
+PREFILL_FLASH_QWEN2VL = (PREFILL_B, 28, 4, PREFILL_S, PREFILL_S, 128, 128)
+PREFILL_FLASH_QWEN_MOE = (PREFILL_B, 16, 16, PREFILL_S, PREFILL_S, 128, 128)
+PREFILL_FLASH_COMMAND_R = (PREFILL_B, 96, 8, PREFILL_S, PREFILL_S, 128, 128)
+SEAMLESS_ENC_FLASH = (PREFILL_B, 16, 16, 512, 512, 64, 64)
+SEAMLESS_CROSS_FLASH = (PREFILL_B, 16, 16, PREFILL_S, 512, 64, 64)
 
-#: flash-attention checks, (b, hq, hkv, sq, skv, d, causal, bf16, rtol,
+#: flash-attention checks, (b, hq, hkv, sq, skv, d, dv, causal, bf16, rtol,
 #: atol), each against the plain version in f32 on the same inputs: the
 #: JAX package's sweep (tests/test_kernels.py), f32 at its bar, then the bf16
 #: route (the tensor-core kernel every prefill runs) at the sweep's bf16
@@ -230,7 +262,11 @@ PREFILL_FLASH_ZAMBA2 = (PREFILL_B, 32, 32, PREFILL_S, PREFILL_S, 64)
 #: training runs give the kernel where (a) does not check them: the
 #: reduced SmolLM of ``launch/train.main --reduce 4`` ((c)) and of the
 #: live-twin example (``--reduce 8``, (e)) in bf16, and SmolLM-360M's
-#: width at (d)'s [2, 256] in f32.  An f32 case is held to
+#: width at (d)'s [2, 256] in f32.  Last, phase 14's LM families: each
+#: prefill's attention shape in bf16 (Seamless's encoder and its
+#: cross-attention non-causal), the MLA pairs and StableLM's head dim 80
+#: again in f32 at their prefill shapes, and the three new pairs ragged
+#: (Sq 100 < Skv 257) on both routes.  An f32 case is held to
 #: ``atol + rtol |want|``: there the f32 kernel (not the main path's) holds
 #: all 32 KV tiles of a row to f32 rounding.  A bf16 case is held to
 #: ``rtol |want| + atol ||p||`` (``flash_bar_use``), ``||p||`` the L2 norm
@@ -241,26 +277,46 @@ PREFILL_FLASH_ZAMBA2 = (PREFILL_B, 32, 32, PREFILL_S, PREFILL_S, 64)
 #: sit at about twice the largest of the CPU model's readings
 #: (tests/test_torch_kernel_precision.py).
 FLASH_CASES = [
-    (1, 4, 4, 128, 128, 64, True, False, 2e-5, 2e-4),
-    (2, 8, 2, 100, 100, 32, True, False, 2e-5, 2e-4),
-    (2, 4, 1, 64, 64, 64, False, False, 2e-5, 2e-4),
-    (1, 6, 2, 1, 96, 64, True, False, 2e-5, 2e-4),
-    (2, 4, 2, 128, 128, 64, True, True, 1e-2, 1.5e-2),
-    (1, 4, 4, 257, 257, 16, True, False, 2e-5, 2e-4),
-    (2, 4, 2, 100, 100, 16, True, True, 1e-2, 1.5e-2),
-    (2, 4, 2, 100, 100, 32, True, True, 1e-2, 1.5e-2),
-    (2, 4, 2, 100, 100, 128, True, True, 1e-2, 1.5e-2),
-    (1, 4, 4, 257, 257, 64, True, True, 1e-2, 1.5e-2),
-    (1, 6, 2, 1, 96, 64, True, True, 1e-2, 1.5e-2),
-    (1, 4, 2, 64, 200, 64, True, True, 1e-2, 1.5e-2),
-    (2, 4, 1, 100, 130, 128, False, True, 1e-2, 1.5e-2),
+    (1, 4, 4, 128, 128, 64, 64, True, False, 2e-5, 2e-4),
+    (2, 8, 2, 100, 100, 32, 32, True, False, 2e-5, 2e-4),
+    (2, 4, 1, 64, 64, 64, 64, False, False, 2e-5, 2e-4),
+    (1, 6, 2, 1, 96, 64, 64, True, False, 2e-5, 2e-4),
+    (2, 4, 2, 128, 128, 64, 64, True, True, 1e-2, 1.5e-2),
+    (1, 4, 4, 257, 257, 16, 16, True, False, 2e-5, 2e-4),
+    (2, 4, 2, 100, 100, 16, 16, True, True, 1e-2, 1.5e-2),
+    (2, 4, 2, 100, 100, 32, 32, True, True, 1e-2, 1.5e-2),
+    (2, 4, 2, 100, 100, 128, 128, True, True, 1e-2, 1.5e-2),
+    (1, 4, 4, 257, 257, 64, 64, True, True, 1e-2, 1.5e-2),
+    (1, 6, 2, 1, 96, 64, 64, True, True, 1e-2, 1.5e-2),
+    (1, 4, 2, 64, 200, 64, 64, True, True, 1e-2, 1.5e-2),
+    (2, 4, 1, 100, 130, 128, 128, False, True, 1e-2, 1.5e-2),
     (*PREFILL_FLASH, True, True, 1e-2, 1.5e-2),
     (*PREFILL_FLASH, True, False, 2e-5, 2e-4),
     (*PREFILL_FLASH_ZAMBA2, True, True, 1e-2, 1.5e-2),
     (*PREFILL_FLASH_ZAMBA2, True, False, 2e-5, 2e-4),
-    (8, 3, 1, 256, 256, 16, True, True, 1e-2, 1.5e-2),
-    (4, 1, 1, 128, 128, 16, True, True, 1e-2, 1.5e-2),
-    (2, 15, 5, 256, 256, 64, True, False, 2e-5, 2e-4),
+    (8, 3, 1, 256, 256, 16, 16, True, True, 1e-2, 1.5e-2),
+    (4, 1, 1, 128, 128, 16, 16, True, True, 1e-2, 1.5e-2),
+    (2, 15, 5, 256, 256, 64, 64, True, False, 2e-5, 2e-4),
+    # the LM families of phase 14: each prefill's attention in bf16, the
+    # new head-dim pairs (80, 80), (96, 64) and (192, 128) also in f32 and
+    # ragged on both routes
+    (*PREFILL_FLASH_STABLELM, True, True, 1e-2, 1.5e-2),
+    (*PREFILL_FLASH_MINICPM3, True, True, 1e-2, 1.5e-2),
+    (*PREFILL_FLASH_DEEPSEEK, True, True, 1e-2, 1.5e-2),
+    (*PREFILL_FLASH_QWEN2VL, True, True, 1e-2, 1.5e-2),
+    (*PREFILL_FLASH_QWEN_MOE, True, True, 1e-2, 1.5e-2),
+    (*PREFILL_FLASH_COMMAND_R, True, True, 1e-2, 1.5e-2),
+    (*SEAMLESS_ENC_FLASH, False, True, 1e-2, 1.5e-2),
+    (*SEAMLESS_CROSS_FLASH, False, True, 1e-2, 1.5e-2),
+    (*PREFILL_FLASH_STABLELM, True, False, 2e-5, 2e-4),
+    (*PREFILL_FLASH_MINICPM3, True, False, 2e-5, 2e-4),
+    (*PREFILL_FLASH_DEEPSEEK, True, False, 2e-5, 2e-4),
+    (2, 4, 2, 100, 257, 80, 80, True, True, 1e-2, 1.5e-2),
+    (2, 4, 2, 100, 257, 96, 64, True, True, 1e-2, 1.5e-2),
+    (2, 4, 2, 100, 257, 192, 128, True, True, 1e-2, 1.5e-2),
+    (2, 4, 2, 100, 257, 80, 80, True, False, 2e-5, 2e-4),
+    (2, 4, 2, 100, 257, 96, 64, True, False, 2e-5, 2e-4),
+    (2, 4, 2, 100, 257, 192, 128, False, False, 2e-5, 2e-4),
 ]
 
 #: calib_mape_grid checks on random candidates, (B, T, H, C): the E2
@@ -1100,6 +1156,14 @@ def main() -> int:
         launches[k] += n
     phase_done("13 training")
 
+    # 14) the LM families (MoE, MLA, enc-dec, M-RoPE VLM, StableLM, Command
+    # R+ cut in depth) at full width, before the kernel timings so that
+    # their launches count in the kernels line
+    details["families"] = family_phase(torch, np, ops)
+    for k, n in details["families"]["launches"].items():
+        launches[k] += n
+    phase_done("14 LM families")
+
     # 10) kernel times at the main paths' shapes (device time, queue kept full)
     timer = DeviceTimer(torch)
     kernels, shapes = [], {}
@@ -1254,6 +1318,10 @@ def main() -> int:
     shapes["flash B=4 Hq=15 Hkv=5 S=2048 D=64 bf16 causal (SmolLM prefill)"] = main
     shapes["flash B=4 Hq=32 Hkv=32 S=2048 D=64 bf16 causal (Zamba2 prefill)"] = time_flash(
         torch, timer, ref, _build, dev, *PREFILL_FLASH_ZAMBA2)
+    shapes["flash B=4 Hq=40 Hkv=40 S=2048 D=96 Dv=64 bf16 causal (MiniCPM3 prefill)"] = \
+        time_flash(torch, timer, ref, _build, dev, *PREFILL_FLASH_MINICPM3)
+    shapes["flash B=4 Hq=16 Hkv=16 S=2048 D=192 Dv=128 bf16 causal (DeepSeek-V2-Lite "
+           "prefill)"] = time_flash(torch, timer, ref, _build, dev, *PREFILL_FLASH_DEEPSEEK)
     main = time_ssd(torch, timer, ref, _build, dev, *SSD_MAMBA2)
     main_shapes.append(main)
     kernels.append(dict(
@@ -1518,12 +1586,12 @@ def log_profile(out: dict) -> None:
 def flash_inputs(torch, np, i, device) -> tuple:
     """q, k, v of ``FLASH_CASES[i]``: N(0, 1) drawn in f32 from seed
     ``100 + i``, cast to the case's dtype."""
-    b, hq, hkv, sq, skv, d, _, bf16 = FLASH_CASES[i][:8]
+    b, hq, hkv, sq, skv, d, dv, _, bf16 = FLASH_CASES[i][:9]
     rng = np.random.default_rng(100 + i)
     dt = torch.bfloat16 if bf16 else torch.float32
-    return tuple(torch.as_tensor(rng.normal(0, 1, (b, h, s, d)).astype(np.float32),
+    return tuple(torch.as_tensor(rng.normal(0, 1, (b, h, s, w)).astype(np.float32),
                                  device=device).to(dt)
-                 for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+                 for h, s, w in ((hq, sq, d), (hkv, skv, d), (hkv, skv, dv)))
 
 
 def softmax_row_norm(torch, q, k, causal: bool):
@@ -1572,15 +1640,15 @@ def check_flash(torch, np, ops, ref, dev) -> float:
     ``LSE_RTOL``/``LSE_ATOL``.  Returns the largest absolute error of the
     outputs (the lse's is logged)."""
     worst = 0.0
-    for i, (b, hq, hkv, sq, skv, d, causal, _, rtol, atol) in enumerate(FLASH_CASES):
+    for i, (b, hq, hkv, sq, skv, d, dv, causal, _, rtol, atol) in enumerate(FLASH_CASES):
         q, k, v = flash_inputs(torch, np, i, dev)
         got = ops.flash_attention(q, k, v, causal=causal)
         again = ops.flash_attention(q, k, v, causal=causal)
         with_lse, lse = ops.flash_attention(q, k, v, causal=causal, return_lse=True)
         torch.cuda.synchronize()
-        case = f"{(b, hq, hkv, sq, skv, d, causal)} {str(q.dtype)[6:]}"
+        case = f"{(b, hq, hkv, sq, skv, d, dv, causal)} {str(q.dtype)[6:]}"
         err, used = flash_bar_use(torch, ref, got, q, k, v, causal, rtol, atol)
-        if got.dtype != q.dtype or not used <= 1.0:
+        if got.dtype != q.dtype or got.shape != (b, hq, sq, dv) or not used <= 1.0:
             fail(f"flash_attention {case}: max |err| {err}, bar used {used} "
                  f"(rtol {rtol}, atol {atol})")
         if not torch.equal(got, again):
@@ -2719,32 +2787,66 @@ def power_sim_path(torch, ops, u_th, params, dc) -> dict:
 
 
 def lm_config(arch, num_layers=None, dtype=None):
+    """The arch's config, its depth cut to ``num_layers`` (an enc-dec's
+    encoder and decoder each) and its dtype replaced where given."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
     repl = {k: v for k, v in (("num_layers", num_layers), ("dtype", dtype)) if v}
+    if num_layers and cfg.family == "encdec":
+        repl.update(enc_layers=num_layers, dec_layers=num_layers)
     return dataclasses.replace(cfg, **repl) if repl else cfg
 
 
-def lm_prefill(torch, ops, arch: str, per_call: dict) -> dict:
-    """``make_prefill_step`` at the arch's full width and depth, bf16, on
-    ``[4, 2048]`` seeded tokens: one call, then ``PREFILL_CALLS`` timed
-    ones, all counted.  ``per_call`` is the launches one call must make
-    (every other kernel: none)."""
+def prefill_batch(torch, cfg, b: int, s: int, gen, dev) -> dict:
+    """A prefill batch of random tokens ``[b, s]`` drawn from ``gen`` on
+    ``dev``; for the VLM (Qwen2-VL) ``cfg.num_patches`` random patch
+    embeddings at the first rows (at most half of ``s``) on a square
+    grid, with [3, B, S] M-RoPE positions (t 0 and the grid's h, w over
+    the patches; the text after from the grid's side on, in all three
+    streams); for the enc-dec (Seamless) ``cfg.num_frames`` random frame
+    embeddings."""
+    dt = getattr(torch, cfg.dtype)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    if cfg.mrope:
+        side = math.isqrt(min(cfg.num_patches, s // 2))
+        n = side * side
+        grid = torch.arange(n, device=dev)
+        text = side + torch.arange(s - n, device=dev)
+        pos = torch.stack([torch.cat([torch.zeros_like(grid), text]),
+                           torch.cat([grid // side, text]),
+                           torch.cat([grid % side, text])])
+        batch["positions"] = pos.to(torch.int32)[:, None].expand(3, b, s)
+        batch["vision_embeds"] = torch.randn((b, n, cfg.d_model), generator=gen,
+                                             device=dev).to(dt)
+        batch["vision_pos"] = grid.to(torch.int32).expand(b, n)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((b, cfg.num_frames, cfg.d_model),
+                                      generator=gen, device=dev).to(dt)
+    return batch
+
+
+def lm_prefill(torch, ops, arch: str, per_call: dict, num_layers=None) -> dict:
+    """``make_prefill_step`` at the arch's full width and depth (or its
+    first ``num_layers``), bf16, on ``[4, 2048]`` seeded tokens (with the
+    VLM's patches and the enc-dec's frames, ``prefill_batch``): one call,
+    then ``PREFILL_CALLS`` timed ones, all counted.  ``per_call`` is the
+    launches one call must make (every other kernel: none)."""
     from repro_torch.launch.steps import make_prefill_step, param_specs_for
     from repro_torch.models.common import init_params
     from repro_torch.models.lm import count_params_analytic
 
-    cfg = lm_config(arch)
+    cfg = lm_config(arch, num_layers=num_layers)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(param_specs_for(cfg), gen, getattr(torch, cfg.dtype), DEVICE)
-    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
-                           device=DEVICE, dtype=torch.int32)
+    batch = prefill_batch(torch, cfg, PREFILL_B, PREFILL_S, gen, DEVICE)
     prefill = make_prefill_step(cfg)
     want = {k: per_call.get(k, 0) for k in ops.LAUNCHES}
     ops.reset_launches()
     t0 = time.perf_counter()
-    logits = prefill(params, {"tokens": tokens})
+    logits = prefill(params, batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     if ops.LAUNCHES != want:
@@ -2753,37 +2855,42 @@ def lm_prefill(torch, ops, arch: str, per_call: dict) -> dict:
         fail(f"prefill {arch}: logits {tuple(logits.shape)} not finite [B, vocab]")
     t0 = time.perf_counter()
     for _ in range(PREFILL_CALLS):
-        prefill(params, {"tokens": tokens})
+        prefill(params, batch)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / PREFILL_CALLS
     launches = dict(ops.LAUNCHES)
     if launches != {k: v * (PREFILL_CALLS + 1) for k, v in want.items()}:
         fail(f"prefill {arch}: launches {launches} over {PREFILL_CALLS + 1} calls")
     tok_s = PREFILL_B * PREFILL_S / (ms / 1e3)
-    log(f"LM prefill {arch} ({cfg.num_layers} layers x {cfg.d_model}, bf16) "
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    depth = (f"{cfg.enc_layers} + {cfg.dec_layers}" if cfg.family == "encdec"
+             else str(cfg.num_layers))
+    log(f"LM prefill {arch} ({depth} layers x {cfg.d_model}, bf16) "
         f"B={PREFILL_B} S={PREFILL_S}: {ms:.3f} ms per call ({tok_s:.0f} tokens/s; "
         f"first call {first_s:.3f} s), launches per call {per_call}, "
-        f"{launches} over {PREFILL_CALLS + 1} calls")
+        f"{launches} over {PREFILL_CALLS + 1} calls, peak {peak:.2f} GiB")
     out = dict(ms_per_call=ms, tokens_per_second=tok_s, first_call_seconds=first_s,
-               launches=launches, launches_per_call=per_call,
-               params=count_params_analytic(cfg))
+               launches=launches, launches_per_call=per_call, peak_gib=peak,
+               params=count_params_analytic(cfg), num_layers=num_layers)
     del params
     torch.cuda.empty_cache()
     return out
 
 
-def lm_serve(torch, ops, arch: str) -> dict:
-    """``launch/serve.py``'s main on the card at full size (``--reduce 1``)."""
+def lm_serve(torch, ops, arch: str, argv=SERVE_ARGV) -> dict:
+    """``launch/serve.py``'s main on the card at full size (``--reduce 1``;
+    ``argv`` gives the rest)."""
     from repro_torch.launch import serve
 
     ops.reset_launches()
-    res = serve.main(["--arch", arch, *SERVE_ARGV])
+    res = serve.main(["--arch", arch, *argv])
     toks = res.tokens
-    if toks.shape != (4, 64) or not bool(((toks >= 0) & (toks < res.cfg.vocab)).all()):
+    gen = int(argv[argv.index("--gen") + 1])
+    if toks.shape != (4, gen) or not bool(((toks >= 0) & (toks < res.cfg.vocab)).all()):
         fail(f"serve {arch}: tokens {tuple(toks.shape)} outside [0, {res.cfg.vocab})")
-    log(f"LM serve {arch} --reduce 1 batch 4: prefill 32 steps "
+    log(f"LM serve {arch} {' '.join(argv)}: prompt {argv[argv.index('--prompt-len') + 1]} steps "
         f"{res.prefill_seconds:.3f} s, decode {res.tokens_per_second:.1f} tok/s "
-        f"({res.decode_seconds:.3f} s for 64 x 4), launches {dict(ops.LAUNCHES)}")
+        f"({res.decode_seconds:.3f} s for {gen} x 4), launches {dict(ops.LAUNCHES)}")
     torch.cuda.empty_cache()
     return dict(prefill_seconds=res.prefill_seconds,
                 decode_seconds=res.decode_seconds,
@@ -2804,14 +2911,23 @@ CARD_VS_CPU = {
 }
 
 
+#: the projections into attention scores, ``[L, d_in, heads, hd]`` leaves:
+#: GQA's query and key, the enc-dec's cross-attention's, MLA's query (with
+#: or without its LoRA) and its latent key/value expansion
+QK_LEAVES = ("wq", "wk", "x_wq", "x_wk", "wq_b", "wkv_b")
+
+
 def rescale_qk(cfg, params: dict) -> dict:
-    """``params`` with ``wq`` and ``wk`` (SmolLM's layers, Zamba2's shared
-    block) scaled in place to the fan-in of the d_model they contract
-    (``lm_card_vs_cpu`` says why)."""
-    attn = {"dense": "layers", "hybrid": "shared_attn"}.get(cfg.family)
-    if attn:
-        params[attn]["wq"] *= (cfg.n_heads / cfg.d_model) ** 0.5
-        params[attn]["wk"] *= (cfg.n_kv_heads / cfg.d_model) ** 0.5
+    """``params`` with every query/key projection (``QK_LEAVES``) scaled in
+    place from the init's fan-in (the head count, ``shape[-2]``) to the
+    ``d_in`` it contracts (``lm_card_vs_cpu`` says why): SmolLM's
+    ``wq``/``wk`` by ``sqrt(heads / d_model)``, Zamba2's shared block's
+    alike, and so on for the families of phase 14."""
+    for k, v in params.items():
+        if isinstance(v, dict):
+            rescale_qk(cfg, v)
+        elif k in QK_LEAVES and v.dim() == 4:
+            v *= (v.shape[-2] / v.shape[-3]) ** 0.5
     return params
 
 
@@ -2925,15 +3041,15 @@ def time_power_sim(torch, timer, ops, ref, build, dev, t, h) -> dict:
     return out
 
 
-def time_flash(torch, timer, ref, build, dev, b, hq, hkv, s, _skv, d) -> dict:
+def time_flash(torch, timer, ref, build, dev, b, hq, hkv, s, _skv, d, dv) -> dict:
     """The prefill shape in bf16: kernel, plain version, and SDPA (the one
     PyTorch call computing the same, timed beside, never on the path)."""
     import torch.nn.functional as F
 
     q = torch.randn((b, hq, s, d), device=dev).to(torch.bfloat16)
     k = torch.randn((b, hkv, s, d), device=dev).to(torch.bfloat16)
-    v = torch.randn((b, hkv, s, d), device=dev).to(torch.bfloat16)
-    out = torch.empty_like(q)
+    v = torch.randn((b, hkv, s, dv), device=dev).to(torch.bfloat16)
+    out = q.new_empty((b, hq, s, dv))
     lse = torch.empty((b, hq, s), device=dev)
     scale = d ** -0.5
     lib = build.load("flash_attention")
@@ -2942,7 +3058,7 @@ def time_flash(torch, timer, ref, build, dev, b, hq, hkv, s, _skv, d) -> dict:
     def kernel(lse_ptr=None):
         if lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                       out.data_ptr(), lse_ptr, b, hq, hkv, s, s, d,
-                                      1, 1, scale, stream) != 0:
+                                      dv, 1, 1, scale, stream) != 0:
             fail("flash_attention: the timed launch returned a CUDA error")
 
     def library():
@@ -2956,14 +3072,15 @@ def time_flash(torch, timer, ref, build, dev, b, hq, hkv, s, _skv, d) -> dict:
     lt_lse = timer.device_ms(lambda: kernel(lse.data_ptr()))
     pt = timer.device_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
     lt = timer.device_ms(library)
-    log(f"flash_attention vs SDPA at the prefill shape: max |diff| {lib_err:.3g}; "
-        f"with the lse output {lt_lse['ms'] * 1e3:.2f} us against {kt['ms'] * 1e3:.2f} us")
+    log(f"flash_attention at {(b, hq, hkv, s, d, dv)}: {kt['ms'] * 1e3:.2f} us, with "
+        f"the lse output {lt_lse['ms'] * 1e3:.2f} us; SDPA {lt['ms'] * 1e3:.2f} us, "
+        f"max |diff| {lib_err:.3g}")
     return dict(ms=kt["ms"], plain_ms=pt["ms"], library_ms=lt["ms"],
                 lse_ms=lt_lse["ms"], lse_rounds=lt_lse,
                 kernel_rounds=kt, plain_rounds=pt, library_rounds=lt,
                 sdpa_max_abs_diff=lib_err,
-                bytes=2 * (2 * b * hq * s * d + 2 * b * hkv * s * d),
-                ops=4 * b * hq * s * s * d // 2, peak_ops=PEAK_BF16_TC_FLOPS)
+                bytes=2 * (b * hq * s * (d + dv) + b * hkv * s * (d + dv)),
+                ops=2 * b * hq * s * s * (d + dv) // 2, peak_ops=PEAK_BF16_TC_FLOPS)
 
 
 def ssd_inputs(torch, np, bc, q, h, p, g, n, seed, device, long_memory=False):
@@ -3566,6 +3683,197 @@ def train_phase(torch, np, ops, ref, card: str) -> dict:
     for run in (out["main"], out["live_twin"]):
         for k, n in run["launches"].items():
             launches[k] += n
+    out["launches"] = launches
+    return out
+
+
+# -- phase 14: the LM families ------------------------------------------------------
+
+#: phase 14's architectures at full width, bf16, [4, 2048] tokens: arch ->
+#: (layers kept, None for all; flash-attention launches per prefill call:
+#: one per attention layer, Seamless's 12 encoder, 12 decoder self and 12
+#: cross).  Command R+ 104B keeps 8 of its 64 layers: 3.1 GB of bf16
+#: weights a layer and 12.6 GB of embedding and unembedding, ~38 GB, where
+#: the whole model (~208 GB) does not fit one 80 GB card
+FAMILY_PATHS = {
+    "qwen2-moe-a2.7b": (None, 24),
+    "deepseek-v2-lite-16b": (None, 27),
+    "minicpm3-4b": (None, 62),
+    "stablelm-3b": (None, 32),
+    "qwen2-vl-7b": (None, 28),
+    "seamless-m4t-medium": (None, 36),
+    "command-r-plus-104b": (8, 8),
+}
+#: (b) the serving launcher at full width (Command R+ at its cut depth)
+FAMILY_SERVE_ARGV = ["--reduce", "1", "--batch", "4", "--prompt-len", "32",
+                     "--gen", "16", "--device", DEVICE]
+#: (c) card against CPU in f32 at full width: layers (DeepSeek's 2 are its
+#: dense layer 0 and one MoE layer; Seamless's encoder and decoder 2 each),
+#: batch, sequence, greedy serve steps, and the bar on the prefill logits
+#: (rtol and atol, the LM bar of phase 9)
+FAMILY_CVC = dict(layers=2, b=2, s=256, steps=8, tol=1e-4)
+#: (c) a MoE decision (a token's top-k experts, in order) may differ between
+#: the card and the CPU only where, on the CPU, two of its k + 1 largest
+#: router probabilities lie closer than this: f32 rounding moves a
+#: probability (~1/60 at the init's router scale) by ~1e-8, so this bar
+#: sits ~100x above the noise and ~30x below a typical neighbour's gap
+MOE_TIE_GAP = 1e-6
+
+
+class RouteProbe:
+    """Records each ``moe.route`` call's ``(probs, ids)`` on the host, in
+    call order, while installed (``with RouteProbe(moe) as probe:``); the
+    routing itself is unchanged."""
+
+    def __init__(self, moe_mod):
+        self.mod, self.calls = moe_mod, []
+
+    def __enter__(self):
+        self.route = self.mod.route
+
+        def recording(x, router, cfg, e_pad):
+            out = self.route(x, router, cfg, e_pad)
+            self.calls.append((out[0].cpu(), out[2].cpu()))
+            return out
+
+        self.mod.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.route
+
+
+def route_agreement(torch, arch: str, where: str, card: list, cpu: list) -> dict:
+    """Expert ids of each routing call, card against CPU: equal, or a
+    decision whose CPU gap between two of its k + 1 largest probabilities
+    is below ``MOE_TIE_GAP`` (a near tie); fails on any other difference.
+    Returns the counts of decisions, near ties and near-tie mismatches."""
+    if len(card) != len(cpu):
+        fail(f"card vs CPU {arch} {where}: {len(card)} routing calls on the card, "
+             f"{len(cpu)} on the CPU")
+    n = ties = mism = 0
+    for (_, ids_g), (probs, ids_c) in zip(card, cpu):
+        k = ids_c.shape[1]
+        top = torch.sort(probs, dim=-1, descending=True).values[:, :k + 1]
+        near = (top[:, :-1] - top[:, 1:]).min(dim=-1).values < MOE_TIE_GAP
+        differ = (ids_g != ids_c).any(dim=-1)
+        if bool((differ & ~near).any()):
+            fail(f"card vs CPU {arch} {where}: expert ids differ where no near tie "
+                 f"(gap >= {MOE_TIE_GAP}) explains it")
+        n += ids_c.shape[0]
+        ties += int(near.sum())
+        mism += int(differ.sum())
+    return dict(decisions=n, near_ties=ties, near_tie_mismatches=mism)
+
+
+def family_card_vs_cpu(torch, np, arch: str) -> dict:
+    """Phase 14 (c): the arch at full width, cut to ``FAMILY_CVC["layers"]``,
+    f32: prefill logits and greedy serve steps on the card against the CPU
+    (TF32 off), on weights drawn on the card (seed 0, query and key
+    projections rescaled, ``rescale_qk``) and copied to the host.  The VLM's
+    patches and positions and the enc-dec's frames as ``prefill_batch``
+    draws them; the enc-dec's serve state takes its encoder's cross K/V
+    (``encdec.cross_kv``); MoE routing compared call by call first
+    (``route_agreement``)."""
+    from repro_torch.launch.steps import (
+        make_prefill_step, make_serve_step, param_specs_for, state_specs_for)
+    from repro_torch.models import encdec
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import init_params
+
+    c = FAMILY_CVC
+    b, s, steps, tol = c["b"], c["s"], c["steps"], c["tol"]
+    cfg = lm_config(arch, num_layers=c["layers"], dtype="float32")
+    t0 = time.time()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = {"card": rescale_qk(cfg, init_params(param_specs_for(cfg), gen,
+                                                  torch.float32, DEVICE))}
+    params["cpu"] = _tree_to(params["card"], "cpu")
+    batch = {"card": prefill_batch(torch, cfg, b, s, gen, DEVICE)}
+    batch["cpu"] = _tree_to(batch["card"], "cpu")
+    runs = {"cpu": "cpu", "card": DEVICE}
+    prefill = make_prefill_step(cfg)
+    logits, probes, secs = {}, {}, {}
+    for run in runs:
+        t1 = time.time()
+        with RouteProbe(moe_mod) as probes[run]:
+            logits[run] = prefill(params[run], batch[run]).cpu()
+        secs[run] = time.time() - t1
+    out = {"prefill_seconds": secs}
+    if cfg.moe:
+        out["prefill_routing"] = route_agreement(torch, arch, "prefill",
+                                                 probes["card"].calls, probes["cpu"].calls)
+    got, want = logits["card"], logits["cpu"]
+    err = float((got - want).abs().max())
+    used = float(((got - want).abs() / (tol * (1 + want.abs()))).max())
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        fail(f"card vs CPU {arch} prefill logits: max |err| {err} beyond rtol "
+             f"and atol {tol} (bar used {used:.3f})")
+    serve = make_serve_step(cfg)
+    states = {run: init_params(state_specs_for(cfg, b, steps), None, torch.float32, dev)
+              for run, dev in runs.items()}
+    if cfg.family == "encdec":
+        for run in runs:
+            states[run]["cross"] = encdec.cross_kv(cfg, params[run], encdec.encode(
+                cfg, params[run], batch[run]["frames"]))
+    tok = {run: torch.argmax(want, dim=-1).to(torch.int32).to(dev)
+           for run, dev in runs.items()}
+    stream, serve_probes = [], {run: RouteProbe(moe_mod) for run in runs}
+    for i in range(steps):
+        for run, dev in runs.items():
+            step_batch = {"token": tok[run][:, None],
+                          "cache_len": torch.full((b,), i, dtype=torch.int32, device=dev)}
+            if cfg.mrope:
+                step_batch["positions"] = torch.full((3, b, 1), s + i, dtype=torch.int32,
+                                                     device=dev)
+            with serve_probes[run]:
+                tok[run], states[run] = serve(params[run], states[run], step_batch)
+        if not torch.equal(tok["card"].cpu(), tok["cpu"]):
+            fail(f"card vs CPU {arch} serve step {i}: greedy tokens differ")
+        stream.append(tok["cpu"].tolist())
+    if cfg.moe:
+        out["serve_routing"] = route_agreement(torch, arch, "serve",
+                                               serve_probes["card"].calls,
+                                               serve_probes["cpu"].calls)
+    routing = "; ".join(f"{k} {v['decisions']} decisions, {v['near_ties']} near ties, "
+                        f"{v['near_tie_mismatches']} differ"
+                        for k, v in out.items() if k.endswith("routing"))
+    log(f"LM card vs CPU ({arch} width, {c['layers']} layers, f32, S={s}): prefill "
+        f"logits max |err| {err:.3g} (rtol and atol {tol}; bar used {used:.3f}), "
+        f"{steps} greedy serve steps equal; CPU prefill {secs['cpu']:.1f} s, "
+        f"{time.time() - t0:.1f} s in all" + (f"; routing: {routing}" if routing else ""))
+    del params, states, batch
+    torch.cuda.empty_cache()
+    return dict(out, prefill_max_abs_err=err, bar=tol, bar_used=used,
+                greedy_tokens=stream, seconds=time.time() - t0)
+
+
+def family_phase(torch, np, ops) -> dict:
+    """Phase 14: the MoE, MLA, enc-dec, M-RoPE VLM, StableLM and Command R+
+    configs, one model at a time, its memory freed after: (a) the prefill
+    at full width (``FAMILY_PATHS``), launches counted; (b) the serving
+    launcher; (c) card against CPU.  Command R+'s full-size parameter count
+    is logged from its specs (the CPU tests hold it equal to the JAX
+    package's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import active_param_count, param_count
+
+    out, launches = {}, {k: 0 for k in ops.LAUNCHES}
+    for arch, (layers, flash) in FAMILY_PATHS.items():
+        t0 = time.time()
+        full = get_config(arch)
+        run = out[f"prefill {arch}"] = lm_prefill(torch, ops, arch,
+                                                  {"flash_attention": flash}, layers)
+        for k, n in run["launches"].items():
+            launches[k] += n
+        argv = FAMILY_SERVE_ARGV + (["--layers", str(layers)] if layers else [])
+        out[f"serve {arch}"] = lm_serve(torch, ops, arch, argv)
+        out[f"card vs CPU {arch}"] = family_card_vs_cpu(torch, np, arch)
+        out[f"params {arch}"] = dict(total=param_count(full), active=active_param_count(full))
+        log(f"phase 14 {arch}: {param_count(full) / 1e9:.3f} B parameters at full size "
+            f"({active_param_count(full) / 1e9:.3f} B active)"
+            + (f", run at {layers} of {full.num_layers} layers" if layers else "")
+            + f", {time.time() - t0:.1f} s")
     out["launches"] = launches
     return out
 

@@ -1,8 +1,5 @@
-"""Model configuration schema: the JAX package's ``ModelConfig``, field for field.
-
-The port runs the dense, SSM and hybrid families; the other families'
-fields are kept so that a configuration reads the same in both packages.
-"""
+"""Model configuration schema: the JAX package's ``ModelConfig``, field for
+field, covering all its architecture families."""
 
 from __future__ import annotations
 
@@ -114,3 +111,17 @@ class ModelConfig:
                              "d_inner divisible by ssm_headdim")
         return self
 
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Approximate parameter count (used for 6*N*D MODEL_FLOPS)."""
+    from repro_torch.models.lm import count_params_analytic
+
+    return count_params_analytic(cfg)
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active (per-token) parameters — MoE uses top-k + shared experts only."""
+    from repro_torch.models.lm import count_params_analytic
+
+    return count_params_analytic(cfg, active_only=True)

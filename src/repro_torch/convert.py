@@ -16,6 +16,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.power import PowerParams
 from repro_torch.core.state import TwinConfig, TwinState, state_from_leaves
 from repro_torch.models.common import ParamSpec
+from repro_torch.models.encdec import encdec_specs
 from repro_torch.models.lm import model_specs
 from repro_torch.optim.adamw import OptState
 from repro_torch.traces.schema import Workload
@@ -67,11 +68,24 @@ def lm_params_from_numpy(tree, cfg: ModelConfig,
     """The LM's parameters from a nested dict of arrays.
 
     ``tree`` has the layout of ``model_specs(cfg)`` (the JAX package's
-    parameter tree, leaves as numpy arrays); every leaf must have its
-    spec's shape.  Leaves go through float32, which holds bfloat16 values
-    (``ml_dtypes`` arrays, which ``torch.from_numpy`` refuses) exactly,
-    then to ``dtype`` (default: ``cfg.dtype``) on ``device``.
+    parameter tree, leaves as numpy arrays: any decoder-only family, MoE
+    with its padded experts, MLA and VLM included); every leaf must have
+    its spec's shape.  Leaves go through float32, which holds bfloat16
+    values (``ml_dtypes`` arrays, which ``torch.from_numpy`` refuses)
+    exactly, then to ``dtype`` (default: ``cfg.dtype``) on ``device``.
     """
+    return _params_from_numpy(tree, model_specs(cfg), cfg, device, dtype)
+
+
+def encdec_params_from_numpy(tree, cfg: ModelConfig,
+                             device: "str | torch.device" = "cuda",
+                             dtype: "torch.dtype | str | None" = None) -> dict:
+    """The enc-dec backbone's parameters from a nested dict of arrays of
+    the layout of ``encdec_specs(cfg)``, as :func:`lm_params_from_numpy`."""
+    return _params_from_numpy(tree, encdec_specs(cfg), cfg, device, dtype)
+
+
+def _params_from_numpy(tree, specs, cfg: ModelConfig, device, dtype) -> dict:
     dev = resolve_device(device)
     if not isinstance(dtype, torch.dtype):
         dtype = getattr(torch, dtype or cfg.dtype)
@@ -90,7 +104,7 @@ def lm_params_from_numpy(tree, cfg: ModelConfig,
         return {k: convert(node[k], spec[k], f"{path}/{k}" if path else k)
                 for k in spec}
 
-    return convert(tree, model_specs(cfg), "")
+    return convert(tree, specs, "")
 
 
 def opt_state_from_numpy(tree, params, device: "str | torch.device" = "cuda"

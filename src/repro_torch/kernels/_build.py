@@ -40,7 +40,7 @@ ENTRY_POINTS = {
     "des_readout": ("des_readout_launch", [_P] * 2),
     "power_sim": ("power_sim_launch", [_P] * 2 + [_I] * 3 + [_F] * 5 + [_P]),
     "flash_attention": ("flash_attention_launch",
-                        [_P] * 5 + [_I] * 8 + [_F] + [_P]),
+                        [_P] * 5 + [_I] * 9 + [_F] + [_P]),
     "ssd_chunk": ("ssd_chunk_launch", [_P] * 8 + [_I] * 6 + [_P]),
     "des_place": ("des_place_launch", [_P] * 2),
 }

@@ -3,12 +3,16 @@
 // src/repro/kernels/flash_attention.py:95 (flash_attention_pallas, body
 // _kernel).
 //
-// Layout: q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D], out [B, Hq, Sq, D] in
-// q's dtype, all contiguous.  Query head hq reads KV head hq / (Hq / Hkv)
-// in place.  As in the TPU kernel: a key is masked with -1e30 when it lies
-// past the diagonal (offset Skv - Sq) or past Skv (the ragged tile), KV
-// tiles strictly above the diagonal are skipped, the output is
-// acc / max(l, 1e-30), and rows that see no key at all are left undefined.
+// Layout: q [B, Hq, Sq, D], k [B, Hkv, Skv, D], v [B, Hkv, Skv, Dv], out
+// [B, Hq, Sq, Dv] in q's dtype, all contiguous.  The QK head dim D and the
+// V head dim Dv are separate template parameters (MLA: D = qk_nope +
+// qk_rope, Dv = v_head_dim); the pairs instantiated are (16, 16), (32, 32),
+// (64, 64), (128, 128), (80, 80), (96, 64) and (192, 128).  Query head hq
+// reads KV head hq / (Hq / Hkv) in place.  As in the TPU kernel: a key is
+// masked with -1e30 when it lies past the diagonal (offset Skv - Sq) or
+// past Skv (the ragged tile), KV tiles strictly above the diagonal are
+// skipped, the output is acc / max(l, 1e-30), and rows that see no key at
+// all are left undefined.
 // Where the caller passes an lse buffer ([B, Hq, Sq] f32), each row also
 // writes its log-sum-exp m + log(max(l, 1e-30)) once, after its last KV
 // tile, from the f32 statistics, in natural-log units of the scaled
@@ -18,6 +22,14 @@
 // Bound on an H100 at SmolLM-360M's prefill shape (B=4, Hq=15, Hkv=5,
 // S=2048, D=64, causal): operations, 32.2 GFLOP over the causal half,
 // 0.0326 ms at 989 TFLOP/s bf16 against 25 MB of q/k/v/o.
+//
+// Head dims 80, 96 and 192 (StableLM-3B; the MLA of MiniCPM3-4B and
+// DeepSeek-V2-Lite, whose V is 64 and 128 wide) take the same code: K and V
+// are staged with rows of their own widths, and the bf16 route keeps Q's
+// D/16 k-step fragments and O's Dv/8 accumulator blocks in registers (12
+// and 16 at (192, 128)).  Its shared memory, (64 + 2 * 64) (D + 8) +
+// 2 * 64 (Dv + 8) bf16, is 109 KB at (192, 128), the f32 route's
+// 64 (D + Dv) floats 80 KB: both are opted in above 48 KB (set_smem).
 //
 // Two routes, chosen by dtype:
 //
@@ -65,16 +77,17 @@ constexpr int kKTile = 64;
 constexpr int kSub = 16;                 // keys per online-softmax update
 constexpr int kThreads = 2 * kQTile;     // two threads per query row
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
                  int causal, float scale) {
-  constexpr int kChunks = D / 8;         // float4 chunks of a thread's half
+  constexpr int kChunks = D / 8;         // float4 chunks of a thread's half of q
+  constexpr int kVChunks = Dv / 8;       // ... and of its accumulator
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);   // [kKTile][D]
-  float* vs = ks + kKTile * D;                   // [kKTile][D]
+  float* vs = ks + kKTile * D;                   // [kKTile][Dv]
 
   const int qt = gridDim.x - 1 - blockIdx.x;     // longest causal rows first
   const int hq = blockIdx.y;
@@ -87,10 +100,12 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int diag = Skv - Sq;
 
   const long long q_base = (static_cast<long long>(b) * Hq + hq) * Sq * D;
-  const long long kv_base = (static_cast<long long>(b) * Hkv + hkv) * Skv * D;
+  const long long o_base = (static_cast<long long>(b) * Hq + hq) * Sq * Dv;
+  const long long k_base = (static_cast<long long>(b) * Hkv + hkv) * Skv * D;
+  const long long v_base = (static_cast<long long>(b) * Hkv + hkv) * Skv * Dv;
 
   float qr[D / 2];
-  float acc[D / 2];
+  float acc[Dv / 2];
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
 #pragma unroll
@@ -98,9 +113,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int d = (2 * c + half) * 4 + e;
       qr[4 * c + e] =
           qi < Sq ? q[q_base + static_cast<long long>(qi) * D + d] * scale : 0.0f;
-      acc[4 * c + e] = 0.0f;
     }
   }
+#pragma unroll
+  for (int i = 0; i < Dv / 2; ++i) acc[i] = 0.0f;
   float m = kNegInf;
   float l = 0.0f;
 
@@ -115,9 +131,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                             // the previous tile is consumed
     for (int idx = tid; idx < kKTile * D; idx += kThreads) {
       const bool ok = k0 + idx / D < Skv;
-      const long long g = kv_base + static_cast<long long>(k0) * D + idx;
-      ks[idx] = ok ? k[g] : 0.0f;
-      vs[idx] = ok ? v[g] : 0.0f;
+      ks[idx] = ok ? k[k_base + static_cast<long long>(k0) * D + idx] : 0.0f;
+    }
+    for (int idx = tid; idx < kKTile * Dv; idx += kThreads) {
+      const bool ok = k0 + idx / Dv < Skv;
+      vs[idx] = ok ? v[v_base + static_cast<long long>(k0) * Dv + idx] : 0.0f;
     }
     __syncthreads();
 
@@ -152,13 +170,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       l = fmaf(l, alpha, psum);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha;
+      for (int i = 0; i < Dv / 2; ++i) acc[i] *= alpha;
 #pragma unroll
       for (int jj = 0; jj < kSub; ++jj) {
-        const float4* vr = reinterpret_cast<const float4*>(vs + (j0 + jj) * D);
+        const float4* vr = reinterpret_cast<const float4*>(vs + (j0 + jj) * Dv);
         const float p = s[jj];
 #pragma unroll
-        for (int c = 0; c < kChunks; ++c) {
+        for (int c = 0; c < kVChunks; ++c) {
           const float4 vv = vr[2 * c + half];
           acc[4 * c] = fmaf(p, vv.x, acc[4 * c]);
           acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
@@ -174,9 +192,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float lc = fmaxf(l, 1e-30f);
   if (lse != nullptr && half == 0)
     lse[(static_cast<long long>(b) * Hq + hq) * Sq + qi] = m + logf(lc);
-  float* orow = o + q_base + static_cast<long long>(qi) * D;
+  float* orow = o + o_base + static_cast<long long>(qi) * Dv;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
+  for (int c = 0; c < kVChunks; ++c) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) orow[(2 * c + half) * 4 + e] = acc[4 * c + e] / lc;
   }
@@ -239,36 +257,38 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// rows [row0, row0 + R) of a [rows, D] bf16 matrix into shared memory with
-// row stride D + 8; rows at or past `valid` are zero-filled
-template <int D, int R>
+// rows [row0, row0 + R) of a bf16 matrix whose rows lie G elements apart
+// (its own width W: G = W) into shared memory with row stride W + 8; rows at
+// or past `valid` are zero-filled
+template <int W, int G, int R>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
                                           int valid, int tid) {
-  constexpr int kLd = D + 8;
-  constexpr int kPer = D / 8;            // 16-byte chunks of a row
+  constexpr int kLd = W + 8;
+  constexpr int kPer = W / 8;            // 16-byte chunks of a row
   for (int idx = tid; idx < R * kPer; idx += kTcThreads) {
     const int r = idx / kPer;
     const int c = idx - r * kPer;
     const bool ok = row0 + r < valid;
-    const bf16* g = ok ? src + static_cast<long long>(row0 + r) * D + c * 8 : src;
+    const bf16* g = ok ? src + static_cast<long long>(row0 + r) * G + c * 8 : src;
     cp_async16(smem_addr(dst + r * kLd + c * 8), g, ok);
   }
 }
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(kTcThreads)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
                   float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
                   int causal, float scale_log2) {
-  constexpr int kLd = D + 8;             // padded row: ldmatrix conflict-free
+  constexpr int kLd = D + 8;             // padded rows: ldmatrix conflict-free
+  constexpr int kLdv = Dv + 8;
   constexpr int kDSteps = D / 16;        // k-steps of Q K^T
   constexpr int kSBlocks = kKeys / 8;    // n-blocks of S
-  constexpr int kOBlocks = D / 8;        // n-blocks of O
+  constexpr int kOBlocks = Dv / 8;       // n-blocks of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][kLd]
   bf16* ks = qs + kRows * kLd;                   // [2][kKeys][kLd]
-  bf16* vs = ks + 2 * kKeys * kLd;               // [2][kKeys][kLd]
+  bf16* vs = ks + 2 * kKeys * kLd;               // [2][kKeys][kLdv]
 
   const int qt = gridDim.x - 1 - blockIdx.x;     // longest causal rows first
   const int hq = blockIdx.y;
@@ -285,7 +305,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const bf16* qb = q + (static_cast<long long>(b) * Hq + hq) * Sq * D;
   const bf16* kb = k + (static_cast<long long>(b) * Hkv + hkv) * Skv * D;
-  const bf16* vb = v + (static_cast<long long>(b) * Hkv + hkv) * Skv * D;
+  const bf16* vb = v + (static_cast<long long>(b) * Hkv + hkv) * Skv * Dv;
 
   int kv_tiles = (Skv + kKeys - 1) / kKeys;
   if (causal) {
@@ -293,10 +313,10 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     kv_tiles = min(kv_tiles, last < 0 ? 0 : last / kKeys + 1);
   }
 
-  load_tile<D, kRows>(qs, qb, q0, Sq, tid);
+  load_tile<D, D, kRows>(qs, qb, q0, Sq, tid);
   if (kv_tiles > 0) {
-    load_tile<D, kKeys>(ks, kb, 0, Skv, tid);
-    load_tile<D, kKeys>(vs, vb, 0, Skv, tid);
+    load_tile<D, D, kKeys>(ks, kb, 0, Skv, tid);
+    load_tile<Dv, Dv, kKeys>(vs, vb, 0, Skv, tid);
   }
   cp_async_commit();
 
@@ -319,12 +339,12 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     if (kt + 1 < kv_tiles) {
       const int nxt = (kt + 1) & 1;
-      load_tile<D, kKeys>(ks + nxt * kKeys * kLd, kb, (kt + 1) * kKeys, Skv, tid);
-      load_tile<D, kKeys>(vs + nxt * kKeys * kLd, vb, (kt + 1) * kKeys, Skv, tid);
+      load_tile<D, D, kKeys>(ks + nxt * kKeys * kLd, kb, (kt + 1) * kKeys, Skv, tid);
+      load_tile<Dv, Dv, kKeys>(vs + nxt * kKeys * kLdv, vb, (kt + 1) * kKeys, Skv, tid);
     }
     cp_async_commit();
     const bf16* kst = ks + (kt & 1) * kKeys * kLd;
-    const bf16* vst = vs + (kt & 1) * kKeys * kLd;
+    const bf16* vst = vs + (kt & 1) * kKeys * kLdv;
 
     // S = Q K^T on the tensor cores
     float s[kSBlocks][4];
@@ -398,7 +418,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int j2 = 0; j2 < kOBlocks / 2; ++j2) {
         uint32_t vf[4];
         const int key = kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-        ldsm_x4_t(vf, smem_addr(vst + key * kLd + j2 * 16 + 8 * (lane >> 4)));
+        ldsm_x4_t(vf, smem_addr(vst + key * kLdv + j2 * 16 + 8 * (lane >> 4)));
         mma_bf16(oacc[2 * j2], pa, vf[0], vf[1]);
         mma_bf16(oacc[2 * j2 + 1], pa, vf[2], vf[3]);
       }
@@ -417,8 +437,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (lse != nullptr && tig == 0)
       lse[(static_cast<long long>(b) * Hq + hq) * Sq + rows[r]] =
           m[r] * 0.6931471805599453f + logf(lc);
-    bf16* orow = o + (static_cast<long long>(b) * Hq + hq) * Sq * D +
-                 static_cast<long long>(rows[r]) * D;
+    bf16* orow = o + (static_cast<long long>(b) * Hq + hq) * Sq * Dv +
+                 static_cast<long long>(rows[r]) * Dv;
 #pragma unroll
     for (int j = 0; j < kOBlocks; ++j) {
       *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * tig) =
@@ -436,12 +456,12 @@ int set_smem(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
-template <int D>
+template <int D, int Dv>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
                int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
                cudaStream_t stream) {
-  const int smem = 2 * kKTile * D * static_cast<int>(sizeof(float));
-  auto kernel = flash_f32_kernel<D>;
+  const int smem = kKTile * (D + Dv) * static_cast<int>(sizeof(float));
+  auto kernel = flash_f32_kernel<D, Dv>;
   if (const int e = set_smem(kernel, smem)) return e;
   const dim3 grid((Sq + kQTile - 1) / kQTile, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -451,7 +471,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int Dv>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                 int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
                 cudaStream_t stream) {
@@ -459,8 +479,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const int smem = (kRows + 4 * kKeys) * (D + 8) * static_cast<int>(sizeof(bf16));
-  auto kernel = flash_bf16_kernel<D>;
+  // Q tile, two K stages, two V stages; 109 KB at (192, 128), opted in
+  const int smem = ((kRows + 2 * kKeys) * (D + 8) + 2 * kKeys * (Dv + 8)) *
+                   static_cast<int>(sizeof(bf16));
+  auto kernel = flash_bf16_kernel<D, Dv>;
   if (const int e = set_smem(kernel, smem)) return e;
   const float scale_log2 =
       static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
@@ -472,43 +494,45 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int Dv>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int causal,
            float scale, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    return launch_f32<D, Dv>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, scale,
+                             stream);
   if (dtype == 1)
-    return launch_bf16<D>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    return launch_bf16<D, Dv>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal,
+                              scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// D: the QK head dim, Dv: the V head dim, one of the instantiated pairs.
 // dtype: 0 = float32, 1 = bfloat16.  lse: a [B, Hq, Sq] f32 buffer for the
-// rows' log-sum-exp, or null for none.  Returns the launch's CUDA error code.
+// rows' log-sum-exp, or null for none.  Returns the launch's CUDA error code
+// (cudaErrorInvalidValue for a pair that is not instantiated).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int B, int Hq, int Hkv, int Sq, int Skv,
-                                      int D, int dtype, int causal,
+                                      int D, int Dv, int dtype, int causal,
                                       float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch<16>(dtype, q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv,
-                         Sq, Skv, causal, scale, st);
-    case 32:
-      return launch<32>(dtype, q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv,
-                         Sq, Skv, causal, scale, st);
-    case 64:
-      return launch<64>(dtype, q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv,
-                         Sq, Skv, causal, scale, st);
-    case 128:
-      return launch<128>(dtype, q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv,
-                         Sq, Skv, causal, scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  float* l = static_cast<float*>(lse);
+#define FLASH_PAIR(DQK, DV)                                                   \
+  if (D == DQK && Dv == DV)                                                   \
+    return launch<DQK, DV>(dtype, q, k, v, o, l, B, Hq, Hkv, Sq, Skv, causal, \
+                           scale, st);
+  FLASH_PAIR(16, 16)
+  FLASH_PAIR(32, 32)
+  FLASH_PAIR(64, 64)
+  FLASH_PAIR(128, 128)
+  FLASH_PAIR(80, 80)
+  FLASH_PAIR(96, 64)
+  FLASH_PAIR(192, 128)
+#undef FLASH_PAIR
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,6 +9,12 @@ Bound on an H100: operations.  At the prefill shape of SmolLM-360M
 4*B*Hq*S^2*D/2 = 32.2 GFLOP against 25 MB of q/k/v/o, so the floor is the
 tensor cores' bf16 rate: 0.0326 ms at 989 TFLOP/s.
 
+The QK head dim ``D`` and the V head dim ``Dv`` are separate template
+parameters of both routes, and the output is ``[B, Hq, Sq, Dv]``: MLA
+(MiniCPM3-4B, DeepSeek-V2-Lite) attends with QK ``qk_nope + qk_rope`` and
+V ``v_head_dim``.  The TPU kernel tiles V with K's width; the JAX package
+runs MLA on its XLA route, which takes the two dims natively.
+
 The library picks a route by dtype.  bfloat16, which every prefill hands
 it, runs on the tensor cores: one block of 4 warps per (64-row query
 tile, query head, batch row), K/V tiles kept bf16 in shared memory in a
@@ -34,8 +40,11 @@ from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
 
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+#: (QK head dim, V head dim) pairs the kernel is instantiated for: equal
+#: dims of the GQA configs (SmolLM, Zamba2 64; StableLM-3B 80; 128), and
+#: the MLA pairs of MiniCPM3-4B (96, 64) and DeepSeek-V2-Lite (192, 128)
+HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (80, 80),
+                  (96, 64), (192, 128))
 
 #: largest grid y/z dimension (query heads, batch)
 MAX_GRID_YZ = 65535
@@ -50,11 +59,12 @@ DTYPE_IDS = {
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                          scale: float, return_lse: bool = False
                          ) -> Tensor | tuple[Tensor, Tensor]:
-    """``[B, Hq, Sq, D]`` attention output on the card, in q's dtype.
+    """``[B, Hq, Sq, Dv]`` attention output on the card, in q's dtype.
 
-    q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]``: contiguous CUDA tensors
-    of one dtype (float32 or bfloat16) on one device, ``Hq % Hkv == 0``
-    and ``D`` in :data:`HEAD_DIMS`.  With ``return_lse`` the result is
+    q ``[B, Hq, Sq, D]``, k ``[B, Hkv, Skv, D]``, v ``[B, Hkv, Skv, Dv]``:
+    contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
+    device, ``Hq % Hkv == 0`` and ``(D, Dv)`` in :data:`HEAD_DIM_PAIRS`
+    (any other pair raises).  With ``return_lse`` the result is
     ``(out, lse)``: ``lse`` ``[B, Hq, Sq]`` float32 is each row's
     ``m + log(max(l, 1e-30))`` over the scaled logits, from the kernel's
     f32 statistics, written by the same launch.
@@ -66,16 +76,16 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
         raise ValueError("q, k and v must be [B, H, S, D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (b, hkv, skv, d) or tuple(v.shape) != tuple(k.shape):
-        raise ValueError(f"k and v must both be [{b}, Hkv, Skv, {d}]; got "
-                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if tuple(k.shape) != (b, hkv, skv, d) or tuple(v.shape[:3]) != (b, hkv, skv):
+        raise ValueError(f"k and v must be [{b}, Hkv, Skv, {d}] and [{b}, Hkv, "
+                         f"Skv, Dv]; got {tuple(k.shape)} and {tuple(v.shape)}")
     if skv == 0:
         raise ValueError("k and v hold no keys (Skv = 0)")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"query heads {hq} must be a multiple of KV heads {hkv}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if (d, dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims (QK {d}, V {dv}) not in {HEAD_DIM_PAIRS}")
     if q.dtype not in DTYPE_IDS:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, x in (("k", k), ("v", v)):
@@ -88,7 +98,7 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
             raise ValueError(f"{name} must be contiguous")
     if hq > MAX_GRID_YZ or b > MAX_GRID_YZ:
         raise ValueError(f"Hq {hq} and B {b} must be at most {MAX_GRID_YZ}")
-    out = torch.empty_like(q)
+    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=dev)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
            if return_lse else None)
     if out.numel() == 0:
@@ -102,7 +112,7 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, hq, hkv, sq, skv, d,
+            None if lse is None else lse.data_ptr(), b, hq, hkv, sq, skv, d, dv,
             DTYPE_IDS[q.dtype], int(bool(causal)), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")

@@ -229,9 +229,12 @@ def power_sim(u_th: Tensor, *, p_idle: float, p_max: float, r: float,
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     scale: float | None = None, return_lse: bool = False
                     ) -> Tensor | tuple[Tensor, Tensor]:
-    """GQA flash-attention forward: ``[B, Hq, Sq, D]`` in q's dtype.
+    """GQA flash-attention forward: ``[B, Hq, Sq, Dv]`` in q's dtype.
 
-    q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]`` (any strides).  With
+    q ``[B, Hq, Sq, D]``, k ``[B, Hkv, Skv, D]``, v ``[B, Hkv, Skv, Dv]``
+    (any strides; the V head dim may differ from the QK one, as MLA's
+    does).  On the card ``(D, Dv)`` must be one of the kernel's
+    ``HEAD_DIM_PAIRS``; any other pair raises.  With
     ``return_lse``: ``(out, lse)``, ``lse`` ``[B, Hq, Sq]`` float32, the
     rows' log-sum-exp of the scaled logits (what the backward of
     ``models.attention`` reads), from the same launch.

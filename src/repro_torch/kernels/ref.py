@@ -135,9 +135,10 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
                         scale: float | None = None,
                         return_lse: bool = False
                         ) -> Tensor | tuple[Tensor, Tensor]:
-    """Plain attention with GQA head grouping: ``[B, Hq, Sq, D]`` in q's dtype.
+    """Plain attention with GQA head grouping: ``[B, Hq, Sq, Dv]`` in q's dtype.
 
-    q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]``; query head ``hi``
+    q ``[B, Hq, Sq, D]``, k ``[B, Hkv, Skv, D]``, v ``[B, Hkv, Skv, Dv]``
+    (a V head dim of its own, as MLA's); query head ``hi``
     reads KV head ``hi // (Hq / Hkv)``.  In f32 after the cast, q scaled
     after it; causal rows see keys ``j <= i + (Skv - Sq)``.  Mirrors
     ``repro.kernels.ref.flash_attention_ref``.  With ``return_lse`` also

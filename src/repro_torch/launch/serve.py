@@ -4,9 +4,15 @@
         --reduce 8 --batch 4 --prompt-len 32 --gen 64 --device cpu
 
 The flags are the JAX launcher's plus ``--device`` (default ``cuda``,
-which needs a card).  Parameters are random, drawn from ``--seed``; the
-prompt is prefilled token by token through the serve step, as the JAX
-launcher does, then ``--gen`` tokens are decoded greedily.
+which needs a card) and ``--layers`` (keep the first N layers of a
+decoder-only config at its full width: Command R+ 104B's 64 layers do
+not fit one card).  Any ``--arch`` of the registry runs.  Parameters are
+random, drawn from ``--seed``; the prompt is prefilled token by token
+through the serve step, as the JAX launcher does, then ``--gen`` tokens
+are decoded greedily.  M-RoPE configs (Qwen2-VL) get ``[3, B, 1]``
+positions, each stream at the token's index; the enc-dec config
+(Seamless) decodes against zero cross K/V, as the JAX launcher's zeroed
+state holds them.
 """
 
 from __future__ import annotations
@@ -54,11 +60,18 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--gen", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     cfg = reduce_config(get_config(args.arch), args.reduce)
+    if args.layers is not None:
+        if cfg.family == "encdec" or not 0 < args.layers <= cfg.num_layers:
+            raise ValueError(f"--layers {args.layers}: keeps 1..{cfg.num_layers} "
+                             "layers of a decoder-only config")
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     max_seq = args.prompt_len + args.gen
-    print(f"serving {cfg.name} (reduced x{args.reduce}) batch={args.batch} "
+    cut = "" if args.layers is None else f", first {args.layers} layers"
+    print(f"serving {cfg.name} (reduced x{args.reduce}{cut}) batch={args.batch} "
           f"cache={max_seq} on {dev}", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -73,7 +86,11 @@ def main(argv=None) -> ServeResult:
 
     def step(token, pos):
         cache_len = torch.full((args.batch,), pos, dtype=torch.int32, device=dev)
-        return serve(params, state, {"token": token, "cache_len": cache_len})
+        batch = {"token": token, "cache_len": cache_len}
+        if cfg.mrope:
+            batch["positions"] = torch.full((3, args.batch, 1), pos,
+                                            dtype=torch.int32, device=dev)
+        return serve(params, state, batch)
 
     # prefill by stepping the prompt tokens (cache fills token-by-token)
     _sync(dev)

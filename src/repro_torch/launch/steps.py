@@ -3,9 +3,9 @@
 The units the launchers, the live-twin example and ``chip_smoke.py``
 share.  ``train_step`` takes gradients with ``torch.autograd.grad`` over
 the parameter leaves and applies one AdamW step; the prefill and serve
-steps run under ``torch.no_grad()``.  The dense, SSM and hybrid families
-are ported; the enc-dec loss raises ``NotImplementedError`` here and
-``models.lm`` raises for the other families.
+steps run under ``torch.no_grad()``.  Prefill and serving take every
+family; the enc-dec loss (``loss_for``) raises ``NotImplementedError``:
+training that family waits.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch._tree import flatten, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ed
 from repro_torch.models import lm
 from repro_torch.models.common import dense
 from repro_torch.optim.adamw import AdamWConfig, apply_updates
@@ -26,22 +27,33 @@ def loss_for(cfg: ModelConfig):
 
 
 def param_specs_for(cfg: ModelConfig):
+    if cfg.family == "encdec":
+        return ed.encdec_specs(cfg)
     return lm.model_specs(cfg)
 
 
 def state_specs_for(cfg: ModelConfig, batch: int, seq: int):
+    if cfg.family == "encdec":
+        return ed.encdec_state_specs(cfg, batch, seq)
     return lm.decode_state_specs(cfg, batch, seq)
 
 
 def make_prefill_step(cfg: ModelConfig):
     """Prefill: hidden states -> LAST-position logits only ``[B, vocab]``
     (the ``[B, S, V]`` logits tensor is never materialized).  The cache is
-    not written out, as in the JAX package."""
+    not written out, as in the JAX package.  The enc-dec family reads
+    ``frames`` [B, F, d] beside ``tokens``."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        x = lm.backbone(cfg, params, batch)
-        return dense(x[:, -1], lm._unembed_matrix(cfg, params))
+        if cfg.family == "encdec":
+            enc_out = ed.encode(cfg, params, batch["frames"])
+            x = ed.decode_train(cfg, params, batch["tokens"], enc_out)
+            w = params["unembed"]
+        else:
+            x, _ = lm.backbone(cfg, params, batch)
+            w = lm._unembed_matrix(cfg, params)
+        return dense(x[:, -1], w)
 
     return prefill_step
 
@@ -51,7 +63,10 @@ def make_serve_step(cfg: ModelConfig):
 
     @torch.no_grad()
     def serve_step(params, state, batch):
-        logits, state = lm.decode_step(cfg, params, state, batch)
+        if cfg.family == "encdec":
+            logits, state = ed.encdec_decode_step(cfg, params, state, batch)
+        else:
+            logits, state = lm.decode_step(cfg, params, state, batch)
         return torch.argmax(logits, dim=-1).to(torch.int32), state
 
     return serve_step

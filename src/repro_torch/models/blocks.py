@@ -11,7 +11,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import chunked_attention, decode_attention
 from repro_torch.models.common import ParamSpec, dense, rms_norm, swiglu
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.rope import apply_mrope, apply_rope
 
 Tensor = torch.Tensor
 
@@ -52,7 +52,8 @@ def block_specs(cfg: ModelConfig, L: int) -> dict[str, ParamSpec]:
 def _rope_q_k(cfg: ModelConfig, q: Tensor, k: Tensor, positions: Tensor
               ) -> tuple[Tensor, Tensor]:
     if cfg.mrope:
-        raise NotImplementedError("M-RoPE (family 'vlm') is not ported yet")
+        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
     return (apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction),
             apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction))
 

@@ -93,6 +93,16 @@ def rms_norm(x: Tensor, gamma: Tensor, eps: float) -> Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma
 
 
+def layer_norm(x: Tensor, gamma: Tensor, beta: Tensor, eps: float) -> Tensor:
+    """Mean and (biased) variance in f32, normalized, cast back, then
+    ``* gamma + beta`` in x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * gamma + beta
+
+
 def swiglu(gate: Tensor, up: Tensor) -> Tensor:
     return torch.nn.functional.silu(gate) * up
 

@@ -1,7 +1,5 @@
-"""Rotary position embeddings: standard and partial (StableLM).
-
-M-RoPE (Qwen2-VL) waits for the VLM family.
-"""
+"""Rotary position embeddings: standard, partial (StableLM) and M-RoPE
+(Qwen2-VL: separate temporal/height/width sections of the head dim)."""
 
 from __future__ import annotations
 
@@ -48,3 +46,34 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float,
     x1, x2 = torch.chunk(x_rot.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+
+@functools.lru_cache(maxsize=32)
+def _section_ids(sections: tuple[int, int, int], device: torch.device) -> Tensor:
+    """[half] the position stream (0 t, 1 h, 2 w) of each rotary frequency,
+    built on the host and copied to ``device`` once."""
+    return torch.repeat_interleave(torch.arange(3), torch.tensor(sections)).to(device)
+
+
+def apply_mrope(x: Tensor, positions: Tensor, theta: float,
+                sections: tuple[int, int, int]) -> Tensor:
+    """Multimodal RoPE (Qwen2-VL).
+
+    x: [B, S, H, D]; positions: [3, B, S] — temporal/height/width position
+    ids.  The rotary half-dim is partitioned into ``sections`` (t, h, w);
+    each section's angles use the corresponding position stream.
+    """
+    d = x.shape[-1]
+    half = d // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"half the head dim {half}")
+    inv = _freqs_on(d, float(theta), x.device)                 # [half]
+    sec_ids = _section_ids(tuple(sections), x.device)          # [half]
+    pos_sel = positions.float()[sec_ids]                       # [half, B, S]
+    ang = torch.einsum("fbs,f->bsf", pos_sel, inv)             # [B, S, half]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

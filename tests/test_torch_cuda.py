@@ -7,9 +7,12 @@ the JAX package, so it runs on a GPU machine that has only PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 It covers what ``chip_smoke.py`` does not: the wrappers' operand checks
-and their launch counting, the readout's lanes at every warp split, and
-that ``chip_smoke.py``'s flash-attention, calib, readout and placement
-checks fail on faults planted in copies of those kernels; and, for
+and their launch counting (the flash wrapper refusing a QK/V head-dim
+pair it has no instantiation for), the flash kernel's head-dim pairs of
+StableLM and the MLA configs on both routes, the readout's lanes at
+every warp split, and that ``chip_smoke.py``'s flash-attention, calib,
+readout and placement checks fail on faults planted in copies of those
+kernels (V read at K's row stride fails only the MLA shapes); and, for
 training, the flash-attention and SSD autograd Functions' gradients on
 the card against their CPU runs, the lse output, one counted bf16 train
 step and a card checkpoint restored on the CPU.
@@ -160,6 +163,14 @@ def test_flash_and_power_sim_wrappers_reject_bad_operands(dev):
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_cuda(q[..., :12].contiguous(), kv[..., :12].contiguous(),
                              kv[..., :12].contiguous(), causal=True, scale=0.25)
+    for d, dv in ((64, 32), (80, 64), (192, 192)):      # pairs not instantiated
+        qd = torch.randn((2, 4, 8, d), device=dev)
+        kd = torch.randn((2, 2, 8, d), device=dev)
+        vd = torch.randn((2, 2, 8, dv), device=dev)
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention_cuda(qd, kd, vd, causal=True, scale=0.25)
+        with pytest.raises(ValueError, match="head dims"):
+            ops.flash_attention(qd.bfloat16(), kd.bfloat16(), vd.bfloat16())  # tracecheck: disable=TC005 — the bf16 attention route
     with pytest.raises(ValueError, match="multiple"):
         flash_attention_cuda(q[:, :3].contiguous(), kv, kv, causal=True, scale=0.25)
     with pytest.raises(ValueError, match="k and v"):
@@ -261,9 +272,11 @@ def _chip_smoke():
 
 
 #: faults planted in a copy of the bf16 flash kernel, as (text, replacement)
-#: in its source, each confined to the last 64-row query tile of a
-#: 2048-key prefill, whose rows average the most keys, so a fault moves
-#: them least; "none" is the unchanged copy
+#: in its source: the first three confined to the last 64-row query tile of
+#: a 2048-key prefill, whose rows average the most keys, so a fault moves
+#: them least; the last reads the first V tile with K's row stride, which
+#: only a V head dim other than the QK one (MLA) can show; "none" is the
+#: unchanged copy
 FLASH_FAULTS = {
     "none": ("", ""),
     "kv tile skipped": (
@@ -271,13 +284,26 @@ FLASH_FAULTS = {
         "    cp_async_commit();\n    if (kv_tiles >= 32 && kt == kv_tiles / 2) continue;\n"
         "    const bf16* kst"),
     "wrong ring stage": (
-        "const bf16* vst = vs + (kt & 1) * kKeys * kLd;",
+        "const bf16* vst = vs + (kt & 1) * kKeys * kLdv;",
         "const bf16* vst = vs + ((kt + (kv_tiles >= 32 && kt == kv_tiles - 1)) & 1)"
-        " * kKeys * kLd;"),
+        " * kKeys * kLdv;"),
     "diagonal key masked": (
         "(!causal || rows[e >> 1] + diag >= key)",
         "(!causal || rows[e >> 1] + diag >= key + (kv_tiles >= 32))"),
+    "V read at the QK stride": (
+        "load_tile<Dv, Dv, kKeys>(vs, vb, 0, Skv, tid);",
+        "load_tile<Dv, D, kKeys>(vs, vb, 0, Skv, tid);"),
 }
+
+
+def _flash_fault_shows(fault: str, d: int, dv: int, skv: int) -> bool:
+    """Whether the planted ``fault`` must fail a bf16 prefill case: the
+    first three on 2048 keys (32 KV tiles), the V stride where ``dv != d``."""
+    if fault == "none":
+        return False
+    if fault == "V read at the QK stride":
+        return dv != d
+    return skv >= 32 * 64
 
 
 def _build_copies(name: str, faults: dict, out_dir: pathlib.Path) -> dict:
@@ -306,31 +332,59 @@ def _build_copies(name: str, faults: dict, out_dir: pathlib.Path) -> dict:
 
 
 def test_flash_check_fails_on_planted_faults(dev, tmp_path):
-    """``chip_smoke.py``'s bf16 flash check, at both prefill shapes, passes
-    the unchanged copy and fails each planted fault.  Prints each bar use
-    beside that of the earlier check (the plain version rounded to bf16,
-    rtol / atol 2e-2)."""
+    """``chip_smoke.py``'s bf16 flash check, at every bf16 prefill shape
+    (2048 queries), passes the unchanged copy and fails each planted fault
+    where it shows (``_flash_fault_shows``): the V-stride fault fails the
+    MLA shapes and only them.  Prints each bar use beside that of the
+    earlier check (the plain version rounded to bf16, rtol / atol 2e-2)."""
     from repro_torch.kernels import ref
 
     cs = _chip_smoke()
-    cases = [i for i, c in enumerate(cs.FLASH_CASES) if c[7] and c[3] == cs.PREFILL_S]
-    assert len(cases) == 2
+    cases = [i for i, c in enumerate(cs.FLASH_CASES) if c[8] and c[3] == cs.PREFILL_S]
+    assert len(cases) == 9
+    assert sum(cs.FLASH_CASES[i][5] != cs.FLASH_CASES[i][6] for i in cases) == 2
     stream = torch.cuda.current_stream().cuda_stream
     for name, launch in _build_copies("flash_attention", FLASH_FAULTS, tmp_path).items():
         for i in cases:
-            b, hq, hkv, sq, skv, d, causal, _, rtol, atol = cs.FLASH_CASES[i]
+            b, hq, hkv, sq, skv, d, dv, causal, _, rtol, atol = cs.FLASH_CASES[i]
             q, k, v = cs.flash_inputs(torch, np, i, dev)
-            got = torch.empty_like(q)
+            got = q.new_empty((b, hq, sq, dv))
             assert launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(),
-                          None, b, hq, hkv, sq, skv, d, 1, int(causal), d ** -0.5,
+                          None, b, hq, hkv, sq, skv, d, dv, 1, int(causal), d ** -0.5,
                           stream) == 0
             torch.cuda.synchronize()
             err, used = cs.flash_bar_use(torch, ref, got, q, k, v, causal, rtol, atol)
             want = ref.flash_attention_ref(q, k, v, causal=causal).float()
             old = float(((got.float() - want).abs() / (2e-2 + 2e-2 * want.abs())).max())
-            print(f"flash fault {name!r} at {(b, hq, hkv, sq, skv, d)}: max |err| "
+            print(f"flash fault {name!r} at {(b, hq, hkv, sq, skv, d, dv)}: max |err| "
                   f"{err:.3g}, bar used {used:.3g} (earlier check {old:.3g})")
-            assert (used <= 1.0) == (name == "none"), (name, i, used)
+            assert (used > 1.0) == _flash_fault_shows(name, d, dv, skv), (name, i, used)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,dv", [(80, 80), (96, 64), (192, 128)])
+def test_flash_new_head_dim_pairs_match_plain(dev, dtype, d, dv):
+    """The head-dim pairs of StableLM-3B and the MLA configs on both
+    routes, GQA, ragged (Sq 70 < Skv 150) and causal, against the plain
+    version at chip_smoke.py's bars, with the lse, repeatable bit for bit."""
+    from repro_torch.kernels import ref
+
+    cs = _chip_smoke()
+    rng = np.random.default_rng(d + dv)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(rng.normal(0, 1, s).astype(np.float32), device=dev).to(dt)
+               for s in ((2, 6, 70, d), (2, 2, 150, d), (2, 2, 150, dv)))
+    ops.reset_launches()
+    out, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert out.shape == (2, 6, 70, dv) and out.dtype == dt
+    assert torch.equal(out, ops.flash_attention(q, k, v, causal=True))
+    rtol, atol = (2e-5, 2e-4) if dtype == "float32" else (1e-2, 1.5e-2)
+    _, used = cs.flash_bar_use(torch, ref, out, q, k, v, True, rtol, atol)
+    assert used <= 1.0
+    _, want = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True,
+                                      return_lse=True)
+    torch.testing.assert_close(lse, want, rtol=cs.LSE_RTOL, atol=cs.LSE_ATOL)
 
 
 #: faults planted in a copy of the calib kernel, as (text, replacement) in

@@ -99,7 +99,7 @@ def _chip_smoke():
 
 
 CHIP_SMOKE = _chip_smoke()
-BF16_CARD_CASES = [i for i, c in enumerate(CHIP_SMOKE.FLASH_CASES) if c[7]]
+BF16_CARD_CASES = [i for i, c in enumerate(CHIP_SMOKE.FLASH_CASES) if c[8]]
 
 
 @pytest.mark.parametrize("i", BF16_CARD_CASES)

@@ -1,10 +1,14 @@
-"""The port's dense-LM serving path against the JAX package.
+"""The port's LM serving path against the JAX package.
 
 Same inputs, made from a seed with numpy, go through the JAX functions and
 their counterparts in the port; JAX parameters are carried over with
 ``convert.lm_params_from_numpy``.  On the CPU the port's attention runs the
 flash kernel's plain version.  Configurations are tiny (3 layers, d_model
-48, 4 query / 2 KV heads), one with tied and one with untied embeddings.
+48, 4 query / 2 KV heads), one with tied and one with untied embeddings;
+then M-RoPE, ``layer_norm``, the registry, every full config's parameter
+counts, and the serving parity of each architecture through
+``reduce_config(..., 8)`` (``arch_parity``, which the MoE, MLA and enc-dec
+test files also run for theirs).
 """
 
 import dataclasses
@@ -18,22 +22,27 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import SUBQUADRATIC as JAX_SUBQUADRATIC  # noqa: E402
+from repro.configs import ARCHS as JAX_ARCHS  # noqa: E402
 from repro.configs import all_archs as jax_archs  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs.base import ModelConfig as JaxConfig  # noqa: E402
+from repro.configs.base import active_param_count as jax_active_param_count  # noqa: E402
+from repro.configs.base import param_count as jax_param_count  # noqa: E402
 from repro.launch import steps as jax_steps  # noqa: E402
 from repro.launch.train import reduce_config as jax_reduce_config  # noqa: E402
 from repro.models import attention as jax_attention  # noqa: E402
+from repro.models import common as jax_common  # noqa: E402
 from repro.models import lm as jax_lm  # noqa: E402
 from repro.models import rope as jax_rope  # noqa: E402
 from repro.models.common import init_params as jax_init_params  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import ARCHS, NOT_PORTED, get_config  # noqa: E402
-from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.configs import ARCHS, SUBQUADRATIC, all_archs, get_config  # noqa: E402
+from repro_torch.configs.base import ModelConfig, active_param_count, param_count  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve, steps  # noqa: E402
 from repro_torch.launch.train import reduce_config  # noqa: E402
-from repro_torch.models import attention, lm, rope  # noqa: E402
+from repro_torch.models import attention, common, encdec, lm, rope  # noqa: E402
 from repro_torch.models.common import init_params, spec_leaves  # noqa: E402
 
 TINY = dict(name="t", family="dense", num_layers=3, d_model=48, vocab=96,
@@ -274,20 +283,20 @@ def test_smollm_config_specs_and_count_match_jax():
 
 
 def test_registry_lists_only_ported_archs():
-    assert list(ARCHS) == ["smollm-360m", "mamba2-370m", "zamba2-1.2b"]
-    assert set(ARCHS) | set(NOT_PORTED) == set(jax_archs())
-    for arch in NOT_PORTED:
-        with pytest.raises(KeyError, match="not ported"):
-            get_config(arch)
+    """The registry is the JAX package's, in its order, with its
+    sub-quadratic set; every id gives the JAX config field for field."""
+    assert ARCHS == JAX_ARCHS and list(ARCHS) == jax_archs() == all_archs()
+    assert SUBQUADRATIC == JAX_SUBQUADRATIC
+    for arch in ARCHS:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jax_get_config(arch))
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-9")
-    moe = dataclasses.replace(get_config("smollm-360m"), family="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
-        lm.model_specs(moe)
-    mla = dataclasses.replace(get_config("smollm-360m"), attn_kind="mla")
-    for fn in (lm.model_specs, lambda c: lm.decode_state_specs(c, 1, 4)):
-        with pytest.raises(NotImplementedError, match="dense/mla"):
-            fn(mla)
+    enc = get_config("seamless-m4t-medium")
+    with pytest.raises(ValueError, match="encdec"):
+        lm.model_specs(enc)
+    with pytest.raises(NotImplementedError, match="enc-dec"):
+        steps.loss_for(enc)
 
 
 def test_lm_params_from_numpy_checks_the_tree():
@@ -330,3 +339,211 @@ def test_serve_main_end_to_end_on_cpu():
     assert bool(((res.tokens >= 0) & (res.tokens < res.cfg.vocab)).all())
     assert res.prefill_seconds > 0 and res.tokens_per_second > 0
     assert torch.equal(serve.main(argv).tokens, res.tokens)      # seeded
+
+
+# -- M-RoPE, layer_norm ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sections", [(16, 24, 24), (2, 3, 3)])
+def test_apply_mrope_matches_jax(sections):
+    """Qwen2-VL's sections (head dim 128) and the reduced config's (16):
+    three position streams of their own, rtol 1e-6."""
+    d = 2 * sum(sections)
+    rng = np.random.default_rng(d)
+    x = rng.normal(0, 1, (2, 9, 3, d)).astype(np.float32)
+    pos = rng.integers(0, 700, (3, 2, 9)).astype(np.int32)
+    want = jax_rope.apply_mrope(jnp.asarray(x), jnp.asarray(pos), 1e6, sections)
+    got = rope.apply_mrope(_t(x), _t(pos), 1e6, sections)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="sections"):
+        rope.apply_mrope(_t(x), _t(pos), 1e6, (1, 1, 1))
+
+
+def test_layer_norm_matches_jax():
+    rng = np.random.default_rng(4)
+    x = rng.normal(3, 2, (4, 5, 24)).astype(np.float32)
+    g, b = rng.normal(1, 0.1, 24).astype(np.float32), rng.normal(0, 0.1, 24).astype(np.float32)
+    want = jax_common.layer_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), 1e-5)
+    got = common.layer_norm(_t(x), _t(g), _t(b), 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+# -- every architecture ----------------------------------------------------------
+
+
+def _spec_tree(specs):
+    """``{path: (shape, axes, init, scale, dtype)}`` of a spec tree of either
+    package."""
+    flat = jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: type(x).__name__ == "ParamSpec")[0]
+    return {"/".join(k.key for k in path): (s.shape, s.axes, s.init, s.scale, s.dtype)
+            for path, s in flat}
+
+
+@pytest.mark.parametrize("arch", list(JAX_ARCHS))
+def test_full_config_specs_and_counts_match_jax(arch):
+    """Each full config: the parameter spec tree equal to the JAX
+    package's, the analytic parameter count and the active count (MoE:
+    padding and unrouted experts out) equal, from the specs alone."""
+    jcfg, cfg = jax_get_config(arch), get_config(arch)
+    want = (jax_steps.param_specs_for(jcfg))
+    assert _spec_tree(steps.param_specs_for(cfg)) == _spec_tree(want)
+    assert param_count(cfg) == jax_param_count(jcfg)
+    assert active_param_count(cfg) == jax_active_param_count(jcfg)
+    assert lm.count_params_analytic(cfg, active_only=True) == \
+        jax_lm.count_params_analytic(jcfg, active_only=True)
+    for factor in (4, 8):
+        assert dataclasses.asdict(reduce_config(cfg, factor)) == \
+            dataclasses.asdict(jax_reduce_config(jcfg, factor))
+
+
+def np_spec_params(specs, seed):
+    """Numpy float32 leaves of a JAX spec tree, drawn by the law of its
+    ``init_params`` (fan-in scaled normals, embeddings, zeros, ones):
+    ``jax.random`` would compile once per leaf shape."""
+    rng = np.random.default_rng(seed)
+
+    def one(spec):
+        if spec.init in ("zeros", "ones"):
+            return np.full(spec.shape, float(spec.init == "ones"), np.float32)
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        std = spec.scale if spec.init == "embed" else spec.scale / max(fan_in, 1) ** 0.5
+        return rng.normal(0, std, spec.shape).astype(np.float32)
+
+    return jax.tree.map(one, specs, is_leaf=lambda x: isinstance(x, jax_common.ParamSpec))
+
+
+def arch_configs(arch: str, factor: int = 8):
+    """The JAX and the port's config of ``arch`` through
+    ``reduce_config(..., factor)``, in float32, no remat."""
+    kw = dict(dtype="float32", remat="none")
+    return (dataclasses.replace(jax_reduce_config(jax_get_config(arch), factor), **kw),
+            dataclasses.replace(reduce_config(get_config(arch), factor), **kw))
+
+
+def arch_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """A prefill batch as numpy: ``tokens`` [B, S]; the VLM's [3, B, S]
+    M-RoPE positions (a patch grid of 2 x 2 at the start, text after), its
+    patch embeddings and their rows; the enc-dec's frames [B, F, d]."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.mrope:
+        t = np.arange(s)
+        hw = np.stack([np.r_[[0, 0, 1, 1], t[4:] - 2], np.r_[[0, 1, 0, 1], t[4:] - 2]])
+        pos = np.stack([np.r_[[0] * 4, t[4:] - 2], hw[0], hw[1]])
+        batch["positions"] = np.broadcast_to(pos[:, None], (3, b, s)).astype(np.int32)
+        batch["vision_embeds"] = rng.normal(0, 1, (b, 4, cfg.d_model)).astype(np.float32)
+        batch["vision_pos"] = np.broadcast_to(np.arange(4), (b, 4)).astype(np.int32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(0, 1, (b, cfg.num_frames, cfg.d_model)
+                                     ).astype(np.float32)
+    return batch
+
+
+#: the projections into attention scores: ``[L, d_in, heads, hd]`` leaves
+QK_LEAVES = ("wq", "wk", "x_wq", "x_wk", "wq_b", "wkv_b")
+
+
+def rescale_qk(tree):
+    """``tree`` with every query/key projection (``QK_LEAVES``) scaled in
+    place from the init's fan-in (the head count, ``shape[-2]``) to the
+    ``d_in`` it contracts.  At the init's scale a score has std ~100s, so
+    softmax is near argmax and float32 rounding noise in a score moves the
+    output as a fault would (chip_smoke.py's ``rescale_qk`` says the same
+    for the card); rescaled, scores have std ~1, as a trained model's do.
+    Both packages get the same weights."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            rescale_qk(v)
+        elif k in QK_LEAVES and v.ndim == 4:
+            v *= np.float32((v.shape[-2] / v.shape[-3]) ** 0.5)
+    return tree
+
+
+def arch_params(jcfg, cfg, seed: int):
+    """``(JAX params, the port's params)``: one numpy draw (query and key
+    projections rescaled, ``rescale_qk``), converted."""
+    tree = rescale_qk(np_spec_params(jax_steps.param_specs_for(jcfg), seed))
+    to_port = (convert.encdec_params_from_numpy if cfg.family == "encdec"
+               else convert.lm_params_from_numpy)
+    return jax.tree.map(jnp.asarray, tree), to_port(tree, cfg, device="cpu")
+
+
+def _cross_state(jcfg, jp, frames):
+    """The JAX enc-dec serve state's cross K/V of ``frames``, as
+    ``tests/test_models_correct.py`` builds them."""
+    from repro.models import encdec as jax_ed
+
+    enc_out = jax_ed.encode(jcfg, jp, frames)
+    dec = jp["decoder"]
+    return {n: jnp.stack([jax_common.dense(enc_out, dec[f"x_w{n}"][i])
+                          for i in range(jcfg.dec_layers)]) for n in ("k", "v")}
+
+
+def arch_parity(arch: str, *, factor: int = 8, b: int = 2, s: int = 16,
+                n_steps: int = 8, seed: int = 0) -> None:
+    """``arch`` through ``reduce_config(..., factor)`` in f32, on JAX's weights:
+    the prefill step's last-position logits at the LM bar, then ``n_steps``
+    greedy serve steps from an empty cache (the enc-dec's cross K/V from
+    its encoder), each side feeding its own tokens, tokens equal."""
+    jcfg, cfg = arch_configs(arch, factor)
+    jp, p = arch_params(jcfg, cfg, seed)
+    batch = arch_batch(cfg, b, s, seed + 1)
+    want = jax.jit(jax_steps.make_prefill_step(jcfg))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    got = steps.make_prefill_step(cfg)(p, {k: _t(v) for k, v in batch.items()})
+    assert got.shape == (b, cfg.vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+    jstate = jax.tree.map(lambda sp: jnp.zeros(sp.shape, jnp.float32),
+                          jax_steps.state_specs_for(jcfg, b, n_steps),
+                          is_leaf=lambda x: isinstance(x, jax_common.ParamSpec))
+    state = init_params(steps.state_specs_for(cfg, b, n_steps), None,
+                        torch.float32, "cpu")
+    if cfg.family == "encdec":
+        jstate["cross"] = _cross_state(jcfg, jp, jnp.asarray(batch["frames"]))
+        state["cross"] = encdec.cross_kv(cfg, p, encdec.encode(
+            cfg, p, _t(batch["frames"])))
+        for n in ("k", "v"):
+            np.testing.assert_allclose(state["cross"][n].numpy(),
+                                       np.asarray(jstate["cross"][n]), **F32)
+    jserve = jax.jit(jax_steps.make_serve_step(jcfg))
+    serve_step = steps.make_serve_step(cfg)
+    jtok = ttok = batch["tokens"][:, 0]
+    for i in range(n_steps):
+        jb = {"token": jnp.asarray(jtok)[:, None],
+              "cache_len": jnp.full((b,), i, jnp.int32)}
+        tb = {"token": _t(np.asarray(ttok))[:, None],
+              "cache_len": torch.full((b,), i, dtype=torch.int32)}
+        if cfg.mrope:
+            jb["positions"] = jnp.full((3, b, 1), i, jnp.int32)
+            tb["positions"] = torch.full((3, b, 1), i, dtype=torch.int32)
+        jtok, jstate = jserve(jp, jstate, jb)
+        ttok, state = serve_step(p, state, tb)
+        np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok), err_msg=f"step {i}")
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "command-r-plus-104b", "qwen2-vl-7b",
+                                  "smollm-360m", "mamba2-370m", "zamba2-1.2b"])
+def test_arch_prefill_and_greedy_serve_match_jax(arch):
+    """Zamba2 at ``reduce_config(..., 4)``: at 8 its 4 layers make no group
+    of 6 under the shared block, and the JAX package's hybrid decode then
+    scans zero groups beside its LoRA stacks and raises."""
+    arch_parity(arch, factor=4 if arch == "zamba2-1.2b" else 8)
+
+
+def test_vlm_vision_rows_and_default_positions():
+    """Qwen2-VL's patch embeddings replace the token rows at
+    ``vision_pos``; with no positions the three M-RoPE streams are
+    ``arange(S)``, as the batch would give them for text alone."""
+    jcfg, cfg = arch_configs("qwen2-vl-7b")
+    jp, p = arch_params(jcfg, cfg, 3)
+    batch = arch_batch(cfg, 2, 12, 4)
+    x = lm.embed_tokens(cfg, p, {k: _t(v) for k, v in batch.items()})
+    np.testing.assert_array_equal(x[:, :4].numpy(), batch["vision_embeds"])
+    want = jax_lm.embed_tokens(jcfg, jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_array_equal(x.numpy(), np.asarray(want))
+    toks = {"tokens": _t(batch["tokens"])}
+    text = {**toks, "positions": torch.arange(12, dtype=torch.int32).expand(3, 2, 12)}
+    np.testing.assert_array_equal(lm.forward(cfg, p, toks).numpy(),
+                                  lm.forward(cfg, p, text).numpy())
