@@ -163,7 +163,19 @@ Phases (each passes or the script exits non-zero without a result line):
    prefill logits (S=256) and 8 greedy serve steps on the card against the
    CPU, the MoE configs' expert ids compared first, call by call (a
    difference only where the CPU's probabilities nearly tie,
-   ``MOE_TIE_GAP``), Seamless's serve state with its encoder's cross K/V.
+   ``MOE_TIE_GAP``), Seamless's serve state with its encoder's cross K/V;
+15. (``shard_phase``, also before the timings) lane sharding over the
+   card mesh: every card, or ``cuda:0`` four times on a host with one
+   (the shards then run in turn on that card): (a) phase 12 (a)'s
+   service with ``ServeConfig(shard=True, mesh=...)``, every window equal
+   to phase 12's unsharded one bit for bit; (b) phase 12 (f)'s
+   ``run_fleet`` sharded, and over 3 entries (8 lanes padded to 9),
+   equal to the unsharded run; (c) phase 7's fused what-if C and D
+   sharded, schedules and floats equal; (d) two batches of phase 11's
+   search, sharded and unsharded, histories and proposals equal; (e)
+   ``des_place``'s two probes on each distinct device of the mesh;
+   launches counted per part and given per mesh entry (one of each
+   kernel a step an entry).
 
 The seconds each phase took are logged after the kernel timings
 (``phase seconds``).  The second-to-last line of standard output is the ``kernels`` JSON record,
@@ -1115,8 +1127,9 @@ def main() -> int:
 
     # 7) the what-if path: evaluate_whatif on the calibrated twin, then the
     # fused run_scenarios at C and D, each call's launches counted from 0
+    shard_refs: dict = {}        # unsharded results phase 15 holds its shards against
     details["whatif"] = whatif_phase(torch, np, ops, w, dc, t_bins, gpu_orch, cpu_orch,
-                                     profile=args.profile)
+                                     profile=args.profile, keep=shard_refs)
     for v in details["whatif"].values():
         for k in ("des_place", "des_readout"):
             launches[k] += v["launches"][k]
@@ -1144,7 +1157,7 @@ def main() -> int:
 
     # 12) the streaming twin service (paper stage 1) on the card, before the
     # kernel timings so that its launches count in the kernels line
-    details["serve"] = serve_phase(torch, np, ops, w, dc, t_bins, gpu)
+    details["serve"] = serve_phase(torch, np, ops, w, dc, t_bins, gpu, keep=shard_refs)
     for k, n in details["serve"]["launches"].items():
         launches[k] += n
     phase_done("12 serving")
@@ -1163,6 +1176,14 @@ def main() -> int:
     for k, n in details["families"]["launches"].items():
         launches[k] += n
     phase_done("14 LM families")
+
+    # 15) lane sharding over the card mesh (every card, or cuda:0 four
+    # times), before the kernel timings so that its launches count
+    details["shard"] = shard_phase(torch, np, ops, w, dc, t_bins, gpu_orch, shard_refs)
+    shard_refs.clear()
+    for k, n in details["shard"]["launches"].items():
+        launches[k] += n
+    phase_done("15 lane sharding")
 
     # 10) kernel times at the main paths' shapes (device time, queue kept full)
     timer = DeviceTimer(torch)
@@ -1702,7 +1723,9 @@ def lanes_des(psc, ss, t_bins):
     """The DES of a ScenarioSet's lanes alone, as ``run_scenarios`` runs it."""
     fail = (dict(fail_start=ss.fail_start, fail_end=ss.fail_end, fail_kill=ss.fail_kill)
             if ss.has_failures else {})
-    return psc.simulate_utilization_masked(
+    from repro_torch.core.desim import simulate_utilization_masked
+
+    return simulate_utilization_masked(
         ss.workload, ss.host_mask_s, ss.cores_per_host, max_hosts=ss.max_hosts,
         t_bins=t_bins, policy_id=ss.policy_id, backfill_depth=ss.backfill_depth,
         max_backfill=ss.max_backfill, **fail)
@@ -1757,7 +1780,7 @@ def summary_ints(s) -> tuple:
 
 
 def whatif_phase(torch, np, ops, w, dc, t_bins, card_orch, cpu_orch,
-                 profile: bool = False) -> dict:
+                 profile: bool = False, keep=None) -> dict:
     """The what-if path on the card: (a) ``Orchestrator.evaluate_whatif`` on
     the calibrated E2 twin with the example's 19 candidates, against the
     CPU rerun's calibrated twin; (b) ``run_scenarios(fused_readout=True)``
@@ -1834,6 +1857,9 @@ def whatif_phase(torch, np, ops, w, dc, t_bins, card_orch, cpu_orch,
         if launches["des_place"] != 1 or launches["des_readout"] != 1:
             fail(f"what-if {label}: launches {launches}, expected one des_place and "
                  "one des_readout")
+        if keep is not None:
+            keep[f"whatif_{label}"] = dict(ss=sets["cuda"], t_bins=t, traces=traces,
+                                          out=(sim, pred))
         sim_u, pred_u = run("cuda", False)
         same_sim(torch, sim, sim_u, f"{label} fused vs unfused")
         oracle = close_pred(torch, pred, pred_u, 2e-4, f"{label} fused vs unfused", atol=1e-6)
@@ -2289,7 +2315,22 @@ def serve_close(np, got: list, want: list, rtol: float) -> tuple[bool, float]:
     return ok, worst
 
 
-def serve_phase(torch, np, ops, w, dc, t_bins, card_run, device="cuda") -> dict:
+def serve_shuffled(np, svc, events, seed=42, chunk=SERVE_CHUNK):
+    """Submit ``events`` shuffled, in chunks, serving after each; the
+    results emitted."""
+    rng = np.random.default_rng(seed)
+    events = list(events)
+    rng.shuffle(events)
+    for i in range(0, len(events), chunk):
+        for ev in events[i:i + chunk]:
+            if not svc.submit(ev):
+                fail("serve: the bounded queue rejected an event")
+        svc.run_until_idle(pump=False)
+    return svc.drain()
+
+
+def serve_phase(torch, np, ops, w, dc, t_bins, card_run, device="cuda",
+                keep=None) -> dict:
     """Phase 12, the streaming twin service on the card (paper stage 1).
 
     (a) a 64-lane ``TwinService`` at E2's width and window: 56 synthetic
@@ -2372,17 +2413,6 @@ def serve_phase(torch, np, ops, w, dc, t_bins, card_run, device="cuda") -> dict:
             got[ev.window] = serve_leaves(np, o)
         return got
 
-    def serve_shuffled(svc, events, seed=42, chunk=SERVE_CHUNK):
-        rng = np.random.default_rng(seed)
-        events = list(events)
-        rng.shuffle(events)
-        for i in range(0, len(events), chunk):
-            for ev in events[i:i + chunk]:
-                if not svc.submit(ev):
-                    fail("serve: the bounded queue rejected an event")
-            svc.run_until_idle(pump=False)
-        return svc.drain()
-
     def check_order(results, lengths, label):
         by = {}
         for r in results:
@@ -2410,9 +2440,12 @@ def serve_phase(torch, np, ops, w, dc, t_bins, card_run, device="cuda") -> dict:
     ops.reset_launches()
     sync()
     t0 = time.perf_counter()
-    results = serve_shuffled(svc, [ev for evs in streams.values() for ev in evs])
+    results = serve_shuffled(np, svc, [ev for evs in streams.values() for ev in evs])
     sync()
     wall = time.perf_counter() - t0
+    if keep is not None:
+        keep["serve_a"] = dict(cfg=cfg_a, streams=streams, bases=bases, results={
+            (r.tenant, r.window): serve_leaves(np, r.output) for r in results})
     batches, fill = svc.stats.batches, svc.stats.fill_ratio
     launches = {k: ops.LAUNCHES[k] for k in ("des_readout", "calib_mape_grid")}
     if launches != {"des_readout": batches, "calib_mape_grid": batches}:
@@ -2427,7 +2460,7 @@ def serve_phase(torch, np, ops, w, dc, t_bins, card_run, device="cuda") -> dict:
         svc.admit(name)
         repeats[name] = [dataclasses.replace(ev, tenant=name) for ev in streams[f"syn{i:02d}"]]
         bases[name] = PowerParams()
-    results += serve_shuffled(svc, [ev for evs in repeats.values() for ev in evs])
+    results += serve_shuffled(np, svc, [ev for evs in repeats.values() for ev in evs])
     if svc.stats.batches != batches or svc.stats.windows_cached != SERVE_REPEATS * SERVE_SYNTH_WINDOWS:
         fail(f"serve (a): the repeated streams took {svc.stats.batches - batches} batches and "
              f"{svc.stats.windows_cached} cache hits, not 0 and "
@@ -2476,7 +2509,7 @@ def serve_phase(torch, np, ops, w, dc, t_bins, card_run, device="cuda") -> dict:
     lane_axis = lambda x: x[:, None].expand(x.shape[0], d, *x.shape[1:]).contiguous().to(dev)  # noqa: E731
     ops.reset_launches()
     t0 = time.perf_counter()
-    _, fouts = run_fleet(
+    ffinal, fouts = run_fleet(
         fleet, TelemetrySlice(u_th=lane_axis(u), power_w=lane_axis(p),
                               valid=torch.ones((n_e2, d), dtype=torch.bool, device=dev)),
         SimSlice(u_th=lane_axis(u), carbon_intensity=lane_axis(c)))
@@ -2488,6 +2521,14 @@ def serve_phase(torch, np, ops, w, dc, t_bins, card_run, device="cuda") -> dict:
     for k in fl:
         path_launches[k] += fl[k]
     host = serve_leaves(np, fouts)
+    if keep is not None:
+        keep["serve_f"] = dict(
+            fleet=lambda: stack_twin_states([init_twin_state(cfg_a.twin, scaled(s))
+                                             for s in SERVE_SCALES]),
+            telemetry=TelemetrySlice(u_th=lane_axis(u), power_w=lane_axis(p),
+                                     valid=torch.ones((n_e2, d), dtype=torch.bool, device=dev)),
+            sims=SimSlice(u_th=lane_axis(u), carbon_intensity=lane_axis(c)), host=host,
+            final=[x.cpu() for x in state_leaves(ffinal)])
     for j in range(d):
         for k in range(n_e2):
             got = [None if x is None else x[k, j] for x in host]
@@ -2511,7 +2552,7 @@ def serve_phase(torch, np, ops, w, dc, t_bins, card_run, device="cuda") -> dict:
             svc_b.admit(t, init_twin_state(cfg_b.twin, base))
         ops.reset_launches()
         t0 = time.perf_counter()
-        res = serve_shuffled(svc_b, [ev for evs in jt_events.values() for ev in evs])
+        res = serve_shuffled(np, svc_b, [ev for evs in jt_events.values() for ev in evs])
         secs = time.perf_counter() - t0
         check_order(res, {t: SERVE_JOINT["windows"] for t in jt}, f"(b) {where}")
         finals = {t: [x.cpu() for x in state_leaves(svc_b.evict(t).state)] for t in jt}
@@ -2556,12 +2597,12 @@ def serve_phase(torch, np, ops, w, dc, t_bins, card_run, device="cuda") -> dict:
     for t in r_events:
         ref_svc.admit(t)
     ref_c = {(r.tenant, r.window): r for r in serve_shuffled(
-        ref_svc, [ev for evs in r_events.values() for ev in evs], seed=7)}
+        np, ref_svc, [ev for evs in r_events.values() for ev in evs], seed=7)}
     first = TwinService(cfg_a)
     for t in r_events:
         first.admit(t)
-    got_c = serve_shuffled(first, [ev for evs in r_events.values() for ev in evs
-                                   if ev.window < cut], seed=7)
+    got_c = serve_shuffled(np, first, [ev for evs in r_events.values() for ev in evs
+                                       if ev.window < cut], seed=7)
     with tempfile.TemporaryDirectory() as root:
         first.checkpoint(root)
         del first
@@ -2682,6 +2723,199 @@ def serve_phase(torch, np, ops, w, dc, t_bins, card_run, device="cuda") -> dict:
         log(f"    {row['device_ms']:.3f} ms x{row['count']}  {row['name']}")
     out["launches"] = path_launches
     log(f"serve launches: {path_launches}")
+    return out
+
+# -- phase 15: lane sharding over the card mesh --------------------------------
+
+#: phase 15 (b)'s padding case: the 8 replays over this many entries
+SHARD_PAD_ENTRIES = 3
+#: phase 15 (c): the what-if batches split over the mesh (C: 16 lanes; D:
+#: 64 lanes over E2's week)
+SHARD_WHATIF = ("C", "D")
+#: phase 15 (d): phase 11's search cut to two batches (a drawn generation 0
+#: and one refinement)
+SHARD_SEARCH = dict(batch_size=16, generations=1, init="random")
+
+
+def card_mesh(torch, axis, entries=None, device="cuda"):
+    """A 1-D mesh over ``axis``: every card when the host has more than one
+    (``entries`` of them, taken in turn), else ``cuda:0`` repeated (4
+    entries, or ``entries``); ``device="cpu"`` repeats the CPU."""
+    from repro_torch.parallel.sharding import make_mesh_compat
+
+    n = torch.cuda.device_count() if device == "cuda" else 0
+    if entries is None:
+        entries = n if n > 1 else 4
+    devices = ([f"cuda:{i % n}" for i in range(entries)] if n > 1
+               else [torch.device(device, 0) if device == "cuda" else "cpu"] * entries)
+    return make_mesh_compat((entries,), (axis,), devices=devices)
+
+
+def shard_phase(torch, np, ops, w, dc, t_bins, card_orch, keep, device="cuda") -> dict:
+    """Phase 15, lane sharding over the card mesh: every card, or ``cuda:0``
+    four times on a host with one (the shards then run in turn on that
+    card).  (a) phase 12 (a)'s 64-lane service with ``ServeConfig(shard=True,
+    mesh=...)``: every window equal to phase 12's unsharded one bit for
+    bit, one ``des_readout`` and one ``calib_mape_grid`` a batch an entry;
+    (b) phase 12 (f)'s ``run_fleet`` of the 8 replays sharded, and over
+    ``SHARD_PAD_ENTRIES`` entries (padded to 9 lanes), outputs and final
+    state equal to the unsharded run's; (c) phase 7's fused what-if C and D
+    sharded: schedules and every float equal; (d) two batches of phase
+    11's search, unsharded and sharded: histories and proposals equal; (e)
+    ``des_place``'s two probes on each distinct device of the mesh.
+    ``keep`` holds the unsharded results phases 7 and 12 kept.  Launches
+    are counted per part, from 0, and given per mesh entry."""
+    import importlib
+
+    from repro_torch.core import Orchestrator, OrchestratorConfig
+    from repro_torch.core import scenarios as psc
+    from repro_torch.core import twin as ptwin
+    from repro_torch.core.state import init_twin_state, state_leaves
+    from repro_torch.kernels import des_place
+    from repro_torch.parallel.sharding import lane_devices
+    from repro_torch.serve import TwinService
+    from repro_torch.traces.carbon import make_diurnal_carbon
+
+    out, path_launches = {}, {k: 0 for k in ("des_place", "des_readout", "calib_mape_grid")}
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    mesh = card_mesh(torch, ptwin.FLEET_AXIS, device=device)
+    smesh = card_mesh(torch, psc.SCENARIO_AXIS, device=device)
+    entries = mesh.size
+    where = (f"{entries} cards" if cards > 1 else
+             f"{mesh.devices[0]} {entries} times (one card: the shards run in turn)")
+    out.update(mesh=[str(d) for d in mesh.devices], entries=entries, cards=cards)
+    log(f"shard: a mesh of {where}; the host has {cards} card(s)")
+
+    def counted(fn):
+        """``fn()``, its launches (added to the phase's) and wall seconds."""
+        ops.reset_launches()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: ops.LAUNCHES[k] for k in path_launches}
+        for k in got:
+            path_launches[k] += got[k]
+        return res, got, secs
+
+    def per_entry(got, m):
+        return {k: v / m.size for k, v in got.items()}
+
+    # (a) the service
+    a = keep["serve_a"]
+    cfg = dataclasses.replace(a["cfg"], shard=True, mesh=mesh)
+    svc = TwinService(cfg)
+    for t in a["streams"]:
+        svc.admit(t, init_twin_state(cfg.twin, a["bases"][t]))
+    results, got, secs = counted(lambda: serve_shuffled(
+        np, svc, [ev for evs in a["streams"].values() for ev in evs]))
+    if sorted((r.tenant, r.window) for r in results) != sorted(a["results"]):
+        fail("shard (a): the sharded service emitted other windows than phase 12 (a)")
+    for r in results:
+        if not serve_equal(np, serve_leaves(np, r.output), a["results"][(r.tenant, r.window)]):
+            fail(f"shard (a): {r.tenant} window {r.window} differs from phase 12's "
+                 "unsharded window")
+    batches = svc.stats.batches
+    want = {"des_place": 0, "des_readout": entries * batches,
+            "calib_mape_grid": entries * batches}
+    if device == "cuda" and got != want:
+        fail(f"shard (a): launches {got} over {batches} batches, not {want}")
+    out["a"] = dict(tenant_windows=len(results), batches=batches, launches=got,
+                    launches_per_entry=per_entry(got, mesh), wall_s=secs)
+    log(f"shard (a): the 64-lane service over {entries} entries, {len(results)} tenant-"
+        f"windows in {batches} batches, every window equal to phase 12's bit for bit; "
+        f"launches {got} ({per_entry(got, mesh)} an entry), {secs:.2f} s")
+
+    # (b) run_fleet of the 8 replays, and the padding case
+    f = keep["serve_f"]
+    n_w = f["telemetry"].u_th.shape[0]
+    out["b"] = {}
+    for m in (mesh, card_mesh(torch, ptwin.FLEET_AXIS, SHARD_PAD_ENTRIES, device)):
+        (final, fouts), got, secs = counted(lambda: ptwin.run_fleet(
+            f["fleet"](), f["telemetry"], f["sims"], shard=True, mesh=m))
+        label = f"{m.size} entries"
+        if not serve_equal(np, serve_leaves(np, fouts), f["host"]):
+            fail(f"shard (b): run_fleet over {label} differs from phase 12 (f)'s outputs")
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(state_leaves(final), f["final"])):
+            fail(f"shard (b): run_fleet over {label}: the final fleet differs from phase "
+                 "12 (f)'s")
+        want = {"des_place": 0, "des_readout": n_w * m.size, "calib_mape_grid": n_w * m.size}
+        if device == "cuda" and got != want:
+            fail(f"shard (b): run_fleet over {label} launched {got}, not {want}")
+        out["b"][label] = dict(launches=got, launches_per_entry=per_entry(got, m), wall_s=secs)
+        log(f"shard (b): run_fleet of {len(SERVE_SCALES)} lanes x {n_w} windows over "
+            f"{label}: outputs and final state equal to phase 12 (f)'s bit for bit; "
+            f"launches {got} ({per_entry(got, m)} an entry), {secs:.2f} s")
+
+    # (c) the fused what-if batches
+    for label in SHARD_WHATIF:
+        k = keep[f"whatif_{label}"]
+        ss = k["ss"]
+        (sim, pred), got, secs = counted(lambda: psc.run_scenarios(
+            ss, max_hosts=ss.max_hosts, t_bins=k["t_bins"], fused_readout=True,
+            shard=True, mesh=smesh, **k["traces"]))
+        same_sim(torch, sim, k["out"][0], f"{label} sharded vs unsharded")
+        for x, y in ((sim, k["out"][0]), (pred, k["out"][1])):
+            for fld in dataclasses.fields(x):
+                g, h = getattr(x, fld.name), getattr(y, fld.name)
+                if (g is None) != (h is None) or (g is not None and not torch.equal(g, h)):
+                    fail(f"what-if {label} sharded: {fld.name} differs from phase 7's")
+        want = {"des_place": entries, "des_readout": entries, "calib_mape_grid": 0}
+        if device == "cuda" and got != want:
+            fail(f"shard (c): what-if {label} launched {got}, not {want}")
+        out[f"c_{label}"] = dict(lanes=ss.num_scenarios, launches=got,
+                                 launches_per_entry=per_entry(got, smesh), wall_s=secs)
+        log(f"shard (c): what-if {label}, {ss.num_scenarios} lanes over {entries} entries: "
+            f"schedules and every float equal to phase 7's; launches {got}, {secs:.3f} s")
+
+    # (d) two batches of phase 11's search, unsharded and sharded
+    opt = importlib.import_module("repro_torch.core.optimize")
+    space = search_space(psc, opt)
+    objective = opt.ObjectiveSpec(**SEARCH_OBJECTIVE)
+    config = opt.OptimizerConfig(**SHARD_SEARCH)
+    ci = make_diurnal_carbon(t_bins)
+
+    def search(**kw):
+        orch = Orchestrator(w, dc, t_bins, OrchestratorConfig(device=device),
+                            carbon_intensity=ci)
+        orch.state = card_orch.state
+        return orch.optimize_whatif(space, objective, key=0, config=config, **kw)
+
+    ref, got_r, secs_r = counted(search)
+    sh, got, secs = counted(lambda: search(shard=True, mesh=smesh))
+    if history_rows(sh.result) != history_rows(ref.result):
+        fail("shard (d): the sharded search's history differs from the unsharded one's")
+    props = lambda r: [(p.kind, p.detail, p.impact) for p in r.proposals]  # noqa: E731
+    if props(sh) != props(ref):
+        fail("shard (d): the sharded search proposes otherwise than the unsharded one")
+    n_b = ref.result.batches
+    if device == "cuda" and (got["des_place"], got_r["des_place"]) != (entries * n_b, n_b):
+        fail(f"shard (d): des_place launches {got['des_place']} sharded and "
+             f"{got_r['des_place']} unsharded over {n_b} batches")
+    out["d"] = dict(batches=n_b, evaluations=ref.result.evaluations, launches=got,
+                    launches_per_entry=per_entry(got, smesh), wall_s=secs,
+                    unsharded_wall_s=secs_r, proposals=[p.kind.value for p in sh.proposals])
+    log(f"shard (d): {n_b} batches of {config.batch_size} lanes of phase 11's search, "
+        f"sharded and unsharded: histories ({ref.result.evaluations} evaluations) and "
+        f"proposals equal; sharded launches {got} ({per_entry(got, smesh)} an entry), "
+        f"{secs:.3f} s against {secs_r:.3f} s unsharded")
+
+    # (e) the placement kernel's probes on each distinct device of the mesh
+    probed = []
+    if device == "cuda":
+        for d in dict.fromkeys(lane_devices(mesh, ptwin.FLEET_AXIS)):
+            o = torch.zeros(1, dtype=torch.int32, device=d)
+            if des_place.barrier_launch(8, 2, o) != 0 or des_place.step_launch(8, o) != 0:
+                fail(f"shard (e): a des_place probe failed on {d}")
+            torch.cuda.synchronize(d)
+            probed.append(str(d))
+    out["e"] = dict(probed=probed)
+    out["launches"] = path_launches
+    log(f"shard (e): des_place's barrier and step probes launched on {probed}; "
+        f"phase launches {path_launches}")
     return out
 
 

@@ -1,6 +1,8 @@
 """The twin core of the port: DES, power models, calibration, the closed
 loop and its checkpoints, fleets of twins, the batched what-if engine, the
-scenario optimizer and the multi-model combiner."""
+scenario optimizer and the multi-model combiner.  Fleets and what-if
+batches split their lanes over a device mesh (``fleet_mesh``,
+``scenario_mesh``) with ``shard=True``."""
 
 from repro_torch.core.calibrate import (
     CalibrationResult,
@@ -54,12 +56,14 @@ from repro_torch.core.power import (
     validate_power_params,
 )
 from repro_torch.core.scenarios import (
+    SCENARIO_AXIS,
     Scenario,
     ScenarioSet,
     ScenarioSummary,
     build_scenario_set,
     evaluate_scenarios,
     run_scenarios,
+    scenario_mesh,
     summarize_scenarios,
 )
 from repro_torch.core.slo import NFR1, SLO, BiasTracker, SLOMonitor
@@ -88,9 +92,11 @@ from repro_torch.core.telemetry import (
     clip_to_window,
 )
 from repro_torch.core.twin import (
+    FLEET_AXIS,
     DigitalTwin,
     TraceGroundTruth,
     TwinRunResult,
+    fleet_mesh,
     fleet_step,
     fleet_step_masked,
     index_twin_state,
@@ -112,8 +118,9 @@ __all__ = [
     "OptimizeWhatIfResult",
     "Clock", "Orchestrator", "OrchestratorConfig", "WhatIfResult",
     "WindowRecord",
-    "Scenario", "ScenarioSet", "ScenarioSummary", "build_scenario_set",
-    "evaluate_scenarios", "run_scenarios", "summarize_scenarios",
+    "SCENARIO_AXIS", "Scenario", "ScenarioSet", "ScenarioSummary",
+    "build_scenario_set", "evaluate_scenarios", "run_scenarios",
+    "scenario_mesh", "summarize_scenarios",
     "POWER_MODELS", "PowerParams", "carbon_gco2", "datacenter_power",
     "energy_kwh", "linear_power", "mape", "opendc_power",
     "validate_power_params",
@@ -125,6 +132,7 @@ __all__ = [
     "AMBIENT_KEY", "CARBON_INTENSITY_KEY", "PRICE_KEY", "TelemetryStore",
     "TelemetryWindow", "clip_to_window",
     "DigitalTwin", "TraceGroundTruth", "TwinRunResult", "run_surf_experiment",
-    "fleet_step", "fleet_step_masked", "index_twin_state", "run_fleet",
+    "FLEET_AXIS", "fleet_mesh", "fleet_step", "fleet_step_masked",
+    "index_twin_state", "run_fleet",
     "stack_twin_states", "update_twin_state_lane",
 ]

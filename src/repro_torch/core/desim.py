@@ -175,6 +175,24 @@ def simulate_utilization_masked(
     ``_READOUT_CHUNK_THRESHOLD`` or the batch's ``S * J * t_bins``
     exceeds ``_BATCH_READOUT_THRESHOLD``; chunking changes no bit.
     """
+    placed = _place_masked(
+        w, host_mask, cores_per_host, max_hosts=max_hosts, t_bins=t_bins,
+        max_starts_per_bin=max_starts_per_bin, policy_id=policy_id,
+        backfill_depth=backfill_depth, max_backfill=max_backfill,
+        fail_start=fail_start, fail_end=fail_end, fail_kill=fail_kill)
+    return _read_out_placed(placed, max_hosts=max_hosts, t_bins=t_bins,
+                            force_chunked_readout=force_chunked_readout)
+
+
+def _place_masked(w: Workload, host_mask, cores_per_host, *, max_hosts: int,
+                  t_bins: int, max_starts_per_bin: int, policy_id, backfill_depth,
+                  max_backfill: int, fail_start=None, fail_end=None,
+                  fail_kill=None) -> tuple:
+    """The placement half of :func:`simulate_utilization_masked`: its
+    arguments in lane form and one ``des_place`` launch, no read on the
+    host.  Returns ``(workload, job_start, job_host, cores_per_host,
+    failure arrays or None, whether the call had a lane axis)`` for
+    :func:`_read_out_placed`."""
     if not 0 <= max_backfill <= 31:
         raise ValueError(f"max_backfill must be in [0, 31], got {max_backfill}")
     if (fail_start is None) != (fail_end is None) or \
@@ -209,6 +227,15 @@ def simulate_utilization_masked(
         max_backfill=max_backfill,
         **({} if fail is None else dict(zip(("fail_start", "fail_end", "fail_kill"),
                                             fail))))
+    return w, job_start, job_host, cph, fail, lanes
+
+
+def _read_out_placed(placed: tuple, *, max_hosts: int, t_bins: int,
+                     force_chunked_readout: bool) -> SimOutput:
+    """The read-out half of :func:`simulate_utilization_masked` on
+    :func:`_place_masked`'s result (it reads the host once)."""
+    w, job_start, job_host, cph, fail, lanes = placed
+    s, j = w.submit_bin.shape
     chunked = (force_chunked_readout or j * t_bins > _READOUT_CHUNK_THRESHOLD
                or s * j * t_bins > _BATCH_READOUT_THRESHOLD)
     out = _readout(w, job_start, job_host, max_hosts=max_hosts, t_bins=t_bins,

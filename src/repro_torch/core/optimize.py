@@ -32,8 +32,11 @@ hard constraints masked to ``+inf``).
   short batches are padded with incumbent replicas.
 
 Scoring (:func:`score_batch`) is host-side float64 numpy, one
-device-to-host copy of each leaf it reads a batch.  The JAX package's
-``shard``/``mesh`` (lanes across devices) and ``donate`` are not taken.
+device-to-host copy of each leaf it reads a batch.  ``shard``/``mesh``
+split every batch's lanes over a device mesh
+(:func:`repro_torch.core.scenarios.run_scenarios`); the draws stay on the
+host's generator, so a sharded search evaluates the same candidates.  The
+JAX package's ``donate`` is not taken.
 
 >>> spec = ObjectiveSpec(w_gco2_kg=1.0, w_energy_kwh=0.1,
 ...                      max_unplaced_jobs=0)
@@ -567,6 +570,8 @@ def optimize(
     model: str = "opendc",
     max_starts_per_bin: int = 64,
     fused_readout: bool = False,
+    shard: bool = False,
+    mesh=None,
 ) -> OptimizeResult:
     """Search the scenario space for the best feasible operating point.
 
@@ -576,12 +581,16 @@ def optimize(
     and refines around survivors.  Deterministic given ``key`` (an int
     seed or a ``torch.Generator``, from which one seed is drawn).
     ``fused_readout`` selects the fused readout kernel inside the
-    evaluator (the JAX package's ``use_pallas``).
+    evaluator (the JAX package's ``use_pallas``); ``shard``/``mesh``
+    split each batch over a device mesh, bit for bit equal to the
+    unsharded search (a ``mesh`` without ``shard=True`` raises).
 
     Raises ``ValueError`` when the space or the objective needs a trace
     that was not supplied, or when no evaluated candidate (baseline
     included) satisfies the hard constraints.
     """
+    if mesh is not None and not shard:
+        raise ValueError("mesh given but shard=False")
     key = _key_seed(key)
     if carbon_intensity is None and (space.carbon_cap_base_w is not None
                                      or space.carbon_cap_slope is not None):
@@ -647,7 +656,7 @@ def optimize(
             ss, max_hosts=mh, t_bins=t_bins,
             max_starts_per_bin=max_starts_per_bin, model=model,
             carbon_intensity=carbon_intensity, ambient_c=ambient_c,
-            price=price, fused_readout=fused_readout)
+            price=price, fused_readout=fused_readout, shard=shard, mesh=mesh)
         scores = score_batch(objective, ss, sim, pred, t_bins=t_bins)
         for i, kn in enumerate(lanes):
             cand = Candidate(

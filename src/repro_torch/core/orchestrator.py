@@ -514,6 +514,8 @@ class Orchestrator:
         *,
         key: "int | torch.Generator" = 0,
         config: OptimizerConfig = OptimizerConfig(),
+        shard: bool = False,
+        mesh=None,
     ) -> OptimizeWhatIfResult:
         """Search the scenario space and route the optimum through the gate.
 
@@ -523,6 +525,8 @@ class Orchestrator:
         the default objective weights energy instead of gCO2.  The winner
         goes through :func:`~repro_torch.core.feedback.propose_from_optimum`
         against the baseline and its proposals are submitted to the gate.
+        ``shard=True`` splits each batch over ``mesh``
+        (:func:`~repro_torch.core.optimize.optimize`).
         """
         if space is None:
             space = self.default_search_space()
@@ -539,6 +543,7 @@ class Orchestrator:
             carbon_intensity=self.carbon_intensity,
             ambient_c=self.ambient_c, price=self.price,
             key=key, config=config, model=self.cfg.power_model,
+            shard=shard, mesh=mesh,
         )
         window = len(self.records)
         proposals = [

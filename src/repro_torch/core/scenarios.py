@@ -18,9 +18,10 @@ Pipeline::
     ScenarioSet      --evaluate_scenarios-->  [ScenarioSummary] (host-side)
 
 ``Orchestrator.evaluate_whatif`` routes the summaries through the HITL
-gate as proposals (``feedback.propose_from_scenario``).  The JAX
-package's sharding (``shard``/``mesh``) and buffer donation (``donate``)
-are not taken: lanes run on one card.
+gate as proposals (``feedback.propose_from_scenario``).  With
+``shard=True`` the S lanes split over a device mesh
+(:func:`scenario_mesh`), one placement and one readout launch an entry.
+The JAX package's buffer donation (``donate``) is not taken.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ from repro_torch.core.desim import (
     Prediction,
     SimOutput,
     resolve_policy,
-    simulate_utilization_masked,
+    _place_masked,
+    _read_out_placed,
 )
 from repro_torch.core.power import (
     PowerParams,
@@ -47,6 +49,14 @@ from repro_torch.core.power import (
     validate_power_params,
 )
 from repro_torch.kernels import ops
+from repro_torch.parallel.sharding import (
+    Mesh,
+    gather_lanes,
+    lane_devices,
+    lane_mesh,
+    lane_padding,
+    shard_lanes,
+)
 from repro_torch.runtime.fault import NEVER_BIN, failure_arrays
 from repro_torch.traces.carbon import validate_carbon_intensity
 from repro_torch.traces.price import validate_price
@@ -488,21 +498,36 @@ def _predict_masked(u_th: Tensor, params: PowerParams, mask: Tensor,
                       power_demand_w=demand, pue=pue_t, energy_cost=cost)
 
 
+def _failure_kw(ss: ScenarioSet) -> dict:
+    return (dict(fail_start=ss.fail_start, fail_end=ss.fail_end,
+                 fail_kill=ss.fail_kill) if ss.has_failures else {})
+
+
+def _scenario_place(ss: ScenarioSet, *, max_hosts: int, t_bins: int,
+                    max_starts_per_bin: int) -> tuple:
+    """Every lane's placement, one launch, no read on the host."""
+    return _place_masked(
+        ss.workload, ss.host_mask_s, ss.cores_per_host, max_hosts=max_hosts,
+        t_bins=t_bins, max_starts_per_bin=max_starts_per_bin,
+        policy_id=ss.policy_id, backfill_depth=ss.backfill_depth,
+        max_backfill=ss.max_backfill, **_failure_kw(ss))
+
+
 def _scenario_lanes(ss: ScenarioSet, carbon_intensity: Tensor | None,
                     ambient_c: Tensor | None, price: Tensor | None, *,
                     max_hosts: int, t_bins: int, max_starts_per_bin: int,
                     model: str, chunk: bool, fused_readout: bool,
-                    precision: str) -> tuple[SimOutput, Prediction]:
-    """The DES of every lane (one placement launch), then the readout of
-    every lane: fused (one readout launch) or unfused."""
-    fail = (dict(fail_start=ss.fail_start, fail_end=ss.fail_end,
-                 fail_kill=ss.fail_kill) if ss.has_failures else {})
-    sim = simulate_utilization_masked(
-        ss.workload, ss.host_mask_s, ss.cores_per_host,
-        max_hosts=max_hosts, t_bins=t_bins,
-        max_starts_per_bin=max_starts_per_bin, policy_id=ss.policy_id,
-        backfill_depth=ss.backfill_depth, max_backfill=ss.max_backfill,
-        force_chunked_readout=chunk, **fail)
+                    precision: str, placed: "tuple | None" = None
+                    ) -> tuple[SimOutput, Prediction]:
+    """The DES of every lane (one placement launch, or ``placed``, its
+    result from :func:`_scenario_place`), then the readout of every lane:
+    fused (one readout launch) or unfused."""
+    fail = _failure_kw(ss)
+    if placed is None:
+        placed = _scenario_place(ss, max_hosts=max_hosts, t_bins=t_bins,
+                                 max_starts_per_bin=max_starts_per_bin)
+    sim = _read_out_placed(placed, max_hosts=max_hosts, t_bins=t_bins,
+                           force_chunked_readout=chunk)
     # effective per-bin cap: min(static cap, carbon-aware cap)
     cap_t = ss.power_cap_w[:, None].expand(-1, t_bins)
     if carbon_intensity is not None:
@@ -554,6 +579,8 @@ def run_scenarios(
     price=None,
     fused_readout: bool = False,
     readout_precision: str = "f32",
+    shard: bool = False,
+    mesh: "Mesh | None" = None,
 ) -> tuple[SimOutput, Prediction]:
     """Simulate and predict all S scenarios as one batch.
 
@@ -577,6 +604,19 @@ def run_scenarios(
     bitwise; ``readout_precision`` is its ``precision`` (``"bf16"``
     rounds the performance leaves).  Without it the unfused readout runs,
     which the JAX package's goldens pin.
+
+    **Scenario-axis sharding** (``shard=True``): the S axis splits over
+    the entries of ``mesh`` (default: :func:`scenario_mesh` over every
+    device of the set's kind).  S pads to a multiple of the entries with
+    replicas of scenario 0 named ``""`` (at least 2 lanes an entry when
+    there is more than one), entry ``k`` runs its contiguous shard on its
+    device with the traces whole, one ``des_place`` (and, fused, one
+    ``des_readout``) launch an entry, every entry's placement queued
+    before the first read on the host, and the outputs come back in lane
+    order on the set's device, cut to S: equal bit for bit to the
+    unsharded batch.  The readout's time chunking is decided from the
+    whole, unpadded S, as the unsharded batch decides it.  A ``mesh``
+    without ``shard=True`` raises.
     """
     dev = ss.host_mask_s.device
 
@@ -611,12 +651,41 @@ def run_scenarios(
     else:
         amb = trace(ambient_c, validate_ambient)
     pr = None if price is None else trace(price, validate_price)
+    s = ss.num_scenarios
     n_jobs = int(ss.workload.submit_bin.shape[-1])
-    chunk = ss.num_scenarios * n_jobs * t_bins > _BATCH_READOUT_THRESHOLD
-    return _scenario_lanes(
-        ss, ci, amb, pr, max_hosts=max_hosts, t_bins=t_bins,
-        max_starts_per_bin=max_starts_per_bin, model=model, chunk=chunk,
-        fused_readout=fused_readout, precision=readout_precision)
+    kw = dict(max_hosts=max_hosts, t_bins=t_bins,
+              max_starts_per_bin=max_starts_per_bin)
+    lane_kw = dict(kw, model=model, fused_readout=fused_readout,
+                   precision=readout_precision,
+                   chunk=s * n_jobs * t_bins > _BATCH_READOUT_THRESHOLD)
+    if not shard:
+        if mesh is not None:
+            raise ValueError("mesh given but shard=False")
+        return _scenario_lanes(ss, ci, amb, pr, **lane_kw)
+    devices = lane_devices(scenario_mesh(device=dev.type) if mesh is None
+                           else mesh, SCENARIO_AXIS)
+    per, pad = lane_padding(s, len(devices))
+    names = ss.names + ("",) * pad
+    shards = [dataclasses.replace(x, names=names[k * per:(k + 1) * per])
+              for k, x in enumerate(shard_lanes(ss, devices, s, 0, "scenario set"))]
+    placed = [_scenario_place(x, **kw) for x in shards]
+    results = [
+        _scenario_lanes(x, *(None if t is None else t.to(d) for t in (ci, amb, pr)),
+                        placed=p, **lane_kw)
+        for x, d, p in zip(shards, devices, placed)]
+    return gather_lanes(results, s, 0, dev)
+
+
+#: mesh axis name the scenario (lane) axis is sharded over
+SCENARIO_AXIS = "scenarios"
+
+
+def scenario_mesh(num_devices: "int | None" = None, *,
+                  device: "str | torch.device" = "cuda") -> Mesh:
+    """A 1-D mesh over :data:`SCENARIO_AXIS`: every card by default (the
+    first ``num_devices`` otherwise, more than the host has raising), or
+    ``num_devices`` CPU entries (default 1) with ``device="cpu"``."""
+    return lane_mesh(SCENARIO_AXIS, num_devices, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -755,12 +824,16 @@ def evaluate_scenarios(
     ambient_c=None,
     price=None,
     fused_readout: bool = False,
+    shard: bool = False,
+    mesh: "Mesh | None" = None,
 ) -> tuple[ScenarioSet, SimOutput, Prediction, list[ScenarioSummary]]:
     """End-to-end what-if sweep: build, batch-simulate, summarize.
 
     :func:`build_scenario_set` -> :func:`run_scenarios` ->
     :func:`summarize_scenarios`, on the workload's device; returns all
     four artifacts so callers can rank candidates and read per-bin fields.
+    ``shard``/``mesh`` split the lanes over a device mesh
+    (:func:`run_scenarios`).
     """
     ss = build_scenario_set(workload, dc, scenarios, base_params,
                             max_hosts=max_hosts)
@@ -768,7 +841,7 @@ def evaluate_scenarios(
         ss, max_hosts=ss.max_hosts, t_bins=t_bins,
         max_starts_per_bin=max_starts_per_bin, model=model,
         carbon_intensity=carbon_intensity, ambient_c=ambient_c, price=price,
-        fused_readout=fused_readout,
+        fused_readout=fused_readout, shard=shard, mesh=mesh,
     )
     return ss, sim, pred, summarize_scenarios(
         ss, sim, pred, carbon_intensity=carbon_intensity)

@@ -10,6 +10,9 @@ one batched step (:func:`fleet_step`, :func:`fleet_step_masked`,
 :func:`run_fleet`), the JAX package's ``jax.vmap(twin_step)`` with the
 lane axis written out (:func:`repro_torch.core.state.twin_step_lanes`).
 A fleet state is a :class:`TwinState` whose leaves lead with ``[D]``.
+With ``shard=True`` the lanes split over a device mesh
+(:func:`fleet_mesh`, :mod:`repro_torch.parallel.sharding`), the JAX
+package's ``shard_map`` over :data:`FLEET_AXIS`.
 Nothing here writes into a fleet's tensors: every function returns new
 ones, so a lane view taken earlier (:func:`index_twin_state`) never
 changes under its holder.
@@ -39,7 +42,16 @@ from repro_torch.core.state import (
     twin_step_lanes,
 )
 from repro_torch.core.telemetry import TelemetryWindow, clip_to_window
+from repro_torch.parallel.sharding import (
+    Mesh,
+    gather_lanes,
+    lane_devices,
+    lane_mesh,
+    shard_lanes,
+)
 from repro_torch.traces.surf import GroundTruthSpec, synthesize_ground_truth
+
+Tensor = torch.Tensor
 
 
 class TraceGroundTruth:
@@ -216,12 +228,42 @@ def update_twin_state_lane(fleet: TwinState, i: int, state: TwinState, *,
     return fleet if in_place else state_with_leaves(leaves, fleet.cfg)
 
 
-#: the JAX package's names of the fleet step: ``fleet_step(fleet,
-#: telemetry, sim_slices)`` advances every lane, ``fleet_step_masked(...,
-#: lane_active)`` only the active ones (the serving primitive behind
-#: :class:`repro_torch.serve.TwinService`); both are the lane step itself
+#: the JAX package's name of the fleet step: ``fleet_step(fleet,
+#: telemetry, sim_slices)`` advances every lane; it is the lane step itself
 fleet_step = twin_step_lanes
-fleet_step_masked = twin_step_lanes
+
+
+def fleet_step_masked(fleet: TwinState, telemetry: TelemetrySlice,
+                      sim_slices: SimSlice, lane_active: "Tensor | None" = None,
+                      *, shard: bool = False, mesh: "Mesh | None" = None
+                      ) -> tuple[TwinState, WindowOutput]:
+    """Advance the active lanes of a fleet one window (the serving primitive
+    behind :class:`repro_torch.serve.TwinService`).
+
+    ``fleet`` leaves lead with ``[D]``, ``telemetry``/``sim_slices`` are one
+    window's slices with ``[D, ...]`` leaves and ``lane_active`` the
+    ``[D]`` bool fill mask (default: every lane); see
+    :func:`~repro_torch.core.state.twin_step_lanes`, which this is.
+
+    With ``shard=True`` the D axis is split over ``mesh`` (default:
+    :func:`fleet_mesh` over every device of the fleet's kind): D pads to a
+    multiple of the mesh's entries with replicas of lane 0, its fill mask
+    too (at least 2 lanes an entry when there is more than one), each entry
+    steps its contiguous shard on its device, one ``des_readout`` and
+    ``1 + refine_iters`` ``calib_mape_grid`` launches an entry, and the
+    outputs come back in lane order on the fleet's device, cut to the
+    true D, equal bit for bit to the unsharded step.  A ``mesh`` without
+    ``shard=True`` raises.
+    """
+    if not shard:
+        if mesh is not None:
+            raise ValueError("mesh given but shard=False")
+        return twin_step_lanes(fleet, telemetry, sim_slices, lane_active)
+    if lane_active is not None:
+        lane_active = torch.as_tensor(lane_active, dtype=torch.bool,
+                                      device=fleet.window.device)
+    shards = _split(fleet, (telemetry, sim_slices, lane_active), 0, mesh)
+    return _gather([twin_step_lanes(f, *i) for f, i in shards], fleet, 0)
 
 
 def _window(x, w: int):
@@ -247,17 +289,8 @@ def _stack_outputs(outs: "list[WindowOutput]") -> WindowOutput:
         window=st(*(o.window for o in outs)))
 
 
-def run_fleet(fleet: TwinState, telemetry: TelemetrySlice,
-              sim_slices: SimSlice) -> tuple[TwinState, WindowOutput]:
-    """Twin a whole fleet over a whole horizon, a batched step a window.
-
-    ``telemetry``/``sim_slices`` leaves lead with ``[W, D, ...]`` (windows,
-    datacenters).  Each window is one :func:`fleet_step`, so the run
-    launches W ``des_readout`` and W x (1 + refine_iters)
-    ``calib_mape_grid``, not D times as many.  Returns the final fleet
-    state and the outputs stacked ``[W, D, ...]``; each lane is its solo
-    run.
-    """
+def _run_windows(fleet: TwinState, telemetry: TelemetrySlice,
+                 sim_slices: SimSlice) -> tuple[TwinState, WindowOutput]:
     n = telemetry.u_th.shape[0]
     outs = []
     for w in range(n):
@@ -269,3 +302,64 @@ def run_fleet(fleet: TwinState, telemetry: TelemetrySlice,
                         for f in dataclasses.fields(sim_slices)}))
         outs.append(out)
     return fleet, _stack_outputs(outs)
+
+
+def run_fleet(fleet: TwinState, telemetry: TelemetrySlice,
+              sim_slices: SimSlice, *, shard: bool = False,
+              mesh: "Mesh | None" = None) -> tuple[TwinState, WindowOutput]:
+    """Twin a whole fleet over a whole horizon, a batched step a window.
+
+    ``telemetry``/``sim_slices`` leaves lead with ``[W, D, ...]`` (windows,
+    datacenters).  Each window is one :func:`fleet_step`, so the run
+    launches W ``des_readout`` and W x (1 + refine_iters)
+    ``calib_mape_grid``, not D times as many.  Returns the final fleet
+    state and the outputs stacked ``[W, D, ...]``; each lane is its solo
+    run.
+
+    With ``shard=True`` the D axis (axis 1 of the inputs) is split over
+    ``mesh`` as :func:`fleet_step_masked` splits it, padded with replicas
+    of lane 0, each entry running every window of its shard: W launches of
+    each kernel an entry, and results equal bit for bit to the unsharded
+    run.  A ``mesh`` without ``shard=True`` raises.
+    """
+    if not shard:
+        if mesh is not None:
+            raise ValueError("mesh given but shard=False")
+        return _run_windows(fleet, telemetry, sim_slices)
+    shards = _split(fleet, (telemetry, sim_slices), 1, mesh)
+    return _gather([_run_windows(f, *i) for f, i in shards], fleet, 1)
+
+
+# -- fleet-axis sharding over a device mesh ------------------------------------
+
+#: mesh axis name the fleet (lane) axis is sharded over
+FLEET_AXIS = "fleet"
+
+
+def fleet_mesh(num_devices: "int | None" = None, *,
+               device: "str | torch.device" = "cuda") -> Mesh:
+    """A 1-D mesh over :data:`FLEET_AXIS`: every card by default (the
+    first ``num_devices`` otherwise, more than the host has raising), or
+    ``num_devices`` CPU entries (default 1) with ``device="cpu"``."""
+    return lane_mesh(FLEET_AXIS, num_devices, device)
+
+
+def _split(fleet: TwinState, inputs: tuple, in_axis: int,
+           mesh: "Mesh | None") -> "zip":
+    """``(fleet shard, input shards)`` an entry of ``mesh`` (default: every
+    device of the fleet's kind); the inputs' lanes on ``in_axis``."""
+    if mesh is None:
+        mesh = fleet_mesh(device=fleet.window.device.type)
+    devices = lane_devices(mesh, FLEET_AXIS)
+    d = fleet.window.shape[0]
+    return zip(shard_lanes(fleet, devices, d, 0, "fleet"),
+               shard_lanes(inputs, devices, d, in_axis, "fleet inputs"))
+
+
+def _gather(results: list, fleet: TwinState, out_axis: int
+            ) -> tuple[TwinState, WindowOutput]:
+    """The shards' successor fleets and outputs (lanes on ``out_axis``) on
+    the fleet's device, cut to its D lanes."""
+    d, home = fleet.window.shape[0], fleet.window.device
+    return (gather_lanes([r[0] for r in results], d, 0, home),
+            gather_lanes([r[1] for r in results], d, out_axis, home))

@@ -154,8 +154,9 @@ def barrier_launch(rounds: int, warps: int, out: Tensor) -> int:
     thread-0 write, in one block of ``warps`` warps, no work between);
     returns the CUDA error code."""
     lib = _build.load("des_place")
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    return int(lib.des_place_barrier_launch(rounds, warps, out.data_ptr(), stream))
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        return int(lib.des_place_barrier_launch(rounds, warps, out.data_ptr(), stream))
 
 
 def step_launch(rounds: int, out: Tensor) -> int:
@@ -163,5 +164,6 @@ def step_launch(rounds: int, out: Tensor) -> int:
     one warp, each a shared store, ``__syncwarp``, a load and two
     ``redux.sync`` on the step before); returns the CUDA error code."""
     lib = _build.load("des_place")
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    return int(lib.des_place_step_launch(rounds, out.data_ptr(), stream))
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        return int(lib.des_place_step_launch(rounds, out.data_ptr(), stream))

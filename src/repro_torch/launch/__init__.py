@@ -1,1 +1,1 @@
-"""Launchers of the port: step factories and the serving entry point."""
+"""Launchers of the port: step factories, device meshes and the serving entry point."""

@@ -1,1 +1,1 @@
-"""Runtime layer of the port: host-failure schedules, the training restart loop and straggler detection."""
+"""Runtime layer of the port: host-failure schedules, the training restart loop, elastic mesh plans and straggler detection."""

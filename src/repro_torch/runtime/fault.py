@@ -11,7 +11,9 @@ Two layers share this module because they model the same physical event
 * :func:`run_with_restarts`: the training-loop restart driver a cluster
   scheduler would run: periodic checkpoints, (optionally injected)
   failures, restore from the latest checkpoint.  The JAX package's
-  elastic re-mesh on a changed device count is not ported (one card).
+  restart loop imports ``plan_mesh`` but never calls it: it restarts on
+  the mesh it had, and so does this one (the policy itself is
+  :mod:`repro_torch.runtime.elastic`).
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ onto one process and one batched step:
     resident tenant (strictly in stream order) and packs them into a
     fixed-shape :func:`~repro_torch.core.twin.fleet_step_masked` call;
     whatever subset of lanes is ready, a batch on the card launches one
-    ``des_readout`` and ``1 + refine_iters`` ``calib_mape_grid``;
+    ``des_readout`` and ``1 + refine_iters`` ``calib_mape_grid`` (each
+    entry of the mesh once with ``ServeConfig.shard``);
   * **caching** — before dispatch each window probes the
     :class:`~repro_torch.serve.cache.ResultCache` under its
     ``(window, stream digest, scenario digest)`` key; a hit lands the
@@ -102,6 +103,15 @@ class ServeConfig:
     poll_seconds: float = 0.05
     #: dispatched-but-unharvested batches to keep in flight
     inflight_depth: int = 1
+    #: split the lane axis over a device mesh: every dispatch runs
+    #: :func:`~repro_torch.core.twin.fleet_step_masked` with ``shard=True``
+    #: (bit for bit equal to the unsharded step).  Pick ``lanes`` as a
+    #: multiple of the mesh's entries (>= 2 an entry) so dispatches skip
+    #: the padding copy.
+    shard: bool = False
+    #: explicit mesh for ``shard=True`` (default: ``fleet_mesh()`` over
+    #: every device of ``twin.device``'s kind)
+    mesh: "object | None" = None
 
     def __post_init__(self):
         bad = set(self.columns) - set(SIM_COLUMNS)
@@ -109,6 +119,8 @@ class ServeConfig:
             raise ValueError(
                 f"unknown sim columns {sorted(bad)}; choose from "
                 f"{SIM_COLUMNS}")
+        if self.mesh is not None and not self.shard:
+            raise ValueError("mesh given but shard=False")
 
 
 @dataclasses.dataclass
@@ -345,7 +357,8 @@ class TwinService:
         by_lane = {self._lanes.lane(t): ev for t, (ev, _) in ready.items()}
         telem, sim, active = build_fleet_inputs(
             by_lane, self.cfg.lanes, self.cfg.twin, self.cfg.columns)
-        new_fleet, outs = fleet_step_masked(self._fleet, telem, sim, active)
+        new_fleet, outs = fleet_step_masked(self._fleet, telem, sim, active,
+                                            shard=self.cfg.shard, mesh=self.cfg.mesh)
         # the batch keeps the successor fleet itself: while it is in flight
         # a lane write copies the fleet first (_land), so its lanes still
         # hold these values at harvest
@@ -512,5 +525,6 @@ class TwinService:
     def compile_count(self) -> "int | None":
         """Always None: eager PyTorch compiles no program.  A batch's kernel
         launches (``repro_torch.kernels.ops.LAUNCHES``) take its place: one
-        ``des_readout`` and ``1 + refine_iters`` ``calib_mape_grid``."""
+        ``des_readout`` and ``1 + refine_iters`` ``calib_mape_grid``, an
+        entry of the mesh when the service shards."""
         return None

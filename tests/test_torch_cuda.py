@@ -15,7 +15,11 @@ readout and placement checks fail on faults planted in copies of those
 kernels (V read at K's row stride fails only the MLA shapes); and, for
 training, the flash-attention and SSD autograd Functions' gradients on
 the card against their CPU runs, the lse output, one counted bf16 train
-step and a card checkpoint restored on the CPU.
+step and a card checkpoint restored on the CPU; and lane sharding over the
+card mesh (every card, or ``cuda:0`` four times on a one-card host): the
+fleet step and ``run_scenarios`` sharded equal to unsharded bit for bit
+with one launch of each kernel an entry, ``des_place``'s probes on every
+mesh device, and a mesh entry beyond the cards present raising.
 ``chip_smoke.py`` holds each kernel against its plain version on the card
 and runs the closed loop there and on the CPU.
 """
@@ -727,3 +731,126 @@ def test_card_checkpoint_restores_on_the_cpu(dev, tmp_path):
     for a, b in zip(leaves(got), leaves(state)):
         assert a.device.type == "cpu" and a.dtype == b.dtype
         assert torch.equal(a, b.cpu())
+
+
+# -- lane sharding over the card mesh ----------------------------------------
+
+
+def _card_mesh(axis):
+    """Every card when the host has more than one, else ``cuda:0`` four
+    times (shards taken in turn on one card)."""
+    from repro_torch.parallel.sharding import make_mesh_compat
+
+    n = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(n)] if n > 1 else ["cuda:0"] * 4
+    return make_mesh_compat((len(devices),), (axis,), devices=devices)
+
+
+def _same(a, b):
+    """Every tensor of two (nested) dataclasses equal, bit for bit, on one
+    device."""
+    import dataclasses
+
+    if isinstance(a, torch.Tensor):
+        assert a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+    elif dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            if f.name != "cfg":
+                _same(getattr(a, f.name), getattr(b, f.name))
+    elif isinstance(a, (tuple, list)):
+        for x, y in zip(a, b):
+            _same(x, y)
+    else:
+        assert (a is None) == (b is None)
+
+
+def test_fleet_step_sharded_on_the_card_mesh_equals_unsharded(dev):
+    """D=6 lanes with differing bases and mixed fill, split over the card
+    mesh: successor states and outputs bit for bit the unsharded step's,
+    one readout and one calibration launch an entry."""
+    from repro_torch.core import state as pstate
+    from repro_torch.core import twin as ptwin
+    from repro_torch.core.power import PowerParams
+    from repro_torch.traces.schema import DatacenterConfig
+
+    cfg = pstate.TwinConfig(bins_per_window=12, dc=DatacenterConfig(num_hosts=8, cores_per_host=4))
+    d = 6
+    fleet = ptwin.stack_twin_states([pstate.init_twin_state(
+        cfg, PowerParams(p_idle=60.0 + 3 * i, p_max=300.0 + 20 * i, r=1.5 + 0.3 * i))
+        for i in range(d)])
+    rng = np.random.default_rng(5)
+    mesh = _card_mesh(ptwin.FLEET_AXIS)
+    for _ in range(3):
+        u = _uniform(rng, 0, 1, (d, 12, 8), dev)
+        telem = pstate.TelemetrySlice(u_th=u, power_w=_uniform(rng, 800, 2500, (d, 12), dev),
+                                      valid=torch.ones(d, dtype=torch.bool, device=dev))
+        active = torch.as_tensor(rng.uniform(size=d) < 0.8, device=dev)
+        ref = ptwin.fleet_step_masked(fleet, telem, pstate.SimSlice(u_th=u), active)
+        ops.reset_launches()
+        sh = ptwin.fleet_step_masked(fleet, telem, pstate.SimSlice(u_th=u), active,
+                                     shard=True, mesh=mesh)
+        torch.cuda.synchronize()
+        assert (ops.LAUNCHES["des_readout"], ops.LAUNCHES["calib_mape_grid"]) == \
+            (mesh.size, mesh.size)
+        _same(ref, sh)
+        fleet = sh[0]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_run_scenarios_sharded_on_the_card_mesh_equals_unsharded(dev, fused):
+    """Six what-if lanes (policies, backfill, a failure window, caps, a
+    shift, carbon) split over the card mesh equal the unsharded batch bit
+    for bit: one placement launch an entry (and one readout, fused)."""
+    from repro_torch.core import scenarios as psc
+    from repro_torch.runtime.fault import HostFailure
+    from repro_torch.traces.carbon import make_diurnal_carbon
+    from repro_torch.traces.schema import DatacenterConfig
+    from repro_torch.traces.surf import SurfTraceSpec, make_surf22_like
+
+    dc = DatacenterConfig(num_hosts=32, cores_per_host=16)
+    t = 72
+    w = make_surf22_like(SurfTraceSpec(days=0.25, seed=5), dc, device=dev)
+    scs = [psc.Scenario(name="base"),
+           psc.Scenario(name="bf", num_hosts=16, policy="best_fit", backfill_depth=2),
+           psc.Scenario(name="ff", num_hosts=24, policy="first_fit"),
+           psc.Scenario(name="cap", power_cap_w=5000.0,
+                        failures=(HostFailure(3, 4, 24, "outage"),)),
+           psc.Scenario(name="shift", shift_bins=6),
+           psc.Scenario(name="cc", carbon_cap_base_w=7000.0, carbon_cap_slope=-5.0)]
+    ss = psc.build_scenario_set(w, dc, scs)
+    kw = dict(max_hosts=ss.max_hosts, t_bins=t, carbon_intensity=make_diurnal_carbon(t, seed=1),
+              fused_readout=fused)
+    mesh = _card_mesh(psc.SCENARIO_AXIS)
+    ref = psc.run_scenarios(ss, **kw)
+    ops.reset_launches()
+    sh = psc.run_scenarios(ss, **kw, shard=True, mesh=mesh)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["des_place"] == mesh.size
+    assert ops.LAUNCHES["des_readout"] == (mesh.size if fused else 0)
+    _same(ref, sh)
+
+
+def test_des_place_probes_launch_on_every_mesh_device(dev):
+    """The barrier and decision-step probes enter their tensor's card, so
+    each launches on every distinct device of the card mesh."""
+    from repro_torch.kernels import des_place
+    from repro_torch.parallel.sharding import lane_devices
+
+    mesh = _card_mesh("fleet")
+    for d in dict.fromkeys(lane_devices(mesh, "fleet")):
+        out = torch.zeros(1, dtype=torch.int32, device=d)
+        assert des_place.barrier_launch(8, 2, out) == 0
+        assert des_place.step_launch(8, out) == 0
+        torch.cuda.synchronize(d)
+
+
+def test_mesh_entry_beyond_the_cards_raises(dev):
+    from repro_torch.core.twin import fleet_mesh
+    from repro_torch.parallel.sharding import make_mesh_compat
+
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match="card"):
+        make_mesh_compat((1,), ("fleet",), devices=[f"cuda:{n}"])
+    with pytest.raises(RuntimeError, match="card"):
+        fleet_mesh(n + 1)
+    assert fleet_mesh().size == n
