@@ -32,7 +32,8 @@ Phases (each passes or the script exits non-zero without a result line):
    13's runs give it, and phase 14's: each family's prefill attention in
    bf16 (Seamless's non-causal encoder and cross-attention), the QK/V
    head-dim pairs (80, 80), (96, 64) and (192, 128) in f32 at their
-   prefill shapes and ragged on both routes, each against the plain
+   prefill shapes and ragged on both routes, phase 16's training shapes
+   (bf16 at full width, f32 at [1, 128], bf16 at ``--reduce 32``), each against the plain
    version in f32 at a bar set by the route's rounding (``FLASH_CASES``),
    and there with ``return_lse=True``: the same output bit for bit, the
    rows' lse against the plain version's (``LSE_RTOL``, ``LSE_ATOL``);
@@ -175,7 +176,27 @@ Phases (each passes or the script exits non-zero without a result line):
    search, sharded and unsharded, histories and proposals equal; (e)
    ``des_place``'s two probes on each distinct device of the mesh;
    launches counted per part and given per mesh entry (one of each
-   kernel a step an entry).
+   kernel a step an entry);
+16. (``family_train_phase``, also before the timings) training the
+   MoE, MLA, StableLM, Command R+, VLM and enc-dec families: (d) the
+   flash-attention Function's gradients at QK/V 96/64, 192/128, 80/80 and
+   Seamless's cross-attention shape (Sq 256, Skv 64, non-causal), bf16
+   and f32, against its f32 CPU run and the plain version's autograd on
+   the card; (a) each at full width in bf16 (``FAMILY_TRAIN``: Qwen1.5-MoE
+   2 of 24 layers, DeepSeek-V2-Lite 3 of 27, MiniCPM3-4B 32 of 62,
+   StableLM-3B 28 of 32, Qwen2-VL-7B 4 of 28 on [4, 2048], Seamless whole,
+   [8, 256] otherwise; Command R+ 1 of 64 layers, loss and gradients
+   only) with ``train.main``'s frames and patches: the loss and gradients
+   twice from one state, bitwise equal (required of the MoE families),
+   then 5 AdamW steps through ``make_train_step`` (loss, grad norm, lr
+   finite, the loss falling, ms, tokens/s, peak memory, exactly 2 flash
+   launches an attention call a step); (b) step 0's loss and every
+   gradient at full width and 2 layers, f32, [1, 128], card against CPU
+   at phase 13's bars, MoE routing compared call by call (Command R+ at
+   ``reduce_config(cfg, 4)``); (c) ``train.main`` at ``--reduce 32``
+   through a crash for Seamless, Qwen2-VL and Qwen1.5-MoE, bitwise equal
+   to an uninterrupted run; every flash shape (a)-(c) give the kernel is
+   one phase 3 checks.
 
 The seconds each phase took are logged after the kernel timings
 (``phase seconds``).  The second-to-last line of standard output is the ``kernels`` JSON record,
@@ -329,6 +350,29 @@ FLASH_CASES = [
     (2, 4, 2, 100, 257, 80, 80, True, False, 2e-5, 2e-4),
     (2, 4, 2, 100, 257, 96, 64, True, False, 2e-5, 2e-4),
     (2, 4, 2, 100, 257, 192, 128, False, False, 2e-5, 2e-4),
+    # phase 16: (a) each family's training attention at [8, 256] in bf16
+    # (Qwen2-VL's [4, 2048] is phase 14's), (b) each at [1, 128] in f32
+    # (Seamless's 512 random frames; Command R+ at reduce_config(cfg, 4)),
+    # (c) the --reduce 32 runs of train.main in bf16
+    (8, 16, 16, 256, 256, 128, 128, True, True, 1e-2, 1.5e-2),
+    (8, 16, 16, 256, 256, 192, 128, True, True, 1e-2, 1.5e-2),
+    (8, 40, 40, 256, 256, 96, 64, True, True, 1e-2, 1.5e-2),
+    (8, 32, 32, 256, 256, 80, 80, True, True, 1e-2, 1.5e-2),
+    (8, 96, 8, 256, 256, 128, 128, True, True, 1e-2, 1.5e-2),
+    (8, 16, 16, 64, 64, 64, 64, False, True, 1e-2, 1.5e-2),
+    (8, 16, 16, 256, 256, 64, 64, True, True, 1e-2, 1.5e-2),
+    (8, 16, 16, 256, 64, 64, 64, False, True, 1e-2, 1.5e-2),
+    (1, 16, 16, 128, 128, 128, 128, True, False, 2e-5, 2e-4),
+    (1, 16, 16, 128, 128, 192, 128, True, False, 2e-5, 2e-4),
+    (1, 40, 40, 128, 128, 96, 64, True, False, 2e-5, 2e-4),
+    (1, 32, 32, 128, 128, 80, 80, True, False, 2e-5, 2e-4),
+    (1, 24, 2, 128, 128, 32, 32, True, False, 2e-5, 2e-4),
+    (1, 28, 4, 128, 128, 128, 128, True, False, 2e-5, 2e-4),
+    (1, 16, 16, 512, 512, 64, 64, False, False, 2e-5, 2e-4),
+    (1, 16, 16, 128, 128, 64, 64, True, False, 2e-5, 2e-4),
+    (1, 16, 16, 128, 512, 64, 64, False, False, 2e-5, 2e-4),
+    (4, 1, 1, 64, 64, 16, 16, True, True, 1e-2, 1.5e-2),
+    (4, 1, 1, 64, 64, 16, 16, False, True, 1e-2, 1.5e-2),
 ]
 
 #: calib_mape_grid checks on random candidates, (B, T, H, C): the E2
@@ -1184,6 +1228,13 @@ def main() -> int:
     for k, n in details["shard"]["launches"].items():
         launches[k] += n
     phase_done("15 lane sharding")
+
+    # 16) training the LM families (MoE, MLA, StableLM, Command R+, VLM,
+    # enc-dec), before the kernel timings so that its launches count
+    details["family_train"] = family_train_phase(torch, np, ops, ref, card)
+    for k, n in details["family_train"]["launches"].items():
+        launches[k] += n
+    phase_done("16 LM family training")
 
     # 10) kernel times at the main paths' shapes (device time, queue kept full)
     timer = DeviceTimer(torch)
@@ -3428,11 +3479,11 @@ def sm_max_clock_hz() -> float:
 # -- phase 13: training -----------------------------------------------------------
 
 #: (a) the attention Function's gradient checks, (b, hq, hkv, sq, skv, d,
-#: causal): SmolLM-360M's train shape ([8, 256] tokens) and a ragged
-#: Skv > Sq shape (KV chunks of 40 in the backward, the last one short)
-TRAIN_FLASH_CASES = [(8, 15, 5, 256, 256, 64, True), (2, 4, 2, 100, 130, 64, True)]
-#: the backward's KV chunk in (a)'s ragged case; the model's is lm.KV_CHUNK
-TRAIN_FLASH_CHUNK = 40
+#: dv, causal, the backward's KV chunk): SmolLM-360M's train shape ([8,
+#: 256] tokens, the model's chunk ``lm.KV_CHUNK``) and a ragged Skv > Sq
+#: shape (KV chunks of 40, the last one short)
+TRAIN_FLASH_CASES = [(8, 15, 5, 256, 256, 64, 64, True, 1024),
+                     (2, 4, 2, 100, 130, 64, 64, True, 40)]
 #: (a)'s bars against the f32 CPU run: f32 ``atol + rtol |want|``; bf16
 #: ``2^-6`` of the tensor's largest value (the output and the gradients
 #: are rounded to bf16, and the backward's delta reads the bf16 output)
@@ -3485,46 +3536,49 @@ def _close_use(torch, got, want, dtype) -> tuple[float, float]:
     return float(err.max()), float((err / bar).max())
 
 
-def train_functions(torch, np, ops, ref) -> dict:
-    """(a) the two autograd Functions' gradients on the card against the same
-    Function on f32 CPU copies and against the plain version's autograd on
-    the card; the lse against the CPU run's."""
+def train_flash(torch, np, ops, ref, cases, seed: int) -> dict:
+    """The flash-attention autograd Function's output, lse and gradients on
+    the card at ``cases`` (``TRAIN_FLASH_CASES``' layout; inputs drawn from
+    ``seed + i``), bf16 and f32, against the same Function on f32 CPU
+    copies and against the plain version's autograd on the card, at
+    ``_close_use``'s bars; one kernel launch a call (not counted in the
+    kernels line: a check).  The CPU runs take one intra-op thread: a
+    process's first multithreaded ``torch.log`` on the CPU now and then
+    returns values off by up to ~3e-5 (ROADMAP C), which moved the lse
+    and so ``dk`` by 3x this bar when (d) ran first in a process."""
     from repro_torch.models.attention import FlashAttention
-    from repro_torch.models.mamba2 import SSDChunk
-
-    def run(fn, inputs, cts):
-        xs = [x.detach().clone().requires_grad_() for x in inputs]
-        outs = fn(*xs)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        torch.autograd.backward(outs, cts)
-        return [o.detach() for o in outs] + [x.grad for x in xs]
 
     out = {}
-    for i, (b, hq, hkv, sq, skv, d, causal) in enumerate(TRAIN_FLASH_CASES):
-        rng = np.random.default_rng(300 + i)
+    for i, (b, hq, hkv, sq, skv, d, dv, causal, chunk) in enumerate(cases):
+        rng = np.random.default_rng(seed + i)
         base = [torch.as_tensor(rng.normal(0, 1, s).astype(np.float32))
-                for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d), (b, hq, sq, d))]
-        chunk = TRAIN_FLASH_CHUNK if skv != sq else 1024
+                for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, dv), (b, hq, sq, dv))]
         fn = lambda q, k, v: FlashAttention.apply(q, k, v, causal, d ** -0.5, chunk)  # noqa: E731
         for dt in (torch.float32, torch.bfloat16):
             card = [x.to(DEVICE, dt) for x in base]
             cpu = [x.float().cpu() for x in card]          # the card's inputs, in f32
-            want = run(fn, cpu[:3], (cpu[3],))
-            want_lse = ops.flash_attention(*cpu[:3], causal=causal, return_lse=True)[1]
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                want = _grads_run(torch, fn, cpu[:3], (cpu[3],))
+                want_lse = ops.flash_attention(*cpu[:3], causal=causal, return_lse=True)[1]
+            finally:
+                torch.set_num_threads(threads)
             ops.reset_launches()
-            got = run(fn, card[:3], (card[3],))
+            got = _grads_run(torch, fn, card[:3], (card[3],))
             torch.cuda.synchronize()
             if ops.LAUNCHES["flash_attention"] != 1:
                 fail(f"train flash {i}: {dict(ops.LAUNCHES)} launches, expected 1 flash")
-            plain = run(lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=causal),
-                        [x.float() for x in card[:3]], (card[3].float(),))
+            plain = _grads_run(torch, lambda q, k, v: ref.flash_attention_ref(
+                q, k, v, causal=causal), [x.float() for x in card[:3]], (card[3].float(),))
             lse = ops.flash_attention(*card[:3], causal=causal, return_lse=True)[1]
-            tag = f"{(b, hq, hkv, sq, skv, d, causal)} {str(dt)[6:]}"
+            tag = f"{(b, hq, hkv, sq, skv, d, dv, causal)} {str(dt)[6:]}"
             rec = {}
             for name, g, w, p in zip(("out", "dq", "dk", "dv"), got, want, plain):
                 err, used = _close_use(torch, g, w, dt)
                 p_err, p_used = _close_use(torch, g, p.cpu(), dt)
-                if g.dtype != dt or not used <= 1.0 or not p_used <= 1.0:
+                if (g.dtype != dt or g.shape != w.shape or not used <= 1.0
+                        or not p_used <= 1.0):
                     fail(f"train flash {tag} {name}: vs CPU max |err| {err} (bar used "
                          f"{used}), vs plain autograd {p_err} (bar used {p_used})")
                 rec[name] = dict(max_abs_err=err, bar_used=used, plain_max_abs_err=p_err,
@@ -3538,20 +3592,39 @@ def train_functions(torch, np, ops, ref) -> dict:
                 f"{k} {v['max_abs_err']:.3g} (bar used {v['bar_used']:.3f}; plain "
                 f"autograd {v['plain_max_abs_err']:.3g})" for k, v in rec.items()
                 if isinstance(v, dict)) + f", lse {lse_err:.3g}")
+    return out
 
+
+def _grads_run(torch, fn, inputs, cts) -> list:
+    """``fn``'s outputs, then its inputs' gradients for cotangents ``cts``."""
+    xs = [x.detach().clone().requires_grad_() for x in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, cts)
+    return [o.detach() for o in outs] + [x.grad for x in xs]
+
+
+def train_functions(torch, np, ops, ref) -> dict:
+    """(a) the two autograd Functions' gradients on the card against the same
+    Function on f32 CPU copies and against the plain version's autograd on
+    the card; the lse against the CPU run's."""
+    from repro_torch.models.mamba2 import SSDChunk
+
+    out = train_flash(torch, np, ops, ref, TRAIN_FLASH_CASES, seed=300)
     bc, q, h, p, g, n = TRAIN_SSD
     args = [x.cpu() for x in ssd_inputs(torch, np, bc, q, h, p, g, n, seed=310,
                                         device=DEVICE, long_memory=True)]
     rng = np.random.default_rng(311)
     cts = [torch.as_tensor(rng.normal(0, 1, s).astype(np.float32))
            for s in ((bc, q, h, p), (bc, h, p, n))]
-    want = run(SSDChunk.apply, args, cts)
+    want = _grads_run(torch, SSDChunk.apply, args, cts)
     ops.reset_launches()
-    got = run(SSDChunk.apply, [x.to(DEVICE) for x in args], [c.to(DEVICE) for c in cts])
+    card_args, card_cts = [x.to(DEVICE) for x in args], [c.to(DEVICE) for c in cts]
+    got = _grads_run(torch, SSDChunk.apply, card_args, card_cts)
     torch.cuda.synchronize()
     if ops.LAUNCHES["ssd_chunk"] != 1:
         fail(f"train ssd: {dict(ops.LAUNCHES)} launches, expected 1 ssd_chunk")
-    plain = run(ref.ssd_chunk_ref, [x.to(DEVICE) for x in args], [c.to(DEVICE) for c in cts])
+    plain = _grads_run(torch, ref.ssd_chunk_ref, card_args, card_cts)
     rec = {}
     names = ("y", "states", "dx", "ddt", "dA_log", "dB", "dC", "dD")
     for name, gv, w, pv in zip(names, got, want, plain):
@@ -3757,52 +3830,63 @@ def codec_rate(torch, np) -> dict:
 
 
 def train_main_phase(torch, np, ops, card: str) -> dict:
-    """(c) ``launch/train.main`` with a crash at step ``TRAIN_MAIN_FAIL``:
-    one restart from the step-4 checkpoint, 8 steps done.  An
-    uninterrupted run with the same checkpoints is the reference: the two
-    runs' losses are equal bit for bit, before the crash and after the
-    restart, and so are their final params and moments and their
-    checkpoint files (steps 4, 6 and 8: the one restored from and the two
-    written after the restart; the file format is deterministic)."""
-    import tempfile
-
-    from repro_torch._tree import leaves
-    from repro_torch.launch import train
-
+    """(c) ``launch/train.main`` with a crash at step ``TRAIN_MAIN_FAIL``
+    (``train_main_restart``), the checkpoint codec's rate logged first."""
     rate = codec_rate(torch, np)
     log(f"checkpoint codec {rate['codec']}: {rate['bytes_per_second'] / 1e6:.1f} MB/s on "
         f"8 MB of bf16 weights; a full-size SmolLM-360M job state ({rate['params']} "
         f"params, {rate['state_bytes'] / 1e9:.2f} GB) would take "
         f"{rate['seconds_per_save']:.0f} s a save ({card})")
+    return dict(train_main_restart(torch, ops, TRAIN_MAIN_ARGV, TRAIN_MAIN_FAIL, card),
+                codec=rate)
+
+
+def train_main_restart(torch, ops, argv: list, fail_at: int, card: str) -> dict:
+    """``launch/train.main`` with ``argv`` and a crash at step ``fail_at``:
+    one restart from the latest checkpoint before it (step ``fail_at``
+    rounded down to ``--ckpt-every``), every step done.  An uninterrupted
+    run with the same checkpoints is the reference: the two runs' losses
+    are equal bit for bit, before the crash and after the restart, and so
+    are their final params and moments and their checkpoint files (the
+    last three kept; the file format is deterministic).  The failed run's
+    launches are counted."""
+    import tempfile
+
+    from repro_torch._tree import leaves
+    from repro_torch.launch import train
+
+    steps = int(argv[argv.index("--steps") + 1])
+    every = int(argv[argv.index("--ckpt-every") + 1])
+    restored = fail_at // every * every
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as tmp:
         ops.reset_launches()
         t0 = time.time()
-        res = train.main(TRAIN_MAIN_ARGV + ["--fail-at", str(TRAIN_MAIN_FAIL),
-                                            "--ckpt-dir", f"{tmp}/fail"])
+        res = train.main(argv + ["--fail-at", str(fail_at), "--ckpt-dir", f"{tmp}/fail"])
         wall = time.time() - t0
         launches = dict(ops.LAUNCHES)
-        clean = train.main(TRAIN_MAIN_ARGV + ["--ckpt-dir", f"{tmp}/clean"])
+        clean = train.main(argv + ["--ckpt-dir", f"{tmp}/clean"])
         files = {run: {f.name: f.read_bytes() for f in pathlib.Path(tmp, run).glob("ckpt_*")}
                  for run in ("fail", "clean")}
     rep = res.report
-    if not (rep.restarts == 1 and rep.restored_from == [4] and rep.steps_done == 8):
-        fail(f"train.main: {rep.restarts} restarts from {rep.restored_from}, "
+    what = f"train.main {' '.join(argv)} --fail-at {fail_at}"
+    if not (rep.restarts == 1 and rep.restored_from == [restored] and rep.steps_done == steps):
+        fail(f"{what}: {rep.restarts} restarts from {rep.restored_from}, "
              f"{rep.steps_done} steps")
-    # the failed run's losses: steps 0..4, then 4..7 again from the checkpoint
-    before, after = rep.losses[:TRAIN_MAIN_FAIL], rep.losses[TRAIN_MAIN_FAIL:]
+    # the failed run's losses: steps 0..fail_at - 1, then restored.. again
+    before, after = rep.losses[:fail_at], rep.losses[fail_at:]
     want = clean.report.losses
-    if clean.report.restarts != 0 or before != want[:TRAIN_MAIN_FAIL] or after != want[4:]:
-        fail(f"train.main: losses {before} + {after} against the uninterrupted run's {want}")
+    if (clean.report.restarts != 0 or before != want[:fail_at] or after != want[restored:]
+            or not all(math.isfinite(x) for x in want)):
+        fail(f"{what}: losses {before} + {after} against the uninterrupted run's {want}")
     states_equal = all(torch.equal(a, b) for a, b in zip(leaves(res.state),
                                                          leaves(clean.state)))
     if not states_equal or len(leaves(res.state)) != len(leaves(clean.state)):
-        fail("train.main: the final params/moments differ from the uninterrupted run's")
-    if len(files["fail"]) != 3 or files["fail"] != files["clean"]:
-        fail(f"train.main: checkpoint files {sorted(files['fail'])} differ from the "
+        fail(f"{what}: the final params/moments differ from the uninterrupted run's")
+    if len(files["fail"]) != min(3, steps // every) or files["fail"] != files["clean"]:
+        fail(f"{what}: checkpoint files {sorted(files['fail'])} differ from the "
              f"uninterrupted run's {sorted(files['clean'])}")
-    log(f"train.main {' '.join(TRAIN_MAIN_ARGV)} --fail-at {TRAIN_MAIN_FAIL}: "
-        f"{rep.steps_done} steps, {rep.restarts} restart from {rep.restored_from}, "
+    log(f"{what}: {rep.steps_done} steps, {rep.restarts} restart from {rep.restored_from}, "
         f"{rep.checkpoints} checkpoints; against an uninterrupted run: losses before the "
         f"crash and after the restart bitwise equal, final params and moments bitwise "
         f"equal ({len(leaves(res.state))} leaves), checkpoint files {sorted(files['fail'])} "
@@ -3811,7 +3895,7 @@ def train_main_phase(torch, np, ops, card: str) -> dict:
                 steps_done=rep.steps_done, checkpoints=rep.checkpoints,
                 losses=rep.losses, clean_losses=want, losses_bitwise=True,
                 states_bitwise=True, checkpoint_files=sorted(files["fail"]),
-                seconds=wall, launches=launches, codec=rate)
+                seconds=wall, launches=launches)
 
 
 def train_card_vs_cpu(torch, np, arch: str, card: str) -> dict:
@@ -4108,6 +4192,311 @@ def family_phase(torch, np, ops) -> dict:
             f"({active_param_count(full) / 1e9:.3f} B active)"
             + (f", run at {layers} of {full.num_layers} layers" if layers else "")
             + f", {time.time() - t0:.1f} s")
+    out["launches"] = launches
+    return out
+
+
+# -- phase 16: training the LM families ----------------------------------------------
+
+#: (a) each family at full width, bf16, through ``make_train_step``: arch ->
+#: (layers kept, None for all; batch; sequence; AdamW steps, 0 for the loss
+#: and gradients alone).  Depths are cut from the step's peak: a pure step
+#: holds the old and the new parameters and moments beside the gradient,
+#: 22 bytes a parameter (bf16 parameters and gradients, f32 moments), plus
+#: AdamW's f32 temporaries of the largest leaf (a layer stack; ~20 bytes an
+#: element) and the CE chunk's logits, reckoned at 44-61 GiB to keep 18 GiB
+#: of the 80 GB free.  Command R+ 104B takes no AdamW step: its untied
+#: 256000 x 12288 embedding and unembedding alone are 6.3 B parameters, one
+#: layer 7.86 B, 173 GB with moments and the update's copies
+FAMILY_TRAIN = {
+    "qwen2-moe-a2.7b": (2, 8, 256, 5),
+    "deepseek-v2-lite-16b": (3, 8, 256, 5),
+    "minicpm3-4b": (32, 8, 256, 5),
+    "stablelm-3b": (28, 8, 256, 5),
+    "qwen2-vl-7b": (4, 4, 2048, 5),
+    "seamless-m4t-medium": (None, 8, 256, 5),
+    "command-r-plus-104b": (1, 8, 256, 0),
+}
+#: (a)'s peak learning rate (2 warmup steps, then cosine decay): at 3e-4,
+#: phase 13's, MiniCPM3-4B's loss rose from 11.80 to 12.05 in 5 steps on
+#: an H100 (10.0 after the first, 14.0 at the fourth)
+FAMILY_TRAIN_LR = 1e-4
+#: (b) step 0's loss and every gradient, card against CPU in f32 with remat
+#: off (``TRAIN_REF_BARS["float32"]``): each family at full width and 2
+#: layers (DeepSeek: its dense layer 0 and one MoE layer; Seamless 2 + 2),
+#: [1, 128] tokens with ``prefill_batch``'s patches and frames.  Command R+
+#: at ``reduce_config(cfg, 4)``: at full width its f32 embedding and
+#: unembedding are 25 GB, their gradients 25 GB more on the host, beside
+#: the card's copies on the way back
+FAMILY_CVC_SHAPE = dict(layers=2, b=1, s=128)
+FAMILY_CVC_REDUCE = {"command-r-plus-104b": 4}
+#: (c) ``launch/train.main`` through a crash.  The MoE arch is Qwen1.5-MoE:
+#: a reduced DeepSeek-V2-Lite's MLA head dims (QK 48 / V 32 at --reduce 4)
+#: are no pair the flash kernel is built for.  --reduce 32: at --reduce 4
+#: a Qwen2-VL job state is 1.6 GB a checkpoint, and the codec writes ~8 MB/s
+#: on the card host (phase 13 (c)'s reading)
+FAMILY_MAIN_ARCHS = ("seamless-m4t-medium", "qwen2-vl-7b", "qwen2-moe-a2.7b")
+FAMILY_MAIN_ARGV = ["--reduce", "32", "--steps", "4", "--ckpt-every", "2", "--seq", "64",
+                    "--batch", "4", "--log-every", "1", "--device", DEVICE]
+FAMILY_MAIN_FAIL = 3
+#: (d) the flash Function's gradients (``train_flash``) at (a)'s distinct
+#: and new head dims: MiniCPM3-4B (QK 96 / V 64), DeepSeek-V2-Lite (192 /
+#: 128) and StableLM-3B (80) at [8, 256], Seamless's cross-attention (256
+#: decoder queries against 64 frames, non-causal), and two ragged shapes
+#: with KV chunks of 40 in the backward
+FAMILY_TRAIN_FLASH_CASES = [(8, 40, 40, 256, 256, 96, 64, True, 1024),
+                            (8, 16, 16, 256, 256, 192, 128, True, 1024),
+                            (8, 32, 32, 256, 256, 80, 80, True, 1024),
+                            (8, 16, 16, 256, 64, 64, 64, False, 1024),
+                            (2, 4, 2, 100, 130, 96, 64, True, 40),
+                            (2, 4, 2, 100, 130, 192, 128, False, 40)]
+
+
+class FlashShapes:
+    """Records the ``FLASH_CASES`` key ``(b, hq, hkv, sq, skv, d, dv,
+    causal, bf16)`` of each ``ops.flash_attention`` call on a card tensor
+    while installed; the calls themselves are unchanged."""
+
+    def __init__(self, ops):
+        self.ops, self.seen = ops, set()
+
+    def __enter__(self):
+        self.real = self.ops.flash_attention
+
+        def recording(q, k, v, **kw):
+            if q.is_cuda:
+                self.seen.add((*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                               v.shape[3], bool(kw.get("causal", True)),
+                               str(q.dtype) == "torch.bfloat16"))
+            return self.real(q, k, v, **kw)
+
+        self.ops.flash_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.real
+
+
+def attention_calls(cfg) -> int:
+    """Flash-attention calls in one forward: one an attention layer; the
+    enc-dec's encoder self-attention, decoder self- and cross-attention."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.dec_layers
+    return cfg.num_layers
+
+
+def family_train_full_width(torch, np, ops, arch: str, card: str) -> dict:
+    """(a) the arch at full width, cut in depth (``FAMILY_TRAIN``), bf16,
+    ``wq``/``wk`` rescaled (``rescale_qk``), on the port's token pipeline
+    with ``train.frontend_inputs`` (the JAX launcher's frames and patches).
+    First the loss and every gradient twice from one state: equal bit for
+    bit (required of the MoE families, whose dispatch gathers rows back
+    with repeated indices; logged for the others), then the AdamW steps
+    through ``make_train_step``: per step the loss, grad norm and lr
+    (finite), ms, tokens/s, peak ``max_memory_allocated`` and the
+    flash-attention launches, exactly two an attention call (a forward
+    and its remat recompute); the loss falls over the steps.  Command R+
+    (no steps) is the gradient pass alone."""
+    from repro_torch._tree import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import loss_for, make_train_step, param_specs_for
+    from repro_torch.launch.train import frontend_inputs
+    from repro_torch.models.common import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    layers, b, s, n_steps = FAMILY_TRAIN[arch]
+    cfg = lm_config(arch, num_layers=layers)
+    per_step = attention_calls(cfg) * (1 if cfg.remat == "none" else 2)
+    want = {k: per_step if k == "flash_attention" else 0 for k in ops.LAUNCHES}
+    launches = {k: 0 for k in ops.LAUNCHES}
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = rescale_qk(cfg, init_params(param_specs_for(cfg), gen,
+                                         getattr(torch, cfg.dtype), DEVICE))
+    pipe = TokenPipeline(DataConfig(cfg.vocab, s, b, seed=1), device=DEVICE)
+    extra = frontend_inputs(cfg, b, s, DEVICE)
+    loss_fn = loss_for(cfg)
+
+    def counted(what: str, fn):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = dict(ops.LAUNCHES)
+        if got != want:
+            fail(f"train {arch} {what}: launches {got}, expected {want}")
+        for k, n in got.items():
+            launches[k] += n
+        return out, ms
+
+    def gradients():
+        flat, unflatten = flatten(params)
+        xs = [x.detach().requires_grad_(True) for x in flat]
+        loss = loss_fn(cfg, unflatten(xs), {**pipe.global_batch(0), **extra})[0]
+        grads = torch.autograd.grad(loss, xs)
+        return float(loss.detach()), grads
+
+    (loss0, g0), grad_ms = counted("gradients", gradients)
+    # in f32 a slab at a time: an f32 copy of Command R+'s embedding
+    # gradient alone is 11.7 GiB
+    gnorm = math.sqrt(sum(float(c.float().square().sum())
+                          for g in g0 for c in g.reshape(-1).split(1 << 26)))
+    (_, g1), _ = counted("gradients again", gradients)
+    repeat = all(torch.equal(a, c) for a, c in zip(g0, g1, strict=True))
+    del g0, g1
+    if cfg.moe and not repeat:
+        fail(f"train {arch}: two backward passes from one state differ bitwise")
+    if not (math.isfinite(loss0) and math.isfinite(gnorm)):
+        fail(f"train {arch}: loss {loss0}, grad norm {gnorm}")
+    grad_peak = torch.cuda.max_memory_allocated()
+    out = dict(layers=layers, batch=b, seq=s, loss=loss0, grad_norm=gnorm,
+               gradients_ms=grad_ms, gradients_peak_bytes=grad_peak,
+               bitwise_repeatable=repeat, launches_per_step=per_step)
+    rows = []
+    if n_steps:
+        opt_cfg = AdamWConfig(lr=FAMILY_TRAIN_LR, warmup_steps=2, total_steps=n_steps)
+        opt = init_opt_state(params, opt_cfg)
+        step = make_train_step(cfg, opt_cfg)
+        for i in range(n_steps):
+            batch = {**pipe.global_batch(i), **extra}
+            torch.cuda.reset_peak_memory_stats()
+            (params, opt, m), ms = counted(f"step {i}", lambda: step(params, opt, batch))
+            vals = {k: float(m[k]) for k in ("loss", "grad_norm", "lr")}
+            if not all(math.isfinite(v) for v in vals.values()):
+                fail(f"train {arch} step {i}: metrics {vals}")
+            rows.append(dict(step=i, ms=ms, tokens_per_second=b * s / ms * 1e3,
+                             peak_bytes=torch.cuda.max_memory_allocated(), **vals))
+            log(f"train {arch} step {i}: loss {vals['loss']:.4f} grad_norm "
+                f"{vals['grad_norm']:.4g} lr {vals['lr']:.3g}, {ms:.1f} ms "
+                f"({rows[-1]['tokens_per_second']:.0f} tokens/s), peak "
+                f"{rows[-1]['peak_bytes'] / 2**30:.2f} GiB allocated")
+        if not rows[-1]["loss"] < rows[0]["loss"]:
+            fail(f"train {arch}: the loss did not fall in {n_steps} steps: "
+                 f"{[r['loss'] for r in rows]}")
+        del opt
+    peak = max([grad_peak] + [r["peak_bytes"] for r in rows])
+    warm = statistics.median(r["ms"] for r in rows[1:]) if rows else grad_ms
+    depth = (f"{cfg.enc_layers} + {cfg.dec_layers}" if cfg.family == "encdec"
+             else f"{cfg.num_layers} of {get_config(arch).num_layers}")
+    log(f"train {arch} ({depth} layers x {cfg.d_model}, {cfg.dtype}, remat {cfg.remat!r}) "
+        f"[{b}, {s}]: " + (f"{n_steps} AdamW steps, median {warm:.1f} ms a step "
+                           f"({b * s / warm * 1e3:.0f} tokens/s), loss {rows[0]['loss']:.4f}"
+                           f" -> {rows[-1]['loss']:.4f}; " if rows else
+                           "loss and gradients only (no AdamW step); ")
+        + f"loss and gradients {grad_ms:.1f} ms, loss {loss0:.4f}, grad norm {gnorm:.4g}, "
+        f"twice from one state bitwise equal: {repeat}; peak {peak / 2**30:.2f} GiB "
+        f"allocated; {per_step} flash launches a step ({attention_calls(cfg)} attention "
+        f"calls, forward and remat recompute) ({card})")
+    del params
+    torch.cuda.empty_cache()
+    return dict(out, steps=rows, median_ms=warm, peak_bytes=peak, launches=launches)
+
+
+def family_train_card_vs_cpu(torch, np, arch: str, card: str) -> dict:
+    """(b) step 0's loss and every parameter's gradient on the card against
+    the CPU, f32, remat off (``FAMILY_CVC_SHAPE``; TF32 off on both
+    sides), on weights drawn on the card (seed 0, ``rescale_qk``) and
+    copied to the host, ``prefill_batch``'s tokens, patches and frames and
+    the tokens shifted as labels; the MoE families' expert ids compared
+    call by call (``route_agreement``) first.  Bars:
+    ``TRAIN_REF_BARS["float32"]``."""
+    from repro_torch._tree import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_for, param_specs_for
+    from repro_torch.launch.train import reduce_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import init_params, spec_leaves
+
+    c = FAMILY_CVC_SHAPE
+    base = get_config(arch)
+    factor = FAMILY_CVC_REDUCE.get(arch, 1)
+    depth = (dict(enc_layers=c["layers"], dec_layers=c["layers"])
+             if base.family == "encdec" else dict(num_layers=c["layers"]))
+    cfg = dataclasses.replace(reduce_config(base, factor), dtype="float32", remat="none",
+                              **depth)
+    t0 = time.time()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = {"card": rescale_qk(cfg, init_params(param_specs_for(cfg), gen,
+                                                  torch.float32, DEVICE))}
+    batch = prefill_batch(torch, cfg, c["b"], c["s"], gen, DEVICE)
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    batches = {"card": batch, "cpu": _tree_to(batch, "cpu")}
+    params["cpu"] = _tree_to(params["card"], "cpu")
+    names = [k for k, _ in spec_leaves(param_specs_for(cfg))]
+    loss_fn = loss_for(cfg)
+    res, secs = {}, {}
+    for run in ("cpu", "card"):
+        t1 = time.time()
+        flat, unflatten = flatten(params[run])
+        xs = [x.detach().requires_grad_(True) for x in flat]
+        with RouteProbe(moe_mod) as probe:
+            loss = loss_fn(cfg, unflatten(xs), batches[run])[0]
+        grads = [g.cpu() for g in torch.autograd.grad(loss, xs)]
+        res[run] = (float(loss.detach()), grads, probe.calls)
+        secs[run] = time.time() - t1
+        del xs, flat
+    want_loss, want, cpu_calls = res["cpu"]
+    loss, got, card_calls = res["card"]
+    out = dict(layers=c["layers"], reduce=factor, seconds=secs)
+    if cfg.moe:
+        out["routing"] = route_agreement(torch, arch, "train step 0", card_calls, cpu_calls)
+    want_norm = math.sqrt(sum(float(w.square().sum()) for w in want))
+    diff = [float((g - w).norm()) for g, w in zip(got, want, strict=True)]
+    leaf = sorted(((d / max(float(w.norm()), 1e-30), n)
+                   for d, w, n in zip(diff, want, names, strict=True)), reverse=True)
+    rec = dict(loss=loss, cpu_loss=want_loss, loss_rel=abs(loss - want_loss) / abs(want_loss),
+               grad_norm=want_norm, grad_rel=math.sqrt(sum(d * d for d in diff)) / want_norm,
+               grad_leaf_rel_max=leaf[0][0], worst_leaves=leaf[:3])
+    bar = TRAIN_REF_BARS["float32"]
+    if not (rec["loss_rel"] <= bar["loss"] and rec["grad_rel"] <= bar["grad"]
+            and rec["grad_leaf_rel_max"] <= bar["leaf"]):
+        fail(f"train card vs CPU {arch} step 0: {rec} (bars {bar}); routing "
+             f"{out.get('routing')}")
+    routing = out.get("routing")
+    log(f"train card vs CPU ({arch}" + (f" reduce_config(cfg, {factor})" if factor > 1
+                                        else " full width")
+        + f", {c['layers']} layers, f32, [{c['b']}, {c['s']}], step 0): loss {loss:.6f} vs "
+        f"{want_loss:.6f} (rel {rec['loss_rel']:.3g}, bar {bar['loss']}), gradient's relative "
+        f"L2 error {rec['grad_rel']:.3g} (bar {bar['grad']}), worst leaves " + ", ".join(
+            f"{n} {r:.3g}" for r, n in leaf[:3]) + f" (bar {bar['leaf']})"
+        + (f"; routing {routing['decisions']} decisions, {routing['near_ties']} near ties, "
+           f"{routing['near_tie_mismatches']} differ" if routing else "")
+        + f"; CPU {secs['cpu']:.1f} s, card {secs['card']:.2f} s, {time.time() - t0:.1f} s "
+        f"in all ({card})")
+    del params, res, batches, got, want
+    torch.cuda.empty_cache()
+    return dict(out, **rec)
+
+
+def family_train_phase(torch, np, ops, ref, card: str) -> dict:
+    """Phase 16: training the MoE, MLA, StableLM, Command R+, VLM and enc-dec
+    families: (d) the flash Function's gradients at their head dims, (a)
+    each at full width (``FAMILY_TRAIN``), (b) card against CPU, (c)
+    ``train.main`` through a crash.  (a)'s and (c)'s launches are counted;
+    every flash shape they and (b) give the kernel must be one of
+    ``FLASH_CASES`` (phase 3 held each against the plain version)."""
+    out = {"flash": train_flash(torch, np, ops, ref, FAMILY_TRAIN_FLASH_CASES, seed=320)}
+    launches = {k: 0 for k in ops.LAUNCHES}
+    with FlashShapes(ops) as shapes:
+        for arch in FAMILY_TRAIN:
+            run = out[f"full width {arch}"] = family_train_full_width(torch, np, ops, arch, card)
+            for k, n in run["launches"].items():
+                launches[k] += n
+        for arch in FAMILY_TRAIN:
+            out[f"card vs CPU {arch}"] = family_train_card_vs_cpu(torch, np, arch, card)
+        for arch in FAMILY_MAIN_ARCHS:
+            run = out[f"main {arch}"] = train_main_restart(
+                torch, ops, ["--arch", arch] + FAMILY_MAIN_ARGV, FAMILY_MAIN_FAIL, card)
+            for k, n in run["launches"].items():
+                launches[k] += n
+    checked = {case[:9] for case in FLASH_CASES}
+    if not shapes.seen <= checked:
+        fail(f"phase 16 gave flash_attention shapes phase 3 does not check: "
+             f"{sorted(shapes.seen - checked)}")
+    out["flash_shapes"] = sorted(shapes.seen)
     out["launches"] = launches
     return out
 

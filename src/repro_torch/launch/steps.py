@@ -3,9 +3,11 @@
 The units the launchers, the live-twin example and ``chip_smoke.py``
 share.  ``train_step`` takes gradients with ``torch.autograd.grad`` over
 the parameter leaves and applies one AdamW step; the prefill and serve
-steps run under ``torch.no_grad()``.  Prefill and serving take every
-family; the enc-dec loss (``loss_for``) raises ``NotImplementedError``:
-training that family waits.
+steps run under ``torch.no_grad()``.  Every family of the registry
+trains, serves and prefills: ``loss_for`` gives the enc-dec family
+``encdec.encdec_loss`` (its batch carries ``frames`` beside ``tokens`` and
+``labels``) and every decoder-only family ``lm.loss_fn``, as the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from repro_torch.optim.adamw import AdamWConfig, apply_updates
 
 def loss_for(cfg: ModelConfig):
     if cfg.family == "encdec":
-        raise NotImplementedError("loss_for: the enc-dec family is not ported yet")
+        return ed.encdec_loss
     return lm.loss_fn
 
 
@@ -88,7 +90,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, grad_accum: int = 1)
         flat, unflatten = flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in flat]
         loss, metrics = loss_fn(cfg, unflatten(leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not read (a hybrid stack too shallow for
+        # its shared block) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             unflatten(list(grads))
 

@@ -11,9 +11,9 @@ which needs a card).  Parameters are random, drawn from ``--seed`` by a
 failure injected with ``--fail-at``.  ``--reduce N`` divides layer count
 and widths by N (:func:`reduce_config`, shared with the serving
 launcher).  ``--ckpt-dir`` is not cleared first: a directory that holds
-checkpoints resumes from them.  The JAX launcher's enc-dec and VLM
-branches are absent: ``get_config`` lists only the ported (dense, SSM,
-hybrid) architectures.
+checkpoints resumes from them.  Every ``--arch`` of the registry
+trains; the enc-dec and VLM batches carry the JAX launcher's stub
+frontend inputs (:func:`frontend_inputs`).
 """
 
 from __future__ import annotations
@@ -95,6 +95,28 @@ def _scale_sections(cfg: ModelConfig, factor: int):
     return (t, h, w)
 
 
+def frontend_inputs(cfg: ModelConfig, batch: int, seq: int, device
+                    ) -> dict[str, torch.Tensor]:
+    """The stub frontend's inputs the JAX launcher adds to every batch, in
+    ``cfg.dtype`` on ``device``: the enc-dec's ``frames`` (``[B, 64, d]``
+    at 0.02); the VLM's ``vision_embeds`` (``[B, P, d]`` at 0.02, ``P =
+    cfg.num_patches``) on rows ``vision_pos`` = ``arange(P)`` and M-RoPE
+    ``positions`` = ``arange(seq)`` in all three streams (``[3, B, S]``);
+    nothing for the other families."""
+    dt = getattr(torch, cfg.dtype)
+    out = {}
+    if cfg.family == "encdec":
+        out["frames"] = torch.ones((batch, 64, cfg.d_model), dtype=dt, device=device) * 0.02
+    if cfg.family == "vlm":
+        p = cfg.num_patches
+        out["vision_embeds"] = torch.ones((batch, p, cfg.d_model), dtype=dt,
+                                          device=device) * 0.02
+        out["vision_pos"] = torch.arange(p, dtype=torch.int32, device=device).expand(batch, p)
+        out["positions"] = torch.arange(seq, dtype=torch.int32, device=device).expand(
+            3, batch, seq)
+    return out
+
+
 @dataclasses.dataclass
 class TrainResult:
     cfg: ModelConfig
@@ -136,10 +158,11 @@ def main(argv=None) -> TrainResult:
         params = init_params(param_specs_for(cfg), gen, getattr(torch, cfg.dtype), dev)
         return {"params": params, "opt": init_opt_state(params, opt_cfg)}
 
+    extra = frontend_inputs(cfg, args.batch, args.seq, dev)
     times = []
 
     def step_fn(state, step):
-        batch = pipe.global_batch(step)
+        batch = {**pipe.global_batch(step), **extra}
         t0 = time.perf_counter()
         params, opt, metrics = train_step(state["params"], state["opt"], batch)
         loss = float(metrics["loss"])

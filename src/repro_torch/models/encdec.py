@@ -7,9 +7,10 @@ bidirectional; the decoder is causal with cross-attention to the
 encoder's frames (non-causal, ``S`` queries against ``F`` keys).  RoPE
 replaces Seamless' relative position bias, as in the JAX package.  Every
 attention of a prefill runs the flash kernel; decode reads the self
-cache and the fixed cross K/V with plain products.
-
-The enc-dec loss (``encdec_loss``) waits for the training slice.
+cache and the fixed cross K/V with plain products.  ``encdec_loss`` is
+the training loss: encoder, teacher-forced decoder, then the seq-chunked
+cross entropy of ``lm.chunked_ce``; gradients reach the flash kernel's
+three attentions through ``FlashAttention``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import chunked_attention, decode_attention
 from repro_torch.models.blocks import _out_proj, attn_specs, dense_ffn, ffn_specs, gqa_decode
 from repro_torch.models.common import ParamSpec, dense, rms_norm
-from repro_torch.models.lm import KV_CHUNK, _layer, _layers, _remat
+from repro_torch.models.lm import KV_CHUNK, _layer, _layers, _remat, chunked_ce
 from repro_torch.models.rope import apply_rope
 
 Tensor = torch.Tensor
@@ -116,6 +117,20 @@ def decode_train(cfg: ModelConfig, params, tokens: Tensor, enc_out: Tensor
     for lp in _layers(params["decoder"]):
         x = body(x, lp)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def encdec_loss(cfg: ModelConfig, params, batch
+                ) -> tuple[Tensor, dict[str, Tensor]]:
+    """``(loss, {"ce", "moe_aux", "tokens"})`` of a batch with ``frames``
+    [B, F, d], ``tokens`` and ``labels`` [B, S]: the mean NLL of the
+    decoder's logits (``params["unembed"]``) over the non-ignored labels,
+    ``moe_aux`` a float32 zero (no MoE layer), as the JAX package's."""
+    enc_out = encode(cfg, params, batch["frames"])
+    x = decode_train(cfg, params, batch["tokens"], enc_out)
+    loss, tok = chunked_ce(cfg, x, params["unembed"], batch["labels"])
+    return loss, {"ce": loss,
+                  "moe_aux": torch.zeros((), dtype=torch.float32, device=x.device),
+                  "tokens": tok}
 
 
 def encdec_state_specs(cfg: ModelConfig, batch: int, seq: int

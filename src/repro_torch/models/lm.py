@@ -222,9 +222,14 @@ def _hybrid_forward(cfg: ModelConfig, params: dict[str, Any], x: Tensor,
 def embed_tokens(cfg: ModelConfig, params: dict[str, Any], batch) -> Tensor:
     """Token embeddings ``[B, S, d]``; for the VLM family the batch's
     ``vision_embeds`` [B, P, d] (the stub frontend's patch embeddings) are
-    written over the rows at ``vision_pos`` [B, P]."""
+    written over the rows at ``vision_pos`` [B, P].  More patches than
+    rows (``P > S``) raise ``ValueError``, where the JAX package's scatter
+    drops the rows past the sequence."""
     x = params["embed"][batch["tokens"]]
     if cfg.family == "vlm" and "vision_embeds" in batch:
+        p, s = batch["vision_embeds"].shape[1], x.shape[1]
+        if p > s:
+            raise ValueError(f"{p} patch embeddings do not fit a sequence of {s} tokens")
         bidx = torch.arange(x.shape[0], device=x.device)[:, None]
         x[bidx, batch["vision_pos"].long()] = batch["vision_embeds"].to(x.dtype)
     if cfg.tie_embeddings:

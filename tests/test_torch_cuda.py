@@ -15,7 +15,10 @@ readout and placement checks fail on faults planted in copies of those
 kernels (V read at K's row stride fails only the MLA shapes); and, for
 training, the flash-attention and SSD autograd Functions' gradients on
 the card against their CPU runs, the lse output, one counted bf16 train
-step and a card checkpoint restored on the CPU; and lane sharding over the
+step and a card checkpoint restored on the CPU, the Function's gradients
+at the LM families' head dims and cross-attention shape, a MoE layer's
+backward bitwise repeatable and the enc-dec loss and its gradients
+against the CPU; and lane sharding over the
 card mesh (every card, or ``cuda:0`` four times on a one-card host): the
 fleet step and ``run_scenarios`` sharded equal to unsharded bit for bit
 with one launch of each kernel an entry, ``des_place``'s probes on every
@@ -731,6 +734,126 @@ def test_card_checkpoint_restores_on_the_cpu(dev, tmp_path):
     for a, b in zip(leaves(got), leaves(state)):
         assert a.device.type == "cpu" and a.dtype == b.dtype
         assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv,d,dv,causal", [
+    (96, 96, 96, 64, True), (96, 96, 192, 128, True), (96, 96, 80, 80, True),
+    (256, 64, 64, 64, False)], ids=["96-64", "192-128", "80-80", "cross"])
+def test_flash_function_grads_at_family_head_dims_match_plain_autograd(
+        dev, dtype, sq, skv, d, dv, causal):
+    """The FlashAttention Function on the card at the MLA pairs, StableLM's
+    80 and the enc-dec's cross-attention shape (256 decoder queries
+    against 64 frames, non-causal) against the plain version's autograd
+    on the card in f32: ``dq``/``dk`` of width ``d``, ``dv`` of width
+    ``dv``; f32 at rtol 1e-4 / atol 1e-5, bf16 at 2^-6 of each tensor's
+    largest value."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import FlashAttention
+
+    rng = np.random.default_rng(d + dv + skv)
+    dt = getattr(torch, dtype)
+    shapes = ((2, 4, sq, d), (2, 2, skv, d), (2, 2, skv, dv), (2, 4, sq, dv))
+    q, k, v, do = (torch.as_tensor(rng.normal(0, 1, s).astype(np.float32), device=dev)
+                   for s in shapes)
+    fn = lambda a, b, c: FlashAttention.apply(a, b, c, causal, d ** -0.5, 40)  # noqa: E731
+    ops.reset_launches()
+    (out,), grads = _grads_of(fn, [x.to(dt) for x in (q, k, v)], (do.to(dt),))
+    assert ops.LAUNCHES["flash_attention"] == 1
+    (want,), wgrads = _grads_of(
+        lambda a, b, c: ref.flash_attention_ref(a, b, c, causal=causal),
+        [x.to(dt).float() for x in (q, k, v)], (do.to(dt).float(),))
+    for got, w in zip([out, *grads], [want, *wgrads]):
+        assert got.dtype == dt and got.shape == w.shape
+        if dtype == "float32":
+            torch.testing.assert_close(got, w, rtol=1e-4, atol=1e-5)
+        else:
+            assert float((got.float() - w).abs().max()) <= 2 ** -6 * float(w.abs().max())
+
+
+def test_moe_layer_backward_is_bitwise_repeatable(dev):
+    """A MoE layer at Qwen1.5-MoE-A2.7B's width (60 experts padded to 64, top
+    4, shared experts) in bf16 on [2, 256] tokens, with capacity drops
+    (every dropped token gathers the same clamped row): two backward passes
+    from the same inputs give bitwise equal gradients of the input, the
+    router and every expert weight."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = {k: v[0] for k, v in init_params(moe.moe_specs(cfg, 1), gen, BF16, dev).items()}
+    x = torch.randn((2, 256, cfg.d_model), generator=gen, device=dev).to(BF16)
+    ct = torch.randn((2, 256, cfg.d_model), generator=gen, device=dev).to(BF16)
+    keep, _ = moe.dispatch(moe.route(x.reshape(-1, cfg.d_model), p["router"], cfg,
+                                     moe.padded_experts(cfg))[2], moe.padded_experts(cfg), 0,
+                           moe._capacity(512, cfg))
+    assert not bool(keep.all())                       # some (token, slot) dropped
+
+    def grads():
+        xs = [t.detach().clone().requires_grad_() for t in (x, *p.values())]
+        y, aux = moe.moe_ffn(cfg, dict(zip(p, xs[1:])), xs[0])
+        torch.autograd.backward([y, aux], [ct, torch.ones_like(aux)])
+        return [t.grad for t in xs]
+
+    a, b = grads(), grads()
+    assert all(torch.equal(g, h) for g, h in zip(a, b))
+    assert all(bool(torch.isfinite(g).all()) for g in a)
+
+
+def test_encdec_loss_on_the_card_matches_the_cpu(dev):
+    """``loss_for`` of the enc-dec family (``encdec_loss``) at Seamless-M4T's
+    ``reduce_config(..., 8)`` width, 2 + 2 layers, f32, random frames: the
+    card's loss and every gradient against the CPU's (TF32 off) at
+    ``chip_smoke.py`` phase 13's f32 bars: the loss at rtol 1e-5, the
+    whole gradient's relative L2 error 1e-4 and each leaf's 1e-3, with 2
+    flash launches an attention call under remat.  Query
+    and key projections are rescaled from the init's fan-in (a head count)
+    to the width they contract: at the init's scale attention is near
+    argmax and rounding in a score moves the gradients as a fault would."""
+    import dataclasses
+
+    from repro_torch._tree import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_for, param_specs_for
+    from repro_torch.launch.train import reduce_config
+    from repro_torch.models.common import init_params
+
+    cfg = dataclasses.replace(reduce_config(get_config("seamless-m4t-medium"), 8),
+                              enc_layers=2, dec_layers=2, dtype="float32")
+    params = init_params(param_specs_for(cfg), torch.Generator().manual_seed(1),
+                         torch.float32, "cpu")
+    for part in ("encoder", "decoder"):
+        for name, w in params[part].items():
+            if name in ("wq", "wk", "x_wq", "x_wk"):
+                w *= (w.shape[-2] / w.shape[-3]) ** 0.5
+    rng = np.random.default_rng(2)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 64)).astype(np.int32))
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, dims=1),
+             "frames": torch.as_tensor(rng.normal(0, 1, (2, 64, cfg.d_model))
+                                       .astype(np.float32))}
+    flat, unflatten = flatten(params)
+
+    def run(device):
+        xs = [x.to(device).requires_grad_() for x in flat]
+        loss, _ = loss_for(cfg)(cfg, unflatten(xs), {k: v.to(device) for k, v in batch.items()})
+        return loss.detach().cpu(), [g.cpu() for g in torch.autograd.grad(loss, xs)]
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)                 # a process's first multithreaded
+    try:                                     # CPU log is now and then off (ROADMAP C)
+        want, wgrads = run("cpu")
+    finally:
+        torch.set_num_threads(threads)
+    ops.reset_launches()
+    got, grads = run(dev)
+    assert ops.LAUNCHES["flash_attention"] == 2 * (2 + 2 * 2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    diff = [float((g - w).norm()) for g, w in zip(grads, wgrads, strict=True)]
+    norms = [float(w.norm()) for w in wgrads]
+    assert sum(d * d for d in diff) ** 0.5 <= 1e-4 * sum(n * n for n in norms) ** 0.5
+    assert all(d <= 1e-3 * n for d, n in zip(diff, norms))
 
 
 # -- lane sharding over the card mesh ----------------------------------------

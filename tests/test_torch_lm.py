@@ -295,8 +295,7 @@ def test_registry_lists_only_ported_archs():
     enc = get_config("seamless-m4t-medium")
     with pytest.raises(ValueError, match="encdec"):
         lm.model_specs(enc)
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        steps.loss_for(enc)
+    assert steps.loss_for(enc) is encdec.encdec_loss
 
 
 def test_lm_params_from_numpy_checks_the_tree():

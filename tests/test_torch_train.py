@@ -359,8 +359,15 @@ def _arch(arch, factor, **over):
 
 
 def test_loss_for_refuses_encdec():
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        steps.loss_for(dataclasses.replace(get_config("smollm-360m"), family="encdec"))
+    """``loss_for`` refuses no family: the enc-dec one gets
+    ``encdec.encdec_loss``, as the JAX package's ``loss_for`` gives it
+    (held against JAX in ``test_torch_train_families.py``), the others
+    ``lm.loss_fn``."""
+    from repro_torch.models import encdec
+
+    enc = dataclasses.replace(get_config("smollm-360m"), family="encdec")
+    assert steps.loss_for(enc) is encdec.encdec_loss
+    assert steps.loss_for(get_config("smollm-360m")) is lm.loss_fn
 
 
 # -- AdamW ------------------------------------------------------------------------
