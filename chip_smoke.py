@@ -196,7 +196,28 @@ Phases (each passes or the script exits non-zero without a result line):
    ``reduce_config(cfg, 4)``); (c) ``train.main`` at ``--reduce 32``
    through a crash for Seamless, Qwen2-VL and Qwen1.5-MoE, bitwise equal
    to an uninterrupted run; every flash shape (a)-(c) give the kernel is
-   one phase 3 checks.
+   one phase 3 checks;
+17. (``meta_phase``, also before the timings) the meta passes: (a) the
+   expert-parallel MoE branch at Qwen1.5-MoE-A2.7B's width (one layer, x
+   [4, 2048, 2048] on grids that make the router's logits exact), over
+   ``cuda:0`` x 4 on ``("model",)`` against the one-shard ``moe_ffn``
+   (routing ids, keep and slots of each shard exact, y rel L2 ``EP_REL_L2``,
+   f32 and bf16) and over ``cuda:0`` x 8 on ``("data", "model")`` 2x4
+   against the same call on the CPU (decisions exact, f32 at rtol
+   ``EP_CPU_RTOL``), ms beside the one-shard call's; (b) Qwen1.5-MoE at 2
+   layers of full width, f32, prefilled on ``[4, 2048]`` under
+   ``ShardingCtx(mesh=<cuda:0 x 4>, mode="serve")`` (the step factory binds
+   it with ``use_ctx``): last logits
+   at phase 14's bar against the unsharded prefill, one flash launch an
+   attention layer; (c) ``analysis.cost.trace_cost`` on ``meta`` and on the
+   card (``META_CELLS``: SmolLM-360M, Mamba2-370M, Qwen1.5-MoE at 2 layers;
+   a train step on [8, 256], a prefill of [4, 2048], a batch-4 decode step
+   over a 2048 cache, bf16): FLOPs equal, bytes within 1 %, ops printed, the
+   meta live bytes plus the arguments within [0.8, 1.2] of the card's
+   peak, the H100 roofline bound at most the step's median ms; (d)
+   ``python -m repro_torch.launch.dryrun`` (``DRYRUN_ARGV``) in a
+   subprocess, exit 0, its cells ``ok`` (``long_500k`` skipped for a
+   full-attention arch).
 
 The seconds each phase took are logged after the kernel timings
 (``phase seconds``).  The second-to-last line of standard output is the ``kernels`` JSON record,
@@ -373,6 +394,8 @@ FLASH_CASES = [
     (1, 16, 16, 128, 512, 64, 64, False, False, 2e-5, 2e-4),
     (4, 1, 1, 64, 64, 16, 16, True, True, 1e-2, 1.5e-2),
     (4, 1, 1, 64, 64, 16, 16, False, True, 1e-2, 1.5e-2),
+    # phase 17 (b): Qwen1.5-MoE's prefill in f32
+    (*PREFILL_FLASH_QWEN_MOE, True, False, 2e-5, 2e-4),
 ]
 
 #: calib_mape_grid checks on random candidates, (B, T, H, C): the E2
@@ -1236,6 +1259,14 @@ def main() -> int:
         launches[k] += n
     phase_done("16 LM family training")
 
+    # 17) the meta passes: expert parallelism, a prefill through it, the
+    # meta count against card steps and the dry-run's CLI (before the
+    # kernel timings, so that their launches count)
+    details["meta"] = meta_phase(torch, ops)
+    for k, n in details["meta"]["launches"].items():
+        launches[k] += n
+    phase_done("17 meta passes")
+
     # 10) kernel times at the main paths' shapes (device time, queue kept full)
     timer = DeviceTimer(torch)
     kernels, shapes = [], {}
@@ -1388,6 +1419,7 @@ def main() -> int:
         **bound(main["bytes"], main["ops"], PEAK_BF16_TC_FLOPS),
         library_ms=main["library_ms"]))
     shapes["flash B=4 Hq=15 Hkv=5 S=2048 D=64 bf16 causal (SmolLM prefill)"] = main
+    details["flash_op_overhead"] = op_overhead(torch, timer, ops, dev)
     shapes["flash B=4 Hq=32 Hkv=32 S=2048 D=64 bf16 causal (Zamba2 prefill)"] = time_flash(
         torch, timer, ref, _build, dev, *PREFILL_FLASH_ZAMBA2)
     shapes["flash B=4 Hq=40 Hkv=40 S=2048 D=96 Dv=64 bf16 causal (MiniCPM3 prefill)"] = \
@@ -3331,6 +3363,8 @@ def time_flash(torch, timer, ref, build, dev, b, hq, hkv, s, _skv, d, dv) -> dic
     PyTorch call computing the same, timed beside, never on the path)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.ops import flash_attention_flops
+
     q = torch.randn((b, hq, s, d), device=dev).to(torch.bfloat16)
     k = torch.randn((b, hkv, s, d), device=dev).to(torch.bfloat16)
     v = torch.randn((b, hkv, s, dv), device=dev).to(torch.bfloat16)
@@ -3365,7 +3399,25 @@ def time_flash(torch, timer, ref, build, dev, b, hq, hkv, s, _skv, d, dv) -> dic
                 kernel_rounds=kt, plain_rounds=pt, library_rounds=lt,
                 sdpa_max_abs_diff=lib_err,
                 bytes=2 * (b * hq * s * (d + dv) + b * hkv * s * (d + dv)),
-                ops=2 * b * hq * s * s * (d + dv) // 2, peak_ops=PEAK_BF16_TC_FLOPS)
+                ops=flash_attention_flops(b, hq, s, s, d, dv, True),
+                peak_ops=PEAK_BF16_TC_FLOPS)
+
+
+def op_overhead(torch, timer, ops, dev) -> dict:
+    """Host us a call of ``ops.flash_attention`` (the ``torch.library``
+    operator: dispatch, then the launch) against ``flash_attention_cuda``
+    called directly, at a shape whose kernel takes next to no device time,
+    wall time up to a synchronize, 200 calls; the difference is the op's
+    dispatch cost, paid once an attention layer a prefill."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = (torch.randn((1, 1, 16, 64), device=dev).to(torch.bfloat16) for _ in range(3))
+    direct = timer.wall_ms(lambda: flash_attention_cuda(q, k, v, causal=True, scale=0.125),
+                           reps=200) * 1e3
+    via_op = timer.wall_ms(lambda: ops.flash_attention(q, k, v, scale=0.125), reps=200) * 1e3
+    log(f"flash_attention host cost a call: through the operator {via_op:.2f} us, the "
+        f"launch called directly {direct:.2f} us, dispatch {via_op - direct:.2f} us")
+    return dict(op_us=via_op, direct_us=direct, dispatch_us=via_op - direct)
 
 
 def ssd_inputs(torch, np, bc, q, h, p, g, n, seed, device, long_memory=False):
@@ -3422,6 +3474,8 @@ def time_ssd(torch, timer, ref, build, dev, bc, q, h, p, g, n) -> dict:
     the tensor cores; ``bound_f32_ms`` at the f32 rate of the CUDA cores."""
     import numpy as np
 
+    from repro_torch.kernels.ops import ssd_chunk_flops
+
     x, dt, a, b, c, d = ssd_inputs(torch, np, bc, q, h, p, g, n, seed=1, device=dev)
     y = torch.empty((bc, q, h, p), device=dev)
     st = torch.empty((bc, h, p, n), device=dev)
@@ -3440,7 +3494,7 @@ def time_ssd(torch, timer, ref, build, dev, bc, q, h, p, g, n) -> dict:
     pt = timer.device_ms(lambda: ref.ssd_chunk_ref(x, dt, a, b, c, d))
     n_bytes = 4 * (2 * bc * q * h * p + bc * q * h + 2 * bc * q * g * n
                    + bc * h * p * n + 2 * h)
-    n_ops = (2 * bc * g * tri * n + 2 * bc * h * tri * p + 2 * bc * h * q * p * n
+    n_ops = (ssd_chunk_flops(bc, q, h, p, g, n)
              + 4 * bc * h * tri + 2 * bc * q * h * p + 4 * bc * q * h)
     return dict(ms=k["ms"], plain_ms=pt["ms"], kernel_rounds=k, plain_rounds=pt,
                 bytes=n_bytes, ops=n_ops, peak_ops=PEAK_3XTF32_FLOPS,
@@ -4497,6 +4551,396 @@ def family_train_phase(torch, np, ops, ref, card: str) -> dict:
         fail(f"phase 16 gave flash_attention shapes phase 3 does not check: "
              f"{sorted(shapes.seen - checked)}")
     out["flash_shapes"] = sorted(shapes.seen)
+    out["launches"] = launches
+    return out
+
+
+#: phase 17 (a): Qwen1.5-MoE-A2.7B's MoE layer at full width (d 2048, 60
+#: experts padded to 64, top 4, 4 shared experts), x [B, S, d]
+EP_X = (4, 2048)
+#: (a)'s bars: the expert-parallel y against the one-shard y on the card
+#: (relative L2; bf16 sums the shards' partial outputs in another order),
+#: and the 2x4 mesh on the card against the same call on the CPU (f32)
+EP_REL_L2 = {"float32": 1e-6, "bfloat16": 1e-2}
+EP_CPU_RTOL = 1e-5
+#: (b): Qwen1.5-MoE's first layers, f32, prefilled over the (a) model mesh
+EP_PREFILL_LAYERS = 2
+#: (c): the meta pass against the card, arch -> layers (None: all of them),
+#: each a train step on [8, 256], a prefill of [4, 2048] and a batch-4
+#: decode step over a 2048 cache, bf16
+META_CELLS = {"smollm-360m": None, "mamba2-370m": None, "qwen2-moe-a2.7b": 2}
+META_TRAIN, META_PREFILL, META_DECODE = (8, 256), (4, 2048), (4, 2048)
+#: timed runs of each step after the counted one
+META_TIMED = {"train": 3, "prefill": 5, "decode": 20}
+META_BYTES_RTOL = 0.01
+META_PEAK_RANGE = (0.8, 1.2)
+#: (d): the dry-run's CLI on one arch and mesh
+DRYRUN_ARGV = ["--arch", "smollm-360m", "--mesh", "single"]
+
+
+class DispatchProbe:
+    """Records each ``moe.route`` call's ids and each ``moe.dispatch``
+    call's ``(keep, slot_idx, e0)`` on the host, in call order, while
+    installed; the routing itself is unchanged."""
+
+    def __init__(self, moe_mod):
+        self.mod, self.ids, self.slots = moe_mod, [], []
+
+    def __enter__(self):
+        self.route, self.dispatch = self.mod.route, self.mod.dispatch
+
+        def rows(t):                    # [blocks, T, k] or [T, k] as [T', k]
+            return t.reshape(-1, t.shape[-1]).cpu()
+
+        def route(x, router, cfg, e_pad):
+            out = self.route(x, router, cfg, e_pad)
+            self.ids.append(rows(out[2]))
+            return out
+
+        def dispatch(ids, el, e0, cap):
+            keep, slot = self.dispatch(ids, el, e0, cap)
+            self.slots.append((rows(keep), rows(slot), e0, el, cap))
+            return keep, slot
+
+        self.mod.route, self.mod.dispatch = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route, self.mod.dispatch = self.route, self.dispatch
+
+
+def ep_inputs(torch, cfg, dtype, dev, seed: int):
+    """One MoE layer of ``cfg`` (its ``moe_specs`` at L=1, drawn on ``dev``)
+    and ``x [EP_X, d]``.  The router and x sit on grids (k/64, k/4) on
+    which every product and partial sum of the router's logits is exact in
+    float32, so the card and the CPU route alike in any order of sums."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = {k: v[0] for k, v in init_params(moe.moe_specs(cfg, 1), gen, torch.float32,
+                                        dev).items()}
+    p["router"] = torch.round(torch.randn(p["router"].shape, generator=gen, device=dev)
+                              * 3) / 64
+    x = torch.round(torch.randn((*EP_X, cfg.d_model), generator=gen, device=dev) * 4) / 4
+    return {k: v.to(dtype) for k, v in p.items()}, x.to(dtype)
+
+
+def ep_decisions_split(torch, full, shards, label: str) -> int:
+    """The one-shard call's decisions against the model shards': each shard
+    routes alike, keeps exactly the kept (token, slot)s of its experts, at
+    the same position of its own buffer.  Returns the kept count."""
+    ids_full, (keep_full, slot_full, _, _, cap) = full
+    kept = torch.zeros_like(keep_full, dtype=torch.int64)
+    for ids, (keep, slot, e0, el, cap_k) in shards:
+        if not torch.equal(ids, ids_full) or cap_k != cap:
+            fail(f"phase 17 (a) {label}: shard {e0 // el} routes unlike the one-shard call")
+        own = keep_full & (ids_full >= e0) & (ids_full < e0 + el)
+        if not torch.equal(keep, own) or not torch.equal(slot[own], slot_full[own] - e0 * cap):
+            fail(f"phase 17 (a) {label}: shard {e0 // el}'s keep or slots differ from "
+                 "the one-shard call's")
+        kept += keep
+    if not torch.equal(kept, keep_full.long()):
+        fail(f"phase 17 (a) {label}: a kept (token, slot) is not kept by exactly one shard")
+    return int(keep_full.sum())
+
+
+def ep_phase(torch, timer) -> dict:
+    """Phase 17 (a): the expert-parallel branch at Qwen1.5-MoE-A2.7B's
+    width: over ``cuda:0`` x 4 on ``("model",)`` against the one-shard
+    ``moe_ffn`` (f32 and bf16), and over ``cuda:0`` x 8 on ``("data",
+    "model")`` 2x4 against the same call on the CPU (f32)."""
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import ShardingCtx, make_mesh_compat
+
+    cfg = lm_config("qwen2-moe-a2.7b")
+    mesh4 = make_mesh_compat((4,), ("model",), devices=[DEVICE] * 4)
+    mesh8 = make_mesh_compat((2, 4), ("data", "model"), devices=[DEVICE] * 8)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        p, x = ep_inputs(torch, cfg, getattr(torch, dtype), DEVICE, seed=170)
+        with DispatchProbe(moe) as one:
+            y1, aux1 = moe.moe_ffn(cfg, p, x)
+        with DispatchProbe(moe) as four:
+            y4, aux4 = moe.moe_ffn(cfg, p, x, ShardingCtx(mesh=mesh4))
+        kept = ep_decisions_split(torch, (one.ids[0], one.slots[0]),
+                                  list(zip(four.ids, four.slots)), f"{dtype} model x4")
+        rel = float((y4.float() - y1.float()).norm() / y1.float().norm())
+        if not rel <= EP_REL_L2[dtype] or not torch.allclose(aux4, aux1, rtol=1e-6, atol=0):
+            fail(f"phase 17 (a) {dtype}: model x4 y rel L2 {rel:.3g} (bar "
+                 f"{EP_REL_L2[dtype]}), aux {float(aux4)} vs one shard {float(aux1)}")
+        ms = {"one shard": timer.wall_ms(lambda: moe.moe_ffn(cfg, p, x), reps=3),
+              "model x4": timer.wall_ms(
+                  lambda: moe.moe_ffn(cfg, p, x, ShardingCtx(mesh=mesh4)), reps=3),
+              "2x4": timer.wall_ms(
+                  lambda: moe.moe_ffn(cfg, p, x, ShardingCtx(mesh=mesh8)), reps=3)}
+        row = dict(kept=kept, decisions=int(one.ids[0].numel()), rel_l2=rel,
+                   aux=float(aux1), ms=ms)
+        if dtype == "float32":
+            t0 = time.time()
+            cpu_mesh = make_mesh_compat((2, 4), ("data", "model"), devices=["cpu"] * 8)
+            with DispatchProbe(moe) as card:
+                y8, aux8 = moe.moe_ffn(cfg, p, x, ShardingCtx(mesh=mesh8))
+            with DispatchProbe(moe) as cpu:
+                yc, auxc = moe.moe_ffn(cfg, {k: v.cpu() for k, v in p.items()}, x.cpu(),
+                                       ShardingCtx(mesh=cpu_mesh))
+            if len(card.ids) != len(cpu.ids) or not all(
+                    torch.equal(a, b) for a, b in zip(card.ids, cpu.ids)) or not all(
+                    torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                    for a, b in zip(card.slots, cpu.slots)):
+                fail("phase 17 (a) 2x4: card and CPU routing decisions differ")
+            err = float((y8.cpu() - yc).abs().max())
+            if not torch.allclose(y8.cpu(), yc, rtol=EP_CPU_RTOL,
+                                  atol=EP_CPU_RTOL * float(yc.abs().max())) or \
+                    not torch.allclose(aux8.cpu(), auxc, rtol=EP_CPU_RTOL, atol=0):
+                fail(f"phase 17 (a) 2x4: card vs CPU y max |err| {err}, aux "
+                     f"{float(aux8)} vs {float(auxc)} beyond rtol {EP_CPU_RTOL}")
+            row.update(mesh_2x4_vs_cpu_max_abs_err=err, aux_2x4=float(aux8),
+                       cpu_seconds=time.time() - t0,
+                       blocks_differ_from_one_shard=float((y8 - y1).abs().max()))
+        log(f"phase 17 (a) expert parallel, Qwen1.5-MoE layer x {list(x.shape)} {dtype}: "
+            f"model x4 decisions equal the one-shard call's ({kept} of "
+            f"{row['decisions']} kept), y rel L2 {rel:.3g} (bar {EP_REL_L2[dtype]}), aux "
+            f"{float(aux4):.6f}; ms one shard {ms['one shard']:.2f}, model x4 "
+            f"{ms['model x4']:.2f}, 2x4 {ms['2x4']:.2f} (one card runs the shards in turn)"
+            + (f"; 2x4 vs CPU: decisions equal, y max |err| {row['mesh_2x4_vs_cpu_max_abs_err']:.3g}"
+               f", aux {row['aux_2x4']:.6f} (one shard {float(aux1):.6f}), CPU "
+               f"{row['cpu_seconds']:.1f} s" if dtype == "float32" else ""))
+        out[dtype] = row
+        del p, x, y1, y4
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_prefill(torch, ops) -> dict:
+    """Phase 17 (b): Qwen1.5-MoE at ``EP_PREFILL_LAYERS`` layers of full
+    width, f32, ``[4, 2048]``, prefilled with its experts over ``cuda:0`` x
+    4 on ``("model",)`` (``make_prefill_step(cfg, ShardingCtx(...))``, which
+    binds it with ``use_ctx``), against the unsharded prefill: last
+    logits at phase 14's bar, routing call by call (``route_agreement``),
+    one flash launch an attention layer each."""
+    from repro_torch.launch.steps import make_prefill_step, param_specs_for
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import init_params
+    from repro_torch.parallel.sharding import ShardingCtx, make_mesh_compat
+
+    cfg = lm_config("qwen2-moe-a2.7b", num_layers=EP_PREFILL_LAYERS, dtype="float32")
+    tol = FAMILY_CVC["tol"]
+    gen = torch.Generator(device=DEVICE).manual_seed(171)
+    params = rescale_qk(cfg, init_params(param_specs_for(cfg), gen, torch.float32, DEVICE))
+    batch = prefill_batch(torch, cfg, *META_PREFILL, gen, DEVICE)
+    mesh = make_mesh_compat((4,), ("model",), devices=[DEVICE] * 4)
+    # the factory binds its ShardingCtx with use_ctx for the step
+    prefill = {"unsharded": make_prefill_step(cfg),
+               "sharded": make_prefill_step(cfg, ShardingCtx(mesh=mesh, mode="serve"))}
+    logits, probes, flash = {}, {}, {}
+    for run in ("unsharded", "sharded"):
+        ops.reset_launches()
+        with RouteProbe(moe_mod) as probes[run]:
+            logits[run] = prefill[run](params, batch)
+        torch.cuda.synchronize()
+        flash[run] = ops.LAUNCHES["flash_attention"]
+        if flash[run] != cfg.num_layers:
+            fail(f"phase 17 (b) {run}: {flash[run]} flash launches, expected one an "
+                 f"attention layer ({cfg.num_layers})")
+    shards = mesh.shape["model"]
+    # the branch routes [blocks, T, d]: its calls as [T, k] rows
+    sharded = [(pr.reshape(-1, pr.shape[-1]), ids.reshape(-1, ids.shape[-1]))
+               for pr, ids in probes["sharded"].calls]
+    if len(sharded) != shards * len(probes["unsharded"].calls) or not all(
+            torch.equal(sharded[i][1], sharded[i - i % shards][1]) for i in range(len(sharded))):
+        fail("phase 17 (b): the model shards of a layer route unlike each other")
+    routing = route_agreement(torch, "qwen2-moe-a2.7b", "phase 17 (b)", sharded[::shards],
+                              probes["unsharded"].calls)
+    got, want = logits["sharded"].cpu(), logits["unsharded"].cpu()
+    err = float((got - want).abs().max())
+    used = float(((got - want).abs() / (tol * (1 + want.abs()))).max())
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        fail(f"phase 17 (b): sharded prefill logits max |err| {err} beyond rtol and atol {tol}")
+    log(f"phase 17 (b) prefill through the expert-parallel branch (Qwen1.5-MoE "
+        f"{cfg.num_layers} layers x {cfg.d_model}, f32, {list(META_PREFILL)}, experts over "
+        f"{DEVICE} x {shards}): last logits max |err| {err:.3g} against the unsharded "
+        f"prefill (rtol and atol {tol}; bar used {used:.3f}), {routing['decisions']} "
+        f"routing decisions, {routing['near_tie_mismatches']} differ at near ties; flash "
+        f"launches {flash}")
+    del params, batch
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, bar=tol, bar_used=used, routing=routing,
+                flash_launches=flash)
+
+
+def to_meta(torch, tree):
+    """``tree`` (dicts, tuples and NamedTuples of tensors) as ``meta``
+    tensors of the same shapes and dtypes."""
+    from repro_torch._tree import tree_map
+
+    return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def arg_bytes(torch, *trees) -> int:
+    """Bytes of the distinct storages the tensors of ``trees`` hold."""
+    from repro_torch._tree import leaves
+
+    seen = {}
+    for t in leaves(list(trees)):
+        seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def meta_cell(torch, ops, arch: str, layers) -> dict:
+    """Phase 17 (c) for one arch: a train step, a prefill and a decode step
+    at full width (first ``layers``), bf16, counted by ``trace_cost`` on
+    ``meta`` and on the card: FLOPs equal, bytes within ``META_BYTES_RTOL``,
+    ops printed; the meta pass's live bytes plus the step's argument bytes
+    within ``META_PEAK_RANGE`` of the card's peak (``max_memory_allocated``,
+    reset before the step, less what the card held beside the arguments);
+    the H100 roofline bound of the meta count at most the step's median
+    ms."""
+    from repro_torch.analysis.cost import trace_cost
+    from repro_torch.analysis.roofline import make_roofline, model_flops_for
+    from repro_torch.launch import shapes
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step, make_train_step,
+                                          param_specs_for, state_specs_for)
+    from repro_torch.models.common import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    cfg = lm_config(arch, num_layers=layers)
+    dt = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(172)
+    params = rescale_qk(cfg, init_params(param_specs_for(cfg), gen, dt, DEVICE))
+    opt_cfg = AdamWConfig()
+    cells = {}
+    for kind in ("train", "prefill", "decode"):
+        b, s = {"train": META_TRAIN, "prefill": META_PREFILL, "decode": META_DECODE}[kind]
+        shape = shapes.ShapeSpec(kind, kind, s, b)
+        batch = shapes.concrete_inputs(cfg, shape, seed=173, device=DEVICE)
+        if kind == "train":
+            step = make_train_step(cfg, opt_cfg)
+            args = (params, init_opt_state(params, opt_cfg), batch)
+        elif kind == "prefill":
+            step, args = make_prefill_step(cfg), (params, batch)
+        else:
+            state = init_params(state_specs_for(cfg, b, s), None, dt, DEVICE)
+            step, args = make_serve_step(cfg), (params, state, batch)
+        meta = trace_cost(step, *to_meta(torch, args))
+        n_args = arg_bytes(torch, *args)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - n_args
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        card = trace_cost(step, *args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        del card["out"], meta["out"]
+        times = []
+        for _ in range(META_TIMED[kind]):
+            t0 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        mf = model_flops_for(cfg, kind, b, s, kind == "train")
+        roof = make_roofline(meta, mf, 1)
+        row = dict(flops_meta=meta["flops_per_device"], flops_card=card["flops_per_device"],
+                   bytes_meta=meta["bytes_per_device"], bytes_card=card["bytes_per_device"],
+                   ops_meta=meta["num_ops"], ops_card=card["num_ops"],
+                   peak_live_meta=meta["peak_live_bytes"], arg_bytes=n_args,
+                   peak_card=peak, launches=launches, ms=ms, ms_runs=times,
+                   bound_ms=roof.bound_s * 1e3, dominant=roof.dominant,
+                   model_flops=mf)
+        row["bytes_ratio"] = row["bytes_meta"] / row["bytes_card"]
+        row["peak_ratio"] = (row["peak_live_meta"] + n_args) / peak
+        row["bound_over_ms"] = row["bound_ms"] / ms
+        tag = f"phase 17 (c) {arch} {kind}"
+        if row["flops_meta"] != row["flops_card"]:
+            fail(f"{tag}: FLOPs meta {row['flops_meta']} != card {row['flops_card']}")
+        if abs(row["bytes_ratio"] - 1) > META_BYTES_RTOL:
+            fail(f"{tag}: bytes meta / card {row['bytes_ratio']:.4f} beyond {META_BYTES_RTOL}")
+        if not META_PEAK_RANGE[0] <= row["peak_ratio"] <= META_PEAK_RANGE[1]:
+            fail(f"{tag}: (meta live + arguments) / card peak {row['peak_ratio']:.3f} outside "
+                 f"{META_PEAK_RANGE}")
+        if row["bound_ms"] > ms:
+            fail(f"{tag}: roofline bound {row['bound_ms']:.3f} ms above the measured "
+                 f"{ms:.3f} ms: a count is wrong")
+        log(f"{tag} ({cfg.num_layers} layers x {cfg.d_model}, bf16, [{b}, {s}]): FLOPs "
+            f"{row['flops_meta']:.6g} on both; bytes meta/card {row['bytes_ratio']:.5f}; ops "
+            f"meta {row['ops_meta']} card {row['ops_card']}; (live {row['peak_live_meta'] / 2**30:.3f}"
+            f" + args {n_args / 2**30:.3f} GiB) / card peak {peak / 2**30:.3f} GiB = "
+            f"{row['peak_ratio']:.3f}; bound {row['bound_ms']:.3f} ms ({roof.dominant}) / "
+            f"median {ms:.3f} ms = {row['bound_over_ms']:.4f}; launches {launches}")
+        cells[kind] = row
+        del args, batch
+        if kind == "decode":
+            del state
+    del params
+    torch.cuda.empty_cache()
+    return cells
+
+
+def dryrun_start(out_dir: str):
+    """Phase 17 (d), started: ``python -m repro_torch.launch.dryrun`` at
+    ``DRYRUN_ARGV`` into ``out_dir``, in a process of its own that traces on
+    the host's CPU while (a)-(c) drive the card.  Returns ``(process,
+    start time)``."""
+    import os
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGV, "--out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(SRC))), time.time()
+
+
+def dryrun_finish(proc, t0: float, out_dir: str) -> dict:
+    """Phase 17 (d), waited for: exit 0, each cell ``ok`` but a skip
+    ``cell_supported`` names."""
+    from repro_torch.launch.shapes import SHAPES, cell_supported
+
+    _, err = proc.communicate(timeout=600)
+    secs = time.time() - t0
+    if proc.returncode != 0:
+        fail(f"phase 17 (d): the dry-run exited {proc.returncode}: {err[-2000:]}")
+    cells = {p.name: json.loads(p.read_text()) for p in sorted(pathlib.Path(out_dir).iterdir())}
+    arch = DRYRUN_ARGV[DRYRUN_ARGV.index("--arch") + 1]
+    status = {c["shape"]: c["status"] for c in cells.values()}
+    names = ([DRYRUN_ARGV[DRYRUN_ARGV.index("--shape") + 1]] if "--shape" in DRYRUN_ARGV
+             else list(SHAPES))
+    want = {name: "ok" if cell_supported(arch, name)[0] else "skipped" for name in names}
+    if status != want:
+        fail(f"phase 17 (d): dry-run cells {status}, expected {want}")
+    log(f"phase 17 (d) dry-run CLI {' '.join(DRYRUN_ARGV)}: exit 0, {secs:.1f} s beside "
+        f"(a)-(c), cells {status}")
+    return dict(seconds=secs, status=status,
+                cells={k: dict(roofline=v.get("roofline"), memory=v.get("memory"),
+                               trace_s=v.get("trace_s")) for k, v in cells.items()})
+
+
+def meta_phase(torch, ops) -> dict:
+    """Phase 17: the meta passes. (a) the expert-parallel MoE branch, (b) a
+    prefill through it, (c) the meta pass's count against card steps,
+    (d) the dry-run's CLI, in a process of its own beside (a)-(c) (killed
+    if the phase fails).  Every kernel launch of (b) and (c) counted."""
+    import tempfile
+
+    timer = DeviceTimer(torch)
+    log("meta passes: phase 17")
+    with tempfile.TemporaryDirectory() as tmp:
+        proc, t0 = dryrun_start(tmp)
+        try:
+            out = {"expert_parallel": ep_phase(torch, timer)}
+            out["prefill"] = ep_prefill(torch, ops)
+            launches = {k: 0 for k in ops.LAUNCHES}
+            launches["flash_attention"] += sum(out["prefill"]["flash_launches"].values())
+            for arch, layers in META_CELLS.items():
+                cells = out[f"cost {arch}"] = meta_cell(torch, ops, arch, layers)
+                for row in cells.values():
+                    for k, n in row["launches"].items():
+                        launches[k] += n
+            out["dryrun"] = dryrun_finish(proc, t0, tmp)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     out["launches"] = launches
     return out
 

@@ -46,6 +46,7 @@ PHASES = [
     ("9 LM card vs CPU", r"^LM card vs CPU"),
     ("11 search and stage 3", r"^search "),
     ("12 serving", r"^serve \("),
+    ("17 meta passes", r"^meta passes: "),
     ("10 kernel timings", r"^launch floor"),
 ]
 #: the first line after the timed phases

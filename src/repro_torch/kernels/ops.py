@@ -7,12 +7,27 @@ runs the plain PyTorch version in :mod:`repro_torch.kernels.ref`.
 ``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels.
+
+The two LM kernels, ``flash_attention`` and ``ssd_chunk``, are also
+``torch.library`` operators (``torch.ops.repro_torch.*``): a ``CUDA``
+kernel (the hand-written launch, counted), a ``CPU`` kernel (the plain
+version) and a ``Meta`` kernel that gives the output shapes on ``meta``
+tensors, where nothing runs.  They are registered through the low-level
+``torch.library.Library`` API, whose dispatch costs the host less than a
+``torch.library.custom_op`` call's (``chip_smoke.py`` logs the cost).
+Their FLOPs are registered with ``torch.utils.flop_counter``
+(:func:`flash_attention_flops`, :func:`ssd_chunk_flops`), so a
+``FlopCounterMode`` counts one call by the same formula on the card, the
+CPU and ``meta``: the dry-run's meta pass (``analysis/cost.py``) and a
+run on the card count alike.  The twin's kernels take no ``meta``
+tensor: one raises there.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils import flop_counter
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import READOUT_FIELDS
@@ -46,8 +61,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _device_kind(x: Tensor) -> str:
-    if x.device.type not in ("cuda", "cpu"):
+def _device_kind(x: Tensor, meta: bool = False) -> str:
+    """``x``'s device type, ``cuda`` or ``cpu`` (or ``meta`` where the
+    caller has a fake kernel); any other raises."""
+    if x.device.type not in (("cuda", "cpu", "meta") if meta else ("cuda", "cpu")):
         raise ValueError(f"no kernel for tensors on {x.device}")
     return x.device.type
 
@@ -226,6 +243,71 @@ def power_sim(u_th: Tensor, *, p_idle: float, p_max: float, r: float,
     return out
 
 
+def causal_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs a row block attends: ``Sq Skv`` without the mask;
+    with it (row ``i`` sees keys ``j <= i + Skv - Sq``) ``Sq (Sq + 1) / 2 +
+    Sq (Skv - Sq)``, or ``Skv (Skv + 1) / 2`` where ``Skv < Sq``."""
+    if not causal:
+        return sq * skv
+    if skv >= sq:
+        return sq * (sq + 1) // 2 + sq * (skv - sq)
+    return skv * (skv + 1) // 2
+
+
+def flash_attention_flops(b: int, hq: int, sq: int, skv: int, d: int, dv: int,
+                          causal: bool) -> int:
+    """FLOPs of the flash forward: ``S = Q K^T`` (2 D a pair) and ``P V``
+    (2 Dv a pair) over the unmasked (query, key) pairs of every (batch
+    row, query head).  The one formula for the op's count and the kernel's
+    bound."""
+    return 2 * (d + dv) * b * hq * causal_pairs(sq, skv, causal)
+
+
+def ssd_chunk_flops(bc: int, q: int, h: int, p: int, g: int, n: int) -> int:
+    """FLOPs of the SSD chunk's products over the causal triangle (``tri =
+    Q (Q + 1) / 2`` pairs): ``C B^T`` once a (chunk, group), ``att @ x`` a
+    head, and the chunk-end states ``x^T (decay * B)``."""
+    tri = q * (q + 1) // 2
+    return 2 * bc * g * tri * n + 2 * bc * h * tri * p + 2 * bc * h * q * p * n
+
+
+def _no_lse(out: Tensor) -> Tensor:
+    """The empty lse the op returns where none was asked for."""
+    return out.new_empty((0,), dtype=torch.float32)
+
+
+def _flash_cpu(q, k, v, causal, scale, return_lse):
+    # contiguous, as the kernel's and the meta kernel's outputs are: a
+    # later reshape then copies on no device
+    if return_lse:
+        out, lse = ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                           return_lse=True)
+        return out.contiguous(), lse.contiguous()
+    out = ref.flash_attention_ref(q, k, v, causal=causal, scale=scale).contiguous()
+    return out, _no_lse(out)
+
+
+def _flash_cuda(q, k, v, causal, scale, return_lse):
+    out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal, scale=scale, return_lse=return_lse)
+    LAUNCHES["flash_attention"] += 1
+    return out if return_lse else (out, _no_lse(out))
+
+
+def _flash_meta(q, k, v, causal, scale, return_lse):
+    b, hq, sq, _ = q.shape
+    out = q.new_empty((b, hq, sq, v.shape[-1]))
+    lse = (q.new_empty((b, hq, sq), dtype=torch.float32) if return_lse
+           else _no_lse(out))
+    return out, lse
+
+
+def _flash_op_flops(q_shape, k_shape, v_shape, causal, scale, return_lse, *,
+                    out_shape=None, **kwargs) -> int:
+    b, hq, sq, d = q_shape
+    return flash_attention_flops(b, hq, sq, k_shape[2], d, v_shape[3], causal)
+
+
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     scale: float | None = None, return_lse: bool = False
                     ) -> Tensor | tuple[Tensor, Tensor]:
@@ -237,19 +319,53 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     ``HEAD_DIM_PAIRS``; any other pair raises.  With
     ``return_lse``: ``(out, lse)``, ``lse`` ``[B, Hq, Sq]`` float32, the
     rows' log-sum-exp of the scaled logits (what the backward of
-    ``models.attention`` reads), from the same launch.
+    ``models.attention`` reads), from the same launch.  ``meta`` tensors
+    give ``meta`` outputs of those shapes.
     """
     if q.dim() != 4:
         raise ValueError(f"q must be [B, Hq, Sq, D], got {tuple(q.shape)}")
-    kind = _device_kind(q)
+    _device_kind(q, meta=True)
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
-    if kind == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
-                                       return_lse=return_lse)
-    out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, scale=scale, return_lse=return_lse)
-    LAUNCHES["flash_attention"] += 1
+    out, lse = torch.ops.repro_torch.flash_attention(q, k, v, bool(causal), scale,
+                                                     bool(return_lse))
+    return (out, lse) if return_lse else out
+
+
+def _ssd_cpu(x, dt, a_log, b, c, d_skip):
+    y, states = ref.ssd_chunk_ref(x, dt, a_log, b, c, d_skip)
+    return y.contiguous(), states.contiguous()
+
+
+def _ssd_cuda(x, dt, a_log, b, c, d_skip):
+    out = ssd_chunk_cuda(x.contiguous(), dt.contiguous(), a_log, b.contiguous(),
+                         c.contiguous(), d_skip)
+    LAUNCHES["ssd_chunk"] += 1
     return out
+
+
+def _ssd_meta(x, dt, a_log, b, c, d_skip):
+    bc, q, h, p = x.shape
+    return (x.new_empty((bc, q, h, p), dtype=torch.float32),
+            x.new_empty((bc, h, p, b.shape[-1]), dtype=torch.float32))
+
+
+def _ssd_op_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, d_shape, *,
+                  out_shape=None, **kwargs) -> int:
+    bc, q, h, p = x_shape
+    return ssd_chunk_flops(bc, q, h, p, b_shape[2], b_shape[3])
+
+
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, float scale, "
+            "bool return_lse) -> (Tensor, Tensor)")
+_LIB.define("ssd_chunk(Tensor x, Tensor dt, Tensor a_log, Tensor b, Tensor c, "
+            "Tensor d_skip) -> (Tensor, Tensor)")
+for _name, _kernels, _formula in (
+        ("flash_attention", (_flash_cpu, _flash_cuda, _flash_meta), _flash_op_flops),
+        ("ssd_chunk", (_ssd_cpu, _ssd_cuda, _ssd_meta), _ssd_op_flops)):
+    for _key, _fn in zip(("CPU", "CUDA", "Meta"), _kernels):
+        _LIB.impl(_name, _fn, _key)
+    flop_counter.register_flop_formula(getattr(torch.ops.repro_torch, _name))(_formula)
 
 
 def ssd_chunk(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor,
@@ -258,16 +374,14 @@ def ssd_chunk(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor,
 
     ``x [BC, Q, H, P]``, ``dt [BC, Q, H]``, ``a_log [H]``, ``b/c [BC, Q, G,
     N]``, ``d_skip [H]`` -> ``(y_intra [BC, Q, H, P], states [BC, H, P, N])``
-    in float32.  On the card x, dt, b and c must be float32.
+    in float32.  On the card x, dt, b and c must be float32.  ``meta``
+    tensors give ``meta`` outputs of those shapes.
     """
     if x.dim() != 4:
         raise ValueError(f"x must be [BC, Q, H, P], got {tuple(x.shape)}")
-    if _device_kind(x) == "cpu":
-        return ref.ssd_chunk_ref(x, dt, a_log, b, c, d_skip)
-    out = ssd_chunk_cuda(x.contiguous(), dt.contiguous(), a_log, b.contiguous(),
-                         c.contiguous(), d_skip)
-    LAUNCHES["ssd_chunk"] += 1
-    return out
+    _device_kind(x, meta=True)
+    y, states = torch.ops.repro_torch.ssd_chunk(x, dt, a_log, b, c, d_skip)
+    return y, states
 
 
 def des_place(submit: Tensor, dur: Tensor, cores: Tensor, valid: Tensor,

@@ -7,7 +7,9 @@ steps run under ``torch.no_grad()``.  Every family of the registry
 trains, serves and prefills: ``loss_for`` gives the enc-dec family
 ``encdec.encdec_loss`` (its batch carries ``frames`` beside ``tokens`` and
 ``labels``) and every decoder-only family ``lm.loss_fn``, as the JAX
-package's.
+package's.  Each factory takes a ``ShardingCtx`` and binds it with
+``use_ctx`` for the length of a step, so the MoE layers split their
+experts over its mesh (``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from repro_torch.models import encdec as ed
 from repro_torch.models import lm
 from repro_torch.models.common import dense
 from repro_torch.optim.adamw import AdamWConfig, apply_updates
+from repro_torch.parallel.sharding import ShardingCtx, use_ctx
 
 
 def loss_for(cfg: ModelConfig):
@@ -40,7 +43,7 @@ def state_specs_for(cfg: ModelConfig, batch: int, seq: int):
     return lm.decode_state_specs(cfg, batch, seq)
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, ctx: ShardingCtx = ShardingCtx()):
     """Prefill: hidden states -> LAST-position logits only ``[B, vocab]``
     (the ``[B, S, V]`` logits tensor is never materialized).  The cache is
     not written out, as in the JAX package.  The enc-dec family reads
@@ -48,6 +51,10 @@ def make_prefill_step(cfg: ModelConfig):
 
     @torch.no_grad()
     def prefill_step(params, batch):
+        with use_ctx(ctx):
+            return _prefill(params, batch)
+
+    def _prefill(params, batch):
         if cfg.family == "encdec":
             enc_out = ed.encode(cfg, params, batch["frames"])
             x = ed.decode_train(cfg, params, batch["tokens"], enc_out)
@@ -60,11 +67,15 @@ def make_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, ctx: ShardingCtx = ShardingCtx()):
     """One-token greedy decode against the cache: ``(token [B] int32, state)``."""
 
     @torch.no_grad()
     def serve_step(params, state, batch):
+        with use_ctx(ctx):
+            return _serve(params, state, batch)
+
+    def _serve(params, state, batch):
         if cfg.family == "encdec":
             logits, state = ed.encdec_decode_step(cfg, params, state, batch)
         else:
@@ -74,7 +85,8 @@ def make_serve_step(cfg: ModelConfig):
     return serve_step
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, grad_accum: int = 1):
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    ctx: ShardingCtx = ShardingCtx(), grad_accum: int = 1):
     """One optimizer step: ``train_step(params, opt_state, batch) ->
     (params', opt_state', metrics)``, pure (the inputs are not changed).
 
@@ -98,6 +110,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, grad_accum: int = 1)
             unflatten(list(grads))
 
     def train_step(params, opt_state, batch):
+        with use_ctx(ctx):
+            return _train(params, opt_state, batch)
+
+    def _train(params, opt_state, batch):
         if grad_accum == 1:
             loss, metrics, grads = _grads(params, batch)
         else:

@@ -1,10 +1,15 @@
 """Parameter-spec system and common layers.
 
 A model is declared as a nested dict of :class:`ParamSpec` (shape + logical
-axes + init), as in the JAX package; :func:`init_params` materializes it
-into a nested dict of tensors of the same layout, so converting weights
-between the packages stays a rename.  The logical axes are kept for that
-correspondence; the port runs on one card and shards nothing.
+axes + init), as in the JAX package.  From the one spec tree come, without
+duplication:
+
+  * materialized parameters                   (init_params)
+  * ``meta`` tensors for the dry-run          (abstract_params: no allocation)
+  * the logical axes and NamedShardings       (axes_tree, specs_to_shardings)
+
+Parameters keep the JAX package's nested-dict layout, so converting weights
+between the packages stays a rename.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Any
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.parallel.sharding import Mesh, NamedSharding, logical_to_spec
 
 Tensor = torch.Tensor
 
@@ -72,12 +78,30 @@ def init_params(specs: Any, generator: torch.Generator, dtype: torch.dtype,
             std = spec.scale / math.sqrt(max(fan_in, 1))
         return (z * std).to(device=dev, dtype=dt)
 
-    def walk(node):
-        if isinstance(node, ParamSpec):
-            return one(node)
-        return {k: walk(node[k]) for k in sorted(node)}
+    return _map_specs(one, specs)
 
-    return walk(specs)
+
+def _map_specs(fn, specs: Any) -> Any:
+    if isinstance(specs, ParamSpec):
+        return fn(specs)
+    return {k: _map_specs(fn, specs[k]) for k in sorted(specs)}
+
+
+def abstract_params(specs: Any, dtype: torch.dtype) -> Any:
+    """``meta`` tensors of each spec's shape (nothing allocated): the
+    spec's own ``dtype`` where it pins one, else ``dtype``."""
+    return _map_specs(lambda s: torch.empty(
+        s.shape, dtype=getattr(torch, s.dtype) if s.dtype else dtype,
+        device="meta"), specs)
+
+
+def axes_tree(specs: Any) -> Any:
+    return _map_specs(lambda s: s.axes, specs)
+
+
+def specs_to_shardings(specs: Any, mesh: Mesh, mode: str) -> Any:
+    return _map_specs(lambda s: NamedSharding(
+        mesh, logical_to_spec(s.axes, s.shape, mesh, mode)), specs)
 
 
 def spec_param_count(specs: Any) -> int:

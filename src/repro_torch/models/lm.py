@@ -17,8 +17,12 @@ package while gradients are on: each block, each Mamba2 layer and each
 CE chunk is a ``torch.utils.checkpoint`` region whose activations are
 recomputed in the backward.  ``"full"`` and ``"dots"`` both recompute the
 whole region: JAX's ``"dots"`` policy keeps the matmul outputs instead,
-which changes memory, not the numbers.  The ``ShardingCtx`` /
-``activation`` constraints concern meshes and are left out.
+which changes memory, not the numbers.  The MoE layers read the ambient
+``ShardingCtx`` (``parallel.sharding.use_ctx``, bound by the step
+factories) and split their experts over its mesh's ``model`` axis as the
+JAX package's do; the JAX package's ``activation`` constraints, which in
+one process move nothing (``sharding.activation`` returns its input), are
+left out.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from repro_torch.models.common import (
     rms_norm,
     spec_param_count,
 )
+from repro_torch.parallel.sharding import ShardingCtx, current_ctx
 
 Tensor = torch.Tensor
 
@@ -147,7 +152,8 @@ def _remat(fn, cfg: ModelConfig):
 
 
 def _block_forward(cfg: ModelConfig, p: dict[str, Tensor], x: Tensor,
-                   positions: Tensor, moe_layer: bool = False
+                   positions: Tensor, moe_layer: bool = False,
+                   ctx: ShardingCtx | None = None
                    ) -> tuple[Tensor, Tensor | None]:
     """One block: ``(x', MoE aux)``, the aux None but in a MoE layer."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -160,7 +166,7 @@ def _block_forward(cfg: ModelConfig, p: dict[str, Tensor], x: Tensor,
     x = x + attn
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if moe_layer:
-        f, aux = moe_mod.moe_ffn(cfg, p, h2)
+        f, aux = moe_mod.moe_ffn(cfg, p, h2, ctx)
         return x + f, aux
     return x + dense_ffn(p, cfg, h2), None
 
@@ -168,8 +174,11 @@ def _block_forward(cfg: ModelConfig, p: dict[str, Tensor], x: Tensor,
 def _block_stack(cfg: ModelConfig, stacked: dict[str, Tensor], x: Tensor,
                  positions: Tensor, moe_layer: bool) -> tuple[Tensor, Tensor]:
     """The blocks of a stack, each a remat region: ``(x, summed MoE aux)``
-    (0 in a stack without MoE layers)."""
-    block = _remat(lambda x, lp: _block_forward(cfg, lp, x, positions, moe_layer),
+    (0 in a stack without MoE layers).  The ambient ``ShardingCtx`` is read
+    here, once: a region's recompute runs in the backward, on the autograd
+    engine's thread for a card, where the context variable is not bound."""
+    ctx = current_ctx()
+    block = _remat(lambda x, lp: _block_forward(cfg, lp, x, positions, moe_layer, ctx),
                    cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _layers(stacked):

@@ -49,6 +49,15 @@ def init_opt_state(params: Any, cfg: AdamWConfig) -> OptState:
                     mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
+def abstract_opt_state(params: Any, cfg: AdamWConfig) -> OptState:
+    """``meta`` mirror of :func:`init_opt_state` for the dry-run: moments of
+    each parameter's shape in ``moment_dtype``, the step an int32 scalar."""
+    dt = getattr(torch, cfg.moment_dtype)
+    meta = lambda p: torch.empty(p.shape, dtype=dt, device="meta")  # noqa: E731
+    return OptState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                    mu=tree_map(meta, params), nu=tree_map(meta, params))
+
+
 def schedule(step: Tensor, cfg: AdamWConfig) -> Tensor:
     """Learning rate at ``step`` (float32): linear warmup, then cosine decay
     to ``min_lr_frac`` of ``lr`` at ``total_steps``."""

@@ -20,13 +20,30 @@ results back, in lane order, onto the caller's device and slices the
 padding off.  There is no process group and no fallback: a mesh entry that
 names a card the host lacks raises.
 
-The logical-axis rules of the JAX module (``LogicalAxes``, ``RULES``,
-``ShardingCtx``, ``logical_to_spec``, ``tree_shardings``, ``constraint``,
-``activation``) are not ported here.
+The logical-axis rules of the JAX module live here too: every parameter
+and activation carries a tuple of *logical* axis names, and a rule table
+per execution mode (:data:`RULES`, the JAX package's verbatim) maps them
+onto mesh axes:
+
+  train:  DP over 'pod', FSDP (ZeRO-3) over 'data', TP over 'model'
+  serve:  replicas over ('pod','data'), TP over 'model'  (weight-stationary)
+
+:func:`logical_to_spec` turns a leaf's axes and shape into a :class:`P`
+(the ``PartitionSpec`` counterpart), dropping a mapping whose dim the
+mesh axes do not divide and using each mesh axis at most once;
+:class:`NamedSharding` gives the per-device shard shape.  The dry-run
+(``launch/dryrun.py``) reads the rules on a mesh of ``meta`` entries
+(:func:`abstract_mesh_compat`), and ``models/moe.py``'s expert-parallel
+branch reads the ambient :class:`ShardingCtx` (:func:`use_ctx`,
+:func:`current_ctx`).  One process places nothing by a constraint:
+:func:`constraint` and :func:`activation` check the leaf's rank and return
+the tensor itself.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Any, Callable
@@ -207,3 +224,203 @@ def lane_mesh(axis: str, num_devices: "int | None" = None,
     if n < 1:
         raise ValueError(f"a mesh needs at least one device, got {n}")
     return make_mesh_compat((n,), (axis,), devices=devices)
+
+
+# -- logical-axis rules -------------------------------------------------------
+
+LogicalAxes = tuple[str | None, ...]
+
+
+def abstract_mesh_compat(shape, axes) -> Mesh:
+    """A :class:`Mesh` of ``shape`` over ``axes`` whose entries are all the
+    ``meta`` device: the rules and shard shapes of a production mesh with
+    no card behind it (the counterpart of ``jax.sharding.AbstractMesh``)."""
+    return make_mesh_compat(shape, axes, devices=["meta"] * math.prod(shape))
+
+
+#: mode -> logical axis -> mesh axis (or tuple of mesh axes)
+RULES: dict[str, dict[str, Any]] = {
+    "train": {
+        "batch": ("pod", "data"),
+        "seq": None,
+        "embed": "data",        # ZeRO-3: shard the replicated dim over data
+        "embed_nofsdp": None,
+        "heads": "model",
+        "kv_heads": "model",
+        "qk": None,
+        "ff": "model",
+        "vocab": "model",
+        "experts": "model",
+        "moe_ff": None,
+        "lora": None,
+        "dstate": None,
+        "conv": None,
+        "ssm_inner": "model",
+        "ssm_heads": "model",
+        "attn_q_seq": "model",   # context-parallel fallback for attention
+        "frames": None,
+        "patches": None,
+        "cache_seq": None,
+        "cache_heads": "model",
+    },
+    "serve": {
+        "batch": ("pod", "data"),
+        "seq": None,
+        "embed": None,          # weight-stationary TP: no FSDP gather latency
+        "embed_nofsdp": None,
+        "heads": "model",
+        "kv_heads": "model",
+        "qk": None,
+        "ff": "model",
+        "vocab": "model",
+        "experts": "model",
+        "moe_ff": None,
+        "lora": None,
+        "dstate": None,
+        "conv": None,
+        "ssm_inner": "model",
+        "ssm_heads": "model",
+        "attn_q_seq": "model",   # context-parallel fallback for attention
+        "frames": None,
+        "patches": None,
+        "cache_seq": "model",
+        "cache_heads": "model",
+    },
+}
+
+
+class P(tuple):
+    """A partition spec (``jax.sharding.PartitionSpec``'s counterpart): one
+    entry a dim, each ``None`` (replicated), a mesh axis name, or a tuple
+    of mesh axis names; trailing ``None`` s are trimmed."""
+
+    def __new__(cls, *parts):
+        parts = list(parts)
+        while parts and parts[-1] is None:
+            parts.pop()
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def logical_to_spec(axes: LogicalAxes, shape: tuple[int, ...], mesh: Mesh,
+                    mode: str = "train") -> P:
+    """Map logical axes to a :class:`P`, dropping non-divisible shardings.
+
+    Each dim's rule keeps the mesh axes present with size > 1 and not yet
+    used by an earlier dim; the dim is replicated when none is left or
+    their product does not divide it.
+    """
+    rules = RULES[mode]
+    used: set[str] = set()
+    parts: list[Any] = []
+    for dim, name in zip(shape, axes):
+        mesh_axis = rules.get(name) if name else None
+        if mesh_axis is None:
+            parts.append(None)
+            continue
+        flat = mesh_axis if isinstance(mesh_axis, tuple) else (mesh_axis,)
+        flat = tuple(a for a in flat
+                     if a in mesh.shape and mesh.shape[a] > 1 and a not in used)
+        if not flat or dim % mesh_axis_size(mesh, flat) != 0:
+            parts.append(None)          # absent, or non-divisible -> replicate
+            continue
+        used.update(flat)
+        parts.append(flat if len(flat) > 1 else flat[0])
+    return P(*parts)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A :class:`P` on a mesh: how a global array splits into shards."""
+
+    mesh: Mesh
+    spec: P
+
+    def shard_shape(self, global_shape) -> tuple[int, ...]:
+        """Each device's block of ``global_shape``; a dim its mesh axes do
+        not divide raises, as ``jax.sharding.NamedSharding`` does."""
+        out = []
+        for i, dim in enumerate(global_shape):
+            entry = self.spec[i] if i < len(self.spec) else None
+            n = mesh_axis_size(self.mesh, entry)
+            if dim % n:
+                raise ValueError(f"dim {i} of {tuple(global_shape)} does not split "
+                                 f"over {entry!r} ({n} ways)")
+            out.append(dim // n)
+        return tuple(out)
+
+
+def _is_axes(x) -> bool:
+    """Whether ``x`` is a leaf's logical axes (a tuple of names and Nones)."""
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        isinstance(e, (str, type(None))) for e in x)
+
+
+def tree_shardings(axes_tree: Any, shape_tree: Any, mesh: Mesh,
+                   mode: str = "train") -> Any:
+    """:class:`NamedSharding` s for a tree of axes beside a tree of shaped
+    leaves (tensors or anything with ``.shape``), in the same structure."""
+    def walk(axes, shaped):
+        if _is_axes(axes):
+            return NamedSharding(mesh, logical_to_spec(axes, tuple(shaped.shape),
+                                                       mesh, mode))
+        if isinstance(axes, dict):
+            return {k: walk(axes[k], shaped[k]) for k in axes}
+        if isinstance(axes, (list, tuple)):
+            items = [walk(a, b) for a, b in zip(axes, shaped)]
+            return type(axes)(*items) if hasattr(axes, "_fields") else type(axes)(items)
+        raise TypeError(f"no axes at a leaf of type {type(axes).__name__}")
+
+    return walk(axes_tree, shape_tree)
+
+
+def constraint(x: Tensor, axes: LogicalAxes, mesh: Mesh | None,
+               mode: str = "train") -> Tensor:
+    """``with_sharding_constraint`` through logical axes (a no-op without a
+    mesh).  One process holds the whole tensor, so there is nothing to
+    move: under a mesh the spec is checked against ``x``'s rank, as JAX
+    refuses a spec longer than it, and ``x`` itself comes back."""
+    if mesh is not None and len(axes) > x.dim():
+        raise ValueError(f"logical axes {axes} for a tensor of rank {x.dim()}")
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingCtx:
+    """The mesh and mode a step runs under, read by layers that split work
+    over the mesh (the MoE's expert-parallel branch)."""
+
+    mesh: Mesh | None = None
+    mode: str = "train"
+
+    def on(self, x: Tensor, *axes: str | None) -> Tensor:
+        return constraint(x, tuple(axes), self.mesh, self.mode)
+
+
+# -- ambient context ----------------------------------------------------------
+# Step factories bind the ShardingCtx here for the length of a step, so deep
+# layers read it without threading ctx through every call signature.
+
+_AMBIENT: contextvars.ContextVar[ShardingCtx] = contextvars.ContextVar(
+    "repro_torch_sharding_ctx", default=ShardingCtx())
+
+
+def current_ctx() -> ShardingCtx:
+    return _AMBIENT.get()
+
+
+@contextlib.contextmanager
+def use_ctx(ctx: ShardingCtx):
+    tok = _AMBIENT.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _AMBIENT.reset(tok)
+
+
+def activation(x: Tensor, *axes: str | None) -> Tensor:
+    """Constrain an activation under the ambient :class:`ShardingCtx`: the
+    rank checked, ``x`` itself returned (see :func:`constraint`)."""
+    return _AMBIENT.get().on(x, *axes)

@@ -22,8 +22,11 @@ against the CPU; and lane sharding over the
 card mesh (every card, or ``cuda:0`` four times on a one-card host): the
 fleet step and ``run_scenarios`` sharded equal to unsharded bit for bit
 with one launch of each kernel an entry, ``des_place``'s probes on every
-mesh device, and a mesh entry beyond the cards present raising.
-``chip_smoke.py`` holds each kernel against its plain version on the card
+mesh device, and a mesh entry beyond the cards present raising; and for
+the meta passes, the MoE's expert-parallel branch over ``cuda:0`` meshes
+against the one-shard call, the kernel ops' FLOP count alike on the card
+and on ``meta``, and the ops' fake outputs against the kernels' at every
+head-dim pair.  ``chip_smoke.py`` holds each kernel against its plain version on the card
 and runs the closed loop there and on the CPU.
 """
 
@@ -977,3 +980,84 @@ def test_mesh_entry_beyond_the_cards_raises(dev):
     with pytest.raises(RuntimeError, match="card"):
         fleet_mesh(n + 1)
     assert fleet_mesh().size == n
+
+
+def test_expert_parallel_on_a_card_mesh_equals_one_shard(dev):
+    """The MoE's expert-parallel branch over ``cuda:0`` x 4 on ``("model",)``
+    at a small width (16 experts, top 2, a shared expert), f32: y within
+    relative L2 1e-6 of the one-shard call and aux at rtol 1e-6; over a
+    2x4 ``("data", "model")`` mesh each batch block equals the one-shard
+    call on that block alone."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+    from repro_torch.parallel.sharding import ShardingCtx, make_mesh_compat
+
+    cfg = ModelConfig(name="t", family="moe", num_layers=1, d_model=64, vocab=8, moe=True,
+                      n_experts=16, top_k=2, moe_d_ff=32, n_shared_experts=1,
+                      shared_d_ff=48, remat="none").validate()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = {k: v[0] for k, v in init_params(moe.moe_specs(cfg, 1), gen, torch.float32,
+                                        dev).items()}
+    x = torch.randn((4, 32, 64), generator=gen, device=dev)
+    y1, aux1 = moe.moe_ffn(cfg, p, x)
+    mesh = make_mesh_compat((4,), ("model",), devices=[dev] * 4)
+    y4, aux4 = moe.moe_ffn(cfg, p, x, ShardingCtx(mesh=mesh))
+    assert float((y4 - y1).norm() / y1.norm()) <= 1e-6
+    torch.testing.assert_close(aux4, aux1, rtol=1e-6, atol=0)
+    mesh = make_mesh_compat((2, 4), ("data", "model"), devices=[dev] * 8)
+    y8, aux8 = moe.moe_ffn(cfg, p, x, ShardingCtx(mesh=mesh))
+    halves = [moe.moe_ffn(cfg, p, x[i:i + 2]) for i in (0, 2)]
+    want = torch.cat([h[0] for h in halves])
+    assert float((y8 - want).norm() / want.norm()) <= 1e-6
+    torch.testing.assert_close(aux8, (halves[0][1] + halves[1][1]) / 2, rtol=1e-6, atol=0)
+
+
+def test_kernel_ops_count_flops_alike_on_card_and_meta(dev):
+    """``FlopCounterMode`` counts one flash-attention or ``ssd_chunk`` call
+    by the op's registered formula on the card and on ``meta`` alike; the
+    card call launches the kernel once, the meta call none."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    rng = np.random.default_rng(6)
+    q = _uniform(rng, -1, 1, (2, 4, 100, 64), dev).to(BF16)
+    kv = _uniform(rng, -1, 1, (2, 2, 130, 64), dev).to(BF16)
+    ssd = _ssd_operands(dev)
+    want_flash = ops.flash_attention_flops(2, 4, 100, 130, 64, 64, True)
+    want_ssd = ops.ssd_chunk_flops(2, 24, 4, 8, 2, 16)
+    for device in (dev, torch.device("meta")):
+        ops.reset_launches()
+        with FlopCounterMode(display=False) as fc:
+            ops.flash_attention(q.to(device), kv.to(device), kv.to(device))
+        assert fc.get_total_flops() == want_flash
+        with FlopCounterMode(display=False) as fc:
+            ops.ssd_chunk(*(t.to(device) for t in ssd))
+        assert fc.get_total_flops() == want_ssd
+        n = 1 if device.type == "cuda" else 0
+        assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["ssd_chunk"] == n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fake_outputs_match_the_kernels_at_every_head_dim_pair(dev, dtype):
+    """The ops' ``meta`` outputs have the shapes and dtypes of the kernels'
+    own, at every ``HEAD_DIM_PAIRS`` entry (with and without the lse) and
+    for ``ssd_chunk``."""
+    from repro_torch.kernels.flash_attention import HEAD_DIM_PAIRS
+
+    dt = getattr(torch, dtype)
+    for d, dv in HEAD_DIM_PAIRS:
+        q = torch.randn((2, 4, 40, d), device=dev).to(dt)
+        k = torch.randn((2, 2, 56, d), device=dev).to(dt)
+        v = torch.randn((2, 2, 56, dv), device=dev).to(dt)
+        for lse in (False, True):
+            got = ops.flash_attention(q, k, v, return_lse=lse)
+            fake = ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"),
+                                       return_lse=lse)
+            got, fake = (got, fake) if lse else ((got,), (fake,))
+            assert [(tuple(t.shape), t.dtype) for t in got] == \
+                [(tuple(t.shape), t.dtype) for t in fake], (d, dv, lse)
+            assert all(t.device.type == "meta" for t in fake)
+    ssd = _ssd_operands(dev)
+    got = ops.ssd_chunk(*ssd)
+    fake = ops.ssd_chunk(*(t.to("meta") for t in ssd))
+    assert [(tuple(t.shape), t.dtype) for t in got] == [(tuple(t.shape), t.dtype) for t in fake]
