@@ -138,7 +138,9 @@ Phases (each passes or the script exits non-zero without a result line):
    (b) ``make_train_step`` on SmolLM-360M and Mamba2-370M at full width and
    depth, bf16, 6 steps on ``[8, 256]`` tokens (``wq``/``wk`` rescaled):
    loss, grad norm and lr finite and the loss falling, ms and tokens/s,
-   peak memory, the forward alone, and every step's flash-attention /
+   peak memory, the forward alone, the forward and backward under the
+   config's remat ``"dots"`` and under ``"full"`` (ms and peak apart), and
+   every step's flash-attention /
    ``ssd_chunk`` launches (a forward and its recompute under remat: two a
    layer), step 0 taken twice from one state to see whether the backward
    is bitwise repeatable, and step 0's loss and gradients at full depth
@@ -217,7 +219,18 @@ Phases (each passes or the script exits non-zero without a result line):
    peak, the H100 roofline bound at most the step's median ms; (d)
    ``python -m repro_torch.launch.dryrun`` (``DRYRUN_ARGV``) in a
    subprocess, exit 0, its cells ``ok`` (``long_500k`` skipped for a
-   full-attention arch).
+   full-attention arch);
+18. (``examples_phase``, also before the timings) the five user-facing
+   examples with a torch side (``EXAMPLES``: quickstart, E1's
+   reproduce_footprinter, fleet_of_twins, whatif_scaling, twin_service),
+   each ``main`` at its defaults, the JAX example's sizes, on the card and
+   then on the CPU: the kernels each path must launch, counted from 0
+   (``example_counts_diff``), every ``des_place`` schedule equal, the
+   parameter streams exact, MAPE streams and the what-if sweep's summaries'
+   floats within rtol 1e-5 and their integers equal, the service's cache
+   hits and its restored state's bits equal (``example_diff``; the
+   what-if example's CPU rerun is its sweep, ``WHATIF_EXAMPLE``); wall
+   seconds and launches logged.
 
 The seconds each phase took are logged after the kernel timings
 (``phase seconds``).  The second-to-last line of standard output is the ``kernels`` JSON record,
@@ -1266,6 +1279,13 @@ def main() -> int:
     for k, n in details["meta"]["launches"].items():
         launches[k] += n
     phase_done("17 meta passes")
+
+    # 18) the five user-facing examples on the card and on the CPU (before
+    # the kernel timings, so that their launches count)
+    details["examples"] = examples_phase(torch, ops, card)
+    for k, n in details["examples"]["launches"].items():
+        launches[k] += n
+    phase_done("18 examples")
 
     # 10) kernel times at the main paths' shapes (device time, queue kept full)
     timer = DeviceTimer(torch)
@@ -3350,7 +3370,9 @@ def time_power_sim(torch, timer, ops, ref, build, dev, t, h) -> dict:
             fail("power_sim: the timed launch returned a CUDA error")
 
     k = timer.device_ms(kernel)
-    p = timer.device_ms(lambda: ref.power_sim_ref(u, r=POWER_KW["r"], **consts))
+    p = timer.device_ms(lambda: ref.power_sim_ref(
+        u, POWER_KW["p_idle"], POWER_KW["p_max"], POWER_KW["r"],
+        peak_tflops=POWER_KW["peak_tflops"], dt_seconds=POWER_KW["dt_seconds"]))
     out = dict(ms=k["ms"], plain_ms=p["ms"], kernel_rounds=k, plain_rounds=p,
                wrapper_wall_ms=timer.wall_ms(lambda: ops.power_sim(u, **POWER_KW)),
                split=split, bytes=4 * (t * h + 3 * t), ops=9 * t * h + 6 * t,
@@ -3826,9 +3848,9 @@ def train_full_width(torch, np, ops, arch: str, card: str) -> dict:
         with torch.no_grad():
             return float(lm.loss_fn(cfg, params, batch)[0])
 
-    def gradients():
+    def gradients(c=cfg):
         xs = [x.detach().requires_grad_(True) for x in flat]
-        grads = torch.autograd.grad(lm.loss_fn(cfg, unflatten(xs), batch)[0], xs)
+        grads = torch.autograd.grad(lm.loss_fn(c, unflatten(xs), batch)[0], xs)
         torch.cuda.synchronize()
         return unflatten(list(grads))
 
@@ -3838,15 +3860,21 @@ def train_full_width(torch, np, ops, arch: str, card: str) -> dict:
         apply_updates(params, grads, opt, opt_cfg)
         torch.cuda.synchronize()
 
-    split = {}
+    # the backward also under remat "full" (the whole region recomputed),
+    # beside the config's "dots", in the same process: ms and peak
+    full = dataclasses.replace(cfg, remat="full")
+    split, peaks = {}, {}
     for name, fn in (("forward", forward), ("forward_backward", gradients),
+                     ("forward_backward_full", lambda: gradients(full)),
                      ("optimizer", update)):
         fn()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for _ in range(3):
             fn()
         split[name] = (time.perf_counter() - t0) * 1e3 / 3
+        peaks[name] = torch.cuda.max_memory_allocated()
     del grads
     warm = statistics.median(r["ms"] for r in rows[1:])
     log(f"train {arch} ({cfg.num_layers} layers x {cfg.d_model}, {cfg.dtype}, remat "
@@ -3855,10 +3883,14 @@ def train_full_width(torch, np, ops, arch: str, card: str) -> dict:
         f"ms, forward + backward (recompute included) {split['forward_backward']:.1f} ms, "
         f"AdamW {split['optimizer']:.1f} ms; peak {peak / 2**30:.2f} GiB allocated, "
         f"{per_step} {kernel} launches a step, step 0 twice from one state bitwise "
-        f"equal: {repeat} ({card})")
+        f"equal: {repeat}; forward + backward under remat 'full' "
+        f"{split['forward_backward_full']:.1f} ms, peak "
+        f"{peaks['forward_backward_full'] / 2**30:.2f} GiB against "
+        f"{peaks['forward_backward'] / 2**30:.2f} ({card})")
     del params, opt
     torch.cuda.empty_cache()
-    return dict(steps=rows, median_ms=warm, split_ms=split, peak_bytes=peak,
+    return dict(steps=rows, median_ms=warm, split_ms=split, split_peak_bytes=peaks,
+                peak_bytes=peak,
                 launches_per_step=per_step, kernel=kernel, bitwise_repeatable=repeat,
                 depth_reference=reference,
                 launches={kernel: sum(r["launches"][kernel] for r in rows)})
@@ -4009,14 +4041,9 @@ def train_card_vs_cpu(torch, np, arch: str, card: str) -> dict:
 def live_twin_phase(torch, ops, card: str) -> dict:
     """(e) examples/live_twin_training_torch.py at its defaults on the card
     (its own closing checks hold), with the kernels it launched."""
-    import importlib.util
     import tempfile
 
-    path = ROOT / "examples" / "live_twin_training_torch.py"
-    spec = importlib.util.spec_from_file_location("live_twin_training_torch", path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod
-    spec.loader.exec_module(mod)
+    mod = load_example("live_twin_training_torch")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as tmp:
         ops.reset_launches()
@@ -4941,6 +4968,223 @@ def meta_phase(torch, ops) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    out["launches"] = launches
+    return out
+
+
+# -- phase 18: the twin's user-facing examples ---------------------------------
+
+#: the examples of ``examples/`` with a torch side that phase 18 runs, each
+#: by its ``main`` at its defaults (the JAX example's sizes), with the kernels
+#: it must launch on the card
+EXAMPLES = {
+    "quickstart_torch": ("calib_mape_grid", "des_readout", "des_place"),
+    "reproduce_footprinter_torch": ("des_readout", "des_place"),
+    "fleet_of_twins_torch": ("calib_mape_grid", "des_readout"),
+    "whatif_scaling_torch": ("des_place",),
+    "twin_service_torch": ("calib_mape_grid", "des_readout"),
+}
+#: arguments beyond ``--device`` (none: each example's own defaults)
+EXAMPLE_ARGV: dict = {}
+#: the what-if example's CPU rerun is its sweep alone (``setup`` and
+#: ``sweep``): the 19 candidates' summaries.  Its search, at the same size
+#: and space, is held card against CPU in phase 11 (c); rerun here on the
+#: CPU it took 60 s more on the card host
+WHATIF_EXAMPLE = "whatif_scaling_torch"
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(torch, ops, fn, device: str) -> dict:
+    """``fn(device)`` (an example's ``main`` or part of it), its printed
+    lines kept: the result, wall seconds, kernel launches (reset just
+    before, read just after) and the schedule (``job_start``,
+    ``job_host``) of every ``des_place`` call."""
+    import contextlib
+    import io
+
+    schedules, real = [], ops.des_place
+
+    def recorded(*args, **kw):
+        out = real(*args, **kw)
+        schedules.append(out[:2])
+        return out
+
+    buf = io.StringIO()
+    ops.des_place = recorded
+    try:
+        ops.reset_launches()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            res = fn(device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(ops.LAUNCHES)
+    finally:
+        ops.des_place = real
+    return dict(result=res, wall_s=wall, launches=launches, lines=buf.getvalue().splitlines(),
+                schedules=[[t.cpu() for t in pair] for pair in schedules])
+
+
+def _close(a, b, rtol=1e-5) -> bool:
+    import numpy as np
+
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return a.shape == b.shape and bool(np.allclose(a, b, rtol=rtol, atol=0.0, equal_nan=True))
+
+
+def _run_params(records):
+    import numpy as np
+
+    return np.array([[float(getattr(r.params, f)) for f in ("p_idle", "p_max", "r")]
+                     for r in records])
+
+
+def _summary_diff(a, b) -> "str | None":
+    """The first field where two ``ScenarioSummary`` differ: integers and
+    strings exactly, floats at rtol 1e-5 (NaN where NaN)."""
+    for f, va in a.__dict__.items():
+        vb = b.__dict__[f]
+        if isinstance(vb, float):
+            if not _close(va, vb):
+                return f"{a.name}.{f}: {va} vs {vb}"
+        elif va != vb:
+            return f"{a.name}.{f}: {va} vs {vb}"
+    return None
+
+
+def example_diff(torch, name: str, card: dict, cpu: dict) -> "str | None":
+    """Where the card's run of an example departs from the CPU rerun's, or
+    None: schedules equal, parameter streams exact, MAPE streams and other
+    floats within rtol 1e-5, counts and cache hits equal, the service's
+    evicted (restored) state equal bit for bit."""
+    import numpy as np
+
+    a, b = card["result"], cpu["result"]
+    # the what-if example's CPU rerun is its sweep: the card's first call
+    n = 1 if name == WHATIF_EXAMPLE else len(card["schedules"])
+    if len(cpu["schedules"]) != n or not all(
+            torch.equal(x, y) for p, q in zip(card["schedules"], cpu["schedules"])
+            for x, y in zip(p, q)):
+        return "des_place schedules differ"
+    if name == "quickstart_torch":
+        a, b = a.result, b.result
+        if len(a.records) != len(b.records):
+            return "windows differ"
+        if not np.array_equal(_run_params(a.records), _run_params(b.records)):
+            return "parameter stream differs"
+        if not _close(a.per_window_mape, b.per_window_mape):
+            return "MAPE stream beyond rtol 1e-5"
+        if [r.met for r in a.slo_reports] != [r.met for r in b.slo_reports]:
+            return "SLO verdicts differ"
+    elif name == "reproduce_footprinter_torch":
+        for k in ("per_window_mape", "footprinter_mape", "opendt_mape", "mean_utilization",
+                  "peak_tflops_hour", "best_efficiency_tflops_per_kwh"):
+            if not _close(a[k], b[k]):
+                return f"{k} beyond rtol 1e-5"
+    elif name == "fleet_of_twins_torch":
+        if not _close(a.mape, b.mape):
+            return "MAPE streams beyond rtol 1e-5"
+        for f in ("p_idle", "p_max", "r"):
+            if not torch.equal(getattr(a.outputs.params_next, f).cpu(),
+                               getattr(b.outputs.params_next, f)):
+                return f"parameter stream {f} differs"
+    elif name == WHATIF_EXAMPLE:
+        if len(a.summaries) != len(b) or len(b) != 19:
+            return f"{len(a.summaries)} and {len(b)} summaries, not 19"
+        for x, y in zip(a.summaries, b):
+            bad = _summary_diff(x, y)
+            if bad:
+                return f"summary {bad}"
+    elif name == "twin_service_torch":
+        counts = ("windows_cached", "hit_rate", "restored", "new_windows", "stale_dropped",
+                  "next_window", "bitwise_same")
+        for k in counts:
+            if getattr(a, k) != getattr(b, k):
+                return f"{k}: {getattr(a, k)} vs {getattr(b, k)}"
+        for ra, rb in zip(a.results_a + a.results_b, b.results_a + b.results_b):
+            if (ra.tenant, ra.window, ra.cached) != (rb.tenant, rb.window, rb.cached):
+                return "served windows differ"
+            pa, pb = ra.output.params_next, rb.output.params_next
+            if any(not np.array_equal(getattr(pa, f), getattr(pb, f))
+                   for f in ("p_idle", "p_max", "r")):
+                return f"{ra.tenant} w{ra.window}: parameters differ"
+            if not _close(ra.output.mape, rb.output.mape):
+                return f"{ra.tenant} w{ra.window}: MAPE beyond rtol 1e-5"
+        for run in (a, b):
+            if not all(np.array_equal(x, y) for x, y in zip(run.evicted, run.checkpointed)):
+                return "an evicted state differs from its checkpoint"
+        if not all(np.array_equal(x, y) for x, y in zip(a.evicted, b.evicted)):
+            return "restored states differ in their bits"
+    return None
+
+
+def example_counts_diff(name: str, run: dict) -> "str | None":
+    """The launches each example's path must make on the card, or None."""
+    n, res = run["launches"], run["result"]
+    if any(n[k] <= 0 for k in EXAMPLES[name]):
+        return f"launches {n}: each of {EXAMPLES[name]} expected"
+    want = {}
+    if name == "quickstart_torch":
+        want = dict(des_place=2, des_readout=len(res.result.records))
+    elif name == "reproduce_footprinter_torch":
+        want = dict(des_place=3, des_readout=len(res["per_window_mape"]))
+    elif name == "fleet_of_twins_torch":
+        want = dict(des_readout=res.mape.shape[0], calib_mape_grid=res.mape.shape[0])
+    elif name == WHATIF_EXAMPLE:
+        want = dict(des_place=1 + res.search.batches, des_readout=0)
+    elif name == "twin_service_torch":
+        want = dict(calib_mape_grid=n["des_readout"])
+    bad = {k: (n[k], v) for k, v in want.items() if n[k] != v}
+    return f"launches {n}, expected {want}" if bad else None
+
+
+def examples_phase(torch, ops, card: str) -> dict:
+    """Phase 18: each example's ``main`` on the card at its defaults, then
+    on the CPU, held against each other (``example_diff``), with its wall
+    seconds and kernel launches."""
+    log("user-facing examples: phase 18")
+    out: dict = {}
+    launches = {k: 0 for k in ops.LAUNCHES}
+    for name in EXAMPLES:
+        mod = load_example(name)
+        argv = EXAMPLE_ARGV.get(name, [])
+
+        def main_on(device, mod=mod, argv=argv):
+            return mod.main(["--device", device] + argv)
+
+        def sweep_on(device, mod=mod, argv=argv):
+            days = float(argv[argv.index("--days") + 1]) if "--days" in argv else mod.DAYS
+            return mod.sweep(*mod.setup(days, device))
+
+        gpu = run_example(torch, ops, main_on, DEVICE)
+        bad = example_counts_diff(name, gpu)
+        if bad:
+            fail(f"phase 18 {name}: {bad}")
+        cpu = run_example(torch, ops, sweep_on if name == WHATIF_EXAMPLE else main_on, "cpu")
+        bad = example_diff(torch, name, gpu, cpu)
+        if bad:
+            fail(f"phase 18 {name}: card and CPU rerun differ: {bad}")
+        for k, v in gpu["launches"].items():
+            launches[k] += v
+        shown = [line for line in gpu["lines"] if line.strip()][-3:]
+        log(f"phase 18 {name}: card {gpu['wall_s']:.3f} s, CPU rerun {cpu['wall_s']:.3f} s, "
+            f"launches {gpu['launches']}, equal to the CPU rerun ({card}); last lines: "
+            + " | ".join(shown))
+        out[name] = dict(wall_s=gpu["wall_s"], cpu_wall_s=cpu["wall_s"],
+                         launches=gpu["launches"], des_place_calls=len(gpu["schedules"]),
+                         lines=gpu["lines"])
     out["launches"] = launches
     return out
 

@@ -36,6 +36,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.kernels import ops as _ops  # noqa: F401  (registers the kernel ops' FLOPs)
+from repro_torch.models import rope
 
 Tensor = torch.Tensor
 
@@ -104,7 +105,12 @@ def trace_cost(fn: Callable, *args, **kwargs) -> dict[str, Any]:
     ``bytes_per_device``, ``collective_wire_bytes_per_device``: None,
     ``collective_counts``) for the whole step on the caller's devices, plus
     ``num_ops``, ``peak_live_bytes`` (beyond the arguments) and ``out``,
-    ``fn``'s result."""
+    ``fn``'s result.
+
+    RoPE's per-device tables are dropped first, so every trace counts
+    their construction and a count does not depend on what ran before it
+    in the process."""
+    rope.clear_tables()
     cm = _CostMode()
     with cm, FlopCounterMode(display=False) as fc:
         out = fn(*args, **kwargs)

@@ -232,12 +232,13 @@ def power_sim(u_th: Tensor, *, p_idle: float, p_max: float, r: float,
     if u_th.dim() != 2:
         raise ValueError(f"u_th must be [T, H], got {tuple(u_th.shape)}")
     kind = _device_kind(u_th)
+    u = u_th.to(torch.float32).contiguous()
+    if kind == "cpu":
+        return ref.power_sim_ref(u, p_idle, p_max, r, peak_tflops=peak_tflops,
+                                 dt_seconds=dt_seconds)
     consts = ref.power_sim_constants(
         u_th.shape[1], p_idle=p_idle, p_max=p_max, peak_tflops=peak_tflops,
         dt_seconds=dt_seconds)
-    u = u_th.to(torch.float32).contiguous()
-    if kind == "cpu":
-        return ref.power_sim_ref(u, r=float(r), **consts)
     out = power_sim_cuda(u, r=float(r), **consts)
     LAUNCHES["power_sim"] += 1
     return out

@@ -110,21 +110,27 @@ def power_sim_constants(h: int, *, p_idle: float, p_max: float,
                 peak=float(peak_tflops))
 
 
-def power_sim_ref(u_th: Tensor, *, r: float, base: float, span: float,
-                  e_factor: float, peak: float
+def power_sim_ref(u_th: Tensor, p_idle: float, p_max: float, r: float, *,
+                  peak_tflops: float, dt_seconds: float
                   ) -> tuple[Tensor, Tensor, Tensor]:
     """Fleet power [W], energy [kWh] and TFLOP/s per bin: three ``[T]`` f32.
 
+    The JAX package's parameters (``repro.kernels.ref.power_sim_ref``).
     Mirrors ``repro.kernels.power_sim._kernel`` on u clipped to [0, 1]:
     ``power = base + span * sum_h (2u - exp(r * log max(u, 1e-30)))``,
     ``energy = power * e_factor``, ``tflops = sum_h u / H * peak``, with
-    the scalars of :func:`power_sim_constants` rounded to f32.
+    the scalars of :func:`power_sim_constants` (the kernel's own
+    arguments) folded in double and rounded to f32.
     """
     u = u_th.float().clamp(0.0, 1.0)
     h = u.shape[1]
+    c = power_sim_constants(h, p_idle=float(p_idle), p_max=float(p_max),
+                            peak_tflops=float(peak_tflops),
+                            dt_seconds=float(dt_seconds))
     f32 = dict(dtype=torch.float32)
     rr, base_t, span_t, e_t, peak_t, h_t = (
-        torch.tensor(v, **f32) for v in (r, base, span, e_factor, peak, h))
+        torch.tensor(v, **f32) for v in (float(r), c["base"], c["span"],
+                                         c["e_factor"], c["peak"], h))
     shape = 2.0 * u - torch.exp(rr * torch.log(u.clamp(min=LOG_FLOOR)))
     power = base_t + span_t * shape.sum(dim=1)
     return power, power * e_t, u.sum(dim=1) / h_t * peak_t

@@ -56,11 +56,11 @@ def make_prefill_step(cfg: ModelConfig, ctx: ShardingCtx = ShardingCtx()):
 
     def _prefill(params, batch):
         if cfg.family == "encdec":
-            enc_out = ed.encode(cfg, params, batch["frames"])
-            x = ed.decode_train(cfg, params, batch["tokens"], enc_out)
+            enc_out = ed.encode(cfg, params, batch["frames"], ctx)
+            x = ed.decode_train(cfg, params, batch["tokens"], enc_out, ctx)
             w = params["unembed"]
         else:
-            x, _ = lm.backbone(cfg, params, batch)
+            x, _ = lm.backbone(cfg, params, batch, ctx)
             w = lm._unembed_matrix(cfg, params)
         return dense(x[:, -1], w)
 
@@ -77,9 +77,9 @@ def make_serve_step(cfg: ModelConfig, ctx: ShardingCtx = ShardingCtx()):
 
     def _serve(params, state, batch):
         if cfg.family == "encdec":
-            logits, state = ed.encdec_decode_step(cfg, params, state, batch)
+            logits, state = ed.encdec_decode_step(cfg, params, state, batch, ctx)
         else:
-            logits, state = lm.decode_step(cfg, params, state, batch)
+            logits, state = lm.decode_step(cfg, params, state, batch, ctx)
         return torch.argmax(logits, dim=-1).to(torch.int32), state
 
     return serve_step
@@ -101,7 +101,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     def _grads(params, batch):
         flat, unflatten = flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in flat]
-        loss, metrics = loss_fn(cfg, unflatten(leaves), batch)
+        loss, metrics = loss_fn(cfg, unflatten(leaves), batch, ctx)
         # a leaf the loss does not read (a hybrid stack too shallow for
         # its shared block) gets a zero gradient, as under jax.grad
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,

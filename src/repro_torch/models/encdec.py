@@ -10,7 +10,9 @@ attention of a prefill runs the flash kernel; decode reads the self
 cache and the fixed cross K/V with plain products.  ``encdec_loss`` is
 the training loss: encoder, teacher-forced decoder, then the seq-chunked
 cross entropy of ``lm.chunked_ce``; gradients reach the flash kernel's
-three attentions through ``FlashAttention``.
+three attentions through ``FlashAttention``.  Each entry takes the JAX
+package's ``ctx`` in its position and binds it with ``use_ctx`` for the
+call (``None``: the ambient context).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from repro_torch.models.blocks import _out_proj, attn_specs, dense_ffn, ffn_spec
 from repro_torch.models.common import ParamSpec, dense, rms_norm
 from repro_torch.models.lm import KV_CHUNK, _layer, _layers, _remat, chunked_ce
 from repro_torch.models.rope import apply_rope
+from repro_torch.parallel.sharding import ShardingCtx, use_ctx
 
 Tensor = torch.Tensor
 
@@ -80,8 +83,14 @@ def _cross_attn(cfg: ModelConfig, p, x, enc_out):
     return _out_proj(out, p["x_wo"], x.dtype)
 
 
-def encode(cfg: ModelConfig, params, frames: Tensor) -> Tensor:
+def encode(cfg: ModelConfig, params, frames: Tensor,
+           ctx: ShardingCtx | None = None) -> Tensor:
     """frames [B, F, d] (stub frontend embeddings) -> [B, F, d]."""
+    with use_ctx(ctx):
+        return _encode(cfg, params, frames)
+
+
+def _encode(cfg: ModelConfig, params, frames: Tensor) -> Tensor:
     b, f, _ = frames.shape
     positions = _positions(b, f, frames.device)
 
@@ -98,9 +107,15 @@ def encode(cfg: ModelConfig, params, frames: Tensor) -> Tensor:
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def decode_train(cfg: ModelConfig, params, tokens: Tensor, enc_out: Tensor
-                 ) -> Tensor:
+def decode_train(cfg: ModelConfig, params, tokens: Tensor, enc_out: Tensor,
+                 ctx: ShardingCtx | None = None) -> Tensor:
     """Teacher-forced decoder.  tokens [B, S] -> hidden [B, S, d]."""
+    with use_ctx(ctx):
+        return _decode_train(cfg, params, tokens, enc_out)
+
+
+def _decode_train(cfg: ModelConfig, params, tokens: Tensor, enc_out: Tensor
+                  ) -> Tensor:
     b, s = tokens.shape
     x = params["embed"][tokens]
     positions = _positions(b, s, x.device)
@@ -119,14 +134,14 @@ def decode_train(cfg: ModelConfig, params, tokens: Tensor, enc_out: Tensor
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def encdec_loss(cfg: ModelConfig, params, batch
+def encdec_loss(cfg: ModelConfig, params, batch, ctx: ShardingCtx | None = None
                 ) -> tuple[Tensor, dict[str, Tensor]]:
     """``(loss, {"ce", "moe_aux", "tokens"})`` of a batch with ``frames``
     [B, F, d], ``tokens`` and ``labels`` [B, S]: the mean NLL of the
     decoder's logits (``params["unembed"]``) over the non-ignored labels,
     ``moe_aux`` a float32 zero (no MoE layer), as the JAX package's."""
-    enc_out = encode(cfg, params, batch["frames"])
-    x = decode_train(cfg, params, batch["tokens"], enc_out)
+    enc_out = encode(cfg, params, batch["frames"], ctx)
+    x = decode_train(cfg, params, batch["tokens"], enc_out, ctx)
     loss, tok = chunked_ce(cfg, x, params["unembed"], batch["labels"])
     return loss, {"ce": loss,
                   "moe_aux": torch.zeros((), dtype=torch.float32, device=x.device),
@@ -164,13 +179,20 @@ def cross_kv(cfg: ModelConfig, params, enc_out: Tensor) -> dict[str, Tensor]:
             for n in ("k", "v")}
 
 
-def encdec_decode_step(cfg: ModelConfig, params, state, batch
+def encdec_decode_step(cfg: ModelConfig, params, state, batch,
+                       ctx: ShardingCtx | None = None
                        ) -> tuple[Tensor, dict[str, Any]]:
     """One decoder token against self cache + fixed cross K/V.
 
     The self cache is written in place (see ``gqa_decode``); the returned
     state holds the same tensors.
     """
+    with use_ctx(ctx):
+        return _encdec_decode_step(cfg, params, state, batch)
+
+
+def _encdec_decode_step(cfg: ModelConfig, params, state, batch
+                        ) -> tuple[Tensor, dict[str, Any]]:
     x = params["embed"][batch["token"]]                     # [B,1,d]
     cache_len = batch.get("cache_len")
     positions = (batch.get("positions") if batch.get("positions") is not None

@@ -14,10 +14,14 @@ The JAX package scans the stacked ``[L, ...]`` layer parameters; here the
 model loops over ``L`` (the stacks are unbound once, so a gradient flows
 back to each stack in one op).  ``cfg.remat`` holds as in the JAX
 package while gradients are on: each block, each Mamba2 layer and each
-CE chunk is a ``torch.utils.checkpoint`` region whose activations are
-recomputed in the backward.  ``"full"`` and ``"dots"`` both recompute the
-whole region: JAX's ``"dots"`` policy keeps the matmul outputs instead,
-which changes memory, not the numbers.  The MoE layers read the ambient
+CE chunk is a ``torch.utils.checkpoint`` region.  ``"full"`` recomputes
+the whole region in the backward.  ``"dots"`` is a selective region
+that keeps the outputs of its 2-D products (``aten.mm``/``aten.addmm``,
+a dot with no batch dims, as JAX's ``checkpoint_dots_with_no_batch_dims``
+keeps) and recomputes everything else: batched products (``bmm``, the
+MoE's capacity buffer) and the two kernel operators included.  The
+policy changes the work and the memory of a step, never its numbers.
+The MoE layers read the ambient
 ``ShardingCtx`` (``parallel.sharding.use_ctx``, bound by the step
 factories) and split their experts over its mesh's ``model`` axis as the
 JAX package's do; the JAX package's ``activation`` constraints, which in
@@ -27,11 +31,16 @@ left out.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba2 as m2
@@ -45,7 +54,7 @@ from repro_torch.models.common import (
     rms_norm,
     spec_param_count,
 )
-from repro_torch.parallel.sharding import ShardingCtx, current_ctx
+from repro_torch.parallel.sharding import ShardingCtx, current_ctx, use_ctx
 
 Tensor = torch.Tensor
 
@@ -140,11 +149,27 @@ def _layers(stacked: dict[str, Tensor]) -> list[dict[str, Tensor]]:
             for vals in zip(*(stacked[k].unbind(0) for k in keys))]
 
 
+#: the ops whose outputs a ``"dots"`` region keeps: 2-D products, every
+#: overload (``mm.out`` too)
+_SAVED_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Keep a 2-D product's output, recompute every other op."""
+    if getattr(op, "overloadpacket", None) in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(fn, cfg: ModelConfig):
     """``fn`` as a checkpointed region under ``cfg.remat`` while gradients
     are on (see the module docstring); as is otherwise."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
+    if cfg.remat == "dots":
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
@@ -257,14 +282,22 @@ def _default_positions(cfg: ModelConfig, b: int, s: int, start, device
     return pos.expand(3, b, s) if cfg.mrope else pos
 
 
-def backbone(cfg: ModelConfig, params: dict[str, Any], batch
-             ) -> tuple[Tensor, Tensor]:
+def backbone(cfg: ModelConfig, params: dict[str, Any], batch,
+             ctx: ShardingCtx | None = None) -> tuple[Tensor, Tensor]:
     """Token embed -> blocks -> final norm.  Returns (hidden [B, S, d], MoE
     aux), the aux summed over the MoE layers (0 without any).
 
     ``batch["positions"]``: [B, S], or [3, B, S] with M-RoPE (Qwen2-VL's
     temporal/height/width streams); by default ``arange(S)`` in each.
+    ``ctx`` (the JAX package's parameter) is bound with ``use_ctx`` for the
+    call; ``None`` keeps the ambient context, as do the other entries.
     """
+    with use_ctx(ctx):
+        return _backbone(cfg, params, batch)
+
+
+def _backbone(cfg: ModelConfig, params: dict[str, Any], batch
+              ) -> tuple[Tensor, Tensor]:
     x = embed_tokens(cfg, params, batch)
     b, s, _ = x.shape
     positions = batch.get("positions")
@@ -292,10 +325,11 @@ def _unembed_matrix(cfg: ModelConfig, params: dict[str, Any]) -> Tensor:
     return params["unembed"]
 
 
-def forward(cfg: ModelConfig, params: dict[str, Any], batch) -> Tensor:
+def forward(cfg: ModelConfig, params: dict[str, Any], batch,
+            ctx: ShardingCtx | None = None) -> Tensor:
     """Full logits [B, S, vocab] (use loss_fn for training: it never
     materializes these)."""
-    x, _ = backbone(cfg, params, batch)
+    x, _ = backbone(cfg, params, batch, ctx)
     return dense(x, _unembed_matrix(cfg, params))
 
 
@@ -324,11 +358,12 @@ def chunked_ce(cfg: ModelConfig, x: Tensor, w: Tensor, labels: Tensor
 
 
 def loss_fn(cfg: ModelConfig, params: dict[str, Any], batch,
-            aux_weight: float = 0.01) -> tuple[Tensor, dict[str, Tensor]]:
+            ctx: ShardingCtx | None = None, aux_weight: float = 0.01
+            ) -> tuple[Tensor, dict[str, Tensor]]:
     """``(total, {"ce", "moe_aux", "tokens"})`` of a batch with ``tokens``
     and ``labels`` [B, S]; ``moe_aux`` is the MoE layers' load-balance loss
     (0 without any)."""
-    x, aux = backbone(cfg, params, batch)
+    x, aux = backbone(cfg, params, batch, ctx)
     loss, tok = chunked_ce(cfg, x, _unembed_matrix(cfg, params), batch["labels"])
     total = loss + aux_weight * aux
     return total, {"ce": loss, "moe_aux": aux, "tokens": tok}
@@ -447,7 +482,8 @@ def _mamba_decode_stack(cfg: ModelConfig, stacked: dict[str, Tensor],
 
 
 def decode_step(cfg: ModelConfig, params: dict[str, Any],
-                state: dict[str, Any], batch) -> tuple[Tensor, dict[str, Any]]:
+                state: dict[str, Any], batch, ctx: ShardingCtx | None = None
+                ) -> tuple[Tensor, dict[str, Any]]:
     """One-token decode.  batch: {"token": [B,1], "cache_len": [B],
     "positions": [B,1] or [3,B,1] (M-RoPE)}.  Returns (logits [B, vocab],
     state).  Without ``positions`` the token sits at ``cache_len`` (in all
@@ -459,6 +495,12 @@ def decode_step(cfg: ModelConfig, params: dict[str, Any],
     ``gqa_decode``), where the JAX package returns updated copies, and the
     returned state holds the same tensors.
     """
+    with use_ctx(ctx):
+        return _decode_step(cfg, params, state, batch)
+
+
+def _decode_step(cfg: ModelConfig, params: dict[str, Any],
+                 state: dict[str, Any], batch) -> tuple[Tensor, dict[str, Any]]:
     x = params["embed"][batch["token"]]                    # [B,1,d]
     positions = batch.get("positions")
     if positions is None:

@@ -23,9 +23,10 @@ def _freqs_on(dim: int, theta: float, device: torch.device) -> Tensor:
     Every device rotates with bitwise the same frequencies (a card's own
     ``pow`` may differ from the host's by an ulp, and at position p an ulp
     of frequency turns the angle by p ulps), and a call launches no
-    kernels to rebuild them.
+    kernels to rebuild them.  The copy is made on the CPU too, so building
+    the table is the same ops on every device (``analysis.cost``).
     """
-    return rope_freqs(dim, theta).to(device)
+    return rope_freqs(dim, theta).to(device, copy=True)
 
 
 def apply_rope(x: Tensor, positions: Tensor, theta: float,
@@ -52,7 +53,15 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float,
 def _section_ids(sections: tuple[int, int, int], device: torch.device) -> Tensor:
     """[half] the position stream (0 t, 1 h, 2 w) of each rotary frequency,
     built on the host and copied to ``device`` once."""
-    return torch.repeat_interleave(torch.arange(3), torch.tensor(sections)).to(device)
+    return torch.repeat_interleave(torch.arange(3), torch.tensor(sections)).to(
+        device, copy=True)
+
+
+def clear_tables() -> None:
+    """Drop the per-device frequency and section tables: the next call
+    builds them again (``analysis.cost.trace_cost`` counts them so)."""
+    _freqs_on.cache_clear()
+    _section_ids.cache_clear()
 
 
 def apply_mrope(x: Tensor, positions: Tensor, theta: float,

@@ -412,7 +412,12 @@ def current_ctx() -> ShardingCtx:
 
 
 @contextlib.contextmanager
-def use_ctx(ctx: ShardingCtx):
+def use_ctx(ctx: ShardingCtx | None):
+    """Bind ``ctx`` as the ambient context for the block; ``None`` keeps the
+    one already bound (an entry called without a ``ctx``)."""
+    if ctx is None:
+        yield _AMBIENT.get()
+        return
     tok = _AMBIENT.set(ctx)
     try:
         yield ctx

@@ -486,12 +486,14 @@ def test_readout_lanes_are_independent_at_every_split(dev):
             assert torch.equal(solo[:, 0], got[:, i]), (split, i)
     power = _build.load("power_sim").power_sim_launch
     field = u[0].contiguous()
-    consts = dict(r=2.3, base=1100 * 70.0, span=280.0, e_factor=1 / 12000, peak=120.0)
-    want = ref.power_sim_ref(field, **consts)
+    kw = dict(peak_tflops=120.0, dt_seconds=300.0)
+    consts = ref.power_sim_constants(1100, p_idle=70.0, p_max=350.0, **kw)
+    scalars = (2.3, consts["base"], consts["span"], consts["e_factor"], consts["peak"])
+    want = ref.power_sim_ref(field, 70.0, 350.0, 2.3, **kw)
     stream = torch.cuda.current_stream().cuda_stream
     for split in (1, 2, 4, 8):
         out = torch.empty((3, 20), device=dev)
-        assert power(field.data_ptr(), out.data_ptr(), 20, 1100, split, *consts.values(),
+        assert power(field.data_ptr(), out.data_ptr(), 20, 1100, split, *scalars,
                      stream) == 0
         for g, w in zip(out, want):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-2)

@@ -1,9 +1,10 @@
 """The port's meta passes against the JAX package: abstract parameters,
 optimizer state and caches; the op-by-op cost count (``analysis/cost.py``,
 the counterpart of ``analysis/hlo.py``) on a known program and on reduced
-models, ``meta`` against the CPU; the H100 roofline's model FLOPs; and one
-dry-run cell's per-device argument bytes against a sum over JAX's
-partition specs.
+models, ``meta`` against the CPU, the same in every trace and in a cell
+whatever ran before it; a prefill's dot FLOPs against JAX's HLO count,
+term by term; the H100 roofline's model FLOPs; and one dry-run cell's
+per-device argument bytes against a sum over JAX's partition specs.
 """
 
 import dataclasses
@@ -18,10 +19,14 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+import jax  # noqa: E402
+
+from repro.analysis import hlo as jax_hlo  # noqa: E402
 from repro.analysis import roofline as jax_roofline  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.launch import shapes as jax_shapes  # noqa: E402
 from repro.launch import steps as jax_steps  # noqa: E402
+from repro.launch.train import reduce_config as jax_reduce_config  # noqa: E402
 from repro.models import blocks as jax_blocks  # noqa: E402
 from repro.models import common as jax_common  # noqa: E402
 from repro.optim import adamw as jax_adamw  # noqa: E402
@@ -31,7 +36,7 @@ from repro_torch.analysis import cost, roofline  # noqa: E402
 from repro_torch.configs import all_archs, get_config  # noqa: E402
 from repro_torch.launch import dryrun, shapes, steps  # noqa: E402
 from repro_torch.launch.train import reduce_config  # noqa: E402
-from repro_torch.models import blocks  # noqa: E402
+from repro_torch.models import blocks, rope  # noqa: E402
 from repro_torch.models.common import abstract_params, axes_tree, spec_leaves  # noqa: E402
 from repro_torch.models.common import init_params  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, abstract_opt_state, init_opt_state  # noqa: E402
@@ -166,7 +171,6 @@ def test_meta_count_equals_cpu_count(arch, kind):
     else:
         step = steps.make_prefill_step(cfg)
         am, ac = (pm, bm), (pc, bc)
-    step(*am), step(*ac)       # warm the per-device caches (RoPE's frequencies)
     m, c = cost.trace_cost(step, *am), cost.trace_cost(step, *ac)
     assert m["flops_per_device"] == c["flops_per_device"] > 0
     assert abs(m["bytes_per_device"] / c["bytes_per_device"] - 1) <= 0.01
@@ -236,6 +240,103 @@ def test_dryrun_cell_argument_bytes_match_jax_specs():
     assert c["flops_per_device"] == c["flops_global"] / 256
     assert r["dominant"] in ("compute", "memory") and r["bound_s"] > 0
     assert 0 < r["useful_flops_fraction"] <= 1
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_trace_cost_repeats_itself(device):
+    """RoPE's per-device tables are counted in every trace: two traces of
+    one step agree in every key, the first on cold tables, the second on
+    the tables the first built."""
+    cfg = _reduced("qwen2-vl-7b")          # M-RoPE: frequencies and section ids
+    specs = steps.param_specs_for(cfg)
+    p = (abstract_params(specs, torch.float32) if device == "meta" else
+         init_params(specs, torch.Generator().manual_seed(0), torch.float32, device="cpu"))
+    shape = shapes.ShapeSpec("t", "prefill", 64, 2)
+    batch = (shapes.input_structs(cfg, shape) if device == "meta" else
+             shapes.concrete_inputs(cfg, shape, device="cpu"))
+    step = steps.make_prefill_step(cfg)
+    rope._freqs_on.cache_clear()
+    rope._section_ids.cache_clear()
+    a, b = cost.trace_cost(step, p, batch), cost.trace_cost(step, p, batch)
+    assert {k: v for k, v in a.items() if k != "out"} == \
+        {k: v for k, v in b.items() if k != "out"}
+
+
+def test_dryrun_cell_does_not_depend_on_the_cells_before_it():
+    """A cell alone equals the same cell after another arch's cell."""
+    def cell(arch):
+        out = dryrun.dryrun_cell(arch, "decode_32k", False, verbose=False)
+        out.pop("trace_s")
+        return out
+
+    alone = cell("smollm-360m")
+    cell("stablelm-3b")
+    assert cell("smollm-360m") == alone
+
+
+def _jax_hlo_flops(fn, *args) -> float:
+    import jax
+    return jax_hlo.analyze_compiled_text(jax.jit(fn).lower(*args).compile().as_text(),
+                                         1)["flops_per_device"]
+
+
+def _prefill_flops(arch):
+    """(JAX's HLO dot FLOPs, the port's meta count) of a reduced prefill at
+    ``[2, 256]``."""
+    jcfg = jax_reduce_config(jax_get_config(arch), 8)
+    jp = jax_common.abstract_params(jax_steps.param_specs_for(jcfg), jnp.dtype(jcfg.dtype))
+    jshape = jax_shapes.ShapeSpec("t", "prefill", 256, 2)
+    want = _jax_hlo_flops(jax_steps.make_prefill_step(jcfg), jp,
+                          jax_shapes.input_structs(jcfg, jshape))
+    cfg = reduce_config(get_config(arch), 8)
+    pm = abstract_params(steps.param_specs_for(cfg), getattr(torch, cfg.dtype))
+    bm = shapes.input_structs(cfg, shapes.ShapeSpec("t", "prefill", 256, 2))
+    got = cost.trace_cost(steps.make_prefill_step(cfg), pm, bm)["flops_per_device"]
+    return want, got, cfg
+
+
+def test_prefill_flops_account_term_by_term():
+    """The port's prefill counts fewer dot FLOPs than JAX's HLO (0.969x
+    SmolLM, 0.836x Mamba2, reduced, ``[2, 256]``), and the whole gap is
+    the two kernels' terms: the port charges ``flash_attention`` its
+    causal pairs, ``S (S + 1) / 2``, where JAX's XLA route computes every
+    (query, key) block, and ``ssd_chunk`` its causal triangle with
+    ``C B^T`` once a group, where JAX's ``ssd_chunked`` computes the full
+    ``Q x Q`` block with ``C B^T`` once a head.  Everything else counts
+    alike (a deliberate divergence, ROADMAP C)."""
+    from repro.models import attention as jax_attention
+    from repro.models import mamba2 as jax_mamba2
+    from repro_torch.kernels import ops
+
+    b, s = 2, 256
+    want, got, cfg = _prefill_flops("smollm-360m")
+    hq, hkv, hd, layers = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.num_layers
+    f32 = jnp.float32
+    q = jax.ShapeDtypeStruct((b, s, hq, hd), f32)
+    kv = jax.ShapeDtypeStruct((b, s, hkv, hd), f32)
+    jax_attn = _jax_hlo_flops(lambda q, k, v: jax_attention.chunked_attention(
+        q, k, v, causal=True, kv_chunk=1024), q, kv, kv)
+    assert jax_attn == 2 * 2 * hd * b * hq * s * s                # every block
+    port_attn = ops.flash_attention_flops(b, hq, s, s, hd, hd, True)
+    assert port_attn * 2 * s == jax_attn * (s + 1)                 # the causal pairs
+    assert got - layers * port_attn == want - layers * jax_attn    # the rest alike
+    assert round(got / want, 3) == 0.969
+
+    want, got, cfg = _prefill_flops("mamba2-370m")
+    h, p, n, g, qc = cfg.ssm_heads, cfg.ssm_headdim, cfg.d_state, cfg.ssm_ngroups, cfg.ssd_chunk
+    layers, bc = cfg.num_layers, b * (s // qc)
+    sds = lambda *shape: jax.ShapeDtypeStruct(shape, f32)  # noqa: E731
+    jax_ssd = _jax_hlo_flops(
+        lambda x, dt, a, bb, cc, d: jax_mamba2.ssd_chunked(x, dt, a, bb, cc, d, qc),
+        sds(b, s, h, p), sds(b, s, h), sds(h), sds(b, s, g, n), sds(b, s, g, n), sds(h))
+    states = y_inter = 2 * bc * qc * h * p * n
+    assert jax_ssd == 2 * bc * qc * qc * h * n + 2 * bc * qc * qc * h * p + states + y_inter
+    port_ssd = ops.ssd_chunk_flops(bc, qc, h, p, g, n)
+    tri = qc * (qc + 1) // 2
+    assert port_ssd == 2 * bc * g * tri * n + 2 * bc * h * tri * p + states
+    # the port's inter-chunk product (y_inter) runs outside the kernel
+    assert got - layers * (port_ssd + y_inter) == want - layers * jax_ssd
+    assert round(got / want, 3) == 0.836
 
 
 def test_long_context_cell_is_skipped_for_a_dense_arch():
