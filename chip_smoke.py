@@ -219,7 +219,15 @@ Phases (each passes or the script exits non-zero without a result line):
    peak, the H100 roofline bound at most the step's median ms; (d)
    ``python -m repro_torch.launch.dryrun`` (``DRYRUN_ARGV``) in a
    subprocess, exit 0, its cells ``ok`` (``long_500k`` skipped for a
-   full-attention arch);
+   full-attention arch); (e) the per-device dry-run's count
+   (``META_SHARDED``: SmolLM-360M and Mamba2-370M at 2 layers, a train
+   step on [8, 256] and a prefill of [4, 2048], bf16) over a ``(data 2,
+   model 2)`` mesh of DTensors in one ``fake`` process group, traced on
+   ``meta`` shards and on ``cuda:0`` shards: FLOPs and ops equal, bytes
+   within 1 %, collective counts and wire bytes equal, the meta live-byte
+   peak within [0.8, 1.2] of the card's ``max_memory_allocated`` for the
+   step less what it held before, and the shards' flash-attention /
+   ``ssd_chunk`` launches counted;
 18. (``examples_phase``, also before the timings) the five user-facing
    examples with a torch side (``EXAMPLES``: quickstart, E1's
    reproduce_footprinter, fleet_of_twins, whatif_scaling, twin_service),
@@ -230,7 +238,12 @@ Phases (each passes or the script exits non-zero without a result line):
    floats within rtol 1e-5 and their integers equal, the service's cache
    hits and its restored state's bits equal (``example_diff``; the
    what-if example's CPU rerun is its sweep, ``WHATIF_EXAMPLE``); wall
-   seconds and launches logged.
+   seconds and launches logged;
+19. (``des_roofline_phase``, also before the timings) the DES roofline
+   of ``analysis/roofline_torch.py`` at its default 2 days on the card,
+   then its counts on the CPU: each phase's (placement, readout, total)
+   FLOPs and bytes equal on the two, each card ``wall_s`` at least its
+   ``bound_s``, the ``des_place`` launches counted; its table logged.
 
 The seconds each phase took are logged after the kernel timings
 (``phase seconds``).  The second-to-last line of standard output is the ``kernels`` JSON record,
@@ -1286,6 +1299,13 @@ def main() -> int:
     for k, n in details["examples"]["launches"].items():
         launches[k] += n
     phase_done("18 examples")
+
+    # 19) the DES roofline on the card, its counts against the CPU's (before
+    # the kernel timings, so that its launches count)
+    details["des_roofline"] = des_roofline_phase(torch, ops)
+    for k, n in details["des_roofline"]["launches"].items():
+        launches[k] += n
+    phase_done("19 DES roofline")
 
     # 10) kernel times at the main paths' shapes (device time, queue kept full)
     timer = DeviceTimer(torch)
@@ -4603,6 +4623,13 @@ META_BYTES_RTOL = 0.01
 META_PEAK_RANGE = (0.8, 1.2)
 #: (d): the dry-run's CLI on one arch and mesh
 DRYRUN_ARGV = ["--arch", "smollm-360m", "--mesh", "single"]
+#: phase 17 (e): the archs traced per device on meta and card shards, with
+#: the kernel a shard must launch; their depth and the mesh
+META_SHARDED = {"smollm-360m": "flash_attention", "mamba2-370m": "ssd_chunk"}
+META_SHARDED_LAYERS = 2
+META_SHARDED_MESH = (2, 2)
+#: phase 19: the days of the DES roofline (``analysis/roofline_torch.py``'s default)
+DES_ROOFLINE_DAYS = 2.0
 
 
 class DispatchProbe:
@@ -4942,6 +4969,104 @@ def dryrun_finish(proc, t0: float, out_dir: str) -> dict:
                                trace_s=v.get("trace_s")) for k, v in cells.items()})
 
 
+def meta_sharded(torch, ops) -> dict:
+    """Phase 17 (e): each ``META_SHARDED`` arch's train step and prefill
+    through ``launch.dryrun.step_parts`` over a ``META_SHARDED_MESH`` mesh,
+    its arguments DTensors on ``meta`` shards, then on ``cuda:0`` shards
+    (module docstring)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.analysis.cost import trace_cost
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.parallel import sharding
+
+    axes = ("data", "model")
+    n = META_SHARDED_MESH[0] * META_SHARDED_MESH[1]
+    meshes = {"meta": sharding.abstract_mesh_compat(META_SHARDED_MESH, axes),
+              "card": sharding.make_mesh_compat(META_SHARDED_MESH, axes, devices=[DEVICE] * n)}
+    out: dict = {}
+    launches = {k: 0 for k in ops.LAUNCHES}
+    try:
+        for arch, kernel in META_SHARDED.items():
+            cfg = lm_config(arch, num_layers=META_SHARDED_LAYERS)
+            for kind, (b, s) in (("train", META_TRAIN), ("prefill", META_PREFILL)):
+                shape = shapes.ShapeSpec(kind, kind, s, b)
+                mode = "train" if kind == "train" else "serve"
+                rows = {}
+                for where, mesh in meshes.items():
+                    parts = dryrun.step_parts(cfg, shape, mesh, mode)
+                    args = [dryrun.place_args(a, sh) for a, sh in zip(parts["args"], parts["shards"])]
+
+                    def step(*a, parts=parts):
+                        res = parts["step"](*a)
+                        return dryrun.place_outputs(res, parts["out_shards"](res))
+
+                    if where == "card":
+                        torch.cuda.synchronize()
+                        held = torch.cuda.memory_allocated()
+                        torch.cuda.reset_peak_memory_stats()
+                        ops.reset_launches()
+                    t0 = time.time()
+                    with implicit_replication():
+                        row = trace_cost(step, *args)
+                    if where == "card":
+                        torch.cuda.synchronize()
+                        row["peak_card"] = torch.cuda.max_memory_allocated() - held
+                        row["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+                    row["trace_s"] = time.time() - t0
+                    del row["out"], args
+                    rows[where] = row
+                meta, card = rows["meta"], rows["card"]
+                tag = f"phase 17 (e) {arch} {kind}"
+                if meta["flops_per_device"] != card["flops_per_device"]:
+                    fail(f"{tag}: FLOPs meta {meta['flops_per_device']} != card "
+                         f"{card['flops_per_device']}")
+                ratio = meta["bytes_per_device"] / card["bytes_per_device"]
+                if abs(ratio - 1) > META_BYTES_RTOL:
+                    fail(f"{tag}: bytes meta / card {ratio:.5f} beyond {META_BYTES_RTOL}")
+                if meta["num_ops"] != card["num_ops"]:
+                    diff = {k: (meta["op_counts"].get(k, 0), card["op_counts"].get(k, 0))
+                            for k in set(meta["op_counts"]) | set(card["op_counts"])
+                            if meta["op_counts"].get(k, 0) != card["op_counts"].get(k, 0)}
+                    fail(f"{tag}: ops meta {meta['num_ops']} != card {card['num_ops']} "
+                         f"(by name, meta / card: {diff}; fallbacks {meta['dtensor_fallbacks']} / "
+                         f"{card['dtensor_fallbacks']})")
+                if (meta["collective_counts"] != card["collective_counts"]
+                        or meta["collective_wire_bytes_per_device"]
+                        != card["collective_wire_bytes_per_device"]):
+                    fail(f"{tag}: collectives meta {meta['collective_counts']} "
+                         f"{meta['collective_wire_bytes_per_device']} != card "
+                         f"{card['collective_counts']} {card['collective_wire_bytes_per_device']}")
+                peak = meta["peak_live_bytes"] / card["peak_card"]
+                if not META_PEAK_RANGE[0] <= peak <= META_PEAK_RANGE[1]:
+                    fail(f"{tag}: meta peak / card peak {peak:.3f} outside {META_PEAK_RANGE}")
+                if card["launches"].get(kernel, 0) <= 0:
+                    fail(f"{tag}: no {kernel} launch on the card shards")
+                for k, v in card["launches"].items():
+                    launches[k] += v
+                log(f"{tag} (mesh {META_SHARDED_MESH}, bf16, [{b}, {s}]): per device FLOPs "
+                    f"{meta['flops_per_device']:.6g}, bytes meta/card {ratio:.5f}, ops "
+                    f"{meta['num_ops']} on both, collectives {meta['collective_counts']} "
+                    f"wire {meta['collective_wire_bytes_per_device']:.6g} B on both, peak meta "
+                    f"{meta['peak_live_bytes'] / 2**30:.4f} / card {card['peak_card'] / 2**30:.4f} "
+                    f"GiB = {peak:.3f}, launches {card['launches']}, fallbacks "
+                    f"{card['dtensor_fallbacks']}, trace s meta {meta['trace_s']:.1f} card "
+                    f"{card['trace_s']:.1f}")
+                out[f"{arch} {kind}"] = {
+                    where: {k: r[k] for k in ("flops_per_device", "bytes_per_device", "num_ops",
+                                              "collective_counts",
+                                              "collective_wire_bytes_per_device",
+                                              "peak_live_bytes", "dtensor_fallbacks", "trace_s")}
+                    for where, r in rows.items()}
+                out[f"{arch} {kind}"]["card"].update(peak_card=card["peak_card"],
+                                                      launches=card["launches"])
+    finally:
+        sharding.close_fake_world()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
 def meta_phase(torch, ops) -> dict:
     """Phase 17: the meta passes. (a) the expert-parallel MoE branch, (b) a
     prefill through it, (c) the meta pass's count against card steps,
@@ -4963,6 +5088,9 @@ def meta_phase(torch, ops) -> dict:
                 for row in cells.values():
                     for k, n in row["launches"].items():
                         launches[k] += n
+            out["sharded"] = meta_sharded(torch, ops)
+            for k, n in out["sharded"]["launches"].items():
+                launches[k] += n
             out["dryrun"] = dryrun_finish(proc, t0, tmp)
         finally:
             if proc.poll() is None:
@@ -4991,6 +5119,43 @@ EXAMPLE_ARGV: dict = {}
 #: and space, is held card against CPU in phase 11 (c); rerun here on the
 #: CPU it took 60 s more on the card host
 WHATIF_EXAMPLE = "whatif_scaling_torch"
+
+
+def des_roofline_phase(torch, ops) -> dict:
+    """Phase 19: ``analysis/roofline_torch.py`` on the card at
+    ``DES_ROOFLINE_DAYS``, then its counts on the CPU (module docstring)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("roofline_torch",
+                                                  ROOT / "analysis" / "roofline_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    ops.reset_launches()
+    t0 = time.time()
+    card = mod.analyze_des_hot_path(DES_ROOFLINE_DAYS, device=DEVICE)
+    launches = dict(ops.LAUNCHES)
+    card_s = time.time() - t0
+    t0 = time.time()
+    cpu = mod.phase_costs(DES_ROOFLINE_DAYS, device="cpu")
+    cpu_s = time.time() - t0
+    log(f"phase 19 DES roofline, {card['t_bins']} bins x {card['num_hosts']} hosts, "
+        f"{card['jobs']} jobs, on the card ({card_s:.1f} s; the CPU's counts {cpu_s:.1f} s):")
+    for line in mod.table(card).splitlines():
+        log(f"  {line}")
+    for p in card["phases"]:
+        c = cpu[p["name"]]
+        if (p["flops"], p["bytes"]) != (c["flops_per_device"], c["bytes_per_device"]):
+            fail(f"phase 19 {p['name']}: card FLOPs/bytes {p['flops']} / {p['bytes']} != CPU "
+                 f"{c['flops_per_device']} / {c['bytes_per_device']}")
+        if p["wall_s"] < p["bound_s"]:
+            fail(f"phase 19 {p['name']}: wall {p['wall_s']} s under its bound {p['bound_s']} s")
+    if launches["des_place"] <= 0:
+        fail("phase 19: no des_place launch")
+    log(f"phase 19: FLOPs and bytes equal on the card and the CPU in every phase, wall >= "
+        f"bound; launches {({k: v for k, v in launches.items() if v})}")
+    return dict(result=card, cpu={k: {f: v[f] for f in ("flops_per_device", "bytes_per_device",
+                                                       "num_ops")} for k, v in cpu.items()},
+                launches=launches, card_s=card_s, cpu_s=cpu_s)
 
 
 def load_example(name: str):

@@ -21,6 +21,17 @@ Their FLOPs are registered with ``torch.utils.flop_counter``
 CPU and ``meta``: the dry-run's meta pass (``analysis/cost.py``) and a
 run on the card count alike.  The twin's kernels take no ``meta``
 tensor: one raises there.
+
+On DTensors (the per-device dry-run) the two LM operators run on each
+device's shards by the sharding rules :func:`_flash_sharding` and
+:func:`_ssd_sharding` give: split on the batch and on the (kv-)heads, or
+on the SSM heads, a shard's kernel computes its block of the output, and
+any other placement is first redistributed to one of those.  A shard is
+charged by the same FLOP formula at its own shape.  ``des_place`` is a
+``torch.library`` operator too (``CPU`` and ``CUDA`` kernels, no
+``Meta`` one), charged by :func:`des_place_ops` (its operations, from
+the call's attempts) beside its operand and result bytes: one op, on the
+card and the CPU alike.
 """
 
 from __future__ import annotations
@@ -369,6 +380,65 @@ for _name, _kernels, _formula in (
     flop_counter.register_flop_formula(getattr(torch.ops.repro_torch, _name))(_formula)
 
 
+def _divides(n: int, spec) -> bool:
+    """Whether every axis of ``spec``'s mesh divides ``n`` or is larger
+    than it (a strategy is given for one mesh axis and tried on each;
+    DTensor drops it on an axis larger than the dim, and an axis that
+    splits ``n`` unevenly would split the groups)."""
+    return all(n % s == 0 or s > n for s in spec.mesh.shape)
+
+
+def _flash_sharding(q, k, v, causal, scale, return_lse):
+    """DTensor strategies of ``flash_attention``: ``(outputs, inputs)``
+    placements a mesh axis.  Replicated; split on the batch; split on the
+    heads where every mesh axis divides the kv heads (a query head's kv
+    head then lies on its shard).  Never on a sequence: a row's keys span
+    it."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    rep = Replicate()
+    out = [([rep, rep], [rep, rep, rep, None, None, None])]
+    for d in (0, 1):
+        if d == 1 and not _divides(k.shape[1], k):
+            continue
+        lse = Shard(d) if return_lse else rep
+        out.append(([Shard(d), lse], [Shard(d)] * 3 + [None] * 3))
+    return out
+
+
+def _ssd_sharding(x, dt, a_log, b, c, d_skip):
+    """DTensor strategies of ``ssd_chunk``: replicated; split on the chunk
+    rows (batch x chunks); split on the SSM heads (``a_log``/``d_skip``
+    with them, ``b``/``c`` on their groups where there is more than one,
+    where every mesh axis divides the groups, else replicated)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    rep = Replicate()
+    g = b.shape[2]
+    out = [([rep, rep], [rep] * 6),
+           ([Shard(0), Shard(0)], [Shard(0), Shard(0), rep, Shard(0), Shard(0), rep])]
+    if g == 1 or _divides(g, b):
+        bc = rep if g == 1 else Shard(2)
+        out.append(([Shard(2), Shard(1)], [Shard(2), Shard(2), Shard(0), bc, bc, Shard(0)]))
+    return out
+
+
+_SHARDING_REGISTERED = []
+
+
+def register_sharding_rules() -> None:
+    """Give DTensor the two operators' strategies (once a process; the
+    DTensor package is imported here, where a device mesh is first made,
+    not by importing this module)."""
+    if _SHARDING_REGISTERED:
+        return
+    from torch.distributed.tensor.experimental import register_sharding
+
+    register_sharding(torch.ops.repro_torch.flash_attention.default)(_flash_sharding)
+    register_sharding(torch.ops.repro_torch.ssd_chunk.default)(_ssd_sharding)
+    _SHARDING_REGISTERED.append(True)
+
+
 def ssd_chunk(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor,
               d_skip: Tensor) -> tuple[Tensor, Tensor]:
     """Mamba2/SSD intra-chunk term (``D * x`` included) and chunk-end states.
@@ -421,16 +491,53 @@ def des_place(submit: Tensor, dur: Tensor, cores: Tensor, valid: Tensor,
     if h == 0 or t_bins < 0 or max_starts_per_bin < 0:
         raise ValueError(f"need H > 0, t_bins >= 0 and max_starts_per_bin >= 0; "
                          f"got {h}, {t_bins}, {max_starts_per_bin}")
-    kw = dict(t_bins=t_bins, max_starts_per_bin=max_starts_per_bin,
-              max_backfill=max_backfill, fail_start=fail_start,
-              fail_end=fail_end, fail_kill=fail_kill)
-    args = (submit, dur, cores, valid, host_mask, cores_per_host, policy_id, depth)
-    if _device_kind(submit) == "cpu":
-        return ref.des_place_ref(*args, **kw)
+    _device_kind(submit)
+    return torch.ops.repro_torch.des_place(
+        submit, dur, cores, valid, host_mask, cores_per_host, policy_id, depth,
+        int(t_bins), int(max_starts_per_bin), int(max_backfill), fail_start, fail_end,
+        fail_kill)
+
+
+def _place_kw(t_bins, max_starts_per_bin, max_backfill, fail_start, fail_end, fail_kill):
+    return dict(t_bins=t_bins, max_starts_per_bin=max_starts_per_bin,
+                max_backfill=max_backfill, fail_start=fail_start, fail_end=fail_end,
+                fail_kill=fail_kill)
+
+
+def _place_cpu(*args):
+    return ref.des_place_ref(*args[:8], **_place_kw(*args[8:]))
+
+
+def _place_cuda(*args):
+    s, j = args[0].shape
+    dev = args[0].device
     if s * j == 0:
-        return (torch.full((s, j), -1, dtype=torch.int32, device=submit.device),
-                torch.full((s, j), -1, dtype=torch.int32, device=submit.device),
-                torch.zeros((s,), dtype=torch.int32, device=submit.device))
-    out = des_place_cuda(*args, **kw)
+        return (torch.full((s, j), -1, dtype=torch.int32, device=dev),
+                torch.full((s, j), -1, dtype=torch.int32, device=dev),
+                torch.zeros((s,), dtype=torch.int32, device=dev))
+    out = des_place_cuda(*args[:8], **_place_kw(*args[8:]))
     LAUNCHES["des_place"] += 1
     return out
+
+
+def des_place_ops(attempts: int, s: int, t_bins: int, h: int) -> int:
+    """Operations charged to one ``des_place`` call: every placement
+    attempt (``attempts``, summed over the lanes) and every lane's bin (its
+    release of ended jobs) visits each of the ``h`` hosts once.  The work
+    depends on the data, so the count is this call's."""
+    return (attempts + s * t_bins) * h
+
+
+def _place_op_ops(submit, dur, cores, valid, host_mask, cores_per_host, policy_id, depth,
+                  t_bins, max_starts_per_bin, max_backfill, fail_start=None, fail_end=None,
+                  fail_kill=None, *, out_val=None, **kwargs) -> int:
+    return des_place_ops(int(out_val[2].sum()), submit.shape[0], t_bins, host_mask.shape[1])
+
+
+_LIB.define("des_place(Tensor submit, Tensor dur, Tensor cores, Tensor valid, "
+            "Tensor host_mask, Tensor cores_per_host, Tensor policy_id, Tensor depth, "
+            "int t_bins, int max_starts_per_bin, int max_backfill, Tensor? fail_start, "
+            "Tensor? fail_end, Tensor? fail_kill) -> (Tensor, Tensor, Tensor)")
+_LIB.impl("des_place", _place_cpu, "CPU")
+_LIB.impl("des_place", _place_cuda, "CUDA")
+flop_counter.register_flop_formula(torch.ops.repro_torch.des_place, get_raw=True)(_place_op_ops)

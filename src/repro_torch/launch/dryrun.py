@@ -2,18 +2,31 @@
 tensors (port of ``repro.launch.dryrun``).
 
 For each cell: the production mesh of ``meta`` entries
-(``make_production_mesh(device="meta")``), abstract params, AdamW moments,
-decode state and batch (``meta`` tensors: nothing allocated), the step
-factory under a ``ShardingCtx`` of that mesh, then one run of the step at
-its global shape under ``analysis.cost.trace_cost``, which records the
-FLOPs, bytes, ops and live bytes, and the H100 roofline over them.
+(``make_production_mesh(device="meta")``), the params, AdamW moments,
+decode state and batch as DTensors over that mesh's ``DeviceMesh`` (a
+``fake`` process group of 256 or 512 ranks in this one process), each
+leaf placed by the cell's rules as JAX's ``in_shardings`` place it, its
+shard a ``meta`` tensor (nothing allocated); the step factory under a
+``ShardingCtx`` of that mesh, whose ``activation`` constraints
+redistribute the activations; then one run of the step under
+``analysis.cost.trace_cost``, which counts one device's shard below
+DTensor: its FLOPs, bytes, ops and live bytes, and every collective
+DTensor issues, with its wire bytes.  The outputs are placed as JAX's
+``out_shardings`` ask (a train step's params and moments as they came
+in, the metrics replicated; a decode step's state as it came in, its
+token replicated where JAX leaves the choice to the compiler), and that
+placing is part of the step.
 
-There is no SPMD partitioner in eager PyTorch, so what the JAX dry-run
-reads from the compiled per-device program is not claimed here: per-device
-temp bytes and collective traffic are ``None``.  The per-device argument
-bytes are exact (each leaf's ``NamedSharding.shard_shape`` under the
-cell's rules, as JAX's ``in_shardings`` place them); ``cost`` is the
-global count over ``chips``, the evenly split figure.
+The record is the JAX dry-run's: per device, the argument bytes (exact:
+each leaf's ``NamedSharding.shard_shape``), the output bytes (the
+outputs' shards), the temp bytes (the shard's live-byte peak beyond its
+arguments and outputs), the alias bytes (the donated arguments, as
+JAX's ``donate_argnums``: params and moments for train, the decode
+state for decode, none for prefill) and the peak, arg + out + temp -
+alias; the per-device FLOPs and bytes as counted on the shard, the
+collective wire bytes and counts, and the global FLOPs and bytes of the
+same step on plain ``meta`` tensors beside them; the H100 roofline over
+the per-device count.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m \\
         --shape train_4k --mesh single
@@ -24,6 +37,7 @@ global count over ``chips``, the evenly split figure.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -31,6 +45,7 @@ import time
 import traceback
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch._tree import leaves
 from repro_torch.analysis.cost import trace_cost
@@ -48,7 +63,16 @@ from repro_torch.launch.steps import (
 )
 from repro_torch.models.common import abstract_params, specs_to_shardings
 from repro_torch.optim.adamw import AdamWConfig, abstract_opt_state
-from repro_torch.parallel.sharding import P, NamedSharding, ShardingCtx, logical_to_spec
+from repro_torch.parallel.sharding import (
+    P,
+    NamedSharding,
+    ShardingCtx,
+    distribute,
+    is_dtensor,
+    logical_to_spec,
+    make_mesh_compat,
+    to_placements,
+)
 
 
 def batch_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh, mode: str):
@@ -70,88 +94,203 @@ def sharded_bytes(tensors, shardings) -> int:
                for t, s in zip(ts, ss))
 
 
-def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
-                verbose: bool = True) -> dict:
-    shape = SHAPES[shape_name]
-    ok, reason = cell_supported(arch, shape_name)
-    mesh_name = "multi" if multi_pod else "single"
-    meta = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
-    if not ok:
-        return {**meta, "status": "skipped", "reason": reason}
+def _tree_map2(fn, a, b):
+    """``fn`` over the leaves of two trees of one structure (dicts,
+    tuples, lists, NamedTuples)."""
+    if isinstance(a, dict):
+        return {k: _tree_map2(fn, a[k], b[k]) for k in a}
+    if isinstance(a, (tuple, list)):
+        items = [_tree_map2(fn, x, y) for x, y in zip(a, b)]
+        return type(a)(*items) if hasattr(a, "_fields") else type(a)(items)
+    return fn(a, b)
 
-    cfg = get_config(arch)
-    mesh = make_production_mesh(multi_pod=multi_pod, device="meta")
-    chips = mesh.size
-    mode = "train" if shape.kind == "train" else "serve"
+
+def place_args(tree, shardings):
+    """A tree of DTensors of ``tree``'s global shapes, placed by the
+    matching ``shardings`` (their shards ``meta`` tensors)."""
+    return _tree_map2(distribute, tree, shardings)
+
+
+def place_outputs(tree, shardings):
+    """Redistribute the DTensors of ``tree`` to the matching
+    ``shardings`` (``None``: leave that subtree as the step placed it); a
+    plain tensor is left alone."""
+    if shardings is None:
+        return tree
+
+    def one(x, sh):
+        if sh is None or not is_dtensor(x):
+            return x
+        return x.redistribute(x.device_mesh, to_placements(sh))
+
+    return _tree_map2(one, tree, shardings)
+
+
+def local_bytes(tree) -> int:
+    """Bytes one device holds of a tree of tensors: a DTensor's shard, a
+    plain tensor whole (replicated)."""
+    return sum((x.to_local() if is_dtensor(x) else x).nbytes for x in leaves(tree)
+               if isinstance(x, torch.Tensor))
+
+
+def _replicated(tree, mesh):
+    return _tree_map2(lambda x, _: NamedSharding(mesh, P()), tree, tree)
+
+
+def step_parts(cfg: ModelConfig, shape: ShapeSpec, mesh, mode: str) -> dict:
+    """The step of a cell on ``mesh`` with its abstract arguments, their
+    shardings, the output shardings JAX's ``jit`` asks for, and the
+    argument and donated (alias) bytes a device."""
     ctx = ShardingCtx(mesh=mesh, mode=mode)
     dtype = getattr(torch, cfg.dtype)
-
     pspecs = param_specs_for(cfg)
     p_abs = abstract_params(pspecs, dtype)
     p_shard = specs_to_shardings(pspecs, mesh, mode)
     b_abs = input_structs(cfg, shape)
     b_shard = batch_shardings(cfg, shape, mesh, mode)
     arg_bytes = sharded_bytes(p_abs, p_shard) + sharded_bytes(b_abs, b_shard)
-
     if shape.kind == "train":
         opt_cfg = AdamWConfig()
         o_abs = abstract_opt_state(p_abs, opt_cfg)
         # moments shard exactly like their parameter; step is replicated
         o_shard = type(o_abs)(step=NamedSharding(mesh, P()), mu=p_shard, nu=p_shard)
-        arg_bytes += sharded_bytes(o_abs, o_shard)
-        step, args = make_train_step(cfg, opt_cfg, ctx), (p_abs, o_abs, b_abs)
-    elif shape.kind == "prefill":
-        step, args = make_prefill_step(cfg, ctx), (p_abs, b_abs)
-    else:
-        sspecs = state_specs_for(cfg, shape.batch, shape.seq)
-        s_abs = abstract_params(sspecs, dtype)
-        arg_bytes += sharded_bytes(s_abs, specs_to_shardings(sspecs, mesh, mode))
-        step, args = make_serve_step(cfg, ctx), (p_abs, s_abs, b_abs)
+        alias = sharded_bytes(p_abs, p_shard) + sharded_bytes(o_abs, o_shard)
+        return dict(step=make_train_step(cfg, opt_cfg, ctx), args=(p_abs, o_abs, b_abs),
+                    shards=(p_shard, o_shard, b_shard), arg_bytes=arg_bytes + sharded_bytes(o_abs, o_shard), alias=alias,
+                    grad_bytes=sharded_bytes(p_abs, p_shard), grad_leaves=len(leaves(p_abs)),
+                    out_shards=lambda out: (p_shard, o_shard, _replicated(out[2], mesh)))
+    if shape.kind == "prefill":
+        return dict(step=make_prefill_step(cfg, ctx), args=(p_abs, b_abs),
+                    shards=(p_shard, b_shard), arg_bytes=arg_bytes, alias=0,
+                    out_shards=lambda out: None)
+    sspecs = state_specs_for(cfg, shape.batch, shape.seq)
+    s_abs = abstract_params(sspecs, dtype)
+    s_shard = specs_to_shardings(sspecs, mesh, mode)
+    alias = sharded_bytes(s_abs, s_shard)
+    return dict(step=make_serve_step(cfg, ctx), args=(p_abs, s_abs, b_abs),
+                shards=(p_shard, s_shard, b_shard), arg_bytes=arg_bytes + alias, alias=alias,
+                out_shards=lambda out: (NamedSharding(mesh, P()), s_shard))
+
+
+def trace_mesh(mesh, shape: ShapeSpec):
+    """The mesh and shape a cell is traced on.  A mesh without a ``pod``
+    axis as it is.  With one (``pod x data x model``), no DTensor mesh of
+    three axes: a serve cell's ``pod`` and ``data`` only ever split the
+    batch together, so they merge into one ``data`` axis of their product
+    (the same shards and collectives); a train cell's ``pod`` is pure data
+    parallelism (the rules place nothing else on it), so each pod runs the
+    ``data x model`` step on its ``1 / pod`` of the batch, and the
+    gradients' all-reduce over ``pod`` is added by hand
+    (:func:`dryrun_cell`).  Returns ``(mesh, shape, pods)``."""
+    if "pod" not in mesh.shape:
+        return mesh, shape, 1
+    pod, data, model = (mesh.shape[a] for a in ("pod", "data", "model"))
+    kind = mesh.devices[0]
+    if shape.kind != "train":
+        return make_mesh_compat((pod * data, model), ("data", "model"),
+                                devices=[kind] * mesh.size), shape, 1
+    if shape.batch % pod:
+        raise ValueError(f"a batch of {shape.batch} does not split over {pod} pods")
+    return (make_mesh_compat((data, model), ("data", "model"), devices=[kind] * (data * model)),
+            dataclasses.replace(shape, batch=shape.batch // pod), pod)
+
+
+def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
+                verbose: bool = True, mesh=None) -> dict:
+    """One cell's record (module docstring); ``mesh`` (default: the
+    production mesh of ``meta`` entries) may be any mesh of ``meta`` or
+    card entries over ``("data", "model")`` or ``("pod", "data",
+    "model")``, ``arch`` a registry name or a ``ModelConfig`` and
+    ``shape_name`` a name of ``SHAPES`` or a ``ShapeSpec``."""
+    shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+    name = arch if isinstance(arch, str) else arch.name
+    mesh_name = "multi" if multi_pod else "single"
+    meta = {"arch": name, "shape": shape.name, "mesh": mesh_name}
+    if isinstance(arch, str):
+        ok, reason = cell_supported(arch, shape.name)
+        if not ok:
+            return {**meta, "status": "skipped", "reason": reason}
+    cfg = get_config(arch) if isinstance(arch, str) else arch
+    mesh = make_production_mesh(multi_pod=multi_pod, device="meta") if mesh is None else mesh
+    chips = mesh.size
+    mode = "train" if shape.kind == "train" else "serve"
+    real = step_parts(cfg, shape, mesh, mode)
+    tmesh, tshape, pods = trace_mesh(mesh, shape)
+    run = real if tmesh is mesh else step_parts(cfg, tshape, tmesh, mode)
+
+    def placed_step(*a):
+        out = run["step"](*a)
+        return place_outputs(out, run["out_shards"](out))
 
     t0 = time.time()
-    traced = trace_cost(step, *args)
+    glob = trace_cost(real["step"], *real["args"])
+    del glob["out"]
+    t_global = time.time() - t0
+    t0 = time.time()
+    with implicit_replication():
+        traced = trace_cost(placed_step, *(place_args(a, sh)
+                                           for a, sh in zip(run["args"], run["shards"])))
     t_trace = time.time() - t0
+    out_bytes = local_bytes(traced.pop("out"))
+    temp = max(traced["peak_live_bytes"] - out_bytes, 0)
+    wire = traced["collective_wire_bytes_per_device"]
+    counts = dict(traced["collective_counts"])
+    if pods > 1:                # each gradient leaf's all-reduce over 'pod'
+        wire += 2.0 * run["grad_bytes"] * (pods - 1) / pods
+        counts["all-reduce"] = counts.get("all-reduce", 0) + run["grad_leaves"]
 
     cost = {
-        "flops_per_device": traced["flops_per_device"] / chips,
-        "bytes_per_device": traced["bytes_per_device"] / chips,
-        "collective_wire_bytes_per_device": None,
-        "collective_counts": traced["collective_counts"],
-        "flops_global": traced["flops_per_device"],
-        "bytes_global": traced["bytes_per_device"],
+        "flops_per_device": traced["flops_per_device"],
+        "bytes_per_device": traced["bytes_per_device"],
+        "collective_wire_bytes_per_device": wire,
+        "collective_counts": counts,
+        "collective_wire_bytes_by_kind": traced["collective_wire_bytes_by_kind"],
         "num_ops": traced["num_ops"],
+        "flops_global": glob["flops_per_device"],
+        "bytes_global": glob["bytes_per_device"],
+        "num_ops_global": glob["num_ops"],
+        "dtensor_fallbacks": traced["dtensor_fallbacks"],
+        "traced_mesh": dict(tmesh.shape),
+        "pod_all_reduce_by_hand": pods > 1,
     }
     mf = model_flops_for(cfg, shape.kind, shape.batch, shape.seq,
                          shape.kind == "train")
     roof = make_roofline(cost, mf, chips)
+    arg_bytes, alias = real["arg_bytes"], real["alias"]
 
     out = {
         **meta,
         "status": "ok",
         "chips": chips,
         "trace_s": round(t_trace, 2),
+        "trace_global_s": round(t_global, 2),
         "memory": {
             "argument_bytes_per_device": arg_bytes,
-            "peak_live_bytes_global": traced["peak_live_bytes"],
-            "temp_bytes_per_device": None,
+            "output_bytes_per_device": out_bytes,
+            "temp_bytes_per_device": temp,
+            "alias_bytes_per_device": alias,
+            "peak_bytes_per_device": arg_bytes + out_bytes + temp - alias,
+            "peak_live_bytes_per_device": traced["peak_live_bytes"],
+            "peak_live_bytes_global": glob["peak_live_bytes"],
         },
         "cost": cost,
         "roofline": roof.to_dict(),
     }
     if verbose:
-        print(f"[{arch} x {shape_name} x {mesh_name}] ok "
-              f"trace {t_trace:.1f}s args {arg_bytes / 2**30:.2f} GiB/dev "
-              f"dominant={roof.dominant} "
-              f"terms(c/m)=({roof.compute_s:.4f}/{roof.memory_s:.4f})s "
+        print(f"[{name} x {shape.name} x {mesh_name}] ok "
+              f"trace {t_trace:.1f}s peak {out['memory']['peak_bytes_per_device'] / 2**30:.2f} "
+              f"GiB/dev dominant={roof.dominant} "
+              f"terms(c/m/n)=({roof.compute_s:.4f}/{roof.memory_s:.4f}/"
+              f"{roof.collective_s:.4f})s "
               f"useful={roof.useful_flops_fraction:.2f}", flush=True)
     return out
 
 
 def summary_table(out_dir: str) -> str:
     """A markdown table of the cells in ``out_dir``, a row an arch and a
-    column a shape: the dominant term (C compute, M memory) and bound ms,
-    the useful-FLOPs fraction and the argument GiB a device, each ``single
-    / multi`` mesh; the collective term is not modelled."""
+    column a shape: the dominant term (C compute, M memory, N collective)
+    and bound ms, the useful-FLOPs fraction, the peak GiB a device and the
+    collective ms, each ``single / multi`` mesh."""
     cells = {}
     for name in sorted(os.listdir(out_dir)):
         if name.endswith(".json"):
@@ -166,11 +305,13 @@ def summary_table(out_dir: str) -> str:
         if any(c["status"] != "ok" for c in pair):
             return " / ".join(c["status"] for c in pair)
         r = [c["roofline"] for c in pair]
-        gib = [c["memory"]["argument_bytes_per_device"] / 2**30 for c in pair]
-        dom = "/".join(dict.fromkeys(x["dominant"][0].upper() for x in r))
+        gib = [c["memory"]["peak_bytes_per_device"] / 2**30 for c in pair]
+        dom = "/".join(dict.fromkeys({"compute": "C", "memory": "M", "collective": "N"}[x["dominant"]]
+                                     for x in r))
         return (f"{dom} {r[0]['bound_s'] * 1e3:.4g} / {r[1]['bound_s'] * 1e3:.4g} ms; "
                 f"u {r[0]['useful_flops_fraction']:.3f} / {r[1]['useful_flops_fraction']:.3f}; "
-                f"{gib[0]:.2f} / {gib[1]:.2f} GiB")
+                f"{gib[0]:.2f} / {gib[1]:.2f} GiB; "
+                f"n {r[0]['collective_s'] * 1e3:.4g} / {r[1]['collective_s'] * 1e3:.4g} ms")
 
     shapes = list(dict.fromkeys(s for _, s, _ in cells))
     rows = ["| arch | " + " | ".join(shapes) + " |", "| --- |" + " --- |" * len(shapes)]
@@ -178,8 +319,7 @@ def summary_table(out_dir: str) -> str:
         rows.append(f"| {arch} | " + " | ".join(entry(arch, s) for s in shapes) + " |")
     status = [c["status"] for c in cells.values()]
     rows.append(f"\n{len(status)} cells: {status.count('ok')} ok, "
-                f"{status.count('skipped')} skipped, {status.count('error')} errors; "
-                "collective term not modelled (None) in every cell")
+                f"{status.count('skipped')} skipped, {status.count('error')} errors")
     return "\n".join(rows)
 
 

@@ -13,17 +13,48 @@ package's custom VJP ``_flash``: the forward is the same kernel call,
 which also writes each row's log-sum-exp, and the backward is the
 flash-attention-2 backward of ``_flash_vjp_bwd`` in plain torch, per KV
 chunk, recomputing each chunk's scores instead of keeping them.
+
+The JAX package's sharding constraints (``activation``) stand at their
+counterparts: moving nothing on plain tensors, they place the DTensors of
+the per-device dry-run.  The flash kernel has no context-parallel form,
+so where the mesh's ``model`` axis does not divide the kv heads its query
+takes no ``attn_q_seq`` constraint (the JAX package's scan splits the
+query rows there; the kernel's rule runs the heads replicated).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel.sharding import (
+    activation,
+    current_ctx,
+    is_dtensor,
+    kernel_placements,
+    on_shards,
+    shard_einsum,
+    splits,
+    use_ctx,
+)
 
 Tensor = torch.Tensor
 
 NEG_INF = -1e30
+
+
+def _axes(hkv: int) -> tuple[tuple, tuple]:
+    """The JAX package's ``(q_axes, acc_axes)``: the grouped query
+    ``[B, S, Hkv, G, D]`` and the accumulator ``[B, Hkv, G, S, Dv]`` split
+    on the kv heads where the ambient mesh's ``model`` axis divides them,
+    else on the query rows (``attn_q_seq``)."""
+    mesh = current_ctx().mesh
+    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    if hkv % tp == 0:
+        return ("batch", None, "kv_heads", None, None), ("batch", "kv_heads", None, None, None)
+    return ("batch", "attn_q_seq", None, None, None), ("batch", None, None, "attn_q_seq", None)
 
 
 def chunked_attention(
@@ -45,7 +76,10 @@ def chunked_attention(
     g = hq // hkv
     scale = (d ** -0.5) if scale is None else scale
 
+    q_axes, acc_axes = _axes(hkv)
     if kv_len is None:
+        if q_axes[2] is not None:
+            q = activation(q, "batch", None, "kv_heads", None)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
             out = FlashAttention.apply(qt, kt, vt, causal, scale, kv_chunk)
@@ -53,13 +87,13 @@ def chunked_attention(
             out = kops.flash_attention(qt, kt, vt, causal=causal, scale=scale)
         return out.transpose(1, 2)
 
-    qg = (q * scale).reshape(b, s, hkv, g, d)
+    qg = activation((q * scale).reshape(b, s, hkv, g, d), *q_axes)
     n_chunks = max(t // kv_chunk, 1)
     kv_chunk = t // n_chunks
     if t % kv_chunk:
         raise ValueError(f"cache length {t} is not a multiple of the KV "
                          f"chunk {kv_chunk}")
-    out = _flash_fwd_scan(qg, k, v, causal, kv_chunk, t, s, kv_len)
+    out = _flash_fwd_scan(qg, k, v, causal, kv_chunk, t, s, acc_axes, kv_len)
     return (out.permute(0, 3, 1, 2, 4).reshape(b, s, hkv * g, dv)
             .to(q.dtype))
 
@@ -70,7 +104,11 @@ class FlashAttention(torch.autograd.Function):
 
     ``forward`` is ``ops.flash_attention(..., return_lse=True)`` (the
     kernel on a CUDA tensor, its plain version on a CPU one) and keeps q,
-    k, v, the output and the lse.  ``backward`` is :func:`flash_backward`.
+    k, v, the output and the lse.  ``backward`` is :func:`flash_backward`,
+    under the forward's ``ShardingCtx`` (the autograd engine's thread for
+    a card has none bound); on DTensors on each device's shards, placed as
+    the forward's sharding rule places them (its views would split dims
+    no shard can view).
     """
 
     @staticmethod
@@ -79,13 +117,20 @@ class FlashAttention(torch.autograd.Function):
                                         return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale, ctx.kv_chunk = causal, scale, kv_chunk
+        ctx.sharding = current_ctx()
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, causal=ctx.causal,
-                                    scale=ctx.scale, kv_chunk=ctx.kv_chunk)
+        bwd = functools.partial(flash_backward, causal=ctx.causal, scale=ctx.scale,
+                                kv_chunk=ctx.kv_chunk)
+        if is_dtensor(q):       # on each device's shards, as the forward's rule runs it
+            pl = kernel_placements(q, 1, k.shape[1])
+            return on_shards(bwd, [q, k, v, out, lse, dout], [pl] * 6,
+                             [(pl, q.shape), (pl, k.shape), (pl, v.shape)]) + (None,) * 3
+        with use_ctx(ctx.sharding):
+            dq, dk, dv = bwd(q, k, v, out, lse, dout)
         return dq, dk, dv, None, None, None
 
 
@@ -108,7 +153,7 @@ def flash_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
     g = hq // hkv
     dev = q.device
     qg = q.float().reshape(b, hkv, g, sq, d) * scale
-    do = dout.float().reshape(b, hkv, g, sq, v.shape[-1])
+    do = activation(dout.float().reshape(b, hkv, g, sq, v.shape[-1]), *_axes(hkv)[1])
     delta = (do * out.float().reshape(do.shape)).sum(dim=-1, keepdim=True)
     lse = lse.reshape(b, hkv, g, sq, 1)
     q_pos = torch.arange(sq, device=dev)[:, None] + (skv - sq)
@@ -132,16 +177,19 @@ def flash_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
 
 
 def _flash_fwd_scan(qg: Tensor, k: Tensor, v: Tensor, causal: bool,
-                    kv_chunk: int, t: int, s: int,
+                    kv_chunk: int, t: int, s: int, acc_axes: tuple,
                     kv_len: Tensor | None = None) -> Tensor:
     """Online-softmax forward over KV chunks: out [b, hkv, g, s, dv] f32."""
     b, _, hkv, g, _ = qg.shape
     dv = v.shape[-1]
     dev = qg.device
     q_pos = torch.arange(s, device=dev)[:, None] + (t - s)
-    acc = torch.zeros((b, hkv, g, s, dv), dtype=torch.float32, device=dev)
-    m = torch.full((b, hkv, g, s, 1), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, hkv, g, s, 1), dtype=torch.float32, device=dev)
+    acc = activation(torch.zeros((b, hkv, g, s, dv), dtype=torch.float32, device=dev),
+                     *acc_axes)
+    m = activation(torch.full((b, hkv, g, s, 1), NEG_INF, dtype=torch.float32, device=dev),
+                   *acc_axes)
+    l = activation(torch.zeros((b, hkv, g, s, 1), dtype=torch.float32, device=dev),
+                   *acc_axes)
     for c0 in range(0, t, kv_chunk):
         kb = k[:, c0:c0 + kv_chunk]                   # [B, C, Hkv, D]
         vb = v[:, c0:c0 + kv_chunk]
@@ -156,9 +204,29 @@ def _flash_fwd_scan(qg: Tensor, k: Tensor, v: Tensor, causal: bool,
         p = torch.exp(logits - m_new)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("bhgsc,bchd->bhgsd", p, vb.float())
+        acc = activation(acc * alpha + torch.einsum("bhgsc,bchd->bhgsd", p, vb.float()),
+                         *acc_axes)
         m = m_new
     return acc / l.clamp(min=1e-30)
+
+
+def _cache_rule(second: int):
+    """:func:`parallel.sharding.shard_einsum`'s placements for the cache
+    ``[B, T, Hkv, D]``'s on one mesh axis: rows with rows, kv heads with
+    the ``[B, Hkv, ...]`` operand's heads, the sequence with the logits'
+    last dim (``second``: the product over it, a partial sum)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    def rule(p):
+        if isinstance(p, Shard) and p.dim == 0:
+            return Shard(0), p, Shard(0)
+        if isinstance(p, Shard) and p.dim == 2:
+            return Shard(1), p, Shard(1)
+        if isinstance(p, Shard) and p.dim == 1:
+            return (Replicate(), p, Shard(3)) if not second else (Shard(3), p, Partial())
+        return Replicate(), Replicate(), Replicate()
+
+    return rule
 
 
 def decode_attention(
@@ -179,10 +247,21 @@ def decode_attention(
     g = hq // hkv
     scale = (d ** -0.5) if scale is None else scale
     qg = (q * scale).reshape(b, hkv, g, d)
-    logits = torch.einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float())
+    split = splits(k_cache, 1)
+    if split:
+        # a DTensor cache split on its sequence stays split: each shard's
+        # product over its block of the cache (DTensor's einsum merges the
+        # split dim and gathers the cache)
+        logits = shard_einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float(), _cache_rule(0))
+    else:
+        logits = torch.einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float())
+    logits = activation(logits, "batch", "cache_heads", None, "cache_seq")
     if cache_len is not None:
         live = torch.arange(t, device=q.device)[None] < cache_len[:, None]
         logits = logits.masked_fill(~live[:, None, None], NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgt,bthd->bhgd", probs, v_cache.float())
+    if split:
+        out = shard_einsum("bhgt,bthd->bhgd", probs, v_cache.float(), _cache_rule(1))
+    else:
+        out = torch.einsum("bhgt,bthd->bhgd", probs, v_cache.float())
     return out.reshape(b, 1, hq, d).to(q.dtype)

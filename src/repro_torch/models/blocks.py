@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import chunked_attention, decode_attention
 from repro_torch.models.common import ParamSpec, dense, rms_norm, swiglu
 from repro_torch.models.rope import apply_mrope, apply_rope
+from repro_torch.parallel.sharding import activation, merge, write_token
 
 Tensor = torch.Tensor
 
@@ -62,16 +63,19 @@ def _rope_q_k(cfg: ModelConfig, q: Tensor, k: Tensor, positions: Tensor
 def _out_proj(out: Tensor, wo: Tensor, dtype: torch.dtype) -> Tensor:
     """``einsum("bshd,hdq->bsq")``: the heads flattened into one product."""
     b, s, h, hd = out.shape
-    return torch.matmul(out.reshape(b, s, h * hd),
-                        wo.reshape(h * hd, -1)).to(dtype)
+    return torch.matmul(merge(out, (b, s, h * hd), 2),
+                        merge(wo, (h * hd, -1), 0)).to(dtype)
 
 
 def gqa_attention(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,
                   positions: Tensor, *, causal: bool = True,
                   kv_chunk: int = 1024, prefix: str = "") -> Tensor:
-    q = dense(x, p[f"{prefix}wq"])                  # [B,S,H,hd]
-    k = dense(x, p[f"{prefix}wk"])
-    v = dense(x, p[f"{prefix}wv"])
+    q = activation(dense(x, p[f"{prefix}wq"]),
+                   "batch", "seq", "heads", None)   # [B,S,H,hd]
+    k = activation(dense(x, p[f"{prefix}wk"]),
+                   "batch", "seq", "kv_heads", None)
+    v = activation(dense(x, p[f"{prefix}wv"]),
+                   "batch", "seq", "kv_heads", None)
     if cfg.qk_norm:
         q = rms_norm(q, p[f"{prefix}q_norm"], cfg.norm_eps)
         k = rms_norm(k, p[f"{prefix}k_norm"], cfg.norm_eps)
@@ -104,8 +108,8 @@ def gqa_decode(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,
     idx = (cache_len.long() if cache_len is not None
            else torch.full((b,), t - 1, dtype=torch.long, device=x.device))
     bidx = torch.arange(b, device=x.device)
-    kc[bidx, idx] = k[:, 0].to(kc.dtype)
-    vc[bidx, idx] = v[:, 0].to(vc.dtype)
+    write_token(kc, bidx, idx, k[:, 0])
+    write_token(vc, bidx, idx, v[:, 0])
     out = decode_attention(q, kc, vc,
                            cache_len=idx + 1 if cache_len is not None else None)
     return _out_proj(out, p[f"{prefix}wo"], x.dtype), {"k": kc, "v": vc}

@@ -21,7 +21,15 @@ from typing import Any
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.parallel.sharding import Mesh, NamedSharding, logical_to_spec
+from repro_torch.parallel.sharding import (
+    Mesh,
+    NamedSharding,
+    logical_to_spec,
+    logsumexp_last,
+    merge,
+    pick_last,
+    unsplit,
+)
 
 Tensor = torch.Tensor
 
@@ -141,7 +149,9 @@ def dense(x: Tensor, w: Tensor) -> Tensor:
     split-K partial sums).
     """
     out_shape = w.shape[1:]
-    y = torch.matmul(x, w.reshape(w.shape[0], -1))
+    y = torch.matmul(x, merge(w, (w.shape[0], -1), 1))
+    if len(out_shape) > 1:
+        y = unsplit(y, -1, out_shape[0])
     return y.reshape(*x.shape[:-1], *out_shape).to(x.dtype)
 
 
@@ -152,8 +162,8 @@ def nll_sum(logits: Tensor, labels: Tensor, ignore: int = -100
     mask = labels != ignore
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    picked = torch.gather(lf, -1, safe[..., None])[..., 0]
+    logz = logsumexp_last(lf)
+    picked = pick_last(lf, safe)
     return ((logz - picked) * mask).sum(), mask.sum()
 
 

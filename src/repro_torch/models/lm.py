@@ -24,9 +24,13 @@ policy changes the work and the memory of a step, never its numbers.
 The MoE layers read the ambient
 ``ShardingCtx`` (``parallel.sharding.use_ctx``, bound by the step
 factories) and split their experts over its mesh's ``model`` axis as the
-JAX package's do; the JAX package's ``activation`` constraints, which in
-one process move nothing (``sharding.activation`` returns its input), are
-left out.
+JAX package's do.  The JAX package's ``activation`` constraints stand at
+their counterparts (the embedding, each block's output, the CE chunks,
+and in ``blocks``, ``attention``, ``mla`` and ``mamba2``): on a plain
+tensor ``sharding.activation`` returns its input, so a one-process step
+moves nothing; on the DTensors of the per-device dry-run they place the
+activations as the JAX step's are.  A remat region binds the context it
+was made under, so its recompute in the backward places alike.
 """
 
 from __future__ import annotations
@@ -54,7 +58,14 @@ from repro_torch.models.common import (
     rms_norm,
     spec_param_count,
 )
-from repro_torch.parallel.sharding import ShardingCtx, current_ctx, use_ctx
+from repro_torch.parallel.sharding import (
+    ShardingCtx,
+    activation,
+    current_ctx,
+    embed_lookup,
+    use_ctx,
+    write_rows,
+)
 
 Tensor = torch.Tensor
 
@@ -166,11 +177,17 @@ def _remat(fn, cfg: ModelConfig):
     are on (see the module docstring); as is otherwise."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
+    ctx = current_ctx()
+
+    def bound(*args):
+        with use_ctx(ctx):
+            return fn(*args)
+
     if cfg.remat == "dots":
         return lambda *args: checkpoint(
-            fn, *args, use_reentrant=False,
+            bound, *args, use_reentrant=False,
             context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    return lambda *args: checkpoint(bound, *args, use_reentrant=False)
 
 
 # -- forward ------------------------------------------------------------------
@@ -203,8 +220,12 @@ def _block_stack(cfg: ModelConfig, stacked: dict[str, Tensor], x: Tensor,
     here, once: a region's recompute runs in the backward, on the autograd
     engine's thread for a card, where the context variable is not bound."""
     ctx = current_ctx()
-    block = _remat(lambda x, lp: _block_forward(cfg, lp, x, positions, moe_layer, ctx),
-                   cfg)
+
+    def body(x, lp):
+        y, aux = _block_forward(cfg, lp, x, positions, moe_layer, ctx)
+        return activation(y, "batch", "seq", None), aux
+
+    block = _remat(body, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _layers(stacked):
         x, a = block(x, lp)
@@ -217,7 +238,11 @@ def _mamba_stack(cfg: ModelConfig, stacked: dict[str, Tensor], x: Tensor
                  ) -> Tensor:
     """Pre-norm residual Mamba2 blocks over the stack's leading axis."""
     def body(x, lp):
-        return x + m2.mamba2_forward(lp, cfg, rms_norm(x, lp["norm_in"], cfg.norm_eps))
+        # the layer's output placed as the JAX scan's carry is (one
+        # sharding for every iteration): on DTensors the out projection's
+        # partial sum is reduced here, not carried into the next layer
+        y = x + m2.mamba2_forward(lp, cfg, rms_norm(x, lp["norm_in"], cfg.norm_eps))
+        return activation(y, "batch", "seq", None)
 
     body = _remat(body, cfg)
     for lp in _layers(stacked):
@@ -259,13 +284,13 @@ def embed_tokens(cfg: ModelConfig, params: dict[str, Any], batch) -> Tensor:
     written over the rows at ``vision_pos`` [B, P].  More patches than
     rows (``P > S``) raise ``ValueError``, where the JAX package's scatter
     drops the rows past the sequence."""
-    x = params["embed"][batch["tokens"]]
+    x = activation(embed_lookup(params["embed"], batch["tokens"]), "batch", "seq", None)
     if cfg.family == "vlm" and "vision_embeds" in batch:
         p, s = batch["vision_embeds"].shape[1], x.shape[1]
         if p > s:
             raise ValueError(f"{p} patch embeddings do not fit a sequence of {s} tokens")
         bidx = torch.arange(x.shape[0], device=x.device)[:, None]
-        x[bidx, batch["vision_pos"].long()] = batch["vision_embeds"].to(x.dtype)
+        x = write_rows(x, bidx, batch["vision_pos"].long(), batch["vision_embeds"])
     if cfg.tie_embeddings:
         return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -347,12 +372,18 @@ def chunked_ce(cfg: ModelConfig, x: Tensor, w: Tensor, labels: Tensor
     chunk = s // n
     if s % chunk:
         raise ValueError(f"sequence length {s} is not {n} CE chunks of {chunk}")
+    # the unembedding gathered whole but for its vocabulary split (a ZeRO-3
+    # gather), as XLA gathers a weight split on a product's contraction:
+    # on DTensors the logits then come out split on the batch, not as a
+    # partial sum over 'data' (a moves-nothing constraint on a plain tensor)
+    w = activation(w, None, "vocab")
     ce_chunk = _remat(lambda xc, yc: _ce_sums(dense(xc, w), yc), cfg)
     loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     tok = torch.zeros((), dtype=torch.int32, device=x.device)
     for i in range(n):
         sl = slice(i * chunk, (i + 1) * chunk)
-        nll_sum, cnt = ce_chunk(x[:, sl], labels[:, sl])
+        nll_sum, cnt = ce_chunk(activation(x[:, sl], "batch", None, None),
+                                activation(labels[:, sl], "batch", None))
         loss_sum, tok = loss_sum + nll_sum, tok + cnt
     return loss_sum / tok.clamp(min=1), tok
 
@@ -501,7 +532,7 @@ def decode_step(cfg: ModelConfig, params: dict[str, Any],
 
 def _decode_step(cfg: ModelConfig, params: dict[str, Any],
                  state: dict[str, Any], batch) -> tuple[Tensor, dict[str, Any]]:
-    x = params["embed"][batch["token"]]                    # [B,1,d]
+    x = embed_lookup(params["embed"], batch["token"])      # [B,1,d]
     positions = batch.get("positions")
     if positions is None:
         positions = _default_positions(cfg, x.shape[0], 1, batch["cache_len"],

@@ -17,8 +17,9 @@ torch's own.
 Decode: the O(1) recurrent state update; the "cache" is a fixed-size
 ``[B, H, P, N]`` f32 state plus ``[B, K-1, channels]`` conv windows.
 
-The JAX package's sharding constraints (``activation``) concern meshes
-and are left out, as in the dense family.
+The JAX package's sharding constraints (``activation``) stand at their
+counterparts: moving nothing on plain tensors, they place the DTensors of
+the per-device dry-run (the heads over ``model``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,15 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models.common import ParamSpec, dense, rms_norm
+from repro_torch.parallel.sharding import (
+    activation,
+    channelwise,
+    is_dtensor,
+    kernel_placements,
+    on_shards,
+    shard_einsum,
+    splits,
+)
 
 Tensor = torch.Tensor
 
@@ -104,23 +114,66 @@ class SSDChunk(torch.autograd.Function):
     one); ``backward`` recomputes the plain version
     (:func:`repro_torch.kernels.ref.ssd_chunk_ref`) under autograd and
     returns its vector-Jacobian product, so the forward runs the kernel
-    once and the backward none.
+    once and the backward none.  On DTensors the operands are first placed
+    as one of the operator's sharding strategies (:func:`_placements`) and
+    the product is taken on each device's shards.
     """
 
     @staticmethod
     def forward(ctx, x, dt, a_log, b, c, d_skip):
-        ctx.save_for_backward(x, dt, a_log, b, c, d_skip)
-        return ops.ssd_chunk(x, dt, a_log, b, c, d_skip)
+        args = (x, dt, a_log, b, c, d_skip)
+        if is_dtensor(x):
+            ins = _placements(x, b)[0]
+            args = tuple(t.redistribute(x.device_mesh, pl) for t, pl in zip(args, ins))
+        ctx.save_for_backward(*args)
+        return ops.ssd_chunk(*args)
 
     @staticmethod
     def backward(ctx, gy, gst):
-        need = ctx.needs_input_grad
-        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            y, st = ref.ssd_chunk_ref(*inputs)
-        wrt = [t for t, n in zip(inputs, need) if n]
-        grads = iter(torch.autograd.grad((y, st), wrt, (gy, gst), allow_unused=True))
-        return tuple(next(grads) if n else None for n in need)
+        saved, need = ctx.saved_tensors, ctx.needs_input_grad
+        if not is_dtensor(gy):
+            return _vjp(saved, need, gy, gst)
+        ins, outs, grads = _placements(saved[0], saved[3])
+        return on_shards(lambda *a: _vjp(a[:6], need, *a[6:]), [*saved, gy, gst],
+                         ins + outs, [(pl, t.shape) for pl, t in zip(grads, saved)])
+
+
+def _vjp(saved, need, gy: Tensor, gst: Tensor) -> tuple:
+    """The plain version's vector-Jacobian product at ``saved`` (None for
+    an input ``need`` leaves out)."""
+    inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+    with torch.enable_grad():
+        y, st = ref.ssd_chunk_ref(*inputs)
+    wrt = [t for t, n in zip(inputs, need) if n]
+    grads = iter(torch.autograd.grad((y, st), wrt, (gy, gst), allow_unused=True))
+    return tuple(next(grads) if n else None for n in need)
+
+
+def _placements(x, b) -> tuple[list, list, list]:
+    """``(inputs, outputs, gradients)``: the placements, a list a mesh axis
+    for each of ``ssd_chunk``'s six operands, two results and six
+    gradients, of the strategy ``x``'s own placements select
+    (``sharding.kernel_placements``): the SSM heads (``b``/``c`` on their
+    groups where there is more than one, else replicated), the chunk
+    rows, or replicated.  A gradient of an operand replicated over an axis
+    the work splits is a partial sum there."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    g = b.shape[2]
+    rep, s0, s1, s2, part = Replicate(), Shard(0), Shard(1), Shard(2), Partial()
+    cols = {"ins": [], "outs": [], "grads": []}
+    for p in kernel_placements(x, 2, g if g > 1 else 0):
+        if p == s2:
+            bc, gbc = (s2, s2) if g > 1 else (rep, part)
+            row = ((s2, s2, s0, bc, bc, s0), (s2, s1), (s2, s2, s0, gbc, gbc, s0))
+        elif p == s0:
+            row = ((s0, s0, rep, s0, s0, rep), (s0, s0), (s0, s0, part, s0, s0, part))
+        else:
+            row = ((rep,) * 6, (rep, rep), (rep,) * 6)
+        for k, r in zip(cols, row):
+            cols[k].append(r)
+    return tuple([[r[j] for r in col] for j in range(len(col[0]))]
+                 for col in cols.values())
 
 
 def ssd_chunked(
@@ -155,17 +208,21 @@ def ssd_chunked(
     bf = b_.float()
     cf = c_.float()
     y_intra, states = SSDChunk.apply(
-        xh.float().reshape(bcq, chunk, h, pdim), dt.float().reshape(bcq, chunk, h),
+        activation(xh.float().reshape(bsz, n_chunks, chunk, h, pdim),
+                   "batch", None, "seq", "ssm_heads", None).reshape(bcq, chunk, h, pdim),
+        dt.float().reshape(bcq, chunk, h),
         a_log, bf.reshape(bcq, chunk, g, n), cf.reshape(bcq, chunk, g, n),
         d_skip)                              # y_intra holds D * x already
     states = states.reshape(bsz, n_chunks, h, pdim, n)
 
     # inter-chunk recurrence: the state entering each chunk
-    state = torch.zeros((bsz, h, pdim, n), dtype=torch.float32, device=xh.device)
+    state = activation(torch.zeros((bsz, h, pdim, n), dtype=torch.float32, device=xh.device),
+                       "batch", "ssm_heads", None, None)
     prev = []
     for ci in range(n_chunks):
         prev.append(state)
-        state = state * torch.exp(total[:, ci])[:, :, None, None] + states[:, ci]
+        state = activation(state * torch.exp(total[:, ci])[:, :, None, None] + states[:, ci],
+                           "batch", "ssm_heads", None, None)
     prev_states = torch.stack(prev, dim=1)                    # [B,c,H,P,N]
 
     # y_inter[q, h, p] = exp(csum[q, h]) * sum_n C[q, g(h), n] prev[h, p, n]
@@ -185,12 +242,12 @@ def mamba2_forward(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor) -> Tensor:
     bsz, s, _ = x.shape
     h, pdim, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.d_state
     z, xs, b_, c_, dt = _project(p, x)
-    xs = F.silu(_causal_conv(xs, p["conv_x_w"], p["conv_x_b"]))
-    b_ = F.silu(_causal_conv(b_, p["conv_B_w"], p["conv_B_b"]))
-    c_ = F.silu(_causal_conv(c_, p["conv_C_w"], p["conv_C_b"]))
+    xs = F.silu(channelwise(_causal_conv, xs, p["conv_x_w"], p["conv_x_b"]))
+    b_ = F.silu(channelwise(_causal_conv, b_, p["conv_B_w"], p["conv_B_b"]))
+    c_ = F.silu(channelwise(_causal_conv, c_, p["conv_C_w"], p["conv_C_b"]))
     dt = F.softplus(dt + p["dt_bias"][None, None].float())
 
-    xh = xs.reshape(bsz, s, h, pdim)
+    xh = activation(xs.reshape(bsz, s, h, pdim), "batch", "seq", "ssm_heads", None)
     bg = b_.reshape(bsz, s, cfg.ssm_ngroups, n)
     cg = c_.reshape(bsz, s, cfg.ssm_ngroups, n)
     y = ssd_chunked(xh, dt, p["A_log"], bg, cg, p["D"], cfg.ssd_chunk)
@@ -214,6 +271,17 @@ def mamba2_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
         "conv_B": z((batch, k - 1, gn), dtype),
         "conv_C": z((batch, k - 1, gn), dtype),
     }
+
+
+def _state_rule(p):
+    """:func:`parallel.sharding.shard_einsum`'s placements for the decode
+    readout ``C [B, H, N]`` x state ``[B, H, P, N]`` on one mesh axis:
+    ``C`` split as the state's rows or heads are."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if isinstance(p, Shard) and p.dim in (0, 1):
+        return Shard(p.dim), p, Shard(p.dim)
+    return Replicate(), Replicate(), Replicate()
 
 
 def mamba2_decode(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,
@@ -243,7 +311,10 @@ def mamba2_decode(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,
     decay = torch.exp(dt1 * a[None])                           # [B,H]
     ssm = (state["ssm"] * decay[:, :, None, None]
            + (dt1[:, :, None] * xh)[..., None] * bh[:, :, None, :])
-    y = torch.matmul(ssm, ch[..., None])[..., 0]               # [B,H,P]
+    if splits(ssm, 0, 1):   # per shard: no view merges the split B and H
+        y = shard_einsum("bhn,bhpn->bhp", ch, ssm, _state_rule)
+    else:
+        y = torch.matmul(ssm, ch[..., None])[..., 0]           # [B,H,P]
     y = y + xh * p["D"].float()[None, :, None]
     y = y.reshape(bsz, 1, h * pdim).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm_g"], cfg.norm_eps)

@@ -19,6 +19,7 @@ from repro_torch.models.attention import NEG_INF, chunked_attention
 from repro_torch.models.blocks import _out_proj
 from repro_torch.models.common import ParamSpec, dense, rms_norm
 from repro_torch.models.rope import apply_rope
+from repro_torch.parallel.sharding import activation, write_token
 
 Tensor = torch.Tensor
 
@@ -52,6 +53,7 @@ def _queries(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,
         q = dense(ql, p["wq_b"])
     else:
         q = dense(x, p["wq"])
+    q = activation(q, "batch", "seq", "heads", None)
     qn, qr = q[..., :dn], q[..., dn:]
     return qn, apply_rope(qr, positions, cfg.rope_theta)
 
@@ -74,7 +76,8 @@ def mla_prefill(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     qn, qr = _queries(p, cfg, x, positions)
     c_kv, k_rope = _latent_kv(p, cfg, x, positions)
-    kv = dense(c_kv, p["wkv_b"])                             # [B,S,H,dn+dv]
+    kv = activation(dense(c_kv, p["wkv_b"]),
+                    "batch", "seq", "heads", None)           # [B,S,H,dn+dv]
     kn, v = kv[..., :dn], kv[..., dn:]
     k = torch.cat([kn, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
     q = torch.cat([qn, qr], dim=-1)
@@ -103,8 +106,8 @@ def mla_decode(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,
     idx = (cache_len.long() if cache_len is not None
            else torch.full((b,), t - 1, dtype=torch.long, device=x.device))
     bidx = torch.arange(b, device=x.device)
-    c_kv[bidx, idx] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[bidx, idx] = r_new[:, 0].to(k_rope.dtype)
+    write_token(c_kv, bidx, idx, c_new[:, 0])
+    write_token(k_rope, bidx, idx, r_new[:, 0])
 
     w_uk = p["wkv_b"][..., :dn]                              # [lora, H, dn]
     w_uv = p["wkv_b"][..., dn:]                              # [lora, H, dv]

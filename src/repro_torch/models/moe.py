@@ -30,6 +30,15 @@ than one batch block is not the one-shard result: it is the sharded one.
 The shards' ``y`` are summed in shard order on the caller's device (the
 ``psum`` over ``model``), ``aux`` is their sum over the shard count, then
 the mean over the blocks (the ``pmean`` over the batch axes).
+
+On a DTensor ``x`` (the per-device dry-run) the branch is the
+``shard_map`` itself (:func:`_moe_sharded`): each device's block of
+tokens and its shard's experts (the weights gathered over the other axes
+as ``shard_map``'s ``in_specs`` ask) through :func:`_moe_local` on the
+local tensors, then ``y`` summed over ``model`` and ``aux`` averaged,
+collectives DTensor issues; a gradient of an input replicated over an
+axis the work splits is a partial sum there, as the ``shard_map``
+transpose sums it.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ParamSpec, dense, swiglu
-from repro_torch.parallel.sharding import Mesh, ShardingCtx, current_ctx
+from repro_torch.parallel.sharding import Mesh, ShardingCtx, current_ctx, is_dtensor
 
 Tensor = torch.Tensor
 
@@ -246,6 +255,52 @@ def _moe_expert_parallel(cfg: ModelConfig, p: dict[str, Tensor], x: Tensor,
     return y.reshape(b, s, d), (aux / n_shards).sum() / nb
 
 
+def _moe_sharded(cfg: ModelConfig, p: dict[str, Tensor], x: Tensor
+                 ) -> tuple[Tensor, Tensor]:
+    """The expert-parallel branch on DTensors (module docstring): one
+    device's shards through :func:`_moe_local`, ``y`` placed back as ``x``
+    (the ``psum`` over ``model``, an all-reduce) and ``aux`` replicated
+    (its ``psum`` over ``model`` and ``pmean`` over the batch axes)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm = x.device_mesh
+    names = dm.mesh_dim_names
+    batch = {a for a in ("pod", "data") if a in names}
+    nb = math.prod(dm.size(names.index(a)) for a in batch)
+    b, s, d = x.shape
+    if b % nb:
+        raise ValueError(f"a batch of {b} does not split into {nb} blocks "
+                         f"over the mesh's batch axes")
+    n_shards = dm.size(names.index("model"))
+    rep = Replicate()
+
+    def local(t, split, grad):
+        pl = [split(a) for a in names]
+        return t.redistribute(dm, pl).to_local(grad_placements=[grad(a, q)
+                                                                for a, q in zip(names, pl)])
+
+    def part(a, q):                    # replicated -> a partial-sum gradient
+        return q if isinstance(q, Shard) else Partial()
+
+    x_pl = lambda a: Shard(0) if a in batch else rep  # noqa: E731
+    xl = local(x, x_pl, part)
+    rl = local(p["router"], lambda a: rep, part)
+    ws = [local(p[k], lambda a: Shard(0) if a == "model" else rep, part)
+          for k in ("w_gate", "w_up", "w_down")]
+    bl, sl = xl.shape[:2]
+    el = ws[0].shape[0]
+    y, aux = _moe_local(xl.reshape(bl * sl, d), rl, *ws, cfg=cfg,
+                        e0=dm.get_local_rank("model") * el, n_shards=n_shards)
+    y = DTensor.from_local(y.reshape(bl, sl, d), dm,
+                           [Shard(0) if a in batch else Partial() for a in names],
+                           run_check=False, shape=x.shape, stride=x.stride())
+    aux = DTensor.from_local(aux / n_shards, dm,
+                             [Partial("avg") if a in batch else Partial() for a in names],
+                             run_check=False, shape=torch.Size(()), stride=())
+    return (y.redistribute(dm, [x_pl(a) for a in names]),
+            aux.redistribute(dm, [rep] * len(names)))
+
+
 def moe_ffn(cfg: ModelConfig, p: dict[str, Tensor], x: Tensor,
             ctx: ShardingCtx | None = None) -> tuple[Tensor, Tensor]:
     """x: [B, S, d] -> (y [B, S, d], aux scalar).
@@ -259,7 +314,8 @@ def moe_ffn(cfg: ModelConfig, p: dict[str, Tensor], x: Tensor,
     b, s, d = x.shape
     mesh = (current_ctx() if ctx is None else ctx).mesh
     if expert_parallel(mesh, cfg):
-        y, aux = _moe_expert_parallel(cfg, p, x, mesh)
+        y, aux = (_moe_sharded(cfg, p, x) if is_dtensor(x)
+                  else _moe_expert_parallel(cfg, p, x, mesh))
     else:
         yflat, aux = _moe_local(x.reshape(b * s, d), p["router"], p["w_gate"],
                                 p["w_up"], p["w_down"], cfg=cfg, e0=0, n_shards=1)

@@ -35,9 +35,19 @@ mesh axes do not divide and using each mesh axis at most once;
 (``launch/dryrun.py``) reads the rules on a mesh of ``meta`` entries
 (:func:`abstract_mesh_compat`), and ``models/moe.py``'s expert-parallel
 branch reads the ambient :class:`ShardingCtx` (:func:`use_ctx`,
-:func:`current_ctx`).  One process places nothing by a constraint:
-:func:`constraint` and :func:`activation` check the leaf's rank and return
-the tensor itself.
+:func:`current_ctx`).
+
+The per-device dry-run runs a step on DTensors: :func:`device_mesh` gives
+a :class:`Mesh`'s ``torch.distributed`` ``DeviceMesh`` (same axis names
+and sizes) over a ``fake`` process group of ``mesh.size`` ranks in this
+one process, which issues every collective a rank would and moves no
+byte; :func:`to_placements` turns a :class:`NamedSharding` into DTensor
+placements, and :func:`distribute` makes a DTensor of a global tensor's
+shard.  On a DTensor, :func:`constraint` (and :func:`activation`)
+redistributes to the placements the rules give, as
+``with_sharding_constraint`` does under ``jit``; a plain tensor comes
+back as it is, so a one-process step moves nothing.  Only the dry-run
+creates a process group.
 """
 
 from __future__ import annotations
@@ -376,15 +386,398 @@ def tree_shardings(axes_tree: Any, shape_tree: Any, mesh: Mesh,
     return walk(axes_tree, shape_tree)
 
 
+# -- DTensor bridge (the per-device dry-run) ----------------------------------
+
+_MESHES: dict[tuple, Any] = {}
+
+
+def _fake_world(size: int) -> None:
+    """This process as rank 0 of a ``fake`` process group of ``size`` ranks
+    (re-made when another size is asked for); a real process group already
+    bound raises."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a process group of backend "
+                               f"{dist.get_backend()!r} is bound; the dry-run's "
+                               "fake group cannot replace it")
+        if dist.get_world_size() == size:
+            return
+        dist.destroy_process_group()
+        _MESHES.clear()
+    # importing the module registers the ``fake`` backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
+
+
+def close_fake_world() -> None:
+    """Take down the dry-run's ``fake`` process group, if one is bound."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        dist.destroy_process_group()
+    _MESHES.clear()
+
+
+def device_mesh(mesh: Mesh):
+    """``mesh`` as a ``torch.distributed.device_mesh.DeviceMesh`` of the same
+    axis names and sizes over a ``fake`` group of ``mesh.size`` ranks
+    (:func:`_fake_world`): a DTensor on it runs rank 0's shard and issues
+    rank 0's collectives.  ``meta`` entries make a ``cpu`` mesh (the
+    shards are ``meta`` tensors), card entries a ``cuda`` one."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.kernels.ops import register_sharding_rules
+
+    register_sharding_rules()
+    kind = "cuda" if mesh.devices[0].type == "cuda" else "cpu"
+    _fake_world(mesh.size)
+    key = (mesh.devices[0].type, mesh.axis_names, mesh.axis_sizes)
+    if key not in _MESHES:
+        dm = DeviceMesh(kind, torch.arange(mesh.size).reshape(mesh.axis_sizes),
+                        mesh_dim_names=mesh.axis_names)
+        if mesh.devices[0].type == "meta":
+            # DTensor moves a shard between dims with an all-to-all on a
+            # card mesh and with an all-gather on a ``cpu`` one (gloo has
+            # no all-to-all): a mesh of ``meta`` shards issues the card's
+            dm._device_type = "cuda"
+        _MESHES[key] = dm
+    return _MESHES[key]
+
+
+def to_placements(sharding: NamedSharding) -> list:
+    """DTensor placements of a :class:`NamedSharding`, one a mesh axis:
+    ``Shard(d)`` on each mesh axis that splits dim ``d`` (a dim split over
+    a tuple of axes is ``Shard(d)`` on each of them, in the tuple's order,
+    as ``P(("pod", "data"))`` splits it), ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = sharding.mesh.axis_names
+    out: list = [Replicate() for _ in names]
+    for d, entry in enumerate(sharding.spec):
+        for a in (() if entry is None else entry if isinstance(entry, tuple) else (entry,)):
+            out[names.index(a)] = Shard(d)
+    return out
+
+
+def distribute(x: Tensor, sharding: NamedSharding, *, device=None) -> Tensor:
+    """A DTensor of ``x``'s global shape and dtype placed by ``sharding``,
+    its shard zeros (``x``'s values are not read) on ``device`` (default:
+    the mesh's first entry; ``meta`` allocates nothing)."""
+    from torch.distributed.tensor import DTensor
+
+    dev = sharding.mesh.devices[0] if device is None else torch.device(device)
+    local = torch.zeros(sharding.shard_shape(tuple(x.shape)), dtype=x.dtype, device=dev)
+    shape = torch.Size(x.shape)
+    stride = contiguous_strides(shape)
+    return DTensor.from_local(local, device_mesh(sharding.mesh), to_placements(sharding),
+                              run_check=False, shape=shape, stride=stride)
+
+
+def contiguous_strides(shape) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (computed, not read
+    off a tensor: no op runs)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def splits(x: Tensor, *dims: int) -> bool:
+    """Whether ``x`` is a DTensor split on each of ``dims`` (over some mesh
+    axis): the helpers below take their per-shard form only then, so a
+    DTensor on a mesh of size-1 axes runs the plain ops."""
+    if not is_dtensor(x):
+        return False
+    from torch.distributed.tensor import Shard
+
+    split = {p.dim for p in x.placements if isinstance(p, Shard)}
+    return all(d % x.dim() in split for d in dims)
+
+
+def write_token(cache: Tensor, rows: Tensor, idx: Tensor, val: Tensor) -> None:
+    """``cache[rows, idx] = val`` (``rows`` the ``arange`` of the batch),
+    in place: a decode step's new cache entry at each row's position.  On a DTensor
+    cache (rows and positions maybe split over the mesh) each shard writes
+    the rows it holds whose position falls in its block of positions, as
+    XLA partitions a dynamic update into a cache split on its sequence:
+    ``val`` and ``idx`` are first placed as the cache's rows (and the
+    other dims) are, so no shard gathers the cache."""
+    if not any(splits(cache, d) for d in range(cache.dim())):
+        cache[rows, idx] = val.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    dm, pl = cache.device_mesh, cache.placements
+    val_pl = [Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard) and p.dim != 1 else Replicate()
+              for p in pl]
+    idx_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl]
+    v = val.to(cache.dtype).redistribute(dm, val_pl).to_local()
+    i = idx.redistribute(dm, idx_pl).to_local()
+    loc = cache.to_local()
+    _, offset = compute_local_shape_and_global_offset(cache.shape, dm, pl)
+    rel = i - offset[1]
+    inside = ((rel >= 0) & (rel < loc.shape[1])).reshape((-1,) + (1,) * (v.dim() - 1))
+    rel = rel.clamp(0, loc.shape[1] - 1)
+    rows = rows[:loc.shape[0]]
+    loc[rows, rel] = torch.where(inside, v, loc[rows, rel])
+
+
+def _split_lookup(x: Tensor, dim: int, idx: Tensor, look, idx_dims) -> Tensor:
+    """A lookup into DTensor ``x`` along its dim ``dim`` (split there over
+    some mesh axes, the vocabulary) by ``idx``: each shard looks up the
+    indices in its block of ``dim`` (``look(x_local, idx_local)`` on the
+    clamped local indices), zeroes the rest, and the result is a partial
+    sum over those axes, as XLA partitions a gather from a split
+    operand.  On the other axes ``x`` is gathered where ``idx`` splits
+    what ``x`` does not line up with; ``idx_dims[k]`` is the dim of ``x``
+    that ``idx``'s dim ``k`` indexes alongside (None: none)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    dm = x.device_mesh
+    ipl = idx.placements if is_dtensor(idx) else [Replicate()] * dm.ndim
+    x_pl, i_pl, o_pl, g_pl = [], [], [], []
+    for p, q in zip(x.placements, ipl):
+        if isinstance(p, Shard) and p.dim == dim:
+            x_pl.append(p), i_pl.append(Replicate()), o_pl.append(Partial()), g_pl.append(p)
+        elif isinstance(q, Shard) and idx_dims[q.dim] is not None:
+            x_pl.append(Shard(idx_dims[q.dim])), i_pl.append(q), o_pl.append(q)
+            g_pl.append(Shard(idx_dims[q.dim]))
+        elif isinstance(q, Shard):
+            x_pl.append(Replicate()), i_pl.append(q), o_pl.append(q), g_pl.append(Partial())
+        else:
+            x_pl.append(Replicate()), i_pl.append(Replicate()), o_pl.append(Replicate())
+            g_pl.append(Replicate())
+    xl = x.redistribute(dm, x_pl).to_local(grad_placements=g_pl)
+    il = (idx.redistribute(dm, i_pl).to_local() if is_dtensor(idx) else idx)
+    _, offset = compute_local_shape_and_global_offset(x.shape, dm, x_pl)
+    rel = il - offset[dim]
+    inside = (rel >= 0) & (rel < xl.shape[dim])
+    out = look(xl, rel.clamp(0, xl.shape[dim] - 1))
+    out = out * inside.reshape(inside.shape + (1,) * (out.dim() - inside.dim())).to(out.dtype)
+    shape = list(idx.shape) + list(out.shape[inside.dim():])
+    return DTensor.from_local(out, dm, o_pl, run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
+def embed_lookup(table: Tensor, ids: Tensor) -> Tensor:
+    """``table[ids]``: the rows of an embedding table.  On a DTensor table
+    split on its rows (the vocabulary) each shard takes the ids in its
+    block, a partial sum over the vocabulary's axes (:func:`_split_lookup`);
+    a plain table indexes as it is."""
+    if not splits(table, 0):
+        return table[ids]
+    return _split_lookup(table, 0, ids, lambda t, i: t[i], (None,) * ids.dim())
+
+
+def pick_last(x: Tensor, idx: Tensor) -> Tensor:
+    """``x[..., idx]`` elementwise (``torch.gather`` on the last dim, that
+    dim dropped), on a DTensor ``x`` split on its last dim (the vocabulary)
+    a partial sum over those axes (:func:`_split_lookup`)."""
+    if not splits(x, -1):
+        return torch.gather(x, -1, idx[..., None])[..., 0]
+    return _split_lookup(x, x.dim() - 1, idx,
+                         lambda t, i: torch.gather(t, -1, i[..., None])[..., 0],
+                         tuple(range(idx.dim())))
+
+
+def channelwise(fn: Callable, x: Tensor, *params: Tensor) -> Tensor:
+    """``fn(x, *params)`` for ``x [B, S, C]`` and ``params`` ``[..., C]``,
+    ``fn`` acting on each batch row and channel apart (a depthwise conv
+    over the sequence).  On a DTensor ``x`` each device runs ``fn`` on its
+    shards: ``x`` split as it is on its rows and channels (its sequence
+    gathered), each param split on its last dim as ``x``'s channels are; a
+    param's gradient is a partial sum over the axes that split the rows."""
+    if not is_dtensor(x):
+        return fn(x, *params)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm, last = x.device_mesh, x.dim() - 1
+    x_pl, split = [], []
+    for p in x.placements:
+        keep = isinstance(p, Shard) and p.dim in (0, last)
+        x_pl.append(p if keep else Replicate())
+        split.append(p.dim if keep else None)
+    xl = x.redistribute(dm, x_pl).to_local(grad_placements=x_pl)
+    locs = []
+    for t in params:
+        pl = [Shard(t.dim() - 1) if d == last else Replicate() for d in split]
+        grad = [Shard(t.dim() - 1) if d == last else Partial() if d == 0 else Replicate()
+                for d in split]
+        locs.append(t.redistribute(dm, pl).to_local(grad_placements=grad))
+    return DTensor.from_local(fn(xl, *locs), dm, x_pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def kernel_placements(x: Tensor, heads: int, groups: int = 0) -> list:
+    """The placements a kernel operator's operands take on each mesh axis
+    (its sharding rule's strategies, ``kernels/ops.py``), chosen from
+    ``x``'s own: split on the heads (dim ``heads``) where ``x`` is and the
+    axis divides ``groups`` (the kv heads or SSM groups; 0: no such
+    check), on the batch (dim 0) where ``x`` is, else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dm = x.device_mesh
+    out = []
+    for i, p in enumerate(x.placements):
+        if (isinstance(p, Shard) and p.dim == heads
+                and (not groups or groups % dm.size(i) == 0)):
+            out.append(Shard(heads))
+        elif isinstance(p, Shard) and p.dim == 0:
+            out.append(Shard(0))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def on_shards(fn: Callable, args: list, placements: list, outs: list) -> tuple:
+    """``fn`` on one device's shards of DTensor ``args``: each redistributed
+    to its ``placements`` (a list a mesh axis), ``fn`` run on the local
+    tensors, and its results (``None`` passed through) made DTensors by
+    ``outs``, a ``(placements, global shape)`` each.  The way a kernel's
+    backward runs per shard, as its forward does under its sharding
+    rule."""
+    from torch.distributed.tensor import DTensor
+
+    dm = args[0].device_mesh
+    local = [a.redistribute(dm, pl).to_local() for a, pl in zip(args, placements)]
+    return tuple(None if t is None else DTensor.from_local(
+        t.contiguous(), dm, pl, run_check=False, shape=shape,
+        stride=contiguous_strides(shape))
+        for t, (pl, shape) in zip(fn(*local), outs))
+
+
+def shard_einsum(eq: str, a: Tensor, b: Tensor, rule: Callable) -> Tensor:
+    """``torch.einsum(eq, a, b)`` of two DTensors on each device's shards:
+    ``rule(p)`` maps each of ``b``'s placements to ``(a's, b's, the
+    output's)`` on that mesh axis (a contraction over a split dim gives a
+    ``Partial`` output), so a product over a dim ``b`` keeps split (a
+    cache's sequence) runs where the shards lie, one product a shard,
+    where DTensor's einsum would merge that dim and gather ``b``.  For a
+    step under ``no_grad`` (decode)."""
+    from torch.distributed.tensor import DTensor
+
+    dm = b.device_mesh
+    pls = [rule(p) for p in b.placements]
+    al = a.redistribute(dm, [p[0] for p in pls]).to_local()
+    bl = b.redistribute(dm, [p[1] for p in pls]).to_local()
+    ins, out = eq.replace(" ", "").split("->")
+    size = {c: n for t, x in zip(ins.split(","), (a, b)) for c, n in zip(t, x.shape)}
+    shape = torch.Size(size[c] for c in out)
+    return DTensor.from_local(torch.einsum(eq, al, bl), dm, [p[2] for p in pls],
+                              run_check=False, shape=shape,
+                              stride=contiguous_strides(shape))
+
+
+def logsumexp_last(x: Tensor) -> Tensor:
+    """``torch.logsumexp(x, -1)``.  On a DTensor split on its last dim (the
+    vocabulary) the log-sum-exp of the shards: each shard's max, their max
+    (an all-reduce of the rows), each shard's sum of exponentials, their
+    sum (another) and the log, as XLA partitions the reduction; DTensor's
+    own ``logsumexp`` would gather the logits."""
+    if not splits(x, -1):
+        return torch.logsumexp(x, dim=-1)
+    m = x.detach().amax(dim=-1)
+    from torch.distributed.tensor import Replicate
+
+    m = m.redistribute(m.device_mesh, [Replicate() if p.is_partial() else p
+                                       for p in m.placements])
+    return torch.exp(x - m[..., None]).sum(dim=-1).log() + m
+
+
+def unsplit(y: Tensor, dim: int, lead: int) -> Tensor:
+    """A DTensor ``y`` with dim ``dim`` gathered over every mesh axis that
+    splits it but does not divide ``lead``, the first of the dims ``dim``
+    is about to be viewed as (a product's flattened output unflattened
+    into heads a model axis does not divide: no shard can view it); any
+    other tensor as it is."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+
+    dim %= y.dim()
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim
+          and lead % y.device_mesh.size(i) else p for i, p in enumerate(y.placements)]
+    return y if pl == list(y.placements) else y.redistribute(y.device_mesh, pl)
+
+
+class _Merge(torch.autograd.Function):
+    """``t.reshape(shape)`` merging ``t``'s dims from ``dim`` on into dim
+    ``dim`` of ``shape``, its gradient first :func:`unsplit` there (the
+    backward views the merged dim apart again)."""
+
+    @staticmethod
+    def forward(ctx, t, shape, dim):
+        ctx.in_shape, ctx.dim = t.shape, dim
+        return t.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return unsplit(g, ctx.dim, ctx.in_shape[ctx.dim]).reshape(ctx.in_shape), None, None
+
+
+def merge(t: Tensor, shape, dim: int) -> Tensor:
+    """``t.reshape(shape)``, where ``shape`` merges ``t``'s dims from ``dim``
+    on into one; on a DTensor through :class:`_Merge`, so the gradient's
+    view apart finds a dim a shard can view."""
+    if not is_dtensor(t):
+        return t.reshape(shape)
+    return _Merge.apply(t, tuple(shape), dim)
+
+
+def write_rows(x: Tensor, rows: Tensor, pos: Tensor, val: Tensor) -> Tensor:
+    """``x[rows, pos] = val`` (``rows [B, 1]`` the batch's ``arange``,
+    ``pos [B, P]``, ``val [B, P, ...]``): in place on a plain tensor; on a
+    DTensor ``x`` split on its rows (not on ``pos``'s dim), out of place on
+    each device's shard, ``pos`` and ``val`` placed as ``x``'s rows are
+    (DTensor has no in-place rule for it)."""
+    if not is_dtensor(x):
+        x[rows, pos] = val.to(x.dtype)
+        return x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dm, pl = x.device_mesh, x.placements
+    if any(isinstance(p, Shard) and p.dim == 1 for p in pl):
+        raise NotImplementedError("a row write into a DTensor split on the written dim")
+    rows_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl]
+    loc = x.to_local()
+    v = val.to(x.dtype).redistribute(dm, pl).to_local()
+    i = pos.redistribute(dm, rows_pl).to_local()
+    loc = loc.index_put((rows[:loc.shape[0]], i), v)
+    return DTensor.from_local(loc, dm, pl, run_check=False, shape=x.shape, stride=x.stride())
+
+
 def constraint(x: Tensor, axes: LogicalAxes, mesh: Mesh | None,
                mode: str = "train") -> Tensor:
     """``with_sharding_constraint`` through logical axes (a no-op without a
-    mesh).  One process holds the whole tensor, so there is nothing to
-    move: under a mesh the spec is checked against ``x``'s rank, as JAX
-    refuses a spec longer than it, and ``x`` itself comes back."""
-    if mesh is not None and len(axes) > x.dim():
+    mesh).  Under a mesh the spec is checked against ``x``'s rank, as JAX
+    refuses a spec longer than it; a DTensor is redistributed to the
+    placements :func:`logical_to_spec` gives (a ``Partial`` sum becomes a
+    reduce-scatter or an all-reduce, a gather an all-gather), and any
+    other tensor comes back itself: one process holds it whole."""
+    if mesh is None:
+        return x
+    if len(axes) > x.dim():
         raise ValueError(f"logical axes {axes} for a tensor of rank {x.dim()}")
-    return x
+    if not is_dtensor(x):
+        return x
+    want = to_placements(NamedSharding(mesh, logical_to_spec(
+        tuple(axes) + (None,) * (x.dim() - len(axes)), tuple(x.shape), mesh, mode)))
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -426,6 +819,7 @@ def use_ctx(ctx: ShardingCtx | None):
 
 
 def activation(x: Tensor, *axes: str | None) -> Tensor:
-    """Constrain an activation under the ambient :class:`ShardingCtx`: the
-    rank checked, ``x`` itself returned (see :func:`constraint`)."""
+    """Constrain an activation under the ambient :class:`ShardingCtx` (see
+    :func:`constraint`: a DTensor is redistributed, a plain tensor comes
+    back itself)."""
     return _AMBIENT.get().on(x, *axes)

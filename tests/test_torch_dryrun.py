@@ -4,7 +4,8 @@ the counterpart of ``analysis/hlo.py``) on a known program and on reduced
 models, ``meta`` against the CPU, the same in every trace and in a cell
 whatever ran before it; a prefill's dot FLOPs against JAX's HLO count,
 term by term; the H100 roofline's model FLOPs; and one dry-run cell's
-per-device argument bytes against a sum over JAX's partition specs.
+per-device argument bytes against a sum over JAX's partition specs (the
+per-device record's other terms: ``tests/test_torch_dryrun_sharded.py``).
 """
 
 import dataclasses
@@ -233,12 +234,19 @@ def test_dryrun_cell_argument_bytes_match_jax_specs():
               for k, v in jax_shapes.input_structs(jcfg, shape).items()]
     assert out["memory"]["argument_bytes_per_device"] == _jax_sharded_bytes(
         items, mesh, "serve")
-    assert out["memory"]["peak_live_bytes_global"] > 0
-    assert out["memory"]["temp_bytes_per_device"] is None
+    m = out["memory"]
+    assert m["peak_live_bytes_global"] > 0
+    for k in ("output", "temp", "alias", "peak"):
+        assert isinstance(m[f"{k}_bytes_per_device"], int), k
+    assert m["peak_bytes_per_device"] == (m["argument_bytes_per_device"]
+                                          + m["output_bytes_per_device"]
+                                          + m["temp_bytes_per_device"]
+                                          - m["alias_bytes_per_device"])
     c, r = out["cost"], out["roofline"]
-    assert c["collective_wire_bytes_per_device"] is None and r["collective_s"] is None
-    assert c["flops_per_device"] == c["flops_global"] / 256
-    assert r["dominant"] in ("compute", "memory") and r["bound_s"] > 0
+    assert c["collective_wire_bytes_per_device"] >= 0
+    assert isinstance(r["collective_s"], float)
+    assert c["flops_per_device"] >= c["flops_global"] / 256
+    assert r["dominant"] in ("compute", "memory", "collective") and r["bound_s"] > 0
     assert 0 < r["useful_flops_fraction"] <= 1
 
 
@@ -267,6 +275,7 @@ def test_dryrun_cell_does_not_depend_on_the_cells_before_it():
     def cell(arch):
         out = dryrun.dryrun_cell(arch, "decode_32k", False, verbose=False)
         out.pop("trace_s")
+        out.pop("trace_global_s")
         return out
 
     alone = cell("smollm-360m")

@@ -1,0 +1,112 @@
+"""The port's per-device dry-run beside the JAX dry-run's compiled
+per-device program, recorded, not equated: reduced SmolLM-360M and
+Mamba2-370M (2 layers, ``reduce_config(..., 8)``), a train step and a
+prefill of ``[8, 256]``, over an 8-entry ``(data 2, model 4)`` mesh.  The
+port traces DTensors on ``meta`` shards (``launch.dryrun.dryrun_cell``);
+JAX compiles with the same rules on 8 forced CPU devices (in a subprocess)
+and ``repro.analysis.hlo.analyze_compiled_text`` reads the program.  XLA's
+partitioner picks other collectives and fuses, so only their presence is
+asserted; run with ``-s`` to print the table PERF.md records.
+"""
+
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import dryrun, shapes  # noqa: E402
+from repro_torch.launch.train import reduce_config  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+CELLS = [(a, k) for a in ("smollm-360m", "mamba2-370m") for k in ("train", "prefill")]
+MESH = (2, 4)
+
+JAX_CELLS = textwrap.dedent("""
+    import dataclasses, json, os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax, jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from repro.analysis.hlo import analyze_compiled_text
+    from repro.configs import get_config
+    from repro.launch.shapes import ShapeSpec, batch_axes, input_structs
+    from repro.launch.steps import (make_prefill_step, make_train_step, param_specs_for)
+    from repro.launch.train import reduce_config
+    from repro.models.common import abstract_params, specs_to_shardings
+    from repro.optim.adamw import AdamWConfig, abstract_opt_state
+    from repro.parallel.sharding import ShardingCtx, logical_to_spec, make_mesh_compat
+
+    mesh = make_mesh_compat(MESH, ("data", "model"), devices=jax.devices()[:8])
+    out = {}
+    for arch, kind in CELLS:
+        cfg = dataclasses.replace(reduce_config(get_config(arch), 8), num_layers=2)
+        shape = ShapeSpec(kind, kind, 256, 8)
+        mode = "train" if kind == "train" else "serve"
+        ctx = ShardingCtx(mesh=mesh, mode=mode)
+        pspecs = param_specs_for(cfg)
+        p_abs = abstract_params(pspecs, jnp.dtype(cfg.dtype))
+        p_shard = specs_to_shardings(pspecs, mesh, mode)
+        b_abs = input_structs(cfg, shape)
+        axes = batch_axes(cfg, shape)
+        b_shard = {k: NamedSharding(mesh, logical_to_spec(axes[k], v.shape, mesh, mode))
+                   for k, v in b_abs.items()}
+        if kind == "train":
+            opt = AdamWConfig()
+            o_abs = abstract_opt_state(p_abs, opt)
+            o_shard = type(o_abs)(step=NamedSharding(mesh, P()), mu=p_shard, nu=p_shard)
+            fn = jax.jit(make_train_step(cfg, opt, ctx), in_shardings=(p_shard, o_shard, b_shard),
+                         out_shardings=(p_shard, o_shard, None), donate_argnums=(0, 1))
+            lowered = fn.lower(p_abs, o_abs, b_abs)
+        else:
+            fn = jax.jit(make_prefill_step(cfg, ctx), in_shardings=(p_shard, b_shard))
+            lowered = fn.lower(p_abs, b_abs)
+        parsed = analyze_compiled_text(lowered.compile().as_text(), 8)
+        out[f"{arch} {kind}"] = {k: parsed[k] for k in (
+            "flops_per_device", "bytes_per_device", "collective_wire_bytes_per_device",
+            "collective_counts")}
+    print("JSON" + json.dumps(out))
+""").replace("MESH", repr(MESH)).replace("CELLS", repr(CELLS))
+
+
+@pytest.fixture(scope="module")
+def jax_cells():
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"), "JAX_PLATFORMS": "cpu"}
+    run = subprocess.run([sys.executable, "-c", JAX_CELLS], capture_output=True, text=True,
+                         timeout=600, env=env, cwd=REPO)
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("JSON")]
+    assert lines, run.stdout + run.stderr
+    return json.loads(lines[-1][4:])
+
+
+def test_per_device_counts_beside_jax(jax_cells):
+    rows = []
+    try:
+        for arch, kind in CELLS:
+            cfg = dataclasses.replace(reduce_config(get_config(arch), 8), num_layers=2)
+            out = dryrun.dryrun_cell(cfg, shapes.ShapeSpec(kind, kind, 256, 8), False,
+                                     verbose=False,
+                                     mesh=sharding.abstract_mesh_compat(MESH, ("data", "model")))
+            c, j = out["cost"], jax_cells[f"{arch} {kind}"]
+            assert c["flops_per_device"] > 0 and j["flops_per_device"] > 0
+            assert c["collective_counts"] and j["collective_counts"]
+            rows.append(f"| {arch} {kind} | {c['flops_per_device']:.6g} | "
+                        f"{j['flops_per_device']:.6g} | "
+                        f"{c['flops_per_device'] / j['flops_per_device']:.3f} | "
+                        f"{c['collective_counts']} | {j['collective_counts']} | "
+                        f"{c['collective_wire_bytes_per_device']:.6g} | "
+                        f"{j['collective_wire_bytes_per_device']:.6g} |")
+    finally:
+        sharding.close_fake_world()
+    print("\n| cell | port FLOPs/dev | JAX FLOPs/dev | port / JAX | port collectives | "
+          "JAX collectives | port wire B | JAX wire B |")
+    print("| --- | --- | --- | --- | --- | --- | --- | --- |")
+    print("\n".join(rows))
