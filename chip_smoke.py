@@ -108,7 +108,14 @@ Phases (each passes or the script exits non-zero without a result line):
    block's barrier round trip, whichever is smaller); and an empty kernel
    (``torch.cuda._sleep(0)``, one thread), the launch floor of the same
    timer; flash attention also at MiniCPM3-4B's and DeepSeek-V2-Lite's
-   prefill shapes (QK/V head dims 96/64 and 192/128);
+   prefill shapes (QK/V head dims 96/64 and 192/128); and the flash call
+   split into ``FLASH_ROWS_TP`` blocks of query rows as the port runs it
+   where ``model`` does not divide the kv heads
+   (``models.attention.flash_rows``: a shard's rows and the causal prefix
+   of the keys), at ``FLASH_ROWS_SHAPES`` in bf16: each shard's output
+   and lse against the unsplit kernel call's rows and against the plain
+   version on the card, at the bf16 bars of ``FLASH_CASES`` and
+   ``LSE_RTOL``/``LSE_ATOL``, its launches counted and its ms timed;
 11. (``search_phase``) the optimizer and stage 3 on the card, run before
    the kernel timings so that its launches count in the kernels line;
 12. (``serve_phase``, also before the timings) the streaming twin service
@@ -227,7 +234,15 @@ Phases (each passes or the script exits non-zero without a result line):
    within 1 %, collective counts and wire bytes equal, the meta live-byte
    peak within [0.8, 1.2] of the card's ``max_memory_allocated`` for the
    step less what it held before, and the shards' flash-attention /
-   ``ssd_chunk`` launches counted;
+   ``ssd_chunk`` launches counted (SmolLM's 5 kv heads do not split over
+   ``model`` 2: its flash calls split their query rows); (f) one
+   SmolLM-360M attention layer at full width on ``CP_X`` tokens, f32 and
+   bf16, on the card: the flash call split into ``CP_TP`` blocks of query
+   rows, each through the per-shard functions at its coordinate
+   (``flash_rows``, ``flash_rows_backward``), the layer's outputs put
+   together and dq put together, dk and dv summed over the shards,
+   against the unsplit layer's (``FlashAttention``), relative L2 within
+   ``CP_REL_L2``, one flash launch a shard;
 18. (``examples_phase``, also before the timings) the five user-facing
    examples with a torch side (``EXAMPLES``: quickstart, E1's
    reproduce_footprinter, fleet_of_twins, whatif_scaling, twin_service),
@@ -329,6 +344,12 @@ PREFILL_FLASH_DEEPSEEK = (PREFILL_B, 16, 16, PREFILL_S, PREFILL_S, 192, 128)
 PREFILL_FLASH_QWEN2VL = (PREFILL_B, 28, 4, PREFILL_S, PREFILL_S, 128, 128)
 PREFILL_FLASH_QWEN_MOE = (PREFILL_B, 16, 16, PREFILL_S, PREFILL_S, 128, 128)
 PREFILL_FLASH_COMMAND_R = (PREFILL_B, 96, 8, PREFILL_S, PREFILL_S, 128, 128)
+#: phase 10's row-split flash check: the blocks of query rows, and the
+#: shapes (SmolLM-360M's prefill, MiniCPM3-4B's MLA pair)
+FLASH_ROWS_TP = 4
+FLASH_ROWS_SHAPES = (PREFILL_FLASH, PREFILL_FLASH_MINICPM3)
+#: its bar, the bf16 one of ``FLASH_CASES``: ``rtol |want| + atol ||p||``
+FLASH_ROWS_BAR = (1e-2, 1.5e-2)
 SEAMLESS_ENC_FLASH = (PREFILL_B, 16, 16, 512, 512, 64, 64)
 SEAMLESS_CROSS_FLASH = (PREFILL_B, 16, 16, PREFILL_S, 512, 64, 64)
 
@@ -1466,6 +1487,8 @@ def main() -> int:
         time_flash(torch, timer, ref, _build, dev, *PREFILL_FLASH_MINICPM3)
     shapes["flash B=4 Hq=16 Hkv=16 S=2048 D=192 Dv=128 bf16 causal (DeepSeek-V2-Lite "
            "prefill)"] = time_flash(torch, timer, ref, _build, dev, *PREFILL_FLASH_DEEPSEEK)
+    details["flash_rows"] = {str(shape): flash_rows_check(torch, np, timer, ops, ref, dev, *shape)
+                             for shape in FLASH_ROWS_SHAPES}
     main = time_ssd(torch, timer, ref, _build, dev, *SSD_MAMBA2)
     main_shapes.append(main)
     kernels.append(dict(
@@ -3445,6 +3468,66 @@ def time_flash(torch, timer, ref, build, dev, b, hq, hkv, s, _skv, d, dv) -> dic
                 peak_ops=PEAK_BF16_TC_FLOPS)
 
 
+def flash_rows_check(torch, np, timer, ops, ref, dev, b, hq, hkv, s, _skv, d, dv) -> dict:
+    """The prefill shape in bf16, its flash call split into
+    ``FLASH_ROWS_TP`` blocks of query rows as the port runs it
+    (``models.attention.flash_rows``): each shard's output and lse
+    against the unsplit kernel call's rows and against the plain version
+    on the card (module docstring), then each shard timed."""
+    from repro_torch.kernels.ops import flash_attention_flops
+    from repro_torch.models.attention import _prefix, flash_rows
+
+    tp, (rtol, atol) = FLASH_ROWS_TP, FLASH_ROWS_BAR
+    rng = np.random.default_rng(b + hq + d + dv)
+    q, k, v = (torch.as_tensor(rng.normal(0, 1, (b, h, s, w)).astype(np.float32),
+                               device=dev).to(torch.bfloat16)
+               for h, w in ((hq, d), (hkv, d), (hkv, dv)))
+    scale = d ** -0.5
+    full, full_lse = ops.flash_attention(q, k, v, causal=True, scale=scale, return_lse=True)
+    m = s // tp
+    tag = f"flash rows {(b, hq, hkv, s, d, dv)} bf16, {tp} shards"
+    before = ops.LAUNCHES["flash_attention"]
+    out = {"shards": []}
+    for r in range(tp):
+        rows, n = slice(r * m, (r + 1) * m), _prefix(m, s, r, tp, True)
+        qr, kr, vr = q[:, :, rows], k[:, :, :n], v[:, :, :n]
+        got, lse = flash_rows(qr, k, v, r, tp, causal=True, scale=scale, return_lse=True)
+        torch.cuda.synchronize()
+        # against the unsplit call's rows, at the bf16 bar of FLASH_CASES
+        err = (got.float() - full[:, :, rows].float()).abs()
+        bar = rtol * full[:, :, rows].float().abs() + atol * softmax_row_norm(torch, qr, kr, True)
+        used_unsplit = float((err / bar).max())
+        lse_unsplit = float((lse - full_lse[:, :, rows]).abs().max())
+        bitwise = torch.equal(got, full[:, :, rows]) and torch.equal(lse, full_lse[:, :, rows])
+        # against the plain version on the card, on the shard's rows and prefix
+        err_plain, used_plain = flash_bar_use(torch, ref, got, qr, kr, vr, True, rtol, atol)
+        _, want_lse = ref.flash_attention_ref(qr.float(), kr.float(), vr.float(), causal=True,
+                                              scale=scale, return_lse=True)
+        if (got.shape != (b, hq, m, dv) or not used_unsplit <= 1.0 or not used_plain <= 1.0
+                or not torch.allclose(lse, full_lse[:, :, rows], rtol=LSE_RTOL, atol=LSE_ATOL)
+                or not torch.allclose(lse, want_lse, rtol=LSE_RTOL, atol=LSE_ATOL)):
+            fail(f"{tag}: shard {r} (keys [0, {n})): bar used {used_unsplit:.3f} against the "
+                 f"unsplit call, {used_plain:.3f} against the plain version; lse max |err| "
+                 f"{lse_unsplit:.3g} (rtol {LSE_RTOL}, atol {LSE_ATOL})")
+        kt = timer.device_ms(lambda: flash_rows(qr, k, v, r, tp, causal=True, scale=scale))
+        out["shards"].append(dict(
+            r=r, keys=n, bar_used_unsplit=used_unsplit, bar_used_plain=used_plain,
+            max_abs_err_plain=err_plain, lse_max_abs_err_unsplit=lse_unsplit,
+            bitwise_equal_unsplit=bitwise, ms=kt["ms"], rounds=kt,
+            flops=flash_attention_flops(b, hq, m, n, d, dv, True)))
+    out["checked_launches"] = tp
+    out["launches"] = ops.LAUNCHES["flash_attention"] - before
+    log(f"{tag}: every shard within the bf16 bar against the unsplit call's rows (used "
+        f"{max(x['bar_used_unsplit'] for x in out['shards']):.3f}; bitwise "
+        f"{[x['bitwise_equal_unsplit'] for x in out['shards']]}) and against the plain "
+        f"version (used {max(x['bar_used_plain'] for x in out['shards']):.3f}), lse within "
+        f"rtol {LSE_RTOL} atol {LSE_ATOL}; ms a shard "
+        f"{[round(x['ms'], 5) for x in out['shards']]} (keys "
+        f"{[x['keys'] for x in out['shards']]}); {out['launches']} launches ({tp} checked, "
+        f"the rest timed)")
+    return out
+
+
 def op_overhead(torch, timer, ops, dev) -> dict:
     """Host us a call of ``ops.flash_attention`` (the ``torch.library``
     operator: dispatch, then the launch) against ``flash_attention_cuda``
@@ -4628,6 +4711,14 @@ DRYRUN_ARGV = ["--arch", "smollm-360m", "--mesh", "single"]
 META_SHARDED = {"smollm-360m": "flash_attention", "mamba2-370m": "ssd_chunk"}
 META_SHARDED_LAYERS = 2
 META_SHARDED_MESH = (2, 2)
+#: phase 17 (f): one SmolLM-360M attention layer at full width on [B, S]
+#: tokens, its flash call split into CP_TP blocks of query rows; the bars
+#: of the put-together output and gradients against the unsplit layer's
+#: (relative L2: f32 sums reordered; bf16 rounds each shard's dk and dv
+#: before they are summed)
+CP_X = (2, 2048)
+CP_TP = 4
+CP_REL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}
 #: phase 19: the days of the DES roofline (``analysis/roofline_torch.py``'s default)
 DES_ROOFLINE_DAYS = 2.0
 
@@ -5067,11 +5158,77 @@ def meta_sharded(torch, ops) -> dict:
     return out
 
 
+def cp_layer(torch, ops) -> dict:
+    """Phase 17 (f): one SmolLM-360M attention layer (``wq``/``wk`` scaled
+    as ``rescale_qk`` does) at full width on ``CP_X`` tokens on the card,
+    in f32 and bf16: the unsplit layer through ``FlashAttention`` and
+    ``wo``, then its flash call split into ``CP_TP`` blocks of query rows,
+    each shard through ``flash_rows`` and ``flash_rows_backward`` at its
+    coordinate with the unsplit call's upstream gradient of its rows
+    (module docstring)."""
+    from repro_torch.models import attention, blocks
+    from repro_torch.models.common import dense, init_params
+
+    cfg = lm_config("smollm-360m")
+    b, s = CP_X
+    m, scale = s // CP_TP, cfg.head_dim ** -0.5
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        gen = torch.Generator(device=DEVICE).manual_seed(28)
+        p = rescale_qk(cfg, init_params(blocks.attn_specs(cfg, 1), gen, dtype, DEVICE))
+        p = {k: t[0] for k, t in p.items()}
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device=DEVICE).to(dtype)
+        positions = torch.arange(s, device=DEVICE)[None].expand(b, s)
+        with torch.no_grad():
+            q, k = blocks._rope_q_k(cfg, dense(x, p["wq"]), dense(x, p["wk"]), positions)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, dense(x, p["wv"])))
+        before = ops.LAUNCHES["flash_attention"]
+        leaves = [t.requires_grad_() for t in (qt.clone(), kt.clone(), vt.clone())]
+        o = attention.FlashAttention.apply(*leaves, True, scale, 1024)
+        y = blocks._out_proj(o.transpose(1, 2), p["wo"], dtype)
+        dy = torch.randn(y.shape, generator=gen, device=DEVICE).to(dtype)
+        dout, *want = torch.autograd.grad(y, [o] + leaves, dy)
+        got = {"y": [], "dq": [], "dk": 0, "dv": 0}
+        with torch.no_grad():
+            for r in range(CP_TP):
+                rows = slice(r * m, (r + 1) * m)
+                o_r, lse_r = attention.flash_rows(qt[:, :, rows], kt, vt, r, CP_TP, causal=True,
+                                                  scale=scale, return_lse=True)
+                got["y"].append(blocks._out_proj(o_r.transpose(1, 2), p["wo"], dtype))
+                dq, dk, dv = attention.flash_rows_backward(
+                    qt[:, :, rows], kt, vt, o_r, lse_r, dout[:, :, rows], r, CP_TP,
+                    causal=True, scale=scale)
+                got["dq"].append(dq)
+                got["dk"], got["dv"] = got["dk"] + dk.float(), got["dv"] + dv.float()
+        torch.cuda.synchronize()
+        launches = ops.LAUNCHES["flash_attention"] - before
+        if launches != 1 + CP_TP:
+            fail(f"phase 17 (f) {name}: {launches} flash launches, expected one unsplit "
+                 f"and one a shard ({1 + CP_TP})")
+        pairs = {"y": (torch.cat(got["y"], dim=1), y), "dq": (torch.cat(got["dq"], dim=2), want[0]),
+                 "dk": (got["dk"], want[1]), "dv": (got["dv"], want[2])}
+        rel = {k_: float((a.float() - w.detach().float()).norm() / w.detach().float().norm())
+               for k_, (a, w) in pairs.items()}
+        bar = CP_REL_L2[name]
+        if not all(e <= bar for e in rel.values()):
+            fail(f"phase 17 (f) {name}: shards put together against the unsplit layer, "
+                 f"rel L2 {rel} beyond {bar}")
+        log(f"phase 17 (f) SmolLM-360M attention layer {name} [{b}, {s}], {CP_TP} row shards "
+            f"on the card: rel L2 against the unsplit layer {rel} (bar {bar}); flash launches "
+            f"{launches}")
+        out[name] = dict(rel_l2=rel, bar=bar, launches=launches)
+    out["launches"] = {"flash_attention": sum(v["launches"] for v in out.values())}
+    return out
+
+
 def meta_phase(torch, ops) -> dict:
     """Phase 17: the meta passes. (a) the expert-parallel MoE branch, (b) a
     prefill through it, (c) the meta pass's count against card steps,
     (d) the dry-run's CLI, in a process of its own beside (a)-(c) (killed
-    if the phase fails).  Every kernel launch of (b) and (c) counted."""
+    if the phase fails), (e) the per-device count on meta and card
+    shards, (f) an attention layer's row shards on the card.  Every
+    kernel launch of (b), (c), (e) and (f) counted."""
     import tempfile
 
     timer = DeviceTimer(torch)
@@ -5091,6 +5248,8 @@ def meta_phase(torch, ops) -> dict:
             out["sharded"] = meta_sharded(torch, ops)
             for k, n in out["sharded"]["launches"].items():
                 launches[k] += n
+            out["context_parallel"] = cp_layer(torch, ops)
+            launches["flash_attention"] += out["context_parallel"]["launches"]["flash_attention"]
             out["dryrun"] = dryrun_finish(proc, t0, tmp)
         finally:
             if proc.poll() is None:

@@ -26,8 +26,10 @@ On DTensors (the per-device dry-run) the two LM operators run on each
 device's shards by the sharding rules :func:`_flash_sharding` and
 :func:`_ssd_sharding` give: split on the batch and on the (kv-)heads, or
 on the SSM heads, a shard's kernel computes its block of the output, and
-any other placement is first redistributed to one of those.  A shard is
-charged by the same FLOP formula at its own shape.  ``des_place`` is a
+any other placement is first redistributed to one of those.  A flash
+call split on its query rows never reaches the rule: a shard's keys
+depend on its coordinate, so ``models.attention`` runs it per shard.  A
+shard is charged by the same FLOP formula at its own shape.  ``des_place`` is a
 ``torch.library`` operator too (``CPU`` and ``CUDA`` kernels, no
 ``Meta`` one), charged by :func:`des_place_ops` (its operations, from
 the call's attempts) beside its operand and result bytes: one op, on the
@@ -393,7 +395,9 @@ def _flash_sharding(q, k, v, causal, scale, return_lse):
     placements a mesh axis.  Replicated; split on the batch; split on the
     heads where every mesh axis divides the kv heads (a query head's kv
     head then lies on its shard).  Never on a sequence: a row's keys span
-    it."""
+    it, and a query-row shard's causal prefix depends on its coordinate,
+    which a rule's local call cannot carry (``models.attention`` runs
+    that split per shard, ``flash_rows``)."""
     from torch.distributed.tensor import Replicate, Shard
 
     rep = Replicate()

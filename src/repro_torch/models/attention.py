@@ -16,10 +16,20 @@ chunk, recomputing each chunk's scores instead of keeping them.
 
 The JAX package's sharding constraints (``activation``) stand at their
 counterparts: moving nothing on plain tensors, they place the DTensors of
-the per-device dry-run.  The flash kernel has no context-parallel form,
-so where the mesh's ``model`` axis does not divide the kv heads its query
-takes no ``attn_q_seq`` constraint (the JAX package's scan splits the
-query rows there; the kernel's rule runs the heads replicated).
+the per-device dry-run.  Where the mesh's ``model`` axis divides the kv
+heads, the flash call splits on them (the operator's DTensor rule).
+Where it does not, the query rows split over ``model`` (the JAX
+package's ``attn_q_seq``, its context-parallel fallback) and K and V stay
+whole there: shard ``r`` of ``tp`` holds the rows ``[r m, (r + 1) m)``,
+``m = Sq / tp``, contiguous as XLA splits JAX's scan, and attends the
+causal prefix of the keys, ``[0, (r + 1) m + Skv - Sq)`` (all of them
+without the mask), so the kernel's bottom-right diagonal falls on the
+shard's own rows with no offset argument (:func:`flash_rows`,
+:func:`flash_rows_backward`).  Each device runs its shard through
+``sharding.on_shards``: a shard's keys depend on its coordinate, which a
+DTensor sharding rule cannot carry.  Where ``model`` does not divide
+``Sq`` (or a causal call has fewer keys than queries), the split drops,
+as JAX's ``logical_to_spec`` drops it, and the call runs replicated.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.parallel.sharding import (
@@ -80,11 +91,16 @@ def chunked_attention(
     if kv_len is None:
         if q_axes[2] is not None:
             q = activation(q, "batch", None, "kv_heads", None)
+        elif not causal or t >= s:
+            # the query rows over 'model', K and V whole there
+            q = activation(q, "batch", "attn_q_seq", None, None)
+            k = activation(k, "batch", None, "kv_heads", None)
+            v = activation(v, "batch", None, "kv_heads", None)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
             out = FlashAttention.apply(qt, kt, vt, causal, scale, kv_chunk)
         else:
-            out = kops.flash_attention(qt, kt, vt, causal=causal, scale=scale)
+            out = flash_forward(qt, kt, vt, causal, scale, False)[0]
         return out.transpose(1, 2)
 
     qg = activation((q * scale).reshape(b, s, hkv, g, d), *q_axes)
@@ -98,23 +114,123 @@ def chunked_attention(
             .to(q.dtype))
 
 
+def query_seq_axis(hkv: int) -> str:
+    """The logical axis of an attention's query rows: ``attn_q_seq`` where
+    the ambient mesh's ``model`` axis does not divide the kv heads (the
+    rows then split over it, module docstring), else ``seq``."""
+    return _axes(hkv)[0][1] or "seq"
+
+
+def _prefix(m: int, skv: int, r: int, tp: int, causal: bool) -> int:
+    """The keys shard ``r`` of ``tp`` query-row shards of ``m`` rows
+    attends: the causal prefix ``(r + 1) m + Skv - Sq`` (``Sq = tp m``),
+    or all ``Skv`` without the mask."""
+    return (r + 1) * m + skv - tp * m if causal else skv
+
+
+def flash_rows(q: Tensor, k: Tensor, v: Tensor, r: int, tp: int, *, causal: bool,
+               scale: float, return_lse: bool = False
+               ) -> Tensor | tuple[Tensor, Tensor]:
+    """Shard ``r`` of a flash call split into ``tp`` blocks of query rows:
+    q ``[B, Hq, m, D]`` the rows ``[r m, (r + 1) m)`` of a call of ``tp m``
+    rows, k/v ``[B, Hkv, Skv, D]`` whole.  The kernel (its plain version
+    on a CPU tensor) on the keys the rows attend (:func:`_prefix`): its
+    diagonal, bottom-right aligned, falls on the shard's rows.  The
+    output (and lse) are those rows of the unsplit call's."""
+    n = _prefix(q.shape[2], k.shape[2], r, tp, causal)
+    return kops.flash_attention(q, k[:, :, :n], v[:, :, :n], causal=causal, scale=scale,
+                                return_lse=return_lse)
+
+
+def flash_rows_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
+                        dout: Tensor, r: int, tp: int, *, causal: bool, scale: float,
+                        kv_chunk: int = 1024) -> tuple[Tensor, Tensor, Tensor]:
+    """The gradient of :func:`flash_rows`: :func:`flash_backward` over the
+    shard's keys, ``dq`` its rows', ``dk``/``dv`` of all ``Skv`` keys,
+    zero past the prefix.  ``dq`` of the ``tp`` shards put together, and
+    their ``dk``/``dv`` summed, are the unsplit call's."""
+    skv = k.shape[2]
+    n = _prefix(q.shape[2], skv, r, tp, causal)
+    dq, dk, dv = flash_backward(q, k[:, :, :n], v[:, :, :n], out, lse, dout,
+                                causal=causal, scale=scale, kv_chunk=kv_chunk)
+    if n < skv:
+        dk, dv = F.pad(dk, (0, 0, 0, skv - n)), F.pad(dv, (0, 0, 0, skv - n))
+    return dq, dk, dv
+
+
+def _row_split(q: Tensor) -> tuple[int, int, int] | None:
+    """``(mesh dim, shard, shards)`` of DTensor ``q [B, H, S, D]`` split
+    on its query rows, or None.  The shard is this rank's coordinate on
+    that mesh dim, but in the dry-run's ``fake`` group, whose one rank
+    stands for every device, the last: it attends the most keys, and a
+    step waits for its slowest device."""
+    if not splits(q, 2):
+        return None
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    dm = q.device_mesh
+    dim = next(i for i, p in enumerate(q.placements) if isinstance(p, Shard) and p.dim == 2)
+    tp = dm.size(dim)
+    if dist.get_backend(dm.get_group(dim)) == "fake":
+        return dim, tp - 1, tp
+    return dim, dm.get_local_rank(dim), tp
+
+
+def _row_placements(q: Tensor, k: Tensor, dim: int) -> tuple[list, list]:
+    """The placements a row-split flash call's operands take: q (out,
+    lse) split on the rows over mesh dim ``dim``, k and v whole there;
+    on every other mesh dim as the operator's rule places them."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = kernel_placements(q, 1, k.shape[1])
+    rows, kv = list(pl), list(pl)
+    rows[dim], kv[dim] = Shard(2), Replicate()
+    return rows, kv
+
+
+def flash_forward(q: Tensor, k: Tensor, v: Tensor, causal: bool, scale: float,
+                  return_lse: bool) -> tuple[Tensor, ...]:
+    """``ops.flash_attention`` on the kernel's layout, ``(out, lse)`` (the
+    lse only with ``return_lse``).  A DTensor q split on its query rows
+    runs :func:`flash_rows` on each device's shards (module docstring)."""
+    split = _row_split(q)
+    if split is None:
+        res = kops.flash_attention(q, k, v, causal=causal, scale=scale,
+                                   return_lse=return_lse)
+        return res if return_lse else (res,)
+    dim, r, tp = split
+    rows, kv = _row_placements(q, k, dim)
+    b, hq, sq, _ = q.shape
+
+    def shard(q_, k_, v_):
+        res = flash_rows(q_, k_, v_, r, tp, causal=causal, scale=scale,
+                         return_lse=return_lse)
+        return res if return_lse else (res,)
+
+    outs = [(rows, torch.Size((b, hq, sq, v.shape[-1])))]
+    if return_lse:
+        outs.append((rows, torch.Size((b, hq, sq))))
+    return on_shards(shard, [q, k, v], [rows, kv, kv], outs)
+
+
 class FlashAttention(torch.autograd.Function):
     """Flash attention on the kernel's ``[B, H, S, D]`` layout, with a
     gradient: ``apply(q, k, v, causal, scale, kv_chunk)``.
 
-    ``forward`` is ``ops.flash_attention(..., return_lse=True)`` (the
-    kernel on a CUDA tensor, its plain version on a CPU one) and keeps q,
-    k, v, the output and the lse.  ``backward`` is :func:`flash_backward`,
-    under the forward's ``ShardingCtx`` (the autograd engine's thread for
-    a card has none bound); on DTensors on each device's shards, placed as
-    the forward's sharding rule places them (its views would split dims
-    no shard can view).
+    ``forward`` is :func:`flash_forward` with the lse (the kernel on a
+    CUDA tensor, its plain version on a CPU one) and keeps q, k, v, the
+    output and the lse.  ``backward`` is :func:`flash_backward`, under the
+    forward's ``ShardingCtx`` (the autograd engine's thread for a card has
+    none bound); on DTensors on each device's shards, placed as the
+    forward placed them (its views would split dims no shard can view):
+    on a query-row split :func:`flash_rows_backward`, whose ``dk``/``dv``
+    are partial sums over the rows' mesh dim.
     """
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, kv_chunk):
-        out, lse = kops.flash_attention(q, k, v, causal=causal, scale=scale,
-                                        return_lse=True)
+        out, lse = flash_forward(q, k, v, causal, scale, True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale, ctx.kv_chunk = causal, scale, kv_chunk
         ctx.sharding = current_ctx()
@@ -123,14 +239,26 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = functools.partial(flash_backward, causal=ctx.causal, scale=ctx.scale,
-                                kv_chunk=ctx.kv_chunk)
-        if is_dtensor(q):       # on each device's shards, as the forward's rule runs it
-            pl = kernel_placements(q, 1, k.shape[1])
-            return on_shards(bwd, [q, k, v, out, lse, dout], [pl] * 6,
-                             [(pl, q.shape), (pl, k.shape), (pl, v.shape)]) + (None,) * 3
+        kw = dict(causal=ctx.causal, scale=ctx.scale, kv_chunk=ctx.kv_chunk)
+        if is_dtensor(q):       # on each device's shards, as the forward ran them
+            split = _row_split(q)
+            if split is None:
+                pl = kernel_placements(q, 1, k.shape[1])
+                fn, ins, outs = functools.partial(flash_backward, **kw), [pl] * 6, [pl] * 3
+            else:
+                from torch.distributed.tensor import Partial
+
+                dim, r, tp = split
+                rows, kv = _row_placements(q, k, dim)
+                part = list(kv)
+                part[dim] = Partial()
+                fn = functools.partial(flash_rows_backward, r=r, tp=tp, **kw)
+                ins, outs = [rows, kv, kv, rows, rows, rows], [rows, part, part]
+            grads = on_shards(fn, [q, k, v, out, lse, dout], ins,
+                              list(zip(outs, (q.shape, k.shape, v.shape))))
+            return grads + (None,) * 3
         with use_ctx(ctx.sharding):
-            dq, dk, dv = bwd(q, k, v, out, lse, dout)
+            dq, dk, dv = flash_backward(q, k, v, out, lse, dout, **kw)
         return dq, dk, dv, None, None, None
 
 

@@ -10,10 +10,10 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import chunked_attention, decode_attention
+from repro_torch.models.attention import chunked_attention, decode_attention, query_seq_axis
 from repro_torch.models.common import ParamSpec, dense, rms_norm, swiglu
 from repro_torch.models.rope import apply_mrope, apply_rope
-from repro_torch.parallel.sharding import activation, merge, write_token
+from repro_torch.parallel.sharding import activation, matmul, merge, write_token
 
 Tensor = torch.Tensor
 
@@ -63,15 +63,22 @@ def _rope_q_k(cfg: ModelConfig, q: Tensor, k: Tensor, positions: Tensor
 def _out_proj(out: Tensor, wo: Tensor, dtype: torch.dtype) -> Tensor:
     """``einsum("bshd,hdq->bsq")``: the heads flattened into one product."""
     b, s, h, hd = out.shape
-    return torch.matmul(merge(out, (b, s, h * hd), 2),
-                        merge(wo, (h * hd, -1), 0)).to(dtype)
+    return matmul(merge(out, (b, s, h * hd), 2), merge(wo, (h * hd, -1), 0)).to(dtype)
 
 
 def gqa_attention(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,
                   positions: Tensor, *, causal: bool = True,
                   kv_chunk: int = 1024, prefix: str = "") -> Tensor:
+    """Full-sequence GQA attention, ``[B, S, d]``.  Where the attention
+    splits its query rows over ``model`` (``attention.query_seq_axis``),
+    the projections follow, as XLA's do: q, k and v are computed on row
+    shards, k and v gathered for the flash call, ``wo`` applied on the
+    row shards and its output gathered."""
+    seq = query_seq_axis(cfg.n_kv_heads)
+    if seq != "seq":
+        x = activation(x, "batch", seq, None)
     q = activation(dense(x, p[f"{prefix}wq"]),
-                   "batch", "seq", "heads", None)   # [B,S,H,hd]
+                   "batch", seq, "heads", None)     # [B,S,H,hd]
     k = activation(dense(x, p[f"{prefix}wk"]),
                    "batch", "seq", "kv_heads", None)
     v = activation(dense(x, p[f"{prefix}wv"]),
@@ -81,7 +88,8 @@ def gqa_attention(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,
         k = rms_norm(k, p[f"{prefix}k_norm"], cfg.norm_eps)
     q, k = _rope_q_k(cfg, q, k, positions)
     out = chunked_attention(q, k, v, causal=causal, kv_chunk=kv_chunk)
-    return _out_proj(out, p[f"{prefix}wo"], x.dtype)
+    out = _out_proj(out, p[f"{prefix}wo"], x.dtype)
+    return out if seq == "seq" else activation(out, "batch", "seq", None)
 
 
 def gqa_decode(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,

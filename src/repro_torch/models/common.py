@@ -26,6 +26,7 @@ from repro_torch.parallel.sharding import (
     NamedSharding,
     logical_to_spec,
     logsumexp_last,
+    matmul,
     merge,
     pick_last,
     unsplit,
@@ -149,7 +150,7 @@ def dense(x: Tensor, w: Tensor) -> Tensor:
     split-K partial sums).
     """
     out_shape = w.shape[1:]
-    y = torch.matmul(x, merge(w, (w.shape[0], -1), 1))
+    y = matmul(x, merge(w, (w.shape[0], -1), 1))
     if len(out_shape) > 1:
         y = unsplit(y, -1, out_shape[0])
     return y.reshape(*x.shape[:-1], *out_shape).to(x.dtype)

@@ -63,6 +63,7 @@ from repro_torch.parallel.sharding import (
     activation,
     current_ctx,
     embed_lookup,
+    logical_to_spec,
     use_ctx,
     write_rows,
 )
@@ -377,15 +378,31 @@ def chunked_ce(cfg: ModelConfig, x: Tensor, w: Tensor, labels: Tensor
     # on DTensors the logits then come out split on the batch, not as a
     # partial sum over 'data' (a moves-nothing constraint on a plain tensor)
     w = activation(w, None, "vocab")
+    # where 'model' does not divide the vocabulary, a chunk's rows split
+    # over it instead (the one logical axis of rows on 'model'), so no two
+    # devices compute the same logits (XLA leaves most of them replicated
+    # there); the sums then reduce over 'model'
+    rows = None if _vocab_splits(w) else "attn_q_seq"
     ce_chunk = _remat(lambda xc, yc: _ce_sums(dense(xc, w), yc), cfg)
     loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     tok = torch.zeros((), dtype=torch.int32, device=x.device)
     for i in range(n):
         sl = slice(i * chunk, (i + 1) * chunk)
-        nll_sum, cnt = ce_chunk(activation(x[:, sl], "batch", None, None),
-                                activation(labels[:, sl], "batch", None))
+        nll_sum, cnt = ce_chunk(activation(x[:, sl], "batch", rows, None),
+                                activation(labels[:, sl], "batch", rows))
         loss_sum, tok = loss_sum + nll_sum, tok + cnt
     return loss_sum / tok.clamp(min=1), tok
+
+
+def _vocab_splits(w: Tensor) -> bool:
+    """Whether the unembedding ``w [d, V]`` is split on its vocabulary
+    under the ambient mesh (or there is no ``model`` axis to split
+    anything over)."""
+    mesh = current_ctx().mesh
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return True
+    # a spec's trailing replicated dims are trimmed: two entries split V
+    return len(logical_to_spec((None, "vocab"), tuple(w.shape), mesh, current_ctx().mode)) > 1
 
 
 def loss_fn(cfg: ModelConfig, params: dict[str, Any], batch,

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import NEG_INF, chunked_attention
+from repro_torch.models.attention import NEG_INF, chunked_attention, query_seq_axis
 from repro_torch.models.blocks import _out_proj
 from repro_torch.models.common import ParamSpec, dense, rms_norm
 from repro_torch.models.rope import apply_rope
@@ -45,15 +45,16 @@ def mla_specs(cfg: ModelConfig, L: int) -> dict[str, ParamSpec]:
 
 
 def _queries(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,
-             positions: Tensor) -> tuple[Tensor, Tensor]:
-    """-> (q_nope [B,S,H,dn], q_rope [B,S,H,dr])."""
+             positions: Tensor, seq: str = "seq") -> tuple[Tensor, Tensor]:
+    """-> (q_nope [B,S,H,dn], q_rope [B,S,H,dr]), the rows placed on the
+    logical axis ``seq``."""
     dn = cfg.qk_nope_dim
     if cfg.q_lora:
         ql = rms_norm(dense(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
         q = dense(ql, p["wq_b"])
     else:
         q = dense(x, p["wq"])
-    q = activation(q, "batch", "seq", "heads", None)
+    q = activation(q, "batch", seq, "heads", None)
     qn, qr = q[..., :dn], q[..., dn:]
     return qn, apply_rope(qr, positions, cfg.rope_theta)
 
@@ -70,20 +71,30 @@ def _latent_kv(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,
 
 def mla_prefill(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,
                 positions: Tensor, kv_chunk: int = 1024) -> Tensor:
-    """Full-sequence MLA via latent expansion + the flash kernel."""
+    """Full-sequence MLA via latent expansion + the flash kernel.  Where
+    the attention splits its query rows over ``model`` (its kv heads are
+    its heads), the projections follow, as in ``blocks.gqa_attention``:
+    the queries, the latent and its expansion on row shards, the keys and
+    values gathered, ``wo`` on the row shards and its output gathered."""
     b, s, _ = x.shape
     h = cfg.n_heads
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
-    qn, qr = _queries(p, cfg, x, positions)
+    seq = query_seq_axis(h)
+    if seq != "seq":
+        x = activation(x, "batch", seq, None)
+    qn, qr = _queries(p, cfg, x, positions, seq)
     c_kv, k_rope = _latent_kv(p, cfg, x, positions)
     kv = activation(dense(c_kv, p["wkv_b"]),
                     "batch", "seq", "heads", None)           # [B,S,H,dn+dv]
+    if seq != "seq":
+        k_rope = activation(k_rope, "batch", "seq", None)
     kn, v = kv[..., :dn], kv[..., dn:]
     k = torch.cat([kn, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
     q = torch.cat([qn, qr], dim=-1)
     out = chunked_attention(q, k, v, causal=True, kv_chunk=kv_chunk,
                             scale=(dn + dr) ** -0.5)
-    return _out_proj(out, p["wo"], x.dtype)
+    out = _out_proj(out, p["wo"], x.dtype)
+    return out if seq == "seq" else activation(out, "batch", "seq", None)
 
 
 def mla_decode(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,

@@ -621,6 +621,26 @@ def channelwise(fn: Callable, x: Tensor, *params: Tensor) -> Tensor:
                               shape=x.shape, stride=x.stride())
 
 
+def matmul(x: Tensor, w: Tensor) -> Tensor:
+    """``torch.matmul(x, w)`` for ``x [B, S, K]`` and ``w [K, N]``.  On a
+    DTensor ``x`` split on both its batch and its rows (an attention's
+    query rows over ``model``), on each device's shards: ``w`` gathered
+    whole, the output placed as ``x``, ``w``'s gradient a partial sum over
+    the axes that split ``x``.  ``torch.matmul`` folds B and S into one
+    dim, which DTensor cannot view while both are split."""
+    if not splits(x, 0, 1):
+        return torch.matmul(x, w)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    dm = x.device_mesh
+    wl = w.redistribute(dm, [Replicate()] * dm.ndim).to_local(
+        grad_placements=[Partial() if p.is_shard() else Replicate() for p in x.placements])
+    y = torch.matmul(x.to_local(), wl)
+    shape = torch.Size((*x.shape[:-1], w.shape[-1]))
+    return DTensor.from_local(y, dm, x.placements, run_check=False, shape=shape,
+                              stride=contiguous_strides(shape))
+
+
 def kernel_placements(x: Tensor, heads: int, groups: int = 0) -> list:
     """The placements a kernel operator's operands take on each mesh axis
     (its sharding rule's strategies, ``kernels/ops.py``), chosen from

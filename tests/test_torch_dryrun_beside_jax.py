@@ -110,3 +110,112 @@ def test_per_device_counts_beside_jax(jax_cells):
           "JAX collectives | port wire B | JAX wire B |")
     print("| --- | --- | --- | --- | --- | --- | --- | --- |")
     print("\n".join(rows))
+
+
+#: the probe's cells: SmolLM-360M at full width, 2 layers, ``[2, 2048]``,
+#: on the same mesh; its 5 kv heads do not split over ``model`` 4, so the
+#: attention splits its query rows there (``models.attention``)
+FULL_CELLS = [("smollm-360m", k) for k in ("prefill", "train")]
+FULL_B, FULL_S = 2, 2048
+#: the prefill's port / JAX per-device FLOPs (1.821 before the row split)
+FULL_PREFILL_RATIO = (0.93, 1.00)
+
+JAX_FULL_CELLS = (JAX_CELLS.replace("reduce_config(get_config(arch), 8)", "get_config(arch)")
+                  .replace("ShapeSpec(kind, kind, 256, 8)",
+                           f"ShapeSpec(kind, kind, {FULL_S}, {FULL_B})")
+                  .replace(repr(CELLS), repr(FULL_CELLS)))
+
+
+@pytest.fixture(scope="module")
+def jax_full_cells():
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"), "JAX_PLATFORMS": "cpu"}
+    run = subprocess.run([sys.executable, "-c", JAX_FULL_CELLS], capture_output=True,
+                         text=True, timeout=600, env=env, cwd=REPO)
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("JSON")]
+    assert lines, run.stdout + run.stderr
+    return json.loads(lines[-1][4:])
+
+
+def test_full_width_smollm_beside_jax(jax_full_cells):
+    """The probe's prefill: port / JAX per-device FLOPs in
+    ``FULL_PREFILL_RATIO``.  Per device (batch 1 of 2, the rows of a
+    512-row shard), both count the MLP and the q/k/v/o projections on row
+    shards alike (2.015625216e10); the flash call is the rest.  The port
+    charges the last shard's causal pairs, ``512 x 513 / 2 + 512 x 1536 =
+    917,760`` a (head, layer) at ``2 (64 + 64)`` FLOPs each (7.0483968e9
+    over 15 heads and 2 layers); JAX's CPU HLO charges its scan's full
+    block, ``512 x 2048`` pairs (8.05306368e9): the difference is the
+    block's masked pairs exactly (C.4's causal-pairs divergence), 0.964.
+    The train cell is recorded beside it with no bar (2.577 before the
+    split); run with ``-s`` to print both rows."""
+    from repro_torch.kernels.ops import causal_pairs
+
+    rows = []
+    try:
+        for arch, kind in FULL_CELLS:
+            cfg = dataclasses.replace(get_config(arch), num_layers=2)
+            out = dryrun.dryrun_cell(cfg, shapes.ShapeSpec(kind, kind, FULL_S, FULL_B), False,
+                                     verbose=False,
+                                     mesh=sharding.abstract_mesh_compat(MESH, ("data", "model")))
+            c, j = out["cost"], jax_full_cells[f"{arch} {kind}"]
+            ratio = c["flops_per_device"] / j["flops_per_device"]
+            if kind == "prefill":
+                lo, hi = FULL_PREFILL_RATIO
+                assert lo <= ratio <= hi, ratio
+                m = FULL_S // MESH[1]
+                masked = m * FULL_S - causal_pairs(m, FULL_S, True)
+                assert j["flops_per_device"] - c["flops_per_device"] == \
+                    cfg.num_layers * cfg.n_heads * 2 * (2 * cfg.head_dim) * masked
+            rows.append(f"| {arch} {kind} full [{FULL_B}, {FULL_S}] | "
+                        f"{c['flops_per_device']:.6g} | {j['flops_per_device']:.6g} | "
+                        f"{ratio:.3f} | {c['collective_counts']} | {j['collective_counts']} | "
+                        f"{c['collective_wire_bytes_per_device']:.6g} | "
+                        f"{j['collective_wire_bytes_per_device']:.6g} |")
+    finally:
+        sharding.close_fake_world()
+    print("\n" + "\n".join(rows))
+
+
+#: reduced Mamba2-370M's train cell at its vocabulary (6285, which 4 does
+#: not divide) and at 6288 (which it does)
+VOCAB_CELLS = (6285, 6288)
+
+JAX_VOCAB_CELLS = (JAX_CELLS.replace(f"for arch, kind in {CELLS!r}:",
+                                     f"for vocab in {VOCAB_CELLS!r}:\n"
+                                     "    arch, kind = 'mamba2-370m', 'train'")
+                   .replace("num_layers=2)", "num_layers=2, vocab=vocab)")
+                   .replace('out[f"{arch} {kind}"]', 'out[f"{vocab} {kind}"]'))
+
+
+@pytest.fixture(scope="module")
+def jax_vocab_cells():
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"), "JAX_PLATFORMS": "cpu"}
+    run = subprocess.run([sys.executable, "-c", JAX_VOCAB_CELLS], capture_output=True,
+                         text=True, timeout=600, env=env, cwd=REPO)
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("JSON")]
+    assert lines, run.stdout + run.stderr
+    return json.loads(lines[-1][4:])
+
+
+def test_ce_rows_split_where_model_does_not_divide_the_vocabulary(jax_vocab_cells):
+    """Reduced Mamba2-370M's train cell: at a vocabulary ``model`` (4)
+    divides (6288) the port's per-device count is JAX's within 5 %; at its
+    own (6285) the port splits the CE's rows over ``model`` and counts the
+    same as at 6288 within 0.1 %, where XLA keeps most of the CE
+    replicated (JAX's count recorded beside it; run with ``-s``)."""
+    port = {}
+    try:
+        for vocab in VOCAB_CELLS:
+            cfg = dataclasses.replace(reduce_config(get_config("mamba2-370m"), 8),
+                                      num_layers=2, vocab=vocab)
+            out = dryrun.dryrun_cell(cfg, shapes.ShapeSpec("train", "train", 256, 8), False,
+                                     verbose=False,
+                                     mesh=sharding.abstract_mesh_compat(MESH, ("data", "model")))
+            port[vocab] = out["cost"]["flops_per_device"]
+    finally:
+        sharding.close_fake_world()
+    jax = {v: jax_vocab_cells[f"{v} train"]["flops_per_device"] for v in VOCAB_CELLS}
+    assert abs(port[6288] / jax[6288] - 1) <= 0.05, (port, jax)
+    assert abs(port[6285] / port[6288] - 1) <= 1e-3, port
+    print("\n" + "\n".join(f"| mamba2-370m train, vocabulary {v} | {port[v]:.6g} | {jax[v]:.6g} | "
+                           f"{port[v] / jax[v]:.3f} |" for v in VOCAB_CELLS))
