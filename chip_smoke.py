@@ -32,8 +32,15 @@ Phases (each passes or the script exits non-zero without a result line):
    13's runs give it, and phase 14's: each family's prefill attention in
    bf16 (Seamless's non-causal encoder and cross-attention), the QK/V
    head-dim pairs (80, 80), (96, 64) and (192, 128) in f32 at their
-   prefill shapes and ragged on both routes, phase 16's training shapes
-   (bf16 at full width, f32 at [1, 128], bf16 at ``--reduce 32``), each against the plain
+   prefill shapes and ragged on both routes, the padded pairs (no
+   instantiation of their own, ``PADDED_FLASH_PAIRS``: the reduced MLA and
+   StableLM configs' (16, 8), (20, 20), (24, 16), (40, 40), (48, 32), odd
+   (36, 20) and (17, 9), and (256, 256)) on both routes, causal with
+   Skv > Sq and non-causal, phase 16's training shapes
+   (bf16 at full width, f32 at [1, 128], bf16 at ``--reduce 32`` and
+   ``--reduce 8``) and phase 20's (each reduced config's prefill on the
+   serving prompt, bf16; the reduced MLA configs' f32 prefill), each
+   against the plain
    version in f32 at a bar set by the route's rounding (``FLASH_CASES``),
    and there with ``return_lse=True``: the same output bit for bit, the
    rows' lse against the plain version's (``LSE_RTOL``, ``LSE_ATOL``);
@@ -108,7 +115,9 @@ Phases (each passes or the script exits non-zero without a result line):
    block's barrier round trip, whichever is smaller); and an empty kernel
    (``torch.cuda._sleep(0)``, one thread), the launch floor of the same
    timer; flash attention also at MiniCPM3-4B's and DeepSeek-V2-Lite's
-   prefill shapes (QK/V head dims 96/64 and 192/128); and the flash call
+   prefill shapes (QK/V head dims 96/64 and 192/128), at a padded pair,
+   MiniCPM3-4B's prefill at ``--reduce 2`` (48/32 on the (64, 64)
+   instantiation), and at that shape with the exact 64/64; and the flash call
    split into ``FLASH_ROWS_TP`` blocks of query rows as the port runs it
    where ``model`` does not divide the kv heads
    (``models.attention.flash_rows``: a shard's rows and the causal prefix
@@ -203,9 +212,12 @@ Phases (each passes or the script exits non-zero without a result line):
    gradient at full width and 2 layers, f32, [1, 128], card against CPU
    at phase 13's bars, MoE routing compared call by call (Command R+ at
    ``reduce_config(cfg, 4)``); (c) ``train.main`` at ``--reduce 32``
-   through a crash for Seamless, Qwen2-VL and Qwen1.5-MoE, bitwise equal
-   to an uninterrupted run; every flash shape (a)-(c) give the kernel is
-   one phase 3 checks;
+   through a crash for Seamless, Qwen2-VL, Qwen1.5-MoE and
+   DeepSeek-V2-Lite, bitwise equal to an uninterrupted run; (e)
+   ``train.main`` at ``--reduce 8 --steps 4`` for MiniCPM3-4B,
+   DeepSeek-V2-Lite and StableLM-3B (``FAMILY_REDUCED_TRAIN``), two flash
+   launches an attention call a step; every flash shape (a)-(e) give the
+   kernel is one phase 3 checks;
 17. (``meta_phase``, also before the timings) the meta passes: (a) the
    expert-parallel MoE branch at Qwen1.5-MoE-A2.7B's width (one layer, x
    [4, 2048, 2048] on grids that make the router's logits exact), over
@@ -258,7 +270,20 @@ Phases (each passes or the script exits non-zero without a result line):
    of ``analysis/roofline_torch.py`` at its default 2 days on the card,
    then its counts on the CPU: each phase's (placement, readout, total)
    FLOPs and bytes equal on the two, each card ``wall_s`` at least its
-   ``bound_s``, the ``des_place`` launches counted; its table logged.
+   ``bound_s``, the ``des_place`` launches counted; its table logged;
+20. (``reduced_phase``, also before the timings) the reduced configs: (a)
+   ``launch/serve.py``'s ``main`` at its defaults (``--reduce 8 --batch 4
+   --prompt-len 32 --gen 64``) for all ten archs, and MiniCPM3-4B at
+   ``--reduce 2`` and ``4``, DeepSeek-V2-Lite at ``4``, StableLM-3B at
+   ``2`` and ``4`` (``REDUCED_SERVE``: with x8, every padded pair a
+   registered config gives the flash kernel): the tokens in range and no
+   flash launch (the launcher steps the prompt through the decode step),
+   then the same config prefilled on ``[4, 32]`` tokens, exactly one flash
+   launch an attention call and one ``ssd_chunk`` a Mamba layer; (b)
+   MiniCPM3-4B x8 and DeepSeek-V2-Lite x4 at 2 layers, f32, prefill
+   logits, 8 greedy serve steps and MoE ids on the card against the CPU at
+   phase 14 (c)'s bars (``REDUCED_CVC``); every flash shape (a) and (b)
+   give the kernel must be one of ``FLASH_CASES``, which phase 3 checks.
 
 The seconds each phase took are logged after the kernel timings
 (``phase seconds``).  The second-to-last line of standard output is the ``kernels`` JSON record,
@@ -344,6 +369,12 @@ PREFILL_FLASH_DEEPSEEK = (PREFILL_B, 16, 16, PREFILL_S, PREFILL_S, 192, 128)
 PREFILL_FLASH_QWEN2VL = (PREFILL_B, 28, 4, PREFILL_S, PREFILL_S, 128, 128)
 PREFILL_FLASH_QWEN_MOE = (PREFILL_B, 16, 16, PREFILL_S, PREFILL_S, 128, 128)
 PREFILL_FLASH_COMMAND_R = (PREFILL_B, 96, 8, PREFILL_S, PREFILL_S, 128, 128)
+#: MiniCPM3-4B's prefill at ``--reduce 2``: QK 48 / V 32, a padded pair
+#: (run on the (64, 64) instantiation), timed in phase 10
+PREFILL_FLASH_MINICPM3_X2 = (PREFILL_B, 20, 20, PREFILL_S, PREFILL_S, 48, 32)
+#: the padded (QK, V) head-dim pairs phase 3 checks on both routes
+PADDED_FLASH_PAIRS = ((16, 8), (20, 20), (24, 16), (40, 40), (48, 32), (36, 20),
+                      (17, 9), (256, 256))
 #: phase 10's row-split flash check: the blocks of query rows, and the
 #: shapes (SmolLM-360M's prefill, MiniCPM3-4B's MLA pair)
 FLASH_ROWS_TP = 4
@@ -443,6 +474,42 @@ FLASH_CASES = [
     (4, 1, 1, 64, 64, 16, 16, False, True, 1e-2, 1.5e-2),
     # phase 17 (b): Qwen1.5-MoE's prefill in f32
     (*PREFILL_FLASH_QWEN_MOE, True, False, 2e-5, 2e-4),
+    # the padded pairs (no instantiation of their own; the kernel runs the
+    # one of least Dp + Dvp, its padding zero-filled): the reduced MLA and
+    # StableLM configs' (16, 8), (20, 20), (24, 16), (40, 40), (48, 32),
+    # two odd ones, (36, 20) and (17, 9) (a copy width of 4 and of 1, an odd
+    # V store), and (256, 256), the largest, on both routes, causal, GQA,
+    # Skv > Sq; then non-causal in bf16
+    *((2, 4, 2, 100, 257, d, dv, True, bf16, *bar)
+      for d, dv in PADDED_FLASH_PAIRS
+      for bf16, bar in ((True, (1e-2, 1.5e-2)), (False, (2e-5, 2e-4)))),
+    (2, 4, 1, 64, 130, 20, 20, False, True, 1e-2, 1.5e-2),
+    (2, 4, 1, 64, 130, 17, 9, False, True, 1e-2, 1.5e-2),
+    (2, 4, 1, 64, 130, 256, 256, False, True, 1e-2, 1.5e-2),
+    # phase 10's padded prefill (MiniCPM3-4B at --reduce 2), and the
+    # padded shapes phase 16 (e) and (c) give the kernel: train.main at
+    # --reduce 8 (MiniCPM3-4B, DeepSeek-V2-Lite, StableLM-3B) and
+    # DeepSeek-V2-Lite's restart at --reduce 32
+    (*PREFILL_FLASH_MINICPM3_X2, True, True, 1e-2, 1.5e-2),
+    (8, 5, 5, 256, 256, 16, 8, True, True, 1e-2, 1.5e-2),
+    (8, 2, 2, 256, 256, 24, 16, True, True, 1e-2, 1.5e-2),
+    (8, 4, 4, 256, 256, 16, 16, True, True, 1e-2, 1.5e-2),
+    (4, 1, 1, 64, 64, 16, 8, True, True, 1e-2, 1.5e-2),
+    # phase 20: (a) each reduced config's prefill on the serving launcher's
+    # [4, 32] prompt (REDUCED_SERVE: the ten archs at --reduce 8, then
+    # MiniCPM3-4B x2 and x4, DeepSeek-V2-Lite x4, StableLM-3B x2 and x4;
+    # Seamless x8's encoder over its 512 frames and the cross-attention to
+    # them), (b) REDUCED_CVC's f32 prefill at 2 layers on [2, 256]
+    *((*shape, True, True, 1e-2, 1.5e-2) for shape in (
+        (4, 1, 1, 32, 32, 16, 16), (4, 2, 2, 32, 32, 16, 16), (4, 2, 2, 32, 32, 24, 16),
+        (4, 5, 5, 32, 32, 16, 8), (4, 4, 4, 32, 32, 16, 16), (4, 3, 1, 32, 32, 16, 16),
+        (4, 12, 1, 32, 32, 16, 16), (4, 20, 20, 32, 32, 48, 32),
+        (4, 10, 10, 32, 32, 24, 16), (4, 4, 4, 32, 32, 48, 32),
+        (4, 16, 16, 32, 32, 40, 40), (4, 8, 8, 32, 32, 20, 20))),
+    (4, 2, 2, 512, 512, 16, 16, False, True, 1e-2, 1.5e-2),
+    (4, 2, 2, 32, 512, 16, 16, False, True, 1e-2, 1.5e-2),
+    (2, 5, 5, 256, 256, 16, 8, True, False, 2e-5, 2e-4),
+    (2, 4, 4, 256, 256, 48, 32, True, False, 2e-5, 2e-4),
 ]
 
 #: calib_mape_grid checks on random candidates, (B, T, H, C): the E2
@@ -1328,6 +1395,14 @@ def main() -> int:
         launches[k] += n
     phase_done("19 DES roofline")
 
+    # 20) the reduced configs at the serving launcher's defaults, the padded
+    # flash pairs among them, and the reduced MLA configs card vs CPU (before
+    # the kernel timings, so that their launches count)
+    details["reduced"] = reduced_phase(torch, np, ops)
+    for k, n in details["reduced"]["launches"].items():
+        launches[k] += n
+    phase_done("20 reduced configs")
+
     # 10) kernel times at the main paths' shapes (device time, queue kept full)
     timer = DeviceTimer(torch)
     kernels, shapes = [], {}
@@ -1487,6 +1562,14 @@ def main() -> int:
         time_flash(torch, timer, ref, _build, dev, *PREFILL_FLASH_MINICPM3)
     shapes["flash B=4 Hq=16 Hkv=16 S=2048 D=192 Dv=128 bf16 causal (DeepSeek-V2-Lite "
            "prefill)"] = time_flash(torch, timer, ref, _build, dev, *PREFILL_FLASH_DEEPSEEK)
+    # a padded pair: MiniCPM3-4B at --reduce 2 (QK 48 / V 32 on the (64, 64)
+    # instantiation), and the same shape at the exact (64, 64)
+    shapes["flash B=4 Hq=20 Hkv=20 S=2048 D=48 Dv=32 bf16 causal (MiniCPM3-4B x2 "
+           "prefill, padded to 64/64)"] = time_flash(torch, timer, ref, _build, dev,
+                                                     *PREFILL_FLASH_MINICPM3_X2)
+    shapes["flash B=4 Hq=20 Hkv=20 S=2048 D=64 Dv=64 bf16 causal (that shape at the "
+           "exact 64/64)"] = time_flash(torch, timer, ref, _build, dev,
+                                        *PREFILL_FLASH_MINICPM3_X2[:5], 64, 64)
     details["flash_rows"] = {str(shape): flash_rows_check(torch, np, timer, ops, ref, dev, *shape)
                              for shape in FLASH_ROWS_SHAPES}
     main = time_ssd(torch, timer, ref, _build, dev, *SSD_MAMBA2)
@@ -4268,8 +4351,9 @@ def route_agreement(torch, arch: str, where: str, card: list, cpu: list) -> dict
     return dict(decisions=n, near_ties=ties, near_tie_mismatches=mism)
 
 
-def family_card_vs_cpu(torch, np, arch: str) -> dict:
-    """Phase 14 (c): the arch at full width, cut to ``FAMILY_CVC["layers"]``,
+def family_card_vs_cpu(torch, np, arch: str, factor: int = 1) -> dict:
+    """Phase 14 (c): the arch at full width (or ``reduce_config(cfg,
+    factor)``, phase 20 (b)), cut to ``FAMILY_CVC["layers"]``,
     f32: prefill logits and greedy serve steps on the card against the CPU
     (TF32 off), on weights drawn on the card (seed 0, query and key
     projections rescaled, ``rescale_qk``) and copied to the host.  The VLM's
@@ -4277,8 +4361,10 @@ def family_card_vs_cpu(torch, np, arch: str) -> dict:
     draws them; the enc-dec's serve state takes its encoder's cross K/V
     (``encdec.cross_kv``); MoE routing compared call by call first
     (``route_agreement``)."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.steps import (
         make_prefill_step, make_serve_step, param_specs_for, state_specs_for)
+    from repro_torch.launch.train import reduce_config
     from repro_torch.models import encdec
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.common import init_params
@@ -4286,6 +4372,9 @@ def family_card_vs_cpu(torch, np, arch: str) -> dict:
     c = FAMILY_CVC
     b, s, steps, tol = c["b"], c["s"], c["steps"], c["tol"]
     cfg = lm_config(arch, num_layers=c["layers"], dtype="float32")
+    if factor > 1:
+        cfg = dataclasses.replace(reduce_config(get_config(arch), factor),
+                                  num_layers=c["layers"], dtype="float32")
     t0 = time.time()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = {"card": rescale_qk(cfg, init_params(param_specs_for(cfg), gen,
@@ -4340,7 +4429,8 @@ def family_card_vs_cpu(torch, np, arch: str) -> dict:
     routing = "; ".join(f"{k} {v['decisions']} decisions, {v['near_ties']} near ties, "
                         f"{v['near_tie_mismatches']} differ"
                         for k, v in out.items() if k.endswith("routing"))
-    log(f"LM card vs CPU ({arch} width, {c['layers']} layers, f32, S={s}): prefill "
+    width = f"reduce_config(cfg, {factor})" if factor > 1 else "width"
+    log(f"LM card vs CPU ({arch} {width}, {c['layers']} layers, f32, S={s}): prefill "
         f"logits max |err| {err:.3g} (rtol and atol {tol}; bar used {used:.3f}), "
         f"{steps} greedy serve steps equal; CPU prefill {secs['cpu']:.1f} s, "
         f"{time.time() - t0:.1f} s in all" + (f"; routing: {routing}" if routing else ""))
@@ -4380,6 +4470,111 @@ def family_phase(torch, np, ops) -> dict:
     return out
 
 
+# -- phase 20: the reduced configs at the launchers' defaults -----------------------
+
+#: (a) ``launch/serve.main`` at its default cut, ``--reduce 8``, for every
+#: arch of the registry, then the reduced MLA and StableLM configs at the
+#: other factors whose head dims are padded pairs of the flash kernel:
+#: MiniCPM3-4B x2 (QK 48 / V 32) and x4 (24 / 16), DeepSeek-V2-Lite x4
+#: (48 / 32), StableLM-3B x2 (40 / 40) and x4 (20 / 20); (arch, factor)
+REDUCED_SERVE = (*((arch, 8) for arch in (
+    "smollm-360m", "mamba2-370m", "zamba2-1.2b", "qwen2-moe-a2.7b",
+    "deepseek-v2-lite-16b", "minicpm3-4b", "stablelm-3b", "qwen2-vl-7b",
+    "seamless-m4t-medium", "command-r-plus-104b")),
+    ("minicpm3-4b", 2), ("minicpm3-4b", 4), ("deepseek-v2-lite-16b", 4),
+    ("stablelm-3b", 2), ("stablelm-3b", 4))
+#: the serving launcher's own defaults besides ``--reduce``
+REDUCED_SERVE_ARGV = ["--batch", "4", "--prompt-len", "32", "--gen", "64",
+                      "--device", DEVICE]
+#: (b) card against CPU in f32 at ``FAMILY_CVC``'s depth and bars for the
+#: reduced MLA configs: arch -> reduction factor
+REDUCED_CVC = {"minicpm3-4b": 8, "deepseek-v2-lite-16b": 4}
+
+
+def reduced_prefill(torch, ops, arch: str, factor: int, b: int, s: int) -> dict:
+    """``make_prefill_step`` on ``reduce_config(arch, factor)`` in its own
+    dtype, seed 0, ``prefill_batch``'s ``[b, s]`` tokens (with the VLM's
+    patches and the enc-dec's frames): one call, exactly one flash launch
+    an attention call (``attention_calls``) and one ``ssd_chunk`` a Mamba
+    layer, finite logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, param_specs_for
+    from repro_torch.launch.train import reduce_config
+    from repro_torch.models.common import init_params
+
+    cfg = reduce_config(get_config(arch), factor)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_params(param_specs_for(cfg), gen, getattr(torch, cfg.dtype), DEVICE)
+    batch = prefill_batch(torch, cfg, b, s, gen, DEVICE)
+    mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    want = {k: 0 for k in ops.LAUNCHES}
+    want.update(flash_attention=attention_calls(cfg), ssd_chunk=mamba)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits = make_prefill_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ops.LAUNCHES)
+    if launches != want:
+        fail(f"reduced prefill {arch} x{factor}: launches {launches}, expected {want}")
+    if logits.shape != (b, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"reduced prefill {arch} x{factor}: logits {tuple(logits.shape)} not finite")
+    del params
+    return dict(ms=ms, launches=launches, pair=flash_pair(cfg))
+
+
+def flash_pair(cfg):
+    """The (QK, V) head dims ``cfg``'s attention gives the flash kernel and
+    the instantiation that runs them, or None without attention."""
+    from repro_torch.kernels.flash_attention import instantiation_for
+
+    if cfg.family == "ssm":
+        return None
+    d, dv = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) if cfg.attn_kind == "mla"
+             else (cfg.head_dim, cfg.head_dim))
+    return dict(d=d, dv=dv, instantiation=instantiation_for(d, dv))
+
+
+def reduced_phase(torch, np, ops) -> dict:
+    """Phase 20: (a) ``launch/serve.main`` at ``REDUCED_SERVE`` (its own
+    defaults otherwise, ``REDUCED_SERVE_ARGV``), which steps the prompt
+    through the decode step and launches no flash kernel, then the same
+    reduced config prefilled at once on the prompt's ``[4, 32]``
+    (``reduced_prefill``: one flash launch an attention call); (b) the
+    reduced MLA configs at 2 layers, f32, card against CPU
+    (``REDUCED_CVC``: greedy tokens and MoE ids equal, phase 14's bars).
+    Every flash shape (a) and (b) give the kernel must be one of
+    ``FLASH_CASES`` (phase 3 held each against the plain version)."""
+    out, launches = {}, {k: 0 for k in ops.LAUNCHES}
+    b = int(REDUCED_SERVE_ARGV[REDUCED_SERVE_ARGV.index("--batch") + 1])
+    s = int(REDUCED_SERVE_ARGV[REDUCED_SERVE_ARGV.index("--prompt-len") + 1])
+    with FlashShapes(ops) as shapes:
+        for arch, factor in REDUCED_SERVE:
+            key = f"{arch} x{factor}"
+            run = lm_serve(torch, ops, arch, ["--reduce", str(factor)] + REDUCED_SERVE_ARGV)
+            if ops.LAUNCHES["flash_attention"]:
+                fail(f"serve {key}: {ops.LAUNCHES['flash_attention']} flash launches; the "
+                     "decode step has none")
+            run["launches"] = dict(ops.LAUNCHES)
+            run["prefill"] = reduced_prefill(torch, ops, arch, factor, b, s)
+            for part in (run["launches"], run["prefill"]["launches"]):
+                for k, n in part.items():
+                    launches[k] += n
+            log(f"reduced {key}: head dims {run['prefill']['pair']}, prefill [{b}, {s}] "
+                f"{run['prefill']['ms']:.1f} ms with launches {run['prefill']['launches']}")
+            out[f"serve {key}"] = run
+            torch.cuda.empty_cache()
+        for arch, factor in REDUCED_CVC.items():
+            out[f"card vs CPU {arch} x{factor}"] = family_card_vs_cpu(torch, np, arch, factor)
+    checked = {case[:9] for case in FLASH_CASES}
+    if not shapes.seen <= checked:
+        fail(f"phase 20 gave flash_attention shapes phase 3 does not check: "
+             f"{sorted(shapes.seen - checked)}")
+    out["flash_shapes"] = sorted(shapes.seen)
+    out["launches"] = launches
+    return out
+
+
 # -- phase 16: training the LM families ----------------------------------------------
 
 #: (a) each family at full width, bf16, through ``make_train_step``: arch ->
@@ -4414,15 +4609,24 @@ FAMILY_TRAIN_LR = 1e-4
 #: the card's copies on the way back
 FAMILY_CVC_SHAPE = dict(layers=2, b=1, s=128)
 FAMILY_CVC_REDUCE = {"command-r-plus-104b": 4}
-#: (c) ``launch/train.main`` through a crash.  The MoE arch is Qwen1.5-MoE:
-#: a reduced DeepSeek-V2-Lite's MLA head dims (QK 48 / V 32 at --reduce 4)
-#: are no pair the flash kernel is built for.  --reduce 32: at --reduce 4
-#: a Qwen2-VL job state is 1.6 GB a checkpoint, and the codec writes ~8 MB/s
-#: on the card host (phase 13 (c)'s reading)
-FAMILY_MAIN_ARCHS = ("seamless-m4t-medium", "qwen2-vl-7b", "qwen2-moe-a2.7b")
+#: (c) ``launch/train.main`` through a crash: the enc-dec, the VLM and both
+#: MoE archs (DeepSeek-V2-Lite's MLA at QK 16 / V 8 at --reduce 32, a
+#: padded pair of the flash kernel).  --reduce 32: at --reduce 4 a Qwen2-VL
+#: job state is 1.6 GB a checkpoint, and the codec writes ~8 MB/s on the
+#: card host (phase 13 (c)'s reading)
+FAMILY_MAIN_ARCHS = ("seamless-m4t-medium", "qwen2-vl-7b", "qwen2-moe-a2.7b",
+                     "deepseek-v2-lite-16b")
 FAMILY_MAIN_ARGV = ["--reduce", "32", "--steps", "4", "--ckpt-every", "2", "--seq", "64",
                     "--batch", "4", "--log-every", "1", "--device", DEVICE]
 FAMILY_MAIN_FAIL = 3
+#: (e) ``launch/train.main`` at its default width cut (``--reduce 8``),
+#: batch and sequence ([8, 256]) for the archs whose reduced head dims are
+#: padded pairs of the flash kernel: MiniCPM3-4B (QK 16 / V 8),
+#: DeepSeek-V2-Lite (24 / 16) and StableLM-3B (16 / 16 at x8; its padded
+#: 40 / 40 and 20 / 20 are x2 and x4, which phase 20 serves)
+FAMILY_REDUCED_TRAIN = ("minicpm3-4b", "deepseek-v2-lite-16b", "stablelm-3b")
+FAMILY_REDUCED_ARGV = ["--reduce", "8", "--steps", "4", "--log-every", "1",
+                       "--device", DEVICE]
 #: (d) the flash Function's gradients (``train_flash``) at (a)'s distinct
 #: and new head dims: MiniCPM3-4B (QK 96 / V 64), DeepSeek-V2-Lite (192 /
 #: 128) and StableLM-3B (80) at [8, 256], Seamless's cross-attention (256
@@ -4463,9 +4667,15 @@ class FlashShapes:
 
 def attention_calls(cfg) -> int:
     """Flash-attention calls in one forward: one an attention layer; the
-    enc-dec's encoder self-attention, decoder self- and cross-attention."""
+    enc-dec's encoder self-attention, decoder self- and cross-attention;
+    the hybrid's shared block once every ``shared_attn_every`` layers; none
+    in an SSM."""
     if cfg.family == "encdec":
         return cfg.enc_layers + 2 * cfg.dec_layers
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
     return cfg.num_layers
 
 
@@ -4655,12 +4865,48 @@ def family_train_card_vs_cpu(torch, np, arch: str, card: str) -> dict:
     return dict(out, **rec)
 
 
+def train_main_reduced(torch, ops, arch: str, card: str) -> dict:
+    """(e) ``launch/train.main`` for ``arch`` at ``FAMILY_REDUCED_ARGV``:
+    every step done with no restart, the losses finite, exactly two flash
+    launches an attention call a step (a forward and its remat
+    recompute) and no other kernel."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    argv = ["--arch", arch] + FAMILY_REDUCED_ARGV
+    steps = int(argv[argv.index("--steps") + 1])
+    cfg = train.reduce_config(get_config(arch), int(argv[argv.index("--reduce") + 1]))
+    per_step = attention_calls(cfg) * (1 if cfg.remat == "none" else 2)
+    want = {k: per_step * steps if k == "flash_attention" else 0 for k in ops.LAUNCHES}
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as tmp:
+        ops.reset_launches()
+        t0 = time.time()
+        res = train.main(argv + ["--ckpt-dir", tmp])
+        wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    rep = res.report
+    what = f"train.main {' '.join(argv)}"
+    if rep.steps_done != steps or rep.restarts != 0 or not all(
+            math.isfinite(x) for x in rep.losses):
+        fail(f"{what}: {rep.steps_done} steps, {rep.restarts} restarts, losses {rep.losses}")
+    if launches != want:
+        fail(f"{what}: launches {launches}, expected {want}")
+    log(f"{what}: {rep.steps_done} steps, losses {[round(x, 4) for x in rep.losses]}, "
+        f"{wall:.1f} s, launches {launches} ({per_step} flash a step) ({card})")
+    return dict(steps_done=rep.steps_done, losses=rep.losses, seconds=wall,
+                launches=launches)
+
+
 def family_train_phase(torch, np, ops, ref, card: str) -> dict:
     """Phase 16: training the MoE, MLA, StableLM, Command R+, VLM and enc-dec
     families: (d) the flash Function's gradients at their head dims, (a)
     each at full width (``FAMILY_TRAIN``), (b) card against CPU, (c)
-    ``train.main`` through a crash.  (a)'s and (c)'s launches are counted;
-    every flash shape they and (b) give the kernel must be one of
+    ``train.main`` through a crash, (e) ``train.main`` at ``--reduce 8``
+    (``FAMILY_REDUCED_TRAIN``).  (a)'s, (c)'s and (e)'s launches are
+    counted; every flash shape they and (b) give the kernel must be one of
     ``FLASH_CASES`` (phase 3 held each against the plain version)."""
     out = {"flash": train_flash(torch, np, ops, ref, FAMILY_TRAIN_FLASH_CASES, seed=320)}
     launches = {k: 0 for k in ops.LAUNCHES}
@@ -4674,6 +4920,10 @@ def family_train_phase(torch, np, ops, ref, card: str) -> dict:
         for arch in FAMILY_MAIN_ARCHS:
             run = out[f"main {arch}"] = train_main_restart(
                 torch, ops, ["--arch", arch] + FAMILY_MAIN_ARGV, FAMILY_MAIN_FAIL, card)
+            for k, n in run["launches"].items():
+                launches[k] += n
+        for arch in FAMILY_REDUCED_TRAIN:
+            run = out[f"reduced main {arch}"] = train_main_reduced(torch, ops, arch, card)
             for k, n in run["launches"].items():
                 launches[k] += n
     checked = {case[:9] for case in FLASH_CASES}

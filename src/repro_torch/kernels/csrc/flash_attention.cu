@@ -6,8 +6,12 @@
 // Layout: q [B, Hq, Sq, D], k [B, Hkv, Skv, D], v [B, Hkv, Skv, Dv], out
 // [B, Hq, Sq, Dv] in q's dtype, all contiguous.  The QK head dim D and the
 // V head dim Dv are separate template parameters (MLA: D = qk_nope +
-// qk_rope, Dv = v_head_dim); the pairs instantiated are (16, 16), (32, 32),
-// (64, 64), (128, 128), (80, 80), (96, 64) and (192, 128).  Query head hq
+// qk_rope, Dv = v_head_dim); the exact pairs instantiated are (16, 16),
+// (32, 32), (64, 64), (128, 128), (80, 80), (96, 64) and (192, 128).  Any
+// other pair with 1 <= D, Dv <= 256 runs padded: the instantiation (Dp,
+// Dvp) of least Dp + Dvp with Dp >= D and Dvp >= Dv, (256, 256) the last,
+// with kRagged set and the true widths as arguments (see "Padded pairs"
+// below).  Query head hq
 // reads KV head hq / (Hq / Hkv) in place.  As in the TPU kernel: a key is
 // masked with -1e30 when it lies past the diagonal (offset Skv - Sq) or
 // past Skv (the ragged tile), KV tiles strictly above the diagonal are
@@ -30,6 +34,23 @@
 // and 16 at (192, 128)).  Its shared memory, (64 + 2 * 64) (D + 8) +
 // 2 * 64 (Dv + 8) bf16, is 109 KB at (192, 128), the f32 route's
 // 64 (D + Dv) floats 80 KB: both are opted in above 48 KB (set_smem).
+//
+// Padded pairs (kRagged): the tiles keep the instantiation's widths Dp and
+// Dvp in shared memory and registers, and the kernel takes the true d and
+// dv.  Rows are read d (dv) elements apart; Q and K columns d..Dp-1 and V
+// columns dv..Dvp-1 are exact zeros in shared memory (a padded column then
+// adds 0 to every score: never garbage times zero, which can be NaN), and
+// only the first dv output columns are stored.  The lse is the exact
+// pair's.  A row of d bf16 values need not start on 16 bytes (d = 20: 40-
+// byte rows), so the bf16 route copies in chunks of 8, 4 or 2 elements by
+// cp.async, or 1 by a load and a store, the largest that divides d and the
+// operand's alignment (vec_for); it stores pairs of outputs where dv is
+// even, single ones where it is odd.  The f32 route masks its scalar q
+// loads and its staged K/V at d and dv.  A padded pair issues the products
+// of (Dp, Dvp), more than flash_attention_flops counts for (d, dv).  At
+// (256, 256) the bf16 route's shared memory is 165 KB, the f32 route's
+// 128 KB.  The exact pairs' code is the kRagged = false instantiation,
+// unchanged.
 //
 // Two routes, chosen by dtype:
 //
@@ -77,12 +98,15 @@ constexpr int kKTile = 64;
 constexpr int kSub = 16;                 // keys per online-softmax update
 constexpr int kThreads = 2 * kQTile;     // two threads per query row
 
-template <int D, int Dv>
+template <int D, int Dv, bool kRagged>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
-                 int causal, float scale) {
+                 int causal, float scale, int dq, int dvq) {
+  // the operands' row lengths: the template widths, or the true ones
+  const int wq = kRagged ? dq : D;
+  const int wv = kRagged ? dvq : Dv;
   constexpr int kChunks = D / 8;         // float4 chunks of a thread's half of q
   constexpr int kVChunks = Dv / 8;       // ... and of its accumulator
   extern __shared__ float4 smem4[];
@@ -99,10 +123,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qi = q0 + (tid >> 1);
   const int diag = Skv - Sq;
 
-  const long long q_base = (static_cast<long long>(b) * Hq + hq) * Sq * D;
-  const long long o_base = (static_cast<long long>(b) * Hq + hq) * Sq * Dv;
-  const long long k_base = (static_cast<long long>(b) * Hkv + hkv) * Skv * D;
-  const long long v_base = (static_cast<long long>(b) * Hkv + hkv) * Skv * Dv;
+  const long long q_base = (static_cast<long long>(b) * Hq + hq) * Sq * wq;
+  const long long o_base = (static_cast<long long>(b) * Hq + hq) * Sq * wv;
+  const long long k_base = (static_cast<long long>(b) * Hkv + hkv) * Skv * wq;
+  const long long v_base = (static_cast<long long>(b) * Hkv + hkv) * Skv * wv;
 
   float qr[D / 2];
   float acc[Dv / 2];
@@ -111,8 +135,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = (2 * c + half) * 4 + e;
-      qr[4 * c + e] =
-          qi < Sq ? q[q_base + static_cast<long long>(qi) * D + d] * scale : 0.0f;
+      qr[4 * c + e] = qi < Sq && (!kRagged || d < wq)
+                          ? q[q_base + static_cast<long long>(qi) * wq + d] * scale
+                          : 0.0f;
     }
   }
 #pragma unroll
@@ -129,13 +154,29 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < kv_tiles; ++kt) {
     const int k0 = kt * kKTile;
     __syncthreads();                             // the previous tile is consumed
-    for (int idx = tid; idx < kKTile * D; idx += kThreads) {
-      const bool ok = k0 + idx / D < Skv;
-      ks[idx] = ok ? k[k_base + static_cast<long long>(k0) * D + idx] : 0.0f;
-    }
-    for (int idx = tid; idx < kKTile * Dv; idx += kThreads) {
-      const bool ok = k0 + idx / Dv < Skv;
-      vs[idx] = ok ? v[v_base + static_cast<long long>(k0) * Dv + idx] : 0.0f;
+    if constexpr (kRagged) {
+      // rows wq (wv) apart; columns past them exact zeros
+      for (int idx = tid; idx < kKTile * D; idx += kThreads) {
+        const int r = idx / D;
+        const int c = idx - r * D;
+        const bool ok = k0 + r < Skv && c < wq;
+        ks[idx] = ok ? k[k_base + static_cast<long long>(k0 + r) * wq + c] : 0.0f;
+      }
+      for (int idx = tid; idx < kKTile * Dv; idx += kThreads) {
+        const int r = idx / Dv;
+        const int c = idx - r * Dv;
+        const bool ok = k0 + r < Skv && c < wv;
+        vs[idx] = ok ? v[v_base + static_cast<long long>(k0 + r) * wv + c] : 0.0f;
+      }
+    } else {
+      for (int idx = tid; idx < kKTile * D; idx += kThreads) {
+        const bool ok = k0 + idx / D < Skv;
+        ks[idx] = ok ? k[k_base + static_cast<long long>(k0) * D + idx] : 0.0f;
+      }
+      for (int idx = tid; idx < kKTile * Dv; idx += kThreads) {
+        const bool ok = k0 + idx / Dv < Skv;
+        vs[idx] = ok ? v[v_base + static_cast<long long>(k0) * Dv + idx] : 0.0f;
+      }
     }
     __syncthreads();
 
@@ -192,11 +233,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float lc = fmaxf(l, 1e-30f);
   if (lse != nullptr && half == 0)
     lse[(static_cast<long long>(b) * Hq + hq) * Sq + qi] = m + logf(lc);
-  float* orow = o + o_base + static_cast<long long>(qi) * Dv;
+  float* orow = o + o_base + static_cast<long long>(qi) * wv;
 #pragma unroll
   for (int c = 0; c < kVChunks; ++c) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) orow[(2 * c + half) * 4 + e] = acc[4 * c + e] / lc;
+    for (int e = 0; e < 4; ++e) {
+      const int col = (2 * c + half) * 4 + e;
+      if (!kRagged || col < wv) orow[col] = acc[4 * c + e] / lc;
+    }
   }
 }
 
@@ -218,6 +262,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(ok ? 16 : 0));
+}
+
+// 4 or 8 bytes global -> shared (cp.async.ca: .cg takes only 16),
+// zero-filled when !ok
+template <int kBytes>
+__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src,
+                                            bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(src), "n"(kBytes), "r"(ok ? kBytes : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -274,12 +327,72 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
   }
 }
 
-template <int D, int Dv>
+// rows [row0, row0 + R) of a bf16 matrix of w <= W columns, rows w elements
+// apart, into shared memory with row stride W + 8: columns at or past w
+// and rows at or past `valid` are exact zeros.  kVec elements a copy: 8, 4
+// or 2 by cp.async, 1 by a load and a store (vec_for: kVec divides w and
+// the source's alignment, so a copy lies wholly inside or past a row)
+template <int W, int R, int kVec>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0,
+                                          int valid, int w, int tid) {
+  constexpr int kLd = W + 8;
+  constexpr int kPer = W / kVec;         // copies of a row
+  for (int idx = tid; idx < R * kPer; idx += kTcThreads) {
+    const int r = idx / kPer;
+    const int c = (idx - r * kPer) * kVec;
+    const bool ok = row0 + r < valid && c < w;
+    const bf16* g = ok ? src + static_cast<long long>(row0 + r) * w + c : src;
+    if constexpr (kVec == 1) {
+      dst[r * kLd + c] = ok ? *g : __float2bfloat16(0.0f);
+    } else {
+      const uint32_t s = smem_addr(dst + r * kLd + c);
+      if constexpr (kVec == 8) {
+        cp_async16(s, g, ok);
+      } else {
+        cp_async_ca<2 * kVec>(s, g, ok);
+      }
+    }
+  }
+}
+
+// load_rows at the copy width vec (8, 4, 2 or 1) vec_for gave
+template <int W, int R>
+__device__ __forceinline__ void load_tile_ragged(bf16* dst, const bf16* src,
+                                                 int row0, int valid, int w,
+                                                 int vec, int tid) {
+  if (vec == 8) {
+    load_rows<W, R, 8>(dst, src, row0, valid, w, tid);
+  } else if (vec == 4) {
+    load_rows<W, R, 4>(dst, src, row0, valid, w, tid);
+  } else if (vec == 2) {
+    load_rows<W, R, 2>(dst, src, row0, valid, w, tid);
+  } else {
+    load_rows<W, R, 1>(dst, src, row0, valid, w, tid);
+  }
+}
+
+// the copy width vec of load_tile_ragged for rows of w bf16 values from p
+__host__ int vec_for(const void* p, int w) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  for (int vec = 8; vec > 1; vec /= 2)
+    if (w % vec == 0 && a % (2 * vec) == 0) return vec;
+  return 1;
+}
+
+// the copy widths of q, k and v, 4 bits each
+__host__ int pack_vecs(const void* q, const void* k, const void* v, int d, int dv) {
+  return vec_for(q, d) | vec_for(k, d) << 4 | vec_for(v, dv) << 8;
+}
+
+template <int D, int Dv, bool kRagged>
 __global__ void __launch_bounds__(kTcThreads)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
                   float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
-                  int causal, float scale_log2) {
+                  int causal, float scale_log2, int dq, int dvq, int vecs) {
+  // the operands' row lengths: the template widths, or the true ones
+  const int wq = kRagged ? dq : D;
+  const int wv = kRagged ? dvq : Dv;
   constexpr int kLd = D + 8;             // padded rows: ldmatrix conflict-free
   constexpr int kLdv = Dv + 8;
   constexpr int kDSteps = D / 16;        // k-steps of Q K^T
@@ -303,9 +416,11 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int diag = Skv - Sq;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
-  const bf16* qb = q + (static_cast<long long>(b) * Hq + hq) * Sq * D;
-  const bf16* kb = k + (static_cast<long long>(b) * Hkv + hkv) * Skv * D;
-  const bf16* vb = v + (static_cast<long long>(b) * Hkv + hkv) * Skv * Dv;
+  const bf16* qb = q + (static_cast<long long>(b) * Hq + hq) * Sq * wq;
+  const bf16* kb = k + (static_cast<long long>(b) * Hkv + hkv) * Skv * wq;
+  const bf16* vb = v + (static_cast<long long>(b) * Hkv + hkv) * Skv * wv;
+  // a padded pair's copy widths of q, k and v (pack_vecs)
+  [[maybe_unused]] const int vq = vecs & 15, vk = (vecs >> 4) & 15, vv = vecs >> 8;
 
   int kv_tiles = (Skv + kKeys - 1) / kKeys;
   if (causal) {
@@ -313,10 +428,18 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     kv_tiles = min(kv_tiles, last < 0 ? 0 : last / kKeys + 1);
   }
 
-  load_tile<D, D, kRows>(qs, qb, q0, Sq, tid);
-  if (kv_tiles > 0) {
-    load_tile<D, D, kKeys>(ks, kb, 0, Skv, tid);
-    load_tile<Dv, Dv, kKeys>(vs, vb, 0, Skv, tid);
+  if constexpr (!kRagged) {
+    load_tile<D, D, kRows>(qs, qb, q0, Sq, tid);
+    if (kv_tiles > 0) {
+      load_tile<D, D, kKeys>(ks, kb, 0, Skv, tid);
+      load_tile<Dv, Dv, kKeys>(vs, vb, 0, Skv, tid);
+    }
+  } else {
+    load_tile_ragged<D, kRows>(qs, qb, q0, Sq, wq, vq, tid);
+    if (kv_tiles > 0) {
+      load_tile_ragged<D, kKeys>(ks, kb, 0, Skv, wq, vk, tid);
+      load_tile_ragged<Dv, kKeys>(vs, vb, 0, Skv, wv, vv, tid);
+    }
   }
   cp_async_commit();
 
@@ -339,8 +462,15 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     if (kt + 1 < kv_tiles) {
       const int nxt = (kt + 1) & 1;
-      load_tile<D, D, kKeys>(ks + nxt * kKeys * kLd, kb, (kt + 1) * kKeys, Skv, tid);
-      load_tile<Dv, Dv, kKeys>(vs + nxt * kKeys * kLdv, vb, (kt + 1) * kKeys, Skv, tid);
+      if constexpr (!kRagged) {
+        load_tile<D, D, kKeys>(ks + nxt * kKeys * kLd, kb, (kt + 1) * kKeys, Skv, tid);
+        load_tile<Dv, Dv, kKeys>(vs + nxt * kKeys * kLdv, vb, (kt + 1) * kKeys, Skv, tid);
+      } else {
+        load_tile_ragged<D, kKeys>(ks + nxt * kKeys * kLd, kb, (kt + 1) * kKeys, Skv,
+                                   wq, vk, tid);
+        load_tile_ragged<Dv, kKeys>(vs + nxt * kKeys * kLdv, vb, (kt + 1) * kKeys, Skv,
+                                    wv, vv, tid);
+      }
     }
     cp_async_commit();
     const bf16* kst = ks + (kt & 1) * kKeys * kLd;
@@ -437,12 +567,29 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (lse != nullptr && tig == 0)
       lse[(static_cast<long long>(b) * Hq + hq) * Sq + rows[r]] =
           m[r] * 0.6931471805599453f + logf(lc);
-    bf16* orow = o + (static_cast<long long>(b) * Hq + hq) * Sq * Dv +
-                 static_cast<long long>(rows[r]) * Dv;
+    bf16* orow = o + (static_cast<long long>(b) * Hq + hq) * Sq * wv +
+                 static_cast<long long>(rows[r]) * wv;
+    if constexpr (!kRagged) {
 #pragma unroll
-    for (int j = 0; j < kOBlocks; ++j) {
-      *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * tig) =
-          pack_bf16(oacc[j][2 * r] / lc, oacc[j][2 * r + 1] / lc);
+      for (int j = 0; j < kOBlocks; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * tig) =
+            pack_bf16(oacc[j][2 * r] / lc, oacc[j][2 * r + 1] / lc);
+      }
+    } else {
+      // the first wv columns: pairs where wv is even (4-byte aligned, as
+      // o is), else one value at a time
+#pragma unroll
+      for (int j = 0; j < kOBlocks; ++j) {
+        const int c = j * 8 + 2 * tig;
+        const float lo = oacc[j][2 * r] / lc;
+        const float hi = oacc[j][2 * r + 1] / lc;
+        if ((wv & 1) == 0) {
+          if (c < wv) *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(lo, hi);
+        } else {
+          if (c < wv) orow[c] = __float2bfloat16_rn(lo);
+          if (c + 1 < wv) orow[c + 1] = __float2bfloat16_rn(hi);
+        }
+      }
     }
   }
 }
@@ -456,33 +603,38 @@ int set_smem(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
-template <int D, int Dv>
+template <int D, int Dv, bool kRagged>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
-               int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
-               cudaStream_t stream) {
+               int B, int Hq, int Hkv, int Sq, int Skv, int d, int dv, int causal,
+               float scale, cudaStream_t stream) {
   const int smem = kKTile * (D + Dv) * static_cast<int>(sizeof(float));
-  auto kernel = flash_f32_kernel<D, Dv>;
+  auto kernel = flash_f32_kernel<D, Dv, kRagged>;
   if (const int e = set_smem(kernel, smem)) return e;
   const dim3 grid((Sq + kQTile - 1) / kQTile, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hkv, Sq,
-      Skv, causal, scale);
+      Skv, causal, scale, d, dv);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int Dv>
+template <int D, int Dv, bool kRagged>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
-                int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
-                cudaStream_t stream) {
-  // cp.async moves 16-byte chunks: every operand must start 16-byte aligned
-  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16 != 0)
+                int B, int Hq, int Hkv, int Sq, int Skv, int d, int dv, int causal,
+                float scale, cudaStream_t stream) {
+  // an exact pair moves 16-byte chunks: every operand must start 16-byte
+  // aligned; a padded one picks its copy widths from the inputs' alignment
+  // (pack_vecs) and stores output pairs on 4 bytes
+  const uintptr_t in = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                       reinterpret_cast<uintptr_t>(v);
+  const uintptr_t out = reinterpret_cast<uintptr_t>(o);
+  if (kRagged ? out % 4 != 0 : (in | out) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  // Q tile, two K stages, two V stages; 109 KB at (192, 128), opted in
+  // Q tile, two K stages, two V stages; 109 KB at (192, 128), 165 KB at
+  // (256, 256), opted in
   const int smem = ((kRows + 2 * kKeys) * (D + 8) + 2 * kKeys * (Dv + 8)) *
                    static_cast<int>(sizeof(bf16));
-  auto kernel = flash_bf16_kernel<D, Dv>;
+  auto kernel = flash_bf16_kernel<D, Dv, kRagged>;
   if (const int e = set_smem(kernel, smem)) return e;
   const float scale_log2 =
       static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
@@ -490,42 +642,47 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq, Hkv, Sq,
-      Skv, causal, scale_log2);
+      Skv, causal, scale_log2, d, dv, kRagged ? pack_vecs(q, k, v, d, dv) : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int Dv>
+template <int D, int Dv, bool kRagged>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int causal,
-           float scale, cudaStream_t stream) {
+           float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int d, int dv,
+           int causal, float scale, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<D, Dv>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, scale,
-                             stream);
+    return launch_f32<D, Dv, kRagged>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, d, dv,
+                                      causal, scale, stream);
   if (dtype == 1)
-    return launch_bf16<D, Dv>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal,
-                              scale, stream);
+    return launch_bf16<D, Dv, kRagged>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, d, dv,
+                                       causal, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// D: the QK head dim, Dv: the V head dim, one of the instantiated pairs.
-// dtype: 0 = float32, 1 = bfloat16.  lse: a [B, Hq, Sq] f32 buffer for the
-// rows' log-sum-exp, or null for none.  Returns the launch's CUDA error code
-// (cudaErrorInvalidValue for a pair that is not instantiated).
+// D: the QK head dim, Dv: the V head dim, each 1..256.  An exact pair
+// (FLASH_PAIR) runs its own instantiation; any other runs padded, on the
+// first FLASH_PADDED pair that holds it: they are in order of Dp + Dvp
+// (then Dp), so it is the one of least Dp + Dvp (the wrapper's
+// instantiation_for states the same order).  dtype: 0 = float32, 1 =
+// bfloat16.  lse: a [B, Hq, Sq] f32 buffer for the rows' log-sum-exp, or
+// null for none.  Returns the launch's CUDA error code
+// (cudaErrorInvalidValue for a head dim outside 1..256).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int B, int Hq, int Hkv, int Sq, int Skv,
                                       int D, int Dv, int dtype, int causal,
                                       float scale, void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hkv != 0)
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hkv != 0 ||
+      D <= 0 || Dv <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-#define FLASH_PAIR(DQK, DV)                                                   \
-  if (D == DQK && Dv == DV)                                                   \
-    return launch<DQK, DV>(dtype, q, k, v, o, l, B, Hq, Hkv, Sq, Skv, causal, \
-                           scale, st);
+#define FLASH_PAIR(DQK, DV)                                                    \
+  if (D == DQK && Dv == DV)                                                    \
+    return launch<DQK, DV, false>(dtype, q, k, v, o, l, B, Hq, Hkv, Sq, Skv, D, \
+                                  Dv, causal, scale, st);
   FLASH_PAIR(16, 16)
   FLASH_PAIR(32, 32)
   FLASH_PAIR(64, 64)
@@ -534,5 +691,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   FLASH_PAIR(96, 64)
   FLASH_PAIR(192, 128)
 #undef FLASH_PAIR
+#define FLASH_PADDED(DQK, DV)                                                 \
+  if (D <= DQK && Dv <= DV)                                                   \
+    return launch<DQK, DV, true>(dtype, q, k, v, o, l, B, Hq, Hkv, Sq, Skv, D, \
+                                 Dv, causal, scale, st);
+  FLASH_PADDED(16, 16)
+  FLASH_PADDED(32, 32)
+  FLASH_PADDED(64, 64)
+  FLASH_PADDED(80, 80)
+  FLASH_PADDED(96, 64)
+  FLASH_PADDED(128, 128)
+  FLASH_PADDED(192, 128)
+  FLASH_PADDED(256, 256)
+#undef FLASH_PADDED
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,7 +13,16 @@ The QK head dim ``D`` and the V head dim ``Dv`` are separate template
 parameters of both routes, and the output is ``[B, Hq, Sq, Dv]``: MLA
 (MiniCPM3-4B, DeepSeek-V2-Lite) attends with QK ``qk_nope + qk_rope`` and
 V ``v_head_dim``.  The TPU kernel tiles V with K's width; the JAX package
-runs MLA on its XLA route, which takes the two dims natively.
+runs MLA on its XLA route, which takes the two dims natively.  Every pair
+with ``1 <= D, Dv <= 256`` runs: the :data:`HEAD_DIM_PAIRS` on their own
+instantiations, any other padded, on the instantiation
+:func:`instantiation_for` picks (the pair of :data:`PADDED_PAIRS` of least
+``Dp + Dvp`` that holds it), which takes the true widths as arguments,
+zero-fills the padding columns of Q, K and V in shared memory and stores
+only the first ``Dv`` output columns (``reduce_config`` gives such pairs:
+MiniCPM3-4B's (16, 8) at ``--reduce 8`` runs on (16, 16), StableLM-3B's
+(40, 40) at ``--reduce 2`` on (64, 64)).  A padded pair does the products
+of its instantiation: more than ``ops.flash_attention_flops`` counts.
 
 The library picks a route by dtype.  bfloat16, which every prefill hands
 it, runs on the tensor cores: one block of 4 warps per (64-row query
@@ -40,11 +49,20 @@ from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
 
-#: (QK head dim, V head dim) pairs the kernel is instantiated for: equal
-#: dims of the GQA configs (SmolLM, Zamba2 64; StableLM-3B 80; 128), and
-#: the MLA pairs of MiniCPM3-4B (96, 64) and DeepSeek-V2-Lite (192, 128)
+#: (QK head dim, V head dim) pairs the kernel is instantiated for exactly:
+#: equal dims of the GQA configs (SmolLM, Zamba2 64; StableLM-3B 80; 128),
+#: and the MLA pairs of MiniCPM3-4B (96, 64) and DeepSeek-V2-Lite (192, 128)
+#: (the source's ``FLASH_PAIR`` list)
 HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (80, 80),
                   (96, 64), (192, 128))
+
+#: the largest QK and V head dim the kernel takes
+MAX_HEAD_DIM = 256
+
+#: the padded instantiations, in the order the source's ``FLASH_PADDED``
+#: list tries them: by ``Dp + Dvp``, then ``Dp``
+PADDED_PAIRS = tuple(sorted(HEAD_DIM_PAIRS + ((MAX_HEAD_DIM, MAX_HEAD_DIM),),
+                            key=lambda p: (p[0] + p[1], p[0])))
 
 #: largest grid y/z dimension (query heads, batch)
 MAX_GRID_YZ = 65535
@@ -56,6 +74,16 @@ DTYPE_IDS = {
 }
 
 
+def instantiation_for(d: int, dv: int) -> tuple[int, int]:
+    """The instantiated ``(Dp, Dvp)`` that runs head dims ``(d, dv)``: the
+    first of :data:`PADDED_PAIRS` with ``Dp >= d`` and ``Dvp >= dv``, the
+    one of least ``Dp + Dvp`` (an exact pair is its own).  Raises
+    ``ValueError`` outside ``1..256``."""
+    if not (1 <= d <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
+        raise ValueError(f"head dims (QK {d}, V {dv}) must lie in 1..{MAX_HEAD_DIM}")
+    return next(p for p in PADDED_PAIRS if p[0] >= d and p[1] >= dv)
+
+
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                          scale: float, return_lse: bool = False
                          ) -> Tensor | tuple[Tensor, Tensor]:
@@ -63,8 +91,9 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
 
     q ``[B, Hq, Sq, D]``, k ``[B, Hkv, Skv, D]``, v ``[B, Hkv, Skv, Dv]``:
     contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
-    device, ``Hq % Hkv == 0`` and ``(D, Dv)`` in :data:`HEAD_DIM_PAIRS`
-    (any other pair raises).  With ``return_lse`` the result is
+    device, ``Hq % Hkv == 0`` and ``1 <= D, Dv <= 256`` (a pair outside
+    :data:`HEAD_DIM_PAIRS` runs padded, :func:`instantiation_for`; one
+    launch either way).  With ``return_lse`` the result is
     ``(out, lse)``: ``lse`` ``[B, Hq, Sq]`` float32 is each row's
     ``m + log(max(l, 1e-30))`` over the scaled logits, from the kernel's
     f32 statistics, written by the same launch.
@@ -84,8 +113,7 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
         raise ValueError("k and v hold no keys (Skv = 0)")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"query heads {hq} must be a multiple of KV heads {hkv}")
-    if (d, dv) not in HEAD_DIM_PAIRS:
-        raise ValueError(f"head dims (QK {d}, V {dv}) not in {HEAD_DIM_PAIRS}")
+    instantiation_for(d, dv)             # raises outside 1..MAX_HEAD_DIM
     if q.dtype not in DTYPE_IDS:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, x in (("k", k), ("v", v)):
@@ -103,9 +131,11 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
            if return_lse else None)
     if out.numel() == 0:
         return (out, lse) if return_lse else out
-    if q.dtype != torch.float32:
-        # the bf16 route copies 16-byte chunks: a view that starts off a
-        # 16-byte boundary is copied to a fresh (aligned) allocation
+    if q.dtype != torch.float32 and (d, dv) in HEAD_DIM_PAIRS:
+        # an exact pair's bf16 route copies 16-byte chunks: a view that
+        # starts off a 16-byte boundary is copied to a fresh (aligned)
+        # allocation; a padded pair's copies follow each operand's own
+        # alignment (2 bytes at least)
         q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     lib = _build.load("flash_attention")
     with torch.cuda.device(dev):

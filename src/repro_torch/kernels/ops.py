@@ -329,8 +329,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 
     q ``[B, Hq, Sq, D]``, k ``[B, Hkv, Skv, D]``, v ``[B, Hkv, Skv, Dv]``
     (any strides; the V head dim may differ from the QK one, as MLA's
-    does).  On the card ``(D, Dv)`` must be one of the kernel's
-    ``HEAD_DIM_PAIRS``; any other pair raises.  With
+    does).  On the card every pair with ``1 <= D, Dv <= 256`` runs, one
+    launch a call: the kernel's ``HEAD_DIM_PAIRS`` on their own
+    instantiations, any other padded to the instantiation
+    ``flash_attention.instantiation_for`` picks, its padding zero-filled
+    inside the kernel; a wider head dim raises ``ValueError``.  The
+    default ``scale`` is ``D ** -0.5`` of the true ``D``.  With
     ``return_lse``: ``(out, lse)``, ``lse`` ``[B, Hq, Sq]`` float32, the
     rows' log-sum-exp of the scaled logits (what the backward of
     ``models.attention`` reads), from the same launch.  ``meta`` tensors

@@ -7,12 +7,15 @@ the JAX package, so it runs on a GPU machine that has only PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 It covers what ``chip_smoke.py`` does not: the wrappers' operand checks
-and their launch counting (the flash wrapper refusing a QK/V head-dim
-pair it has no instantiation for), the flash kernel's head-dim pairs of
-StableLM and the MLA configs on both routes, the readout's lanes at
+and their launch counting (the flash wrapper running head dims with no
+instantiation of their own padded, and refusing one above 256), the
+flash kernel's head-dim pairs of StableLM and the MLA configs on both
+routes, padded pairs on views at any alignment, the readout's lanes at
 every warp split, and that ``chip_smoke.py``'s flash-attention, calib,
 readout and placement checks fail on faults planted in copies of those
-kernels (V read at K's row stride fails only the MLA shapes); and, for
+kernels (V read at K's row stride fails only the exact MLA shapes; a
+padded load that leaves its padding unzeroed, and a store past the V
+head dim, fail the padded shapes); and, for
 training, the flash-attention and SSD autograd Functions' gradients on
 the card against their CPU runs, the lse output, one counted bf16 train
 step and a card checkpoint restored on the CPU, the Function's gradients
@@ -167,20 +170,34 @@ def test_kernel_wrappers_reject_bad_operands(dev):
 
 
 def test_flash_and_power_sim_wrappers_reject_bad_operands(dev):
+    from repro_torch.kernels import ref
+
     q = torch.randn((2, 4, 8, 16), device=dev)
     kv = torch.randn((2, 2, 8, 16), device=dev)
     flash_attention_cuda(q, kv, kv, causal=True, scale=0.25)      # accepted
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention_cuda(q[..., :12].contiguous(), kv[..., :12].contiguous(),
-                             kv[..., :12].contiguous(), causal=True, scale=0.25)
-    for d, dv in ((64, 32), (80, 64), (192, 192)):      # pairs not instantiated
+    # head dim 12 and pairs with no instantiation of their own run padded,
+    # on both routes, within chip_smoke.py's bars, one launch a call
+    cs = _chip_smoke()
+    for d, dv in ((12, 12), (64, 32), (80, 64), (192, 192)):
+        qd = torch.randn((2, 4, 8, d), device=dev)
+        kd = torch.randn((2, 2, 8, d), device=dev)
+        vd = torch.randn((2, 2, 8, dv), device=dev)
+        for dt, bar in ((torch.float32, (2e-5, 2e-4)), (BF16, (1e-2, 1.5e-2))):
+            args = (qd.to(dt), kd.to(dt), vd.to(dt))
+            got = flash_attention_cuda(*args, causal=True, scale=d ** -0.5)
+            ops.reset_launches()
+            assert torch.equal(got, ops.flash_attention(*args))
+            assert ops.LAUNCHES["flash_attention"] == 1
+            _, used = cs.flash_bar_use(torch, ref, got, *args, True, *bar)
+            assert used <= 1.0, (d, dv, dt, used)
+    for d, dv in ((257, 16), (16, 257), (257, 257)):     # wider than any instantiation
         qd = torch.randn((2, 4, 8, d), device=dev)
         kd = torch.randn((2, 2, 8, d), device=dev)
         vd = torch.randn((2, 2, 8, dv), device=dev)
         with pytest.raises(ValueError, match="head dims"):
             flash_attention_cuda(qd, kd, vd, causal=True, scale=0.25)
         with pytest.raises(ValueError, match="head dims"):
-            ops.flash_attention(qd.bfloat16(), kd.bfloat16(), vd.bfloat16())  # tracecheck: disable=TC005 — the bf16 attention route
+            ops.flash_attention(qd.to(BF16), kd.to(BF16), vd.to(BF16))
     with pytest.raises(ValueError, match="multiple"):
         flash_attention_cuda(q[:, :3].contiguous(), kv, kv, causal=True, scale=0.25)
     with pytest.raises(ValueError, match="k and v"):
@@ -272,6 +289,25 @@ def test_flash_bf16_takes_views_off_a_16_byte_boundary(dev):
     assert used <= 1.0
 
 
+def test_flash_padded_pairs_take_views_at_any_alignment(dev):
+    """A padded pair's bf16 route copies in chunks its operands' alignment
+    allows (8, 4, 2 or 1 elements): views 2, 4 and 8 bytes off a 16-byte
+    boundary, at even and odd head dims, run uncopied and agree with the
+    plain version."""
+    from repro_torch.kernels import ref
+
+    for d, off in ((20, 1), (20, 2), (36, 2), (24, 1), (17, 1), (48, 4)):
+        base = torch.randn(off + 2 * 4 * 70 * d, device=dev).to(BF16)
+        q = base[off:].view(2, 4, 70, d)
+        k = torch.randn(3 + 2 * 2 * 70 * d, device=dev).to(BF16)[3:].view(2, 2, 70, d)
+        v = torch.randn((2, 2, 70, d), device=dev).to(BF16)
+        assert q.is_contiguous() and q.data_ptr() % 16 != 0
+        got = flash_attention_cuda(q, k, v, causal=True, scale=d ** -0.5)
+        _, used = _chip_smoke().flash_bar_use(torch, ref, got, q, k, v, True,
+                                              rtol=1e-2, atol=1.5e-2)
+        assert used <= 1.0, (d, off, used)
+
+
 @functools.lru_cache(maxsize=None)
 def _chip_smoke():
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
@@ -308,11 +344,14 @@ FLASH_FAULTS = {
 
 def _flash_fault_shows(fault: str, d: int, dv: int, skv: int) -> bool:
     """Whether the planted ``fault`` must fail a bf16 prefill case: the
-    first three on 2048 keys (32 KV tiles), the V stride where ``dv != d``."""
+    first three on 2048 keys (32 KV tiles), the V stride where ``dv != d``
+    on an exact pair (a padded pair's loads are its own)."""
+    from repro_torch.kernels.flash_attention import HEAD_DIM_PAIRS
+
     if fault == "none":
         return False
     if fault == "V read at the QK stride":
-        return dv != d
+        return dv != d and (d, dv) in HEAD_DIM_PAIRS
     return skv >= 32 * 64
 
 
@@ -345,14 +384,14 @@ def test_flash_check_fails_on_planted_faults(dev, tmp_path):
     """``chip_smoke.py``'s bf16 flash check, at every bf16 prefill shape
     (2048 queries), passes the unchanged copy and fails each planted fault
     where it shows (``_flash_fault_shows``): the V-stride fault fails the
-    MLA shapes and only them.  Prints each bar use beside that of the
+    exact MLA shapes and only them.  Prints each bar use beside that of the
     earlier check (the plain version rounded to bf16, rtol / atol 2e-2)."""
     from repro_torch.kernels import ref
 
     cs = _chip_smoke()
     cases = [i for i, c in enumerate(cs.FLASH_CASES) if c[8] and c[3] == cs.PREFILL_S]
-    assert len(cases) == 9
-    assert sum(cs.FLASH_CASES[i][5] != cs.FLASH_CASES[i][6] for i in cases) == 2
+    assert len(cases) == 10
+    assert sum(cs.FLASH_CASES[i][5] != cs.FLASH_CASES[i][6] for i in cases) == 3
     stream = torch.cuda.current_stream().cuda_stream
     for name, launch in _build_copies("flash_attention", FLASH_FAULTS, tmp_path).items():
         for i in cases:
@@ -369,6 +408,65 @@ def test_flash_check_fails_on_planted_faults(dev, tmp_path):
             print(f"flash fault {name!r} at {(b, hq, hkv, sq, skv, d, dv)}: max |err| "
                   f"{err:.3g}, bar used {used:.3g} (earlier check {old:.3g})")
             assert (used > 1.0) == _flash_fault_shows(name, d, dv, skv), (name, i, used)
+
+
+#: faults planted in a copy of the bf16 flash kernel's padded route, as
+#: (text, replacement) in its source: the padding columns of Q, K and V
+#: loaded with the row's leading columns instead of zeros (in bounds), and
+#: the output's paired stores not stopped at the V head dim (they write
+#: into the next row, and past the end: the test leaves room there)
+FLASH_PADDING_FAULTS = {
+    "none": ("", ""),
+    "padding not zeroed": (
+        "const bool ok = row0 + r < valid && c < w;\n"
+        "    const bf16* g = ok ? src + static_cast<long long>(row0 + r) * w + c : src;",
+        "const bool ok = row0 + r < valid;\n"
+        "    const bf16* g = ok ? src + static_cast<long long>(row0 + r) * w + c % w : src;"),
+    "store past dv": (
+        "if (c < wv) *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(lo, hi);",
+        "*reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(lo, hi);"),
+}
+
+
+def _padding_fault_shows(fault: str, d: int, dv: int) -> bool:
+    """Whether the planted ``fault`` must fail a padded bf16 case: the
+    unzeroed padding where Q and K have padding columns (``d`` below the
+    instantiation's), the store past ``dv`` where V has them and ``dv``
+    is even (an odd one stores single values)."""
+    from repro_torch.kernels.flash_attention import instantiation_for
+
+    dp, dvp = instantiation_for(d, dv)
+    return {"none": False, "padding not zeroed": dp > d,
+            "store past dv": dvp > dv and dv % 2 == 0}[fault]
+
+
+def test_flash_check_fails_on_planted_padding_faults(dev, tmp_path):
+    """``chip_smoke.py``'s bf16 flash check at every padded bf16 case of
+    ``FLASH_CASES`` passes the unchanged copy and fails each planted fault
+    where it shows (``_padding_fault_shows``); prints each bar use."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import HEAD_DIM_PAIRS
+
+    cs = _chip_smoke()
+    cases = [i for i, c in enumerate(cs.FLASH_CASES)
+             if c[8] and (c[5], c[6]) not in HEAD_DIM_PAIRS]
+    assert len(cases) == 22
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, launch in _build_copies("flash_attention", FLASH_PADDING_FAULTS,
+                                      tmp_path).items():
+        for i in cases:
+            b, hq, hkv, sq, skv, d, dv, causal, _, rtol, atol = cs.FLASH_CASES[i]
+            q, k, v = cs.flash_inputs(torch, np, i, dev)
+            n = b * hq * sq * dv
+            got = q.new_zeros(n + 1024)[:n].view(b, hq, sq, dv)   # room past the end
+            assert launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(),
+                          None, b, hq, hkv, sq, skv, d, dv, 1, int(causal), d ** -0.5,
+                          stream) == 0
+            torch.cuda.synchronize()
+            err, used = cs.flash_bar_use(torch, ref, got, q, k, v, causal, rtol, atol)
+            print(f"flash padding fault {name!r} at {(b, hq, hkv, sq, skv, d, dv, causal)}: "
+                  f"max |err| {err:.3g}, bar used {used:.3g}")
+            assert (used > 1.0) == _padding_fault_shows(name, d, dv), (name, i, used)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1042,12 +1140,12 @@ def test_kernel_ops_count_flops_alike_on_card_and_meta(dev):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fake_outputs_match_the_kernels_at_every_head_dim_pair(dev, dtype):
     """The ops' ``meta`` outputs have the shapes and dtypes of the kernels'
-    own, at every ``HEAD_DIM_PAIRS`` entry (with and without the lse) and
-    for ``ssd_chunk``."""
+    own, at every ``HEAD_DIM_PAIRS`` entry and at ``chip_smoke.py``'s
+    padded pairs (with and without the lse) and for ``ssd_chunk``."""
     from repro_torch.kernels.flash_attention import HEAD_DIM_PAIRS
 
     dt = getattr(torch, dtype)
-    for d, dv in HEAD_DIM_PAIRS:
+    for d, dv in HEAD_DIM_PAIRS + _chip_smoke().PADDED_FLASH_PAIRS:
         q = torch.randn((2, 4, 40, d), device=dev).to(dt)
         k = torch.randn((2, 2, 56, d), device=dev).to(dt)
         v = torch.randn((2, 2, 56, dv), device=dev).to(dt)
