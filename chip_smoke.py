@@ -239,15 +239,21 @@ Phases (each passes or the script exits non-zero without a result line):
    ``python -m repro_torch.launch.dryrun`` (``DRYRUN_ARGV``) in a
    subprocess, exit 0, its cells ``ok`` (``long_500k`` skipped for a
    full-attention arch); (e) the per-device dry-run's count
-   (``META_SHARDED``: SmolLM-360M and Mamba2-370M at 2 layers, a train
-   step on [8, 256] and a prefill of [4, 2048], bf16) over a ``(data 2,
+   (``META_SHARDED``: SmolLM-360M, Mamba2-370M and StableLM-3B at 2
+   layers, a train step on [8, 256] and a prefill of [4, 2048], bf16; each
+   weight product's backward on the device's own shards,
+   ``sharding.matmul``) over a ``(data 2,
    model 2)`` mesh of DTensors in one ``fake`` process group, traced on
    ``meta`` shards and on ``cuda:0`` shards: FLOPs and ops equal, bytes
    within 1 %, collective counts and wire bytes equal, the meta live-byte
    peak within [0.8, 1.2] of the card's ``max_memory_allocated`` for the
    step less what it held before, and the shards' flash-attention /
    ``ssd_chunk`` launches counted (SmolLM's 5 kv heads do not split over
-   ``model`` 2: its flash calls split their query rows); (f) one
+   ``model`` 2: its flash calls split their query rows), then the median
+   ms of one device's shard step on the card (``shard_step_ms``; not
+   where the count ran an op on gathered inputs, which runs nowhere else:
+   torch 2.11's DTensor has no ``flip`` for Mamba2's ``cumsum`` backward;
+   ``shard_compare.py`` takes it for checkouts in turns); (f) one
    SmolLM-360M attention layer at full width on ``CP_X`` tokens, f32 and
    bf16, on the card: the flash call split into ``CP_TP`` blocks of query
    rows, each through the per-shard functions at its coordinate
@@ -372,6 +378,12 @@ PREFILL_FLASH_COMMAND_R = (PREFILL_B, 96, 8, PREFILL_S, PREFILL_S, 128, 128)
 #: MiniCPM3-4B's prefill at ``--reduce 2``: QK 48 / V 32, a padded pair
 #: (run on the (64, 64) instantiation), timed in phase 10
 PREFILL_FLASH_MINICPM3_X2 = (PREFILL_B, 20, 20, PREFILL_S, PREFILL_S, 48, 32)
+#: the other padded prefills phase 10 times beside the plain version and
+#: SDPA: StableLM-3B at ``--reduce 2`` (40 / 40), DeepSeek-V2-Lite at
+#: ``--reduce 4`` (48 / 32) and the widest pair the kernel takes (256, 256)
+PREFILL_FLASH_PADDED = {"StableLM-3B x2": (PREFILL_B, 16, 16, PREFILL_S, PREFILL_S, 40, 40),
+                        "DeepSeek-V2-Lite x4": (PREFILL_B, 4, 4, PREFILL_S, PREFILL_S, 48, 32),
+                        "(256, 256)": (PREFILL_B, 8, 8, PREFILL_S, PREFILL_S, 256, 256)}
 #: the padded (QK, V) head-dim pairs phase 3 checks on both routes
 PADDED_FLASH_PAIRS = ((16, 8), (20, 20), (24, 16), (40, 40), (48, 32), (36, 20),
                       (17, 9), (256, 256))
@@ -1570,6 +1582,10 @@ def main() -> int:
     shapes["flash B=4 Hq=20 Hkv=20 S=2048 D=64 Dv=64 bf16 causal (that shape at the "
            "exact 64/64)"] = time_flash(torch, timer, ref, _build, dev,
                                         *PREFILL_FLASH_MINICPM3_X2[:5], 64, 64)
+    for tag, shape in PREFILL_FLASH_PADDED.items():
+        shapes["flash B={} Hq={} Hkv={} S={} D={} Dv={} bf16 causal ({} prefill, "
+               "padded)".format(*shape[:4], *shape[5:], tag)] = time_flash(
+                   torch, timer, ref, _build, dev, *shape)
     details["flash_rows"] = {str(shape): flash_rows_check(torch, np, timer, ops, ref, dev, *shape)
                              for shape in FLASH_ROWS_SHAPES}
     main = time_ssd(torch, timer, ref, _build, dev, *SSD_MAMBA2)
@@ -4958,7 +4974,8 @@ META_PEAK_RANGE = (0.8, 1.2)
 DRYRUN_ARGV = ["--arch", "smollm-360m", "--mesh", "single"]
 #: phase 17 (e): the archs traced per device on meta and card shards, with
 #: the kernel a shard must launch; their depth and the mesh
-META_SHARDED = {"smollm-360m": "flash_attention", "mamba2-370m": "ssd_chunk"}
+META_SHARDED = {"smollm-360m": "flash_attention", "mamba2-370m": "ssd_chunk",
+                "stablelm-3b": "flash_attention"}
 META_SHARDED_LAYERS = 2
 META_SHARDED_MESH = (2, 2)
 #: phase 17 (f): one SmolLM-360M attention layer at full width on [B, S]
@@ -5310,6 +5327,23 @@ def dryrun_finish(proc, t0: float, out_dir: str) -> dict:
                                trace_s=v.get("trace_s")) for k, v in cells.items()})
 
 
+def shard_step_ms(torch, step, args, runs: int) -> float:
+    """The median wall ms of ``runs`` calls of a step on one device's card
+    shards (DTensors under ``implicit_replication``), each synchronized;
+    the launches they make are not counted (``ops.LAUNCHES`` is read
+    before)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        with implicit_replication():
+            step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def meta_sharded(torch, ops) -> dict:
     """Phase 17 (e): each ``META_SHARDED`` arch's train step and prefill
     through ``launch.dryrun.step_parts`` over a ``META_SHARDED_MESH`` mesh,
@@ -5355,6 +5389,11 @@ def meta_sharded(torch, ops) -> dict:
                         row["peak_card"] = torch.cuda.max_memory_allocated() - held
                         row["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
                     row["trace_s"] = time.time() - t0
+                    if where == "card":
+                        # an op this torch's DTensor cannot place runs only under
+                        # the count's gathered fallback: such a step is not timed
+                        row["step_ms"] = (None if row["dtensor_fallbacks"] else
+                                          shard_step_ms(torch, step, args, META_TIMED[kind]))
                     del row["out"], args
                     rows[where] = row
                 meta, card = rows["meta"], rows["card"]
@@ -5392,7 +5431,9 @@ def meta_sharded(torch, ops) -> dict:
                     f"{meta['peak_live_bytes'] / 2**30:.4f} / card {card['peak_card'] / 2**30:.4f} "
                     f"GiB = {peak:.3f}, launches {card['launches']}, fallbacks "
                     f"{card['dtensor_fallbacks']}, trace s meta {meta['trace_s']:.1f} card "
-                    f"{card['trace_s']:.1f}")
+                    f"{card['trace_s']:.1f}, one device's shard step "
+                    + (f"{card['step_ms']:.2f} ms (median of {META_TIMED[kind]})"
+                       if card["step_ms"] is not None else "not timed (DTensor fallbacks)"))
                 out[f"{arch} {kind}"] = {
                     where: {k: r[k] for k in ("flops_per_device", "bytes_per_device", "num_ops",
                                               "collective_counts",
@@ -5400,7 +5441,8 @@ def meta_sharded(torch, ops) -> dict:
                                               "peak_live_bytes", "dtensor_fallbacks", "trace_s")}
                     for where, r in rows.items()}
                 out[f"{arch} {kind}"]["card"].update(peak_card=card["peak_card"],
-                                                      launches=card["launches"])
+                                                      launches=card["launches"],
+                                                      step_ms=card["step_ms"])
     finally:
         sharding.close_fake_world()
         torch.cuda.empty_cache()

@@ -64,6 +64,7 @@ from repro_torch.parallel.sharding import (
     current_ctx,
     embed_lookup,
     logical_to_spec,
+    partial_sums,
     use_ctx,
     write_rows,
 )
@@ -200,12 +201,14 @@ def _block_forward(cfg: ModelConfig, p: dict[str, Tensor], x: Tensor,
                    ) -> tuple[Tensor, Tensor | None]:
     """One block: ``(x', MoE aux)``, the aux None but in a MoE layer."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if cfg.attn_kind == "mla":
-        attn = mla.mla_prefill(p, cfg, h, positions, kv_chunk=KV_CHUNK)
-    else:
-        attn = gqa_attention(p, cfg, h, positions, kv_chunk=KV_CHUNK)
-    if cfg.parallel_block:
-        return x + attn + dense_ffn(p, cfg, h), None
+    # a parallel block's two outputs are added up before one reduction
+    with partial_sums(cfg.parallel_block):
+        if cfg.attn_kind == "mla":
+            attn = mla.mla_prefill(p, cfg, h, positions, kv_chunk=KV_CHUNK)
+        else:
+            attn = gqa_attention(p, cfg, h, positions, kv_chunk=KV_CHUNK)
+        if cfg.parallel_block:
+            return x + attn + dense_ffn(p, cfg, h), None
     x = x + attn
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if moe_layer:
@@ -374,9 +377,10 @@ def chunked_ce(cfg: ModelConfig, x: Tensor, w: Tensor, labels: Tensor
     if s % chunk:
         raise ValueError(f"sequence length {s} is not {n} CE chunks of {chunk}")
     # the unembedding gathered whole but for its vocabulary split (a ZeRO-3
-    # gather), as XLA gathers a weight split on a product's contraction:
-    # on DTensors the logits then come out split on the batch, not as a
-    # partial sum over 'data' (a moves-nothing constraint on a plain tensor)
+    # gather) once for every chunk, as XLA hoists it out of the loop; each
+    # chunk's product (``sharding.matmul``) then forms its logits and its
+    # gradients on the device's own tokens and vocabulary (a moves-nothing
+    # constraint on a plain tensor)
     w = activation(w, None, "vocab")
     # where 'model' does not divide the vocabulary, a chunk's rows split
     # over it instead (the one logical axis of rows on 'model'), so no two
@@ -493,12 +497,13 @@ def decode_state_specs(cfg: ModelConfig, batch: int, seq: int
 def _block_decode(cfg: ModelConfig, p, x, cache, positions, cache_len,
                   moe_layer: bool = False):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if cfg.attn_kind == "mla":
-        attn, cache = mla.mla_decode(p, cfg, h, cache, positions, cache_len)
-    else:
-        attn, cache = gqa_decode(p, cfg, h, cache, positions, cache_len)
-    if cfg.parallel_block:
-        return x + attn + dense_ffn(p, cfg, h), cache
+    with partial_sums(cfg.parallel_block):
+        if cfg.attn_kind == "mla":
+            attn, cache = mla.mla_decode(p, cfg, h, cache, positions, cache_len)
+        else:
+            attn, cache = gqa_decode(p, cfg, h, cache, positions, cache_len)
+        if cfg.parallel_block:
+            return x + attn + dense_ffn(p, cfg, h), cache
     x = x + attn
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     f = moe_mod.moe_ffn(cfg, p, h2)[0] if moe_layer else dense_ffn(p, cfg, h2)

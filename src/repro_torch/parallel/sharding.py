@@ -621,24 +621,148 @@ def channelwise(fn: Callable, x: Tensor, *params: Tensor) -> Tensor:
                               shape=x.shape, stride=x.stride())
 
 
-def matmul(x: Tensor, w: Tensor) -> Tensor:
-    """``torch.matmul(x, w)`` for ``x [B, S, K]`` and ``w [K, N]``.  On a
-    DTensor ``x`` split on both its batch and its rows (an attention's
-    query rows over ``model``), on each device's shards: ``w`` gathered
-    whole, the output placed as ``x``, ``w``'s gradient a partial sum over
-    the axes that split ``x``.  ``torch.matmul`` folds B and S into one
-    dim, which DTensor cannot view while both are split."""
-    if not splits(x, 0, 1):
-        return torch.matmul(x, w)
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+def _product_plan(x: Tensor, w: Tensor) -> tuple[list, ...]:
+    """The placements, one a mesh axis, of a weight product ``x [..., K] @
+    w [K, N]`` on DTensors, as XLA partitions a dot: ``(x, w, y, y out,
+    dx, dx out, dw)``, each product formed in the first placement of its
+    pair and leaving in the second.  On an axis that splits ``x``'s tokens
+    (a dim but the last) ``w`` is gathered, ``y`` and ``dx`` split as
+    ``x`` and ``dw`` is a partial sum; on one that splits the contraction
+    (``x`` on K or ``w`` on its rows, the other sliced to match) ``y`` is
+    a partial sum, reduced at once, and ``dx`` and ``dw`` split on K; on
+    one that splits ``w``'s columns (``x`` gathered) ``y`` and ``dw``
+    split on N and ``dx`` is a partial sum, left to its consumers (the
+    q, k and v projections' add up before one reduction).  An axis that
+    splits neither operand forms its share of the first token dim it
+    divides, so no two devices form the same rows, and gathers ``y`` whole
+    again (``dx`` stays split for its consumers); with no such dim (a
+    decode step's one token), its share of the contraction, ``y`` reduced
+    at once; with neither, all whole.  Such a split nests inside the axes
+    already splitting that dim only where they come before it in the mesh
+    (else the shards would be moved, a weight's among them)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
-    dm = x.device_mesh
-    wl = w.redistribute(dm, [Replicate()] * dm.ndim).to_local(
-        grad_placements=[Partial() if p.is_shard() else Replicate() for p in x.placements])
-    y = torch.matmul(x.to_local(), wl)
-    shape = torch.Size((*x.shape[:-1], w.shape[-1]))
-    return DTensor.from_local(y, dm, x.placements, run_check=False, shape=shape,
-                              stride=contiguous_strides(shape))
+    last = x.dim() - 1
+    r, k = Replicate(), Shard(last)
+    contraction = (k, Shard(0), Partial(), r, k, k, Shard(0))
+    rows: list = []
+    for p, q in zip(x.placements, w.placements):
+        if isinstance(p, Shard) and p.dim != last:
+            rows.append((p, r, p, p, p, p, Partial()))
+        elif isinstance(q, Shard) and q.dim == 1:
+            rows.append((r, q, k, k, Partial(), Partial(), q))
+        elif isinstance(p, Shard) or (isinstance(q, Shard) and q.dim == 0):
+            rows.append(contraction)
+        else:
+            rows.append(None)
+    # the mesh axes splitting each dim of x: a new split of a dim nests
+    # inside these, so only an axis after them all splits it in place
+    axes = {d: [i for i, row in enumerate(rows) if row is not None and row[0] == Shard(d)]
+            for d in range(last + 1)}
+
+    def splits_in_place(i: int, d: int) -> bool:
+        ways = math.prod(x.device_mesh.size(j) for j in axes[d]) * x.device_mesh.size(i)
+        return all(j < i for j in axes[d]) and x.shape[d] % ways == 0
+
+    for i, row in enumerate(rows):
+        if row is not None:
+            continue
+        free = [d for d in range(last) if splits_in_place(i, d)]
+        if free:
+            axes[free[0]].append(i)
+            t = Shard(free[0])
+            rows[i] = (t, r, t, r, t, t, Partial())
+        elif splits_in_place(i, last):
+            axes[last].append(i)
+            rows[i] = contraction
+        else:
+            rows[i] = (r,) * 7
+    return tuple(list(col) for col in zip(*rows))
+
+
+def _folded_mm(a: Tensor, b: Tensor) -> Tensor:
+    """``torch.matmul(a, b)`` for a 2-D ``b`` as one ``mm`` over ``a``'s
+    leading dims folded, as autograd's ``matmul`` folds them (without
+    gradients ``matmul`` may broadcast ``b`` into a ``bmm`` instead, which
+    a "dots" remat region does not keep)."""
+    return torch.mm(a.reshape(-1, a.shape[-1]), b).view(*a.shape[:-1], b.shape[-1])
+
+
+_PARTIAL_SUMS: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "repro_torch_partial_sums", default=False)
+
+
+@contextlib.contextmanager
+def partial_sums(on: bool = True):
+    """While ``on``, a weight product split on its contraction leaves its
+    output a partial sum (:func:`matmul`) instead of reducing it at once:
+    for outputs added up before one reduction (a parallel block's
+    attention and MLP, whose all-reduces XLA reassociates into one)."""
+    tok = _PARTIAL_SUMS.set(bool(on))
+    try:
+        yield
+    finally:
+        _PARTIAL_SUMS.reset(tok)
+
+
+def _placed(t: Tensor, mesh, formed: list, out: list, shape) -> Tensor:
+    """Local ``t`` as a DTensor of ``shape`` placed ``formed``, moved to
+    ``out``."""
+    from torch.distributed.tensor import DTensor
+
+    d = DTensor.from_local(t, mesh, formed, run_check=False, shape=torch.Size(shape),
+                           stride=contiguous_strides(shape))
+    return d if formed == out else d.redistribute(mesh, out)
+
+
+class _Product(torch.autograd.Function):
+    """``torch.matmul(x, w)`` of DTensors on each device's shards, forward
+    and backward, by :func:`_product_plan`: no product sees a token
+    gathered over an axis that splits the tokens or a ``w`` column
+    gathered over one that splits the columns, whatever placements the
+    gradient arrives in.  ``dw`` leaves in ``w``'s own placements (a
+    partial sum reduce-scattered into its ZeRO-3 split)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        from torch.distributed.tensor import Partial, Replicate
+
+        dm = x.device_mesh
+        px, pw, py, ctx.y_out, ctx.pdx, ctx.dx_out, ctx.pdw = _product_plan(x, w)
+        if _PARTIAL_SUMS.get():
+            ctx.y_out = [p if isinstance(p, Partial) else o for p, o in zip(py, ctx.y_out)]
+        # the gradient arrives whole where the product was a partial sum
+        ctx.pdy = [Replicate() if isinstance(p, Partial) else p for p in py]
+        xl = x.redistribute(dm, px).to_local()
+        wl = w.redistribute(dm, pw).to_local()
+        ctx.save_for_backward(xl, wl)
+        ctx.mesh, ctx.x_shape, ctx.w_spec = dm, x.shape, (w.shape, list(w.placements))
+        return _placed(_folded_mm(xl, wl), dm, py, ctx.y_out, (*x.shape[:-1], w.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, dy):
+        xl, wl = ctx.saved_tensors
+        dm = ctx.mesh
+        dyl = dy.redistribute(dm, ctx.pdy).to_local()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _placed(_folded_mm(dyl, wl.t()), dm, ctx.pdx, ctx.dx_out, ctx.x_shape)
+        if ctx.needs_input_grad[1]:
+            shape, placements = ctx.w_spec
+            dwl = torch.mm(xl.reshape(-1, xl.shape[-1]).t(), dyl.reshape(-1, dyl.shape[-1]))
+            dw = _placed(dwl, dm, ctx.pdw, placements, shape)
+        return dx, dw
+
+
+def matmul(x: Tensor, w: Tensor) -> Tensor:
+    """``torch.matmul(x, w)`` for a weight product, ``x [..., K]`` and ``w
+    [K, N]``.  On two DTensors, on each device's shards in its forward and
+    its backward (:class:`_Product`), as XLA partitions the dot and its
+    gradients; DTensor's own choice per op would gather the tokens or the
+    columns in the backward.  Plain tensors run ``torch.matmul`` itself."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return torch.matmul(x, w)
+    return _Product.apply(x, w)
 
 
 def kernel_placements(x: Tensor, heads: int, groups: int = 0) -> list:

@@ -279,13 +279,15 @@ def test_ce_rows_split_over_model_where_it_does_not_divide_the_vocabulary():
 
 # -- four processes (gloo): real values on the split ------------------------
 
-#: the worker: chunked_attention, and a 1-layer LM's loss and every gradient
-#: (5 kv heads and a vocabulary of 50, neither divided by ``model``), on
-#: DTensors of real values over (data 1, model 4) and (data 2, model 2)
+#: the worker: chunked_attention, and three 1-layer LMs' loss and every
+#: gradient (5 kv heads and a vocabulary of 50, neither divided by
+#: ``model``; 4 kv heads, d_ff 64 and a vocabulary of 64, all divided, with
+#: SwiGLU and with a parallel block's GELU), on DTensors of real values
+#: over (data 1, model 4) and (data 2, model 2)
 #: meshes of four ``gloo`` ranks, against the same calls on plain tensors;
 #: rank 0 writes each result's relative L2 error as JSON
 GLOO_WORKER = """
-import json, socket, sys
+import dataclasses, json, socket, sys
 
 import torch
 import torch.distributed as dist
@@ -341,29 +343,42 @@ def worker(rank, port, out_path):
             res[f"{shape} attention causal={causal}"] = {
                 "rows": str(got_out.placements),
                 "rel": [rel(a, b) for a, b in zip(got, want)]}
-        # a 1-layer LM (5 kv heads, a vocabulary 4 does not divide): loss and every gradient
-        cfg = ModelConfig(name="cp", family="dense", num_layers=1, d_model=32, n_heads=15,
-                          n_kv_heads=5, head_dim=8, d_ff=64, vocab=50, remat="none",
-                          dtype="float32").validate()
-        specs = lm.model_specs(cfg)
-        params = init_params(specs, torch.Generator().manual_seed(0), torch.float32, "cpu")
-        shards = specs_to_shardings(specs, mesh, "train")
-        tokens = torch.randint(0, 50, (2, 64), generator=g)
-        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
-        names, leaves = zip(*sorted(lm_leaves(params)))
-        plain = [t.clone().requires_grad_() for t in leaves]
-        loss, _ = lm.loss_fn(cfg, rebuild(params, names, plain), batch)
-        want = [loss] + list(torch.autograd.grad(loss, plain))
-        sh_leaves = dict(lm_leaves(shards))
-        dts = [distribute_tensor(t.detach(), dm,
-                                 sharding.to_placements(sh_leaves[n])).requires_grad_()
-               for n, t in zip(names, leaves)]
-        with use_ctx(ctx), implicit_replication():
-            b = {k_: place(t, ("batch", None)) for k_, t in batch.items()}
-            got_loss, _ = lm.loss_fn(cfg, rebuild(params, names, dts), b, ctx)
-            got = [got_loss] + list(torch.autograd.grad(got_loss, dts))
-        res[f"{shape} lm"] = {"rel": {n: rel(a, w)
-                                      for n, a, w in zip(("loss",) + names, got, want)}}
+        # 1-layer LMs' loss and every gradient: 5 kv heads and a vocabulary 4
+        # does not divide ("lm"); kv heads, d_ff and a vocabulary ``model``
+        # divides, SwiGLU ("split"), and a parallel block's GELU MLP with tied
+        # embeddings under the "dots" remat ("gelu"), so every weight product
+        # runs split
+        base = ModelConfig(name="cp", family="dense", num_layers=1, d_model=32, n_heads=15,
+                           n_kv_heads=5, head_dim=8, d_ff=64, vocab=50, remat="none",
+                           dtype="float32")
+        lms = {"lm": base,
+               "split": dataclasses.replace(base, n_heads=8, n_kv_heads=4, vocab=64),
+               "gelu": dataclasses.replace(base, n_heads=8, n_kv_heads=4, vocab=64,
+                                           ffn_act="gelu", tie_embeddings=True,
+                                           parallel_block=True, remat="dots")}
+        for tag, cfg in lms.items():
+            cfg = cfg.validate()
+            specs = lm.model_specs(cfg)
+            params = init_params(specs, torch.Generator().manual_seed(0), torch.float32, "cpu")
+            shards = specs_to_shardings(specs, mesh, "train")
+            tokens = torch.randint(0, cfg.vocab, (2, 64), generator=g)
+            batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+            names, leaves = zip(*sorted(lm_leaves(params)))
+            plain = [t.clone().requires_grad_() for t in leaves]
+            loss, _ = lm.loss_fn(cfg, rebuild(params, names, plain), batch)
+            want = [loss] + list(torch.autograd.grad(loss, plain, allow_unused=True))
+            sh_leaves = dict(lm_leaves(shards))
+            dts = [distribute_tensor(t.detach(), dm,
+                                     sharding.to_placements(sh_leaves[n])).requires_grad_()
+                   for n, t in zip(names, leaves)]
+            with use_ctx(ctx), implicit_replication():
+                b = {k_: place(t, ("batch", None)) for k_, t in batch.items()}
+                got_loss, _ = lm.loss_fn(cfg, rebuild(params, names, dts), b, ctx)
+                got = [got_loss] + list(torch.autograd.grad(got_loss, dts, allow_unused=True))
+            # GELU leaves ``w_gate`` unused: its gradient is None on both sides
+            assert [a is None for a in got] == [w is None for w in want], tag
+            res[f"{shape} {tag}"] = {"rel": {n: rel(a, w) for n, a, w in
+                                             zip(("loss",) + names, got, want) if w is not None}}
     if rank == 0:
         with open(out_path, "w") as f:
             json.dump(res, f)
@@ -403,8 +418,9 @@ GLOO_REL_L2 = 1e-5
 def test_split_attention_and_lm_on_four_gloo_ranks_equal_plain(tmp_path):
     """On real ranks, where each shard computes its own rows (its coordinate
     from the device mesh) and the gradients' partial sums are reduced, the
-    attention's output and gradients, and a 1-layer LM's loss and every
-    parameter's gradient, equal the plain tensors' within
+    attention's output and gradients, and each 1-layer LM's loss and every
+    parameter's gradient (the weight products' backward on each device's
+    shards, ``sharding.matmul``), equal the plain tensors' within
     ``GLOO_REL_L2``; the output is split on its rows over ``model``."""
     import json
     import os
@@ -421,7 +437,7 @@ def test_split_attention_and_lm_on_four_gloo_ranks_equal_plain(tmp_path):
                          text=True, timeout=300, env=env)
     assert run.returncode == 0, run.stderr[-4000:]
     res = json.loads(out.read_text())
-    assert len(res) == 6
+    assert len(res) == 10
     for name, row in res.items():
         rels = row["rel"].values() if isinstance(row["rel"], dict) else row["rel"]
         assert max(rels) <= GLOO_REL_L2, (name, row)

@@ -6,7 +6,10 @@ port traces DTensors on ``meta`` shards (``launch.dryrun.dryrun_cell``);
 JAX compiles with the same rules on 8 forced CPU devices (in a subprocess)
 and ``repro.analysis.hlo.analyze_compiled_text`` reads the program.  XLA's
 partitioner picks other collectives and fuses, so only their presence is
-asserted; run with ``-s`` to print the table PERF.md records.
+asserted; run with ``-s`` to print the table PERF.md records.  At full
+width (2 layers, ``[2, 2048]``) the FLOPs are held to JAX's: SmolLM-360M's
+prefill and the train cells of SmolLM-360M, StableLM-3B, Mamba2-370M and
+Qwen1.5-MoE.
 """
 
 import dataclasses
@@ -114,11 +117,17 @@ def test_per_device_counts_beside_jax(jax_cells):
 
 #: the probe's cells: SmolLM-360M at full width, 2 layers, ``[2, 2048]``,
 #: on the same mesh; its 5 kv heads do not split over ``model`` 4, so the
-#: attention splits its query rows there (``models.attention``)
-FULL_CELLS = [("smollm-360m", k) for k in ("prefill", "train")]
+#: attention splits its query rows there (``models.attention``); and the
+#: full-width train cells of StableLM-3B, Mamba2-370M and Qwen1.5-MoE
+FULL_CELLS = ([("smollm-360m", k) for k in ("prefill", "train")]
+              + [(a, "train") for a in ("stablelm-3b", "mamba2-370m", "qwen2-moe-a2.7b")])
 FULL_B, FULL_S = 2, 2048
 #: the prefill's port / JAX per-device FLOPs (1.821 before the row split)
 FULL_PREFILL_RATIO = (0.93, 1.00)
+#: a full-width train cell's port / JAX per-device FLOPs (SmolLM 1.654,
+#: StableLM 2.533, Mamba2 1.844, Qwen1.5-MoE 2.134 while DTensor placed
+#: each backward product itself)
+FULL_TRAIN_RATIO = (0.90, 1.10)
 
 JAX_FULL_CELLS = (JAX_CELLS.replace("reduce_config(get_config(arch), 8)", "get_config(arch)")
                   .replace("ShapeSpec(kind, kind, 256, 8)",
@@ -146,13 +155,13 @@ def test_full_width_smollm_beside_jax(jax_full_cells):
     over 15 heads and 2 layers); JAX's CPU HLO charges its scan's full
     block, ``512 x 2048`` pairs (8.05306368e9): the difference is the
     block's masked pairs exactly (C.4's causal-pairs divergence), 0.964.
-    The train cell is recorded beside it with no bar (2.577 before the
-    split); run with ``-s`` to print both rows."""
+    The train cell's ratio is in ``FULL_TRAIN_RATIO``; run with ``-s`` to
+    print both rows."""
     from repro_torch.kernels.ops import causal_pairs
 
     rows = []
     try:
-        for arch, kind in FULL_CELLS:
+        for arch, kind in FULL_CELLS[:2]:
             cfg = dataclasses.replace(get_config(arch), num_layers=2)
             out = dryrun.dryrun_cell(cfg, shapes.ShapeSpec(kind, kind, FULL_S, FULL_B), False,
                                      verbose=False,
@@ -166,6 +175,9 @@ def test_full_width_smollm_beside_jax(jax_full_cells):
                 masked = m * FULL_S - causal_pairs(m, FULL_S, True)
                 assert j["flops_per_device"] - c["flops_per_device"] == \
                     cfg.num_layers * cfg.n_heads * 2 * (2 * cfg.head_dim) * masked
+            else:
+                lo, hi = FULL_TRAIN_RATIO
+                assert lo <= ratio <= hi, ratio
             rows.append(f"| {arch} {kind} full [{FULL_B}, {FULL_S}] | "
                         f"{c['flops_per_device']:.6g} | {j['flops_per_device']:.6g} | "
                         f"{ratio:.3f} | {c['collective_counts']} | {j['collective_counts']} | "
@@ -174,6 +186,29 @@ def test_full_width_smollm_beside_jax(jax_full_cells):
     finally:
         sharding.close_fake_world()
     print("\n" + "\n".join(rows))
+
+
+@pytest.mark.parametrize("arch", [a for a, _ in FULL_CELLS[2:]])
+def test_full_width_train_beside_jax(jax_full_cells, arch):
+    """A full-width train cell (2 layers, ``[2, 2048]``): port / JAX
+    per-device FLOPs in ``FULL_TRAIN_RATIO``, each weight product's
+    backward on the device's own tokens and split (``sharding.matmul``);
+    run with ``-s`` to print the row."""
+    try:
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        out = dryrun.dryrun_cell(cfg, shapes.ShapeSpec("train", "train", FULL_S, FULL_B), False,
+                                 verbose=False,
+                                 mesh=sharding.abstract_mesh_compat(MESH, ("data", "model")))
+    finally:
+        sharding.close_fake_world()
+    c, j = out["cost"], jax_full_cells[f"{arch} train"]
+    ratio = c["flops_per_device"] / j["flops_per_device"]
+    lo, hi = FULL_TRAIN_RATIO
+    assert lo <= ratio <= hi, ratio
+    print(f"\n| {arch} train full [{FULL_B}, {FULL_S}] | {c['flops_per_device']:.6g} | "
+          f"{j['flops_per_device']:.6g} | {ratio:.3f} | {c['collective_counts']} | "
+          f"{j['collective_counts']} | {c['collective_wire_bytes_per_device']:.6g} | "
+          f"{j['collective_wire_bytes_per_device']:.6g} |")
 
 
 #: reduced Mamba2-370M's train cell at its vocabulary (6285, which 4 does
