@@ -236,9 +236,11 @@ Phases (each passes or the script exits non-zero without a result line):
    over a 2048 cache, bf16): FLOPs equal, bytes within 1 %, ops printed, the
    meta live bytes plus the arguments within [0.8, 1.2] of the card's
    peak, the H100 roofline bound at most the step's median ms; (d)
-   ``python -m repro_torch.launch.dryrun`` (``DRYRUN_ARGV``) in a
-   subprocess, exit 0, its cells ``ok`` (``long_500k`` skipped for a
-   full-attention arch); (e) the per-device dry-run's count
+   ``python -m repro_torch.launch.dryrun`` (``DRYRUN_ARGV``: SmolLM-360M's
+   four shapes and ``DRYRUN_CELLS``, the cells torch 2.11's DTensor once
+   fell back on) in a subprocess started after the build, exit 0, its
+   cells ``ok`` (``long_500k`` skipped for a full-attention arch), none
+   with a DTensor fallback; (e) the per-device dry-run's count
    (``META_SHARDED``: SmolLM-360M, Mamba2-370M and StableLM-3B at 2
    layers, a train step on [8, 256] and a prefill of [4, 2048], bf16; each
    weight product's backward on the device's own shards,
@@ -250,10 +252,9 @@ Phases (each passes or the script exits non-zero without a result line):
    step less what it held before, and the shards' flash-attention /
    ``ssd_chunk`` launches counted (SmolLM's 5 kv heads do not split over
    ``model`` 2: its flash calls split their query rows), then the median
-   ms of one device's shard step on the card (``shard_step_ms``; not
-   where the count ran an op on gathered inputs, which runs nowhere else:
-   torch 2.11's DTensor has no ``flip`` for Mamba2's ``cumsum`` backward;
-   ``shard_compare.py`` takes it for checkouts in turns); (f) one
+   ms of one device's shard step on the card (``shard_step_ms``; an op
+   the count ran on gathered inputs, which runs nowhere else, fails the
+   phase; ``shard_compare.py`` takes it for checkouts in turns); (f) one
    SmolLM-360M attention layer at full width on ``CP_X`` tokens, f32 and
    bf16, on the card: the flash call split into ``CP_TP`` blocks of query
    rows, each through the per-shard functions at its coordinate
@@ -630,6 +631,13 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def torch_version() -> str:
+    """The installed torch's version (DTensor places ops by version)."""
+    import torch
+
+    return torch.__version__
 
 
 def card_line() -> str:
@@ -1225,6 +1233,9 @@ def main() -> int:
     log(f"build: {build_s:.1f} s")
     details["build_seconds"] = build_s
     details["ptxas"] = dict(_build.BUILD_LOG)
+    # phase 17 (d)'s dry-run traces on the host's CPU from here on, beside
+    # the card's phases
+    dryrun = dryrun_start()
     phase_done("1-2 card and build")
 
     # 3) each kernel against its plain version on the card
@@ -1388,7 +1399,7 @@ def main() -> int:
     # 17) the meta passes: expert parallelism, a prefill through it, the
     # meta count against card steps and the dry-run's CLI (before the
     # kernel timings, so that their launches count)
-    details["meta"] = meta_phase(torch, ops)
+    details["meta"] = meta_phase(torch, ops, dryrun)
     for k, n in details["meta"]["launches"].items():
         launches[k] += n
     phase_done("17 meta passes")
@@ -4970,8 +4981,18 @@ META_TRAIN, META_PREFILL, META_DECODE = (8, 256), (4, 2048), (4, 2048)
 META_TIMED = {"train": 3, "prefill": 5, "decode": 20}
 META_BYTES_RTOL = 0.01
 META_PEAK_RANGE = (0.8, 1.2)
-#: (d): the dry-run's CLI on one arch and mesh
-DRYRUN_ARGV = ["--arch", "smollm-360m", "--mesh", "single"]
+#: (d): the dry-run's CLI on the single mesh: SmolLM-360M's four shapes
+#: (``long_500k`` skipped for a full-attention arch), then the cells that
+#: torch 2.11's DTensor once could not place (the cumsum's backward flip,
+#: the embedding's backward index_put, the greedy argmax, the decode's
+#: head regroups): each traced with no DTensor fallback
+DRYRUN_CELLS = ([("smollm-360m", s) for s in ("train_4k", "prefill_32k", "decode_32k",
+                                               "long_500k")]
+                + [("seamless-m4t-medium", "decode_32k"), ("command-r-plus-104b", "decode_32k"),
+                   ("minicpm3-4b", "decode_32k"), ("zamba2-1.2b", "long_500k"),
+                   ("mamba2-370m", "train_4k"), ("zamba2-1.2b", "train_4k"),
+                   ("minicpm3-4b", "train_4k"), ("seamless-m4t-medium", "train_4k")])
+DRYRUN_ARGV = ["--mesh", "single", "--cells", ",".join(f"{a}:{s}" for a, s in DRYRUN_CELLS)]
 #: phase 17 (e): the archs traced per device on meta and card shards, with
 #: the kernel a shard must launch; their depth and the mesh
 META_SHARDED = {"smollm-360m": "flash_attention", "mamba2-370m": "ssd_chunk",
@@ -5290,41 +5311,72 @@ def meta_cell(torch, ops, arch: str, layers) -> dict:
     return cells
 
 
-def dryrun_start(out_dir: str):
+def dryrun_start() -> tuple:
     """Phase 17 (d), started: ``python -m repro_torch.launch.dryrun`` at
-    ``DRYRUN_ARGV`` into ``out_dir``, in a process of its own that traces on
-    the host's CPU while (a)-(c) drive the card.  Returns ``(process,
-    start time)``."""
+    ``DRYRUN_ARGV`` into a temporary directory, in a process of its own that
+    traces on the host's CPU while the card's phases run (started after the
+    build; killed, and its directory removed, when this script exits).
+    Returns ``(process, start time, directory)``."""
+    import atexit
     import os
+    import shutil
+    import tempfile
 
-    return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGV, "--out", out_dir],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=str(SRC))), time.time()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    # its output goes to files: a pipe nobody reads for minutes could fill
+    with open(os.path.join(out_dir, "log"), "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGV,
+             "--out", os.path.join(out_dir, "cells")],
+            stdout=log_file, stderr=subprocess.STDOUT, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(SRC)))
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc, time.time(), out_dir
 
 
 def dryrun_finish(proc, t0: float, out_dir: str) -> dict:
-    """Phase 17 (d), waited for: exit 0, each cell ``ok`` but a skip
-    ``cell_supported`` names."""
-    from repro_torch.launch.shapes import SHAPES, cell_supported
+    """Phase 17 (d), waited for: exit 0, each of ``DRYRUN_CELLS`` ``ok``
+    but a skip ``cell_supported`` names, and no ok cell with an op this
+    host's DTensor could not place (``dtensor_fallbacks``)."""
+    from repro_torch.launch.shapes import cell_supported
 
-    _, err = proc.communicate(timeout=600)
-    secs = time.time() - t0
+    waited = time.time()
+    proc.wait(timeout=900)
+    secs, waited = time.time() - t0, time.time() - waited
+    out = pathlib.Path(out_dir)
     if proc.returncode != 0:
-        fail(f"phase 17 (d): the dry-run exited {proc.returncode}: {err[-2000:]}")
-    cells = {p.name: json.loads(p.read_text()) for p in sorted(pathlib.Path(out_dir).iterdir())}
-    arch = DRYRUN_ARGV[DRYRUN_ARGV.index("--arch") + 1]
-    status = {c["shape"]: c["status"] for c in cells.values()}
-    names = ([DRYRUN_ARGV[DRYRUN_ARGV.index("--shape") + 1]] if "--shape" in DRYRUN_ARGV
-             else list(SHAPES))
-    want = {name: "ok" if cell_supported(arch, name)[0] else "skipped" for name in names}
+        fail(f"phase 17 (d): the dry-run exited {proc.returncode}: "
+             f"{(out / 'log').read_text()[-2000:]}")
+    cells = {p.name: json.loads(p.read_text()) for p in sorted((out / "cells").iterdir())}
+    status = {f"{c['arch']}:{c['shape']}": c["status"] for c in cells.values()}
+    want = {f"{a}:{s}": "ok" if cell_supported(a, s)[0] else "skipped" for a, s in DRYRUN_CELLS}
     if status != want:
         fail(f"phase 17 (d): dry-run cells {status}, expected {want}")
+    fallbacks = {f"{c['arch']}:{c['shape']}": c["cost"]["dtensor_fallbacks"]
+                 for c in cells.values() if c["status"] == "ok"}
+    if any(fallbacks.values()):
+        fail(f"phase 17 (d): DTensor fallbacks under torch {torch_version()}: "
+             f"{ {k: v for k, v in fallbacks.items() if v} }")
+    terms = {f"{c['arch']}:{c['shape']}": (c["cost"]["collective_wire_bytes_per_device"],
+                                           c["roofline"]["dominant"],
+                                           c["roofline"]["bound_s"] * 1e3)
+             for c in cells.values() if c["status"] == "ok"}
     log(f"phase 17 (d) dry-run CLI {' '.join(DRYRUN_ARGV)}: exit 0, {secs:.1f} s beside "
-        f"(a)-(c), cells {status}")
-    return dict(seconds=secs, status=status,
+        f"phases 3-17 ({waited:.1f} s waited for in 17), torch {torch_version()}, cells "
+        f"{status}, no DTensor fallback; (wire B a device, dominant term, bound ms) {terms}")
+    return dict(seconds=secs, waited=waited, status=status, torch=torch_version(),
                 cells={k: dict(roofline=v.get("roofline"), memory=v.get("memory"),
-                               trace_s=v.get("trace_s")) for k, v in cells.items()})
+                               trace_s=v.get("trace_s"),
+                               fallbacks=v.get("cost", {}).get("dtensor_fallbacks"),
+                               wire=v.get("cost", {}).get("collective_wire_bytes_per_device"))
+                       for k, v in cells.items()})
 
 
 def shard_step_ms(torch, step, args, runs: int) -> float:
@@ -5391,9 +5443,11 @@ def meta_sharded(torch, ops) -> dict:
                     row["trace_s"] = time.time() - t0
                     if where == "card":
                         # an op this torch's DTensor cannot place runs only under
-                        # the count's gathered fallback: such a step is not timed
-                        row["step_ms"] = (None if row["dtensor_fallbacks"] else
-                                          shard_step_ms(torch, step, args, META_TIMED[kind]))
+                        # the count's gathered fallback, which runs nowhere else
+                        if row["dtensor_fallbacks"]:
+                            fail(f"phase 17 (e) {arch} {kind}: DTensor fallbacks under "
+                                 f"torch {torch_version()}: {row['dtensor_fallbacks']}")
+                        row["step_ms"] = shard_step_ms(torch, step, args, META_TIMED[kind])
                     del row["out"], args
                     rows[where] = row
                 meta, card = rows["meta"], rows["card"]
@@ -5432,8 +5486,7 @@ def meta_sharded(torch, ops) -> dict:
                     f"GiB = {peak:.3f}, launches {card['launches']}, fallbacks "
                     f"{card['dtensor_fallbacks']}, trace s meta {meta['trace_s']:.1f} card "
                     f"{card['trace_s']:.1f}, one device's shard step "
-                    + (f"{card['step_ms']:.2f} ms (median of {META_TIMED[kind]})"
-                       if card["step_ms"] is not None else "not timed (DTensor fallbacks)"))
+                    f"{card['step_ms']:.2f} ms (median of {META_TIMED[kind]})")
                 out[f"{arch} {kind}"] = {
                     where: {k: r[k] for k in ("flops_per_device", "bytes_per_device", "num_ops",
                                               "collective_counts",
@@ -5514,39 +5567,30 @@ def cp_layer(torch, ops) -> dict:
     return out
 
 
-def meta_phase(torch, ops) -> dict:
+def meta_phase(torch, ops, dryrun: tuple) -> dict:
     """Phase 17: the meta passes. (a) the expert-parallel MoE branch, (b) a
     prefill through it, (c) the meta pass's count against card steps,
-    (d) the dry-run's CLI, in a process of its own beside (a)-(c) (killed
-    if the phase fails), (e) the per-device count on meta and card
-    shards, (f) an attention layer's row shards on the card.  Every
-    kernel launch of (b), (c), (e) and (f) counted."""
-    import tempfile
-
+    (d) the dry-run's CLI, in a process of its own started after the build
+    (``dryrun``: :func:`dryrun_start`'s), (e) the per-device count on meta
+    and card shards, (f) an attention layer's row shards on the card.
+    Every kernel launch of (b), (c), (e) and (f) counted."""
     timer = DeviceTimer(torch)
     log("meta passes: phase 17")
-    with tempfile.TemporaryDirectory() as tmp:
-        proc, t0 = dryrun_start(tmp)
-        try:
-            out = {"expert_parallel": ep_phase(torch, timer)}
-            out["prefill"] = ep_prefill(torch, ops)
-            launches = {k: 0 for k in ops.LAUNCHES}
-            launches["flash_attention"] += sum(out["prefill"]["flash_launches"].values())
-            for arch, layers in META_CELLS.items():
-                cells = out[f"cost {arch}"] = meta_cell(torch, ops, arch, layers)
-                for row in cells.values():
-                    for k, n in row["launches"].items():
-                        launches[k] += n
-            out["sharded"] = meta_sharded(torch, ops)
-            for k, n in out["sharded"]["launches"].items():
+    out = {"expert_parallel": ep_phase(torch, timer)}
+    out["prefill"] = ep_prefill(torch, ops)
+    launches = {k: 0 for k in ops.LAUNCHES}
+    launches["flash_attention"] += sum(out["prefill"]["flash_launches"].values())
+    for arch, layers in META_CELLS.items():
+        cells = out[f"cost {arch}"] = meta_cell(torch, ops, arch, layers)
+        for row in cells.values():
+            for k, n in row["launches"].items():
                 launches[k] += n
-            out["context_parallel"] = cp_layer(torch, ops)
-            launches["flash_attention"] += out["context_parallel"]["launches"]["flash_attention"]
-            out["dryrun"] = dryrun_finish(proc, t0, tmp)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    out["sharded"] = meta_sharded(torch, ops)
+    for k, n in out["sharded"]["launches"].items():
+        launches[k] += n
+    out["context_parallel"] = cp_layer(torch, ops)
+    launches["flash_attention"] += out["context_parallel"]["launches"]["flash_attention"]
+    out["dryrun"] = dryrun_finish(*dryrun)
     out["launches"] = launches
     return out
 

@@ -31,7 +31,13 @@ the per-device count.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m \\
         --shape train_4k --mesh single
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single \
+        --cells mamba2-370m:train_4k,seamless-m4t-medium:decode_32k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --table   # the cells written
+
+Each record's ``dtensor_fallbacks`` counts the ops this torch's DTensor
+could not place, run on their inputs gathered whole (``analysis.cost``);
+torch versions differ there, so check it on the host that will run.
 """
 
 from __future__ import annotations
@@ -329,6 +335,8 @@ def main(argv=None) -> None:
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--mesh", default="both", choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--cells", default=None,
+                    help="comma-separated arch:shape pairs, in place of --arch/--shape")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--table", action="store_true",
@@ -341,27 +349,30 @@ def main(argv=None) -> None:
     archs = all_archs() if (args.all or args.arch is None) else [args.arch]
     shapes = list(SHAPES) if (args.all or args.shape is None) else [args.shape]
     meshes = (["single", "multi"] if args.mesh == "both" else [args.mesh])
+    if args.cells:
+        pairs = [tuple(c.split(":")) for c in args.cells.split(",")]
+    else:
+        pairs = [(arch, shape) for arch in archs for shape in shapes]
 
     os.makedirs(args.out, exist_ok=True)
     failures = 0
-    for arch in archs:
-        for shape in shapes:
-            for mesh_name in meshes:
-                path = os.path.join(args.out, f"{arch}__{shape}__{mesh_name}.json")
-                if args.skip_existing and os.path.exists(path):
-                    print(f"[{arch} x {shape} x {mesh_name}] cached", flush=True)
-                    continue
-                try:
-                    res = dryrun_cell(arch, shape, mesh_name == "multi")
-                except Exception as e:  # noqa: BLE001 — record and continue
-                    failures += 1
-                    res = {"arch": arch, "shape": shape, "mesh": mesh_name,
-                           "status": "error", "error": repr(e),
-                           "traceback": traceback.format_exc()}
-                    print(f"[{arch} x {shape} x {mesh_name}] ERROR {e!r}",
-                          flush=True)
-                with open(path, "w") as f:
-                    json.dump(res, f, indent=1)
+    for arch, shape in pairs:
+        for mesh_name in meshes:
+            path = os.path.join(args.out, f"{arch}__{shape}__{mesh_name}.json")
+            if args.skip_existing and os.path.exists(path):
+                print(f"[{arch} x {shape} x {mesh_name}] cached", flush=True)
+                continue
+            try:
+                res = dryrun_cell(arch, shape, mesh_name == "multi")
+            except Exception as e:  # noqa: BLE001 — record and continue
+                failures += 1
+                res = {"arch": arch, "shape": shape, "mesh": mesh_name,
+                       "status": "error", "error": repr(e),
+                       "traceback": traceback.format_exc()}
+                print(f"[{arch} x {shape} x {mesh_name}] ERROR {e!r}",
+                      flush=True)
+            with open(path, "w") as f:
+                json.dump(res, f, indent=1)
     print(f"dry-run complete; {failures} failures", flush=True)
     raise SystemExit(1 if failures else 0)
 

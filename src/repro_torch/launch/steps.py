@@ -22,7 +22,7 @@ from repro_torch.models import encdec as ed
 from repro_torch.models import lm
 from repro_torch.models.common import dense
 from repro_torch.optim.adamw import AdamWConfig, apply_updates
-from repro_torch.parallel.sharding import ShardingCtx, use_ctx
+from repro_torch.parallel.sharding import ShardingCtx, argmax_last, use_ctx
 
 
 def loss_for(cfg: ModelConfig):
@@ -80,7 +80,7 @@ def make_serve_step(cfg: ModelConfig, ctx: ShardingCtx = ShardingCtx()):
             logits, state = ed.encdec_decode_step(cfg, params, state, batch, ctx)
         else:
             logits, state = lm.decode_step(cfg, params, state, batch, ctx)
-        return torch.argmax(logits, dim=-1).to(torch.int32), state
+        return argmax_last(logits).to(torch.int32), state
 
     return serve_step
 

@@ -47,6 +47,7 @@ from repro_torch.parallel.sharding import (
     kernel_placements,
     on_shards,
     shard_einsum,
+    softmax_last,
     splits,
     use_ctx,
 )
@@ -338,23 +339,65 @@ def _flash_fwd_scan(qg: Tensor, k: Tensor, v: Tensor, causal: bool,
     return acc / l.clamp(min=1e-30)
 
 
-def _cache_rule(second: int):
-    """:func:`parallel.sharding.shard_einsum`'s placements for the cache
-    ``[B, T, Hkv, D]``'s on one mesh axis: rows with rows, kv heads with
-    the ``[B, Hkv, ...]`` operand's heads, the sequence with the logits'
-    last dim (``second``: the product over it, a partial sum)."""
+def _cache_rule(second: int, heads: bool = True):
+    """:func:`parallel.sharding.shard_einsum`'s placements for a cache
+    ``[B, T, Hkv, D]`` (or MLA's latent ``[B, T, L]``, ``heads`` False) on
+    one mesh axis: rows with rows, kv heads with the ``[B, Hkv, ...]``
+    operand's heads, the sequence with the logits' last dim (``second``:
+    the product over it, a partial sum)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     def rule(p):
         if isinstance(p, Shard) and p.dim == 0:
             return Shard(0), p, Shard(0)
-        if isinstance(p, Shard) and p.dim == 2:
+        if heads and isinstance(p, Shard) and p.dim == 2:
             return Shard(1), p, Shard(1)
         if isinstance(p, Shard) and p.dim == 1:
             return (Replicate(), p, Shard(3)) if not second else (Shard(3), p, Partial())
         return Replicate(), Replicate(), Replicate()
 
     return rule
+
+
+def _decode(q: Tensor, k_cache: Tensor, v_cache: Tensor, cache_len: Tensor | None,
+            scale: float) -> Tensor:
+    """:func:`decode_attention` on plain tensors (or one device's shards)."""
+    b, _, hq, d = q.shape
+    _, t, hkv, _ = k_cache.shape
+    qg = (q * scale).reshape(b, hkv, hq // hkv, d)
+    logits = torch.einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float())
+    if cache_len is not None:
+        live = torch.arange(t, device=q.device)[None] < cache_len[:, None]
+        logits = logits.masked_fill(~live[:, None, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgt,bthd->bhgd", probs, v_cache.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def _decode_on_shards(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                      cache_len: Tensor | None, scale: float) -> Tensor:
+    """:func:`_decode` on each device's shards of a DTensor cache whose
+    sequence is whole: the rows with the cache's rows, the query heads
+    with its kv heads (a kv-head shard's queries are one block of the
+    query heads), anything else gathered.  No DTensor op runs, so no
+    head regroup or product needs a DTensor rule."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dm = k_cache.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in k_cache.placements]
+    args, pls = [q, k_cache, v_cache], [pl, pl, pl]
+    if cache_len is not None:
+        if not is_dtensor(cache_len):
+            cache_len = DTensor.from_local(cache_len, dm, [Replicate()] * dm.ndim,
+                                           run_check=False)
+        args.append(cache_len)
+        pls.append([p if p == Shard(0) else Replicate() for p in pl])
+
+    def local(ql, kl, vl, ll=None):
+        return (_decode(ql, kl, vl, ll, scale),)
+
+    return on_shards(local, args, pls, [(pl, q.shape)])[0]
 
 
 def decode_attention(
@@ -368,28 +411,38 @@ def decode_attention(
     """Single-token attention against the cache: one product over it.
 
     The logits are the f32 products of the operands (``q`` scaled in its
-    own dtype), as the JAX package asks for them.
+    own dtype), as the JAX package asks for them.  On a DTensor cache
+    split on its sequence (the serve rules' ``cache_seq``) the cache stays
+    split: each shard's products over its block of the cache
+    (``shard_einsum``; DTensor's einsum merges the split dim and gathers
+    the cache), the softmax of the shards (``softmax_last``: a max and a
+    sum all-reduced as rows, where DTensor's softmax gathers the logits)
+    with each key masked at its global position, and the second product a
+    partial sum, as XLA partitions JAX's one einsum.  On any other DTensor
+    cache each device runs the plain steps on its shards.
     """
-    b, _, hq, d = q.shape
-    _, t, hkv, _ = k_cache.shape
-    g = hq // hkv
+    d = q.shape[-1]
     scale = (d ** -0.5) if scale is None else scale
-    qg = (q * scale).reshape(b, hkv, g, d)
-    split = splits(k_cache, 1)
-    if split:
-        # a DTensor cache split on its sequence stays split: each shard's
-        # product over its block of the cache (DTensor's einsum merges the
-        # split dim and gathers the cache)
-        logits = shard_einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float(), _cache_rule(0))
-    else:
-        logits = torch.einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float())
-    logits = activation(logits, "batch", "cache_heads", None, "cache_seq")
+    if not is_dtensor(k_cache):
+        return _decode(q, k_cache, v_cache, cache_len, scale)
+    if not splits(k_cache, 1):
+        return _decode_on_shards(q, k_cache, v_cache, cache_len, scale)
+    from torch.distributed.tensor import Replicate, Shard
+
+    b, _, hq, _ = q.shape
+    _, t, hkv, _ = k_cache.shape
+    # every sequence shard needs every head: q's heads are gathered where
+    # the cache's are whole, so the regroup views a tensor split on rows
+    heads = [isinstance(p, Shard) and p.dim == 2 for p in k_cache.placements]
+    q_pl = [p if not (isinstance(p, Shard) and p.dim == 2) or h else Replicate()
+            for p, h in zip(q.placements, heads)]
+    if q_pl != list(q.placements):
+        q = q.redistribute(q.device_mesh, q_pl)
+    qg = (q * scale).reshape(b, hkv, hq // hkv, d)
+    logits = shard_einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float(), _cache_rule(0))
     if cache_len is not None:
         live = torch.arange(t, device=q.device)[None] < cache_len[:, None]
         logits = logits.masked_fill(~live[:, None, None], NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    if split:
-        out = shard_einsum("bhgt,bthd->bhgd", probs, v_cache.float(), _cache_rule(1))
-    else:
-        out = torch.einsum("bhgt,bthd->bhgd", probs, v_cache.float())
+    probs = softmax_last(logits)
+    out = shard_einsum("bhgt,bthd->bhgd", probs, v_cache.float(), _cache_rule(1))
     return out.reshape(b, 1, hq, d).to(q.dtype)

@@ -13,7 +13,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import chunked_attention, decode_attention, query_seq_axis
 from repro_torch.models.common import ParamSpec, dense, rms_norm, swiglu
 from repro_torch.models.rope import apply_mrope, apply_rope
-from repro_torch.parallel.sharding import activation, matmul, merge, write_token
+from repro_torch.parallel.sharding import activation, matmul, merge, unsplit, write_token
 
 Tensor = torch.Tensor
 
@@ -61,9 +61,12 @@ def _rope_q_k(cfg: ModelConfig, q: Tensor, k: Tensor, positions: Tensor
 
 
 def _out_proj(out: Tensor, wo: Tensor, dtype: torch.dtype) -> Tensor:
-    """``einsum("bshd,hdq->bsq")``: the heads flattened into one product."""
+    """``einsum("bshd,hdq->bsq")``: the heads flattened into one product.
+    A DTensor ``out`` split on heads a mesh axis does not divide has them
+    gathered first (``unsplit``): no shard can flatten an uneven split."""
     b, s, h, hd = out.shape
-    return matmul(merge(out, (b, s, h * hd), 2), merge(wo, (h * hd, -1), 0)).to(dtype)
+    return matmul(merge(unsplit(out, 2, h), (b, s, h * hd), 2),
+                  merge(wo, (h * hd, -1), 0)).to(dtype)
 
 
 def gqa_attention(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,

@@ -27,7 +27,7 @@ from repro_torch.models.blocks import _out_proj, attn_specs, dense_ffn, ffn_spec
 from repro_torch.models.common import ParamSpec, dense, rms_norm
 from repro_torch.models.lm import KV_CHUNK, _layer, _layers, _remat, chunked_ce
 from repro_torch.models.rope import apply_rope
-from repro_torch.parallel.sharding import ShardingCtx, embed_lookup, use_ctx
+from repro_torch.parallel.sharding import ShardingCtx, activation, embed_lookup, use_ctx
 
 Tensor = torch.Tensor
 
@@ -117,7 +117,9 @@ def decode_train(cfg: ModelConfig, params, tokens: Tensor, enc_out: Tensor,
 def _decode_train(cfg: ModelConfig, params, tokens: Tensor, enc_out: Tensor
                   ) -> Tensor:
     b, s = tokens.shape
-    x = embed_lookup(params["embed"], tokens)
+    # placed as ``lm.embed_tokens`` places its rows, not left to how a
+    # torch version's DTensor propagates a column-split lookup
+    x = activation(embed_lookup(params["embed"], tokens), "batch", "seq", None)
     positions = _positions(b, s, x.device)
 
     def body(x, lp):
@@ -193,7 +195,8 @@ def encdec_decode_step(cfg: ModelConfig, params, state, batch,
 
 def _encdec_decode_step(cfg: ModelConfig, params, state, batch
                         ) -> tuple[Tensor, dict[str, Any]]:
-    x = embed_lookup(params["embed"], batch["token"])      # [B,1,d]
+    x = activation(embed_lookup(params["embed"], batch["token"]),
+                   "batch", None, None)                  # [B,1,d], reduced once
     cache_len = batch.get("cache_len")
     positions = (batch.get("positions") if batch.get("positions") is not None
                  else cache_len[:, None])

@@ -554,7 +554,10 @@ def decode_step(cfg: ModelConfig, params: dict[str, Any],
 
 def _decode_step(cfg: ModelConfig, params: dict[str, Any],
                  state: dict[str, Any], batch) -> tuple[Tensor, dict[str, Any]]:
-    x = embed_lookup(params["embed"], batch["token"])      # [B,1,d]
+    # a vocabulary-split lookup is a partial sum: reduced once here, not
+    # again by every norm of the residual stream
+    x = activation(embed_lookup(params["embed"], batch["token"]),
+                   "batch", None, None)                  # [B,1,d]
     positions = batch.get("positions")
     if positions is None:
         positions = _default_positions(cfg, x.shape[0], 1, batch["cache_len"],

@@ -36,6 +36,7 @@ from repro_torch.models.common import ParamSpec, dense, rms_norm
 from repro_torch.parallel.sharding import (
     activation,
     channelwise,
+    cumsum,
     is_dtensor,
     kernel_placements,
     on_shards,
@@ -133,6 +134,13 @@ class SSDChunk(torch.autograd.Function):
         saved, need = ctx.saved_tensors, ctx.needs_input_grad
         if not is_dtensor(gy):
             return _vjp(saved, need, gy, gst)
+        if not is_dtensor(gst):
+            # no gradient reached the states (one chunk: the carry is never
+            # read), and autograd made plain zeros of their global shape
+            from torch.distributed.tensor import DTensor, Replicate
+
+            dm = gy.device_mesh
+            gst = DTensor.from_local(gst, dm, [Replicate()] * dm.ndim, run_check=False)
         ins, outs, grads = _placements(saved[0], saved[3])
         return on_shards(lambda *a: _vjp(a[:6], need, *a[6:]), [*saved, gy, gst],
                          ins + outs, [(pl, t.shape) for pl, t in zip(grads, saved)])
@@ -201,7 +209,7 @@ def ssd_chunked(
 
     a = -torch.exp(a_log.float())                            # [H] negative
     da = dt.float() * a[None, None, :]                       # [B,S,H]
-    csum = torch.cumsum(da.reshape(bsz, n_chunks, chunk, h), dim=2)
+    csum = cumsum(da.reshape(bsz, n_chunks, chunk, h), dim=2)
     total = csum[:, :, -1, :]                                 # [B,c,H]
 
     bcq = bsz * n_chunks

@@ -15,11 +15,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import NEG_INF, chunked_attention, query_seq_axis
+from repro_torch.models.attention import NEG_INF, _cache_rule, chunked_attention, query_seq_axis
 from repro_torch.models.blocks import _out_proj
 from repro_torch.models.common import ParamSpec, dense, rms_norm
 from repro_torch.models.rope import apply_rope
-from repro_torch.parallel.sharding import activation, write_token
+from repro_torch.parallel.sharding import (activation, shard_einsum, softmax_last, splits,
+                                           write_token)
 
 Tensor = torch.Tensor
 
@@ -124,13 +125,23 @@ def mla_decode(p: dict[str, Tensor], cfg: ModelConfig, x: Tensor,
     w_uv = p["wkv_b"][..., dn:]                              # [lora, H, dv]
     q_lat = torch.einsum("bshn,lhn->bshl", qn, w_uk)          # [B,1,H,lora]
     scale = (dn + dr) ** -0.5
-    logits = (torch.einsum("bshl,btl->bhst", q_lat.float(), c_kv.float())
-              + torch.einsum("bshr,btr->bhst", qr.float(), k_rope.float())
+    split = splits(c_kv, 1)
+
+    def product(eq, a, b_, second):
+        # a latent cache split on its sequence stays split, as in
+        # ``attention.decode_attention``: each shard's products over its
+        # block, the softmax of the shards, the context a partial sum
+        if split:
+            return shard_einsum(eq, a, b_, _cache_rule(second, heads=False))
+        return torch.einsum(eq, a, b_)
+
+    logits = (product("bshl,btl->bhst", q_lat.float(), c_kv.float(), 0)
+              + product("bshr,btr->bhst", qr.float(), k_rope.float(), 0)
               ) * scale                                       # [B,H,1,T]
     if cache_len is not None:
         live = torch.arange(t, device=x.device)[None] <= idx[:, None]
         logits = logits.masked_fill(~live[:, None, None], NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    ctx_lat = torch.einsum("bhst,btl->bshl", probs, c_kv.float())  # [B,1,H,lora]
+    probs = softmax_last(logits)
+    ctx_lat = product("bhst,btl->bshl", probs, c_kv.float(), 1)  # [B,1,H,lora]
     out = torch.einsum("bshl,lhv->bshv", ctx_lat.to(x.dtype), w_uv)
     return _out_proj(out, p["wo"], x.dtype), {"c_kv": c_kv, "k_rope": k_rope}

@@ -535,23 +535,36 @@ def write_token(cache: Tensor, rows: Tensor, idx: Tensor, val: Tensor) -> None:
 
 
 def _split_lookup(x: Tensor, dim: int, idx: Tensor, look, idx_dims) -> Tensor:
-    """A lookup into DTensor ``x`` along its dim ``dim`` (split there over
-    some mesh axes, the vocabulary) by ``idx``: each shard looks up the
-    indices in its block of ``dim`` (``look(x_local, idx_local)`` on the
-    clamped local indices), zeroes the rest, and the result is a partial
-    sum over those axes, as XLA partitions a gather from a split
-    operand.  On the other axes ``x`` is gathered where ``idx`` splits
+    """A lookup into DTensor ``x`` along its dim ``dim`` by ``idx``.  Where
+    ``dim`` is split over some mesh axes (the vocabulary) each shard looks
+    up the indices in its block of ``dim`` (``look(x_local, idx_local)`` on
+    the clamped local indices), zeroes the rest, and the result is a
+    partial sum over those axes, as XLA partitions a gather from a split
+    operand; where it is not, each device looks up its own indices.  On
+    the other axes ``x`` is gathered where ``idx`` splits
     what ``x`` does not line up with; ``idx_dims[k]`` is the dim of ``x``
-    that ``idx``'s dim ``k`` indexes alongside (None: none)."""
+    that ``idx``'s dim ``k`` indexes alongside (None: none).  A table whose
+    rows are whole but whose columns are split where ``idx`` is (ZeRO-3's
+    embedding under a vocabulary ``model`` does not divide) keeps its
+    columns: the indices are gathered instead, each device looks up every
+    row in its columns, and their gradient is whole there (the caller
+    places the rows it wants, as ``lm.embed_tokens`` does)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     dm = x.device_mesh
     ipl = idx.placements if is_dtensor(idx) else [Replicate()] * dm.ndim
+    split = any(isinstance(p, Shard) and p.dim == dim for p in x.placements)
+    # rows whole, columns split where the ids are: the ids are gathered
+    columns = not split and dim == 0 and any(
+        isinstance(p, Shard) and isinstance(q, Shard) for p, q in zip(x.placements, ipl))
     x_pl, i_pl, o_pl, g_pl = [], [], [], []
     for p, q in zip(x.placements, ipl):
         if isinstance(p, Shard) and p.dim == dim:
             x_pl.append(p), i_pl.append(Replicate()), o_pl.append(Partial()), g_pl.append(p)
+        elif columns and isinstance(p, Shard) and isinstance(q, Shard):
+            x_pl.append(p), i_pl.append(Replicate()), g_pl.append(p)
+            o_pl.append(Shard(idx.dim() + p.dim - 1))
         elif isinstance(q, Shard) and idx_dims[q.dim] is not None:
             x_pl.append(Shard(idx_dims[q.dim])), i_pl.append(q), o_pl.append(q)
             g_pl.append(Shard(idx_dims[q.dim]))
@@ -562,22 +575,29 @@ def _split_lookup(x: Tensor, dim: int, idx: Tensor, look, idx_dims) -> Tensor:
             g_pl.append(Replicate())
     xl = x.redistribute(dm, x_pl).to_local(grad_placements=g_pl)
     il = (idx.redistribute(dm, i_pl).to_local() if is_dtensor(idx) else idx)
-    _, offset = compute_local_shape_and_global_offset(x.shape, dm, x_pl)
-    rel = il - offset[dim]
-    inside = (rel >= 0) & (rel < xl.shape[dim])
-    out = look(xl, rel.clamp(0, xl.shape[dim] - 1))
-    out = out * inside.reshape(inside.shape + (1,) * (out.dim() - inside.dim())).to(out.dtype)
-    shape = list(idx.shape) + list(out.shape[inside.dim():])
+    if split:
+        _, offset = compute_local_shape_and_global_offset(x.shape, dm, x_pl)
+        rel = il - offset[dim]
+        inside = (rel >= 0) & (rel < xl.shape[dim])
+        out = look(xl, rel.clamp(0, xl.shape[dim] - 1))
+        out = out * inside.reshape(inside.shape + (1,) * (out.dim() - inside.dim())).to(out.dtype)
+    else:
+        out = look(xl, il)
+    shape = list(idx.shape) + list(x.shape[dim + 1:])
     return DTensor.from_local(out, dm, o_pl, run_check=False, shape=torch.Size(shape),
                               stride=contiguous_strides(shape))
 
 
 def embed_lookup(table: Tensor, ids: Tensor) -> Tensor:
     """``table[ids]``: the rows of an embedding table.  On a DTensor table
-    split on its rows (the vocabulary) each shard takes the ids in its
-    block, a partial sum over the vocabulary's axes (:func:`_split_lookup`);
-    a plain table indexes as it is."""
-    if not splits(table, 0):
+    each device looks up its own ids (:func:`_split_lookup`): split on its
+    rows (the vocabulary), each shard takes the ids in its block, a partial
+    sum over the vocabulary's axes; whole there, its columns stay split and
+    the ids are gathered where both split.  The backward's scatter then
+    runs on local tensors, where DTensor's own
+    ``index`` leaves it an ``index_put`` that not every torch version
+    places.  A plain table indexes as it is."""
+    if not is_dtensor(table):
         return table[ids]
     return _split_lookup(table, 0, ids, lambda t, i: t[i], (None,) * ids.dim())
 
@@ -833,12 +853,76 @@ def logsumexp_last(x: Tensor) -> Tensor:
     own ``logsumexp`` would gather the logits."""
     if not splits(x, -1):
         return torch.logsumexp(x, dim=-1)
-    m = x.detach().amax(dim=-1)
+    m = _reduced(x.detach().amax(dim=-1))
+    return torch.exp(x - m[..., None]).sum(dim=-1).log() + m
+
+
+def _reduced(t: Tensor) -> Tensor:
+    """DTensor ``t`` with every ``Partial`` placement all-reduced."""
     from torch.distributed.tensor import Replicate
 
-    m = m.redistribute(m.device_mesh, [Replicate() if p.is_partial() else p
-                                       for p in m.placements])
-    return torch.exp(x - m[..., None]).sum(dim=-1).log() + m
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in t.placements])
+
+
+def softmax_last(x: Tensor) -> Tensor:
+    """``torch.softmax(x, -1)``.  On a DTensor split on its last dim (a
+    decode step's logits over a sequence-split cache) the softmax of the
+    shards: each shard's max, their max (an all-reduce of the rows), each
+    shard's sum of exponentials, their sum (another) and the division, as
+    XLA partitions the reduction; DTensor's own ``softmax`` would gather
+    the logits whole on every device."""
+    if not splits(x, -1):
+        return torch.softmax(x, dim=-1)
+    e = torch.exp(x - _reduced(x.detach().amax(dim=-1, keepdim=True)))
+    return e / _reduced(e.sum(dim=-1, keepdim=True))
+
+
+def argmax_last(x: Tensor) -> Tensor:
+    """``torch.argmax(x, -1)``.  On a DTensor, on each device's shards: each
+    shard's first maximum and its global index (the shard's offset added);
+    where the last dim (the vocabulary) is split, the rows' max over the
+    shards (an all-reduce) and the least index among the shards that hold
+    it (another), which is ``torch.argmax``'s first occurrence: ties across
+    shards resolve as on the whole row.  The result is split as ``x``'s
+    other dims are."""
+    if not is_dtensor(x):
+        return torch.argmax(x, dim=-1)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    x = _reduced(x)
+    dm, last, shape = x.device_mesh, x.dim() - 1, x.shape[:-1]
+    xl = x.to_local()
+    idx = torch.argmax(xl, dim=-1, keepdim=True)
+    top = torch.gather(xl, -1, idx)[..., 0]
+    _, offset = compute_local_shape_and_global_offset(x.shape, dm, x.placements)
+    on_last = [isinstance(p, Shard) and p.dim == last for p in x.placements]
+
+    def over_shards(t: Tensor, op: str) -> Tensor:
+        pl = [Partial(op) if s else p for s, p in zip(on_last, x.placements)]
+        return _reduced(DTensor.from_local(t, dm, pl, run_check=False, shape=shape,
+                                           stride=contiguous_strides(shape))).to_local()
+
+    mine = over_shards(top, "max") == top
+    none = torch.full_like(idx[..., 0], x.shape[-1])
+    first = over_shards(torch.where(mine, idx[..., 0] + offset[last], none), "min")
+    return DTensor.from_local(first, dm, [Replicate() if s else p
+                                          for s, p in zip(on_last, x.placements)],
+                              run_check=False, shape=shape, stride=contiguous_strides(shape))
+
+
+def cumsum(x: Tensor, dim: int) -> Tensor:
+    """``torch.cumsum(x, dim)``.  On a DTensor not split on ``dim``, on
+    each device's shards (:func:`on_shards`), forward and backward: the
+    backward's ``flip`` then acts on local tensors, where DTensor's own
+    ``cumsum`` leaves its backward a DTensor ``flip`` that not every torch
+    version places."""
+    if not is_dtensor(x) or splits(x, dim):
+        return torch.cumsum(x, dim=dim)
+    x = _reduced(x)
+    pl = list(x.placements)
+    return on_shards(lambda t: (torch.cumsum(t, dim=dim),), [x], [pl], [(pl, x.shape)])[0]
 
 
 def unsplit(y: Tensor, dim: int, lead: int) -> Tensor:
@@ -860,12 +944,23 @@ def unsplit(y: Tensor, dim: int, lead: int) -> Tensor:
 class _Merge(torch.autograd.Function):
     """``t.reshape(shape)`` merging ``t``'s dims from ``dim`` on into dim
     ``dim`` of ``shape``, its gradient first :func:`unsplit` there (the
-    backward views the merged dim apart again)."""
+    backward views the merged dim apart again).  A strided shard whose
+    dims merge is made contiguous on the device, placements kept, so the
+    merge is a ``view`` (DTensor's ``reshape`` copies into an
+    ``_unsafe_view``, and its copy of a partial sum reduce-scatters it,
+    unevenly where ``model`` does not divide the heads)."""
 
     @staticmethod
     def forward(ctx, t, shape, dim):
+        from torch.distributed.tensor import DTensor
+
         ctx.in_shape, ctx.dim = t.shape, dim
-        return t.reshape(shape)
+        local = t.to_local()
+        if t.dim() > len(shape) and not (local.is_contiguous() and t.is_contiguous()):
+            t = DTensor.from_local(local.contiguous(), t.device_mesh, t.placements,
+                                   run_check=False, shape=t.shape,
+                                   stride=contiguous_strides(t.shape))
+        return t.view(shape)
 
     @staticmethod
     def backward(ctx, g):

@@ -347,7 +347,13 @@ def worker(rank, port, out_path):
         # does not divide ("lm"); kv heads, d_ff and a vocabulary ``model``
         # divides, SwiGLU ("split"), and a parallel block's GELU MLP with tied
         # embeddings under the "dots" remat ("gelu"), so every weight product
-        # runs split
+        # runs split; and a Mamba2 layer ("ssm": the SSD's cumsum on each
+        # device's shards) with a vocabulary of 51, which neither mesh's
+        # ``model`` divides, so the embedding keeps its ZeRO-3 columns split
+        # over ``data`` and gathers the ids
+        from repro_torch.configs import get_config
+        from repro_torch.launch.train import reduce_config
+
         base = ModelConfig(name="cp", family="dense", num_layers=1, d_model=32, n_heads=15,
                            n_kv_heads=5, head_dim=8, d_ff=64, vocab=50, remat="none",
                            dtype="float32")
@@ -355,7 +361,10 @@ def worker(rank, port, out_path):
                "split": dataclasses.replace(base, n_heads=8, n_kv_heads=4, vocab=64),
                "gelu": dataclasses.replace(base, n_heads=8, n_kv_heads=4, vocab=64,
                                            ffn_act="gelu", tie_embeddings=True,
-                                           parallel_block=True, remat="dots")}
+                                           parallel_block=True, remat="dots"),
+               "ssm": dataclasses.replace(reduce_config(get_config("mamba2-370m"), 8),
+                                          num_layers=1, vocab=51, dtype="float32",
+                                          remat="none")}
         for tag, cfg in lms.items():
             cfg = cfg.validate()
             specs = lm.model_specs(cfg)
@@ -379,10 +388,123 @@ def worker(rank, port, out_path):
             assert [a is None for a in got] == [w is None for w in want], tag
             res[f"{shape} {tag}"] = {"rel": {n: rel(a, w) for n, a, w in
                                              zip(("loss",) + names, got, want) if w is not None}}
+        decode(res, shape, dm, mesh, lms, g)
     if rank == 0:
         with open(out_path, "w") as f:
             json.dump(res, f)
     dist.destroy_process_group()
+
+
+def decode(res, shape, dm, mesh, lms, g):
+    '''One decode step against caches split on their sequence over
+    ``model`` (the serve rules): a GQA layer at 5 kv heads (its 15 query
+    heads whole on ``model``) and at 4 (its 8 split), an MLA layer (reduced
+    MiniCPM3-4B, 5 heads), each against the same layer on plain tensors,
+    the written caches too; one row's live keys end inside the second of
+    four shards.  A cache split on its heads instead (a cross-attention's).  Then greedy ids: ``argmax_last`` on logits split on the
+    vocabulary with ties planted across shards and within one, and a
+    1-layer LM's serve step (vocabulary 64, split; 50, whole) against its
+    plain step, exact.'''
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_serve_step, state_specs_for
+    from repro_torch.launch.train import reduce_config
+    from repro_torch.models import blocks, lm, mla
+    from repro_torch.models.common import init_params, specs_to_shardings
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.sharding import NamedSharding, ShardingCtx, use_ctx, logical_to_spec
+
+    ctx = ShardingCtx(mesh=mesh, mode="serve")
+
+    def place(t, axes):
+        sh = NamedSharding(mesh, logical_to_spec(axes, tuple(t.shape), mesh, "serve"))
+        return distribute_tensor(t, dm, sharding.to_placements(sh))
+
+    def rel(a, b):
+        a = a.full_tensor() if isinstance(a, DTensor) else a
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+    b_, t_ = 2, 64
+    clen = torch.tensor([21, 63])
+    mla_cfg = dataclasses.replace(reduce_config(get_config("minicpm3-4b"), 8),
+                                  dtype="float32").validate()
+    layers = {"gqa5": lms["lm"].validate(), "gqa4": lms["split"].validate(), "mla": mla_cfg}
+    for tag, cfg in layers.items():
+        specs = mla.mla_specs(cfg, 1) if tag == "mla" else blocks.attn_specs(cfg, 1)
+        p = {k: t[0] for k, t in init_params(specs, torch.Generator().manual_seed(5),
+                                             torch.float32, "cpu").items()}
+        if tag != "mla":          # peaked scores: each shard's max matters
+            p["wq"], p["wk"] = p["wq"] * 4, p["wk"] * 4
+        split_p = {k: place(t, specs[k].axes[1:]) for k, t in p.items()}
+        x = torch.randn((b_, 1, cfg.d_model), generator=g)
+        if tag == "mla":
+            cache = {"c_kv": torch.randn((b_, t_, cfg.kv_lora), generator=g),
+                     "k_rope": torch.randn((b_, t_, cfg.qk_rope_dim), generator=g)}
+            axes, fn = ("batch", "cache_seq", None), mla.mla_decode
+        else:
+            cache = {n: torch.randn((b_, t_, cfg.n_kv_heads, cfg.head_dim), generator=g)
+                     for n in ("k", "v")}
+            axes, fn = ("batch", "cache_seq", "cache_heads", None), blocks.gqa_decode
+        split_cache = {n: place(t.clone(), axes) for n, t in cache.items()}
+        with torch.no_grad():
+            want, _ = fn(p, cfg, x, cache, clen[:, None], clen)
+            with use_ctx(ctx), implicit_replication():
+                got, _ = fn(split_p, cfg, place(x, ("batch", None, None)), split_cache,
+                            place(clen[:, None], ("batch", None)), place(clen, ("batch",)))
+        res[f"{shape} decode {tag}"] = {
+            "cache": str(next(iter(split_cache.values())).placements),
+            "rel": [rel(got, want)] + [rel(split_cache[n], cache[n]) for n in cache]}
+
+    # a cache split on its heads, whole on its sequence (a cross-attention's):
+    # each device attends its own heads' block, with and without lengths
+    from repro_torch.models import attention
+
+    q = torch.randn((b_, 1, 8, 16), generator=g) * 4
+    k, v = (torch.randn((b_, t_, 4, 16), generator=g) for _ in range(2))
+    split = [place(t, ("batch", None, "cache_heads", None)) for t in (q, k, v)]
+    for lengths in (None, clen):
+        with torch.no_grad():
+            want = attention.decode_attention(q, k, v, cache_len=lengths)
+            with use_ctx(ctx), implicit_replication():
+                got = attention.decode_attention(
+                    *split, cache_len=None if lengths is None else place(lengths, ("batch",)))
+        res[f"{shape} decode heads lengths={lengths is not None}"] = {
+            "cache": str(split[1].placements), "rel": [rel(got, want)]}
+
+    logits = torch.randn((4, 64), generator=g)
+    logits[0, [5, 40]] = 9.0                 # a tie across shards
+    logits[1, [20, 22, 50]] = 9.0            # within one shard and across
+    logits[3] = 1.0                          # all tied: the first
+    want = torch.argmax(logits, dim=-1)
+    got = sharding.argmax_last(distribute_tensor(logits, dm, [Shard(0), Shard(1)]))
+    ids = {"argmax": (got.full_tensor().tolist(), want.tolist())}
+    for tag in ("split", "lm"):
+        cfg = lms[tag].validate()
+        specs = lm.model_specs(cfg)
+        params = init_params(specs, torch.Generator().manual_seed(0), torch.float32, "cpu")
+        sspecs = state_specs_for(cfg, b_, t_)
+        state = {n: {k: torch.randn(s.shape, generator=g) for k, s in group.items()}
+                 if isinstance(group, dict) else torch.randn(group.shape, generator=g)
+                 for n, group in sspecs.items()}
+        batch = {"token": torch.randint(0, cfg.vocab, (b_, 1), generator=g), "cache_len": clen}
+        names, leaves = zip(*sorted(lm_leaves(params)))
+        psh = dict(lm_leaves(specs_to_shardings(specs, mesh, "serve")))
+        ssh = dict(lm_leaves(specs_to_shardings(sspecs, mesh, "serve")))
+        split_params = rebuild(params, names, [
+            distribute_tensor(t, dm, sharding.to_placements(psh[n])) for n, t in zip(names, leaves)])
+        snames, sleaves = zip(*sorted(lm_leaves(state)))
+        split_state = rebuild(state, snames, [
+            distribute_tensor(t.clone(), dm, sharding.to_placements(ssh[n]))
+            for n, t in zip(snames, sleaves)])
+        tok, _ = make_serve_step(cfg)(params, state, batch)
+        with implicit_replication():
+            split_tok, _ = make_serve_step(cfg, ctx)(
+                split_params, split_state,
+                {"token": place(batch["token"], ("batch", None)), "cache_len": place(clen, ("batch",))})
+        ids[f"serve {tag}"] = (split_tok.full_tensor().tolist(), tok.tolist())
+    res[f"{shape} greedy"] = {"ids": ids, "rel": [0.0 if a == b else 1.0 for a, b in ids.values()]}
 
 
 def lm_leaves(tree, prefix=""):
@@ -415,31 +537,63 @@ if __name__ == "__main__":
 GLOO_REL_L2 = 1e-5
 
 
-def test_split_attention_and_lm_on_four_gloo_ranks_equal_plain(tmp_path):
-    """On real ranks, where each shard computes its own rows (its coordinate
-    from the device mesh) and the gradients' partial sums are reduced, the
-    attention's output and gradients, and each 1-layer LM's loss and every
-    parameter's gradient (the weight products' backward on each device's
-    shards, ``sharding.matmul``), equal the plain tensors' within
-    ``GLOO_REL_L2``; the output is split on its rows over ``model``."""
+@pytest.fixture(scope="module")
+def gloo_results(tmp_path_factory):
+    """The worker's results, run once in a subprocess of four ranks."""
     import json
     import os
     import pathlib
     import subprocess
     import sys
 
-    script = tmp_path / "worker.py"
+    tmp = tmp_path_factory.mktemp("gloo")
+    script = tmp / "worker.py"
     script.write_text(GLOO_WORKER)
     src = pathlib.Path(__file__).resolve().parents[1] / "src"
     env = {**os.environ, "PYTHONPATH": str(src)}
-    out = tmp_path / "out.json"
+    out = tmp / "out.json"
     run = subprocess.run([sys.executable, str(script), str(out)], capture_output=True,
                          text=True, timeout=300, env=env)
     assert run.returncode == 0, run.stderr[-4000:]
-    res = json.loads(out.read_text())
-    assert len(res) == 10
+    return json.loads(out.read_text())
+
+
+def test_split_attention_and_lm_on_four_gloo_ranks_equal_plain(gloo_results):
+    """On real ranks, where each shard computes its own rows (its coordinate
+    from the device mesh) and the gradients' partial sums are reduced, the
+    attention's output and gradients, and each 1-layer LM's loss and every
+    parameter's gradient (the weight products' backward on each device's
+    shards, ``sharding.matmul``; a Mamba2 layer's SSD ``cumsum`` and an
+    embedding with whole rows on each device's shards), equal the plain
+    tensors' within
+    ``GLOO_REL_L2``; the output is split on its rows over ``model``."""
+    res = {k: v for k, v in gloo_results.items() if "decode" not in k and "greedy" not in k}
+    assert len(res) == 12
     for name, row in res.items():
         rels = row["rel"].values() if isinstance(row["rel"], dict) else row["rel"]
         assert max(rels) <= GLOO_REL_L2, (name, row)
         if "attention" in name:
             assert row["rows"].endswith("Shard(dim=1))"), (name, row)
+
+
+def test_sequence_split_decode_on_four_gloo_ranks_equals_plain(gloo_results):
+    """On real ranks, a decode step against a cache split on its sequence
+    over ``model`` (each shard's products over its block, the softmax's
+    max and sum all-reduced as rows, the second product a partial sum):
+    the GQA and MLA layers' outputs and written caches equal the plain
+    tensors' within ``GLOO_REL_L2``, as does the decode against a cache
+    split on its heads (each device its heads' block); the greedy ids are
+    the plain ones exactly, ties across shards resolved to the first
+    index."""
+    decode = {k: v for k, v in gloo_results.items() if "decode" in k}
+    assert len(decode) == 10
+    for name, row in decode.items():
+        assert max(row["rel"]) <= GLOO_REL_L2, (name, row)
+        split_on = "Shard(dim=2))" if "heads" in name else "Shard(dim=1))"
+        assert row["cache"].endswith(split_on), (name, row)
+    greedy = {k: v for k, v in gloo_results.items() if "greedy" in k}
+    assert len(greedy) == 2
+    for name, row in greedy.items():
+        for tag, (got, want) in row["ids"].items():
+            assert got == want, (name, tag)
+        assert row["ids"]["argmax"][1] == [5, 20, row["ids"]["argmax"][1][2], 0]

@@ -254,3 +254,64 @@ def test_ce_rows_split_where_model_does_not_divide_the_vocabulary(jax_vocab_cell
     assert abs(port[6285] / port[6288] - 1) <= 1e-3, port
     print("\n" + "\n".join(f"| mamba2-370m train, vocabulary {v} | {port[v]:.6g} | {jax[v]:.6g} | "
                            f"{port[v] / jax[v]:.3f} |" for v in VOCAB_CELLS))
+
+
+#: reduced SmolLM-360M's decode step, ``[8]`` tokens against a 1024-token
+#: cache on the same mesh: the serve rules split the cache's sequence over
+#: ``model``, and each device keeps its block (the decode softmax's max
+#: and sum all-reduced as rows, ``sharding.softmax_last``)
+DECODE_CELLS = [("smollm-360m", "decode")]
+DECODE_S = 1024
+#: the port's wire bytes a device over JAX's (35.7x at full width while
+#: DTensor gathered the softmax's logits)
+DECODE_WIRE_RATIO = 2.0
+
+JAX_DECODE_CELLS = (
+    JAX_CELLS.replace("make_prefill_step, make_train_step, param_specs_for",
+                      "make_prefill_step, make_serve_step, make_train_step, "
+                      "param_specs_for, state_specs_for")
+    .replace("    else:\n        fn = jax.jit(make_prefill_step",
+             "    elif kind == 'decode':\n"
+             "        sspecs = state_specs_for(cfg, shape.batch, shape.seq)\n"
+             "        s_abs = abstract_params(sspecs, jnp.dtype(cfg.dtype))\n"
+             "        s_shard = specs_to_shardings(sspecs, mesh, mode)\n"
+             "        fn = jax.jit(make_serve_step(cfg, ctx), in_shardings=(p_shard, s_shard, b_shard),\n"
+             "                     out_shardings=(None, s_shard), donate_argnums=(1,))\n"
+             "        lowered = fn.lower(p_abs, s_abs, b_abs)\n"
+             "    else:\n        fn = jax.jit(make_prefill_step")
+    .replace("ShapeSpec(kind, kind, 256, 8)", f"ShapeSpec(kind, kind, {DECODE_S}, 8)")
+    .replace(repr(CELLS), repr(DECODE_CELLS)))
+
+
+@pytest.fixture(scope="module")
+def jax_decode_cells():
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"), "JAX_PLATFORMS": "cpu"}
+    run = subprocess.run([sys.executable, "-c", JAX_DECODE_CELLS], capture_output=True,
+                         text=True, timeout=600, env=env, cwd=REPO)
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("JSON")]
+    assert lines, run.stdout + run.stderr
+    return json.loads(lines[-1][4:])
+
+
+def test_reduced_decode_beside_jax(jax_decode_cells):
+    """Reduced SmolLM-360M's decode step on the ``(data 2, model 4)`` mesh:
+    the port's wire bytes a device at most ``DECODE_WIRE_RATIO`` times
+    JAX's, and no op falls back; run with ``-s`` to print the row."""
+    arch, kind = DECODE_CELLS[0]
+    try:
+        cfg = dataclasses.replace(reduce_config(get_config(arch), 8), num_layers=2)
+        out = dryrun.dryrun_cell(cfg, shapes.ShapeSpec(kind, kind, DECODE_S, 8), False,
+                                 verbose=False,
+                                 mesh=sharding.abstract_mesh_compat(MESH, ("data", "model")))
+    finally:
+        sharding.close_fake_world()
+    c, j = out["cost"], jax_decode_cells[f"{arch} {kind}"]
+    assert c["dtensor_fallbacks"] == {}
+    ratio = c["collective_wire_bytes_per_device"] / j["collective_wire_bytes_per_device"]
+    assert ratio <= DECODE_WIRE_RATIO, (c["collective_wire_bytes_per_device"],
+                                        j["collective_wire_bytes_per_device"])
+    print(f"\n| {arch} decode, reduced, `[8]` x {DECODE_S} | {c['flops_per_device']:.6g} | "
+          f"{j['flops_per_device']:.6g} | {c['flops_per_device'] / j['flops_per_device']:.3f} | "
+          f"{c['collective_counts']} | {j['collective_counts']} | "
+          f"{c['collective_wire_bytes_per_device']:.6g} | "
+          f"{j['collective_wire_bytes_per_device']:.6g} | {ratio:.3f} |")
