@@ -242,10 +242,13 @@ Phases (each passes or the script exits non-zero without a result line):
    cells ``ok`` (``long_500k`` skipped for a full-attention arch), none
    with a DTensor fallback; (e) the per-device dry-run's count
    (``META_SHARDED``: SmolLM-360M, Mamba2-370M and StableLM-3B at 2
-   layers, a train step on [8, 256] and a prefill of [4, 2048], bf16; each
+   layers, a train step on [8, 256] and a prefill of [4, 2048], bf16, over
+   a ``(data 2, model 2)`` mesh, whose ``model`` divides their
+   vocabularies; Seamless-M4T-medium's train step over ``(data 1, model
+   4)``, which does not divide its 256206, so its CE splits the rows; each
    weight product's backward on the device's own shards,
-   ``sharding.matmul``) over a ``(data 2,
-   model 2)`` mesh of DTensors in one ``fake`` process group, traced on
+   ``sharding.matmul``, and the CE's on the device's shard of the logits,
+   ``sharding.nll_sum``) as DTensors in one ``fake`` process group, traced on
    ``meta`` shards and on ``cuda:0`` shards: FLOPs and ops equal, bytes
    within 1 %, collective counts and wire bytes equal, the meta live-byte
    peak within [0.8, 1.2] of the card's ``max_memory_allocated`` for the
@@ -4993,12 +4996,16 @@ DRYRUN_CELLS = ([("smollm-360m", s) for s in ("train_4k", "prefill_32k", "decode
                    ("mamba2-370m", "train_4k"), ("zamba2-1.2b", "train_4k"),
                    ("minicpm3-4b", "train_4k"), ("seamless-m4t-medium", "train_4k")])
 DRYRUN_ARGV = ["--mesh", "single", "--cells", ",".join(f"{a}:{s}" for a, s in DRYRUN_CELLS)]
-#: phase 17 (e): the archs traced per device on meta and card shards, with
-#: the kernel a shard must launch; their depth and the mesh
-META_SHARDED = {"smollm-360m": "flash_attention", "mamba2-370m": "ssd_chunk",
-                "stablelm-3b": "flash_attention"}
+#: phase 17 (e): the archs traced per device on meta and card shards, each
+#: with the kernel a shard must launch, its ``(data, model)`` mesh and its
+#: steps; their depth.  ``model`` 2 divides SmolLM's, Mamba2's and
+#: StableLM's vocabularies (the CE's logits split on it); 4 does not divide
+#: Seamless's 256206 (the CE's rows split instead)
+META_SHARDED = {"smollm-360m": ("flash_attention", (2, 2), ("train", "prefill")),
+                "mamba2-370m": ("ssd_chunk", (2, 2), ("train", "prefill")),
+                "stablelm-3b": ("flash_attention", (2, 2), ("train", "prefill")),
+                "seamless-m4t-medium": ("flash_attention", (1, 4), ("train",))}
 META_SHARDED_LAYERS = 2
-META_SHARDED_MESH = (2, 2)
 #: phase 17 (f): one SmolLM-360M attention layer at full width on [B, S]
 #: tokens, its flash call split into CP_TP blocks of query rows; the bars
 #: of the put-together output and gradients against the unsplit layer's
@@ -5397,10 +5404,9 @@ def shard_step_ms(torch, step, args, runs: int) -> float:
 
 
 def meta_sharded(torch, ops) -> dict:
-    """Phase 17 (e): each ``META_SHARDED`` arch's train step and prefill
-    through ``launch.dryrun.step_parts`` over a ``META_SHARDED_MESH`` mesh,
-    its arguments DTensors on ``meta`` shards, then on ``cuda:0`` shards
-    (module docstring)."""
+    """Phase 17 (e): each ``META_SHARDED`` arch's steps through
+    ``launch.dryrun.step_parts`` over its mesh, the arguments DTensors on
+    ``meta`` shards, then on ``cuda:0`` shards (module docstring)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.analysis.cost import trace_cost
@@ -5408,15 +5414,16 @@ def meta_sharded(torch, ops) -> dict:
     from repro_torch.parallel import sharding
 
     axes = ("data", "model")
-    n = META_SHARDED_MESH[0] * META_SHARDED_MESH[1]
-    meshes = {"meta": sharding.abstract_mesh_compat(META_SHARDED_MESH, axes),
-              "card": sharding.make_mesh_compat(META_SHARDED_MESH, axes, devices=[DEVICE] * n)}
     out: dict = {}
     launches = {k: 0 for k in ops.LAUNCHES}
     try:
-        for arch, kernel in META_SHARDED.items():
+        for arch, (kernel, grid, kinds) in META_SHARDED.items():
             cfg = lm_config(arch, num_layers=META_SHARDED_LAYERS)
-            for kind, (b, s) in (("train", META_TRAIN), ("prefill", META_PREFILL)):
+            meshes = {"meta": sharding.abstract_mesh_compat(grid, axes),
+                      "card": sharding.make_mesh_compat(grid, axes,
+                                                        devices=[DEVICE] * math.prod(grid))}
+            for kind in kinds:
+                b, s = META_TRAIN if kind == "train" else META_PREFILL
                 shape = shapes.ShapeSpec(kind, kind, s, b)
                 mode = "train" if kind == "train" else "serve"
                 rows = {}
@@ -5478,7 +5485,7 @@ def meta_sharded(torch, ops) -> dict:
                     fail(f"{tag}: no {kernel} launch on the card shards")
                 for k, v in card["launches"].items():
                     launches[k] += v
-                log(f"{tag} (mesh {META_SHARDED_MESH}, bf16, [{b}, {s}]): per device FLOPs "
+                log(f"{tag} (mesh {grid}, bf16, [{b}, {s}]): per device FLOPs "
                     f"{meta['flops_per_device']:.6g}, bytes meta/card {ratio:.5f}, ops "
                     f"{meta['num_ops']} on both, collectives {meta['collective_counts']} "
                     f"wire {meta['collective_wire_bytes_per_device']:.6g} B on both, peak meta "

@@ -17,7 +17,8 @@ of its own, and counts:
     (eager PyTorch fuses nothing, so each op reads and writes HBM once);
     an op's tensors are counted once each, and an ``empty`` moves nothing;
   * ops, and the high-water mark of live storage bytes the step allocates
-    (storages its ops create, freed when their last tensor dies).
+    (storages its ops create, freed when their last tensor dies), and the
+    largest single storage among them (its bytes, op and shape).
 
 A dispatch mode is off while it handles an op, so a kernel operator's
 body (the kernel's launch, or its plain version on the CPU) is one op:
@@ -31,7 +32,9 @@ shards' live bytes.  It also counts each collective DTensor issues (its
 ``_c10d_functional`` op) with the wire bytes ``repro.analysis.hlo``
 charges, for a group of ``g`` ranks: all-gather ``out (g-1)/g``,
 all-reduce ``2 out (g-1)/g``, reduce-scatter ``in (g-1)/g``, all-to-all
-``max(in, out) (g-1)/g``.  The ops DTensor runs on global shapes to
+``max(in, out) (g-1)/g``; an all-to-all's output is charged as its own
+storage, as a card's op allocates it (the op's ``meta`` kernel slices it
+from a buffer the group's size).  The ops DTensor runs on global shapes to
 propagate metadata (on fake tensors) are not the device's and are not
 counted.  A step on plain tensors issues no collectives: its wire bytes
 are ``None`` (not modelled), never 0.
@@ -116,6 +119,7 @@ class _CostMode(TorchDispatchMode):
         self.num_ops = 0
         self.live = 0
         self.peak_live = 0
+        self.largest = {"bytes": 0, "op": None, "shape": None}
         self.sharded = False
         self._deferred = False
         self.fallbacks: dict[str, int] = {}
@@ -129,7 +133,7 @@ class _CostMode(TorchDispatchMode):
         self._tracked.discard(key)
         self.live -= nbytes
 
-    def _track(self, outs) -> None:
+    def _track(self, outs, op: str) -> None:
         for t in outs:
             st = t.untyped_storage()
             key = id(st)
@@ -139,6 +143,8 @@ class _CostMode(TorchDispatchMode):
             n = st.nbytes()
             self.live += n
             self.peak_live = max(self.peak_live, self.live)
+            if n > self.largest["bytes"]:
+                self.largest = {"bytes": n, "op": op, "shape": list(t.shape)}
             weakref.finalize(st, self._free, key, n)
 
     def _collective(self, func, args, out) -> None:
@@ -148,7 +154,8 @@ class _CostMode(TorchDispatchMode):
         sent = wire(_nbytes(args[0]), _nbytes(out), g) if g > 1 else 0.0
         self.cost.coll_bytes = (self.cost.coll_bytes or 0.0) + sent
         self.wire_by_kind[name] = self.wire_by_kind.get(name, 0.0) + sent
-        self._track([t for t in tree_leaves(out) if isinstance(t, Tensor)])
+        self._track([t for t in tree_leaves(out) if isinstance(t, Tensor)],
+                    func.overloadpacket.__name__)
 
     def _sharded(self, func, args, kwargs):
         """A DTensor op, handed back to DTensor under this mode (the next
@@ -214,6 +221,11 @@ class _CostMode(TorchDispatchMode):
             return NotImplemented
         if func.namespace in _COMM_NAMESPACES:
             out = func(*args, **kwargs)
+            if (func.overloadpacket.__name__ == "shard_dim_alltoall"
+                    and out.untyped_storage().nbytes() > out.nbytes):
+                # the op's meta kernel returns its slice of a buffer the
+                # group's size; a card's op returns a tensor of its own
+                out = out.clone()
             if func.overloadpacket.__name__ in _COLLECTIVES:
                 self._collective(func, args, out)
             return out
@@ -236,7 +248,7 @@ class _CostMode(TorchDispatchMode):
         if func.overloadpacket.__name__ not in _NO_TRAFFIC:
             seen = {_view_key(t): t.numel() * t.element_size() for t in ins + outs}
             self.cost.bytes += sum(seen.values())
-        self._track(fresh)
+        self._track(fresh, func.overloadpacket.__name__)
         return out
 
 
@@ -279,12 +291,14 @@ def trace_cost(fn: Callable, *args, **kwargs) -> dict[str, Any]:
     docstring).  Returns the JAX package's keys (``flops_per_device``,
     ``bytes_per_device``, ``collective_wire_bytes_per_device``,
     ``collective_counts``) plus ``num_ops`` (and ``op_counts``, by op
-    name), ``peak_live_bytes`` (beyond the arguments), ``dtensor_fallbacks``
-    (the DTensor ops run on gathered inputs, by name) and ``out``, ``fn``'s
-    result.  On plain tensors the
-    count is the whole step's on the caller's devices and the wire bytes
-    are ``None``; on DTensors it is one device's, with its wire bytes (0.0
-    where no collective ran).
+    name), ``peak_live_bytes`` (beyond the arguments), ``largest_alloc``
+    (the largest storage an op created: its ``bytes``, the ``op`` and the
+    ``shape`` of the tensor it returned, which may view only part of it),
+    ``dtensor_fallbacks`` (the DTensor ops run on gathered inputs, by name)
+    and ``out``, ``fn``'s result.  On plain tensors the count is the whole
+    step's on the caller's devices and the wire bytes are ``None``; on
+    DTensors it is one device's, with its wire bytes (0.0 where no
+    collective ran).
 
     RoPE's per-device tables are dropped first, so every trace counts
     their construction and a count does not depend on what ran before it
@@ -304,6 +318,7 @@ def trace_cost(fn: Callable, *args, **kwargs) -> dict[str, Any]:
         "collective_wire_bytes_by_kind": dict(cm.wire_by_kind),
         "num_ops": cm.num_ops,
         "peak_live_bytes": cm.peak_live,
+        "largest_alloc": dict(cm.largest),
         "dtensor_fallbacks": dict(cm.fallbacks),
         "op_counts": dict(cm.op_counts),
         "out": out,

@@ -34,6 +34,8 @@ the per-device count.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single \
         --cells mamba2-370m:train_4k,seamless-m4t-medium:decode_32k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --table   # the cells written
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single --shape train_4k \
+        --layers 2 --out results/dryrun_torch_2l   # every arch cut to 2 layers
 
 Each record's ``dtensor_fallbacks`` counts the ops this torch's DTensor
 could not place, run on their inputs gathered whole (``analysis.cost``);
@@ -277,6 +279,7 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
             "alias_bytes_per_device": alias,
             "peak_bytes_per_device": arg_bytes + out_bytes + temp - alias,
             "peak_live_bytes_per_device": traced["peak_live_bytes"],
+            "largest_alloc_per_device": traced["largest_alloc"],
             "peak_live_bytes_global": glob["peak_live_bytes"],
         },
         "cost": cost,
@@ -290,6 +293,16 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
               f"{roof.collective_s:.4f})s "
               f"useful={roof.useful_flops_fraction:.2f}", flush=True)
     return out
+
+
+def cut_layers(arch: str, layers: int) -> ModelConfig:
+    """``arch``'s config at full width cut to ``layers`` layers (an
+    enc-dec's encoder and decoder each)."""
+    cfg = get_config(arch)
+    repl = {"num_layers": layers}
+    if cfg.family == "encdec":
+        repl.update(enc_layers=layers, dec_layers=layers)
+    return dataclasses.replace(cfg, **repl)
 
 
 def summary_table(out_dir: str) -> str:
@@ -337,6 +350,9 @@ def main(argv=None) -> None:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--cells", default=None,
                     help="comma-separated arch:shape pairs, in place of --arch/--shape")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut every arch to this many layers (an enc-dec's encoder and "
+                         "decoder each)")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--table", action="store_true",
@@ -362,8 +378,10 @@ def main(argv=None) -> None:
             if args.skip_existing and os.path.exists(path):
                 print(f"[{arch} x {shape} x {mesh_name}] cached", flush=True)
                 continue
+            cut = args.layers is not None and cell_supported(arch, shape)[0]
             try:
-                res = dryrun_cell(arch, shape, mesh_name == "multi")
+                res = dryrun_cell(cut_layers(arch, args.layers) if cut else arch, shape,
+                                  mesh_name == "multi")
             except Exception as e:  # noqa: BLE001 — record and continue
                 failures += 1
                 res = {"arch": arch, "shape": shape, "mesh": mesh_name,

@@ -291,13 +291,13 @@ def flash_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
     for c0 in range(0, skv, kv_chunk):
         kb = k[:, :, c0:c0 + kv_chunk].float()                 # [B, Hkv, C, D]
         vb = v[:, :, c0:c0 + kv_chunk].float()
-        logits = torch.einsum("bhgsd,bhcd->bhgsc", qg, kb)
+        # in place: a chunk holds two [B, Hkv, G, Sq, C] f32 buffers, p and ds
+        p = torch.einsum("bhgsd,bhcd->bhgsc", qg, kb)
         if causal:
             k_pos = c0 + torch.arange(kb.shape[2], device=dev)[None, :]
-            logits = logits.masked_fill(~(q_pos >= k_pos), NEG_INF)
-        p = torch.exp(logits - lse)                            # normalized probs
-        dp = torch.einsum("bhgsd,bhcd->bhgsc", do, vb)
-        ds = p * (dp - delta)
+            p.masked_fill_(~(q_pos >= k_pos), NEG_INF)
+        p.sub_(lse).exp_()                                     # normalized probs
+        ds = torch.einsum("bhgsd,bhcd->bhgsc", do, vb).sub_(delta).mul_(p)
         dq = dq + torch.einsum("bhgsc,bhcd->bhgsd", ds, kb)
         dks.append(torch.einsum("bhgsc,bhgsd->bhcd", ds, qg))
         dvs.append(torch.einsum("bhgsc,bhgsd->bhcd", p, do))

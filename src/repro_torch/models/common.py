@@ -25,12 +25,12 @@ from repro_torch.parallel.sharding import (
     Mesh,
     NamedSharding,
     logical_to_spec,
-    logsumexp_last,
+    is_dtensor,
     matmul,
     merge,
-    pick_last,
     unsplit,
 )
+from repro_torch.parallel import sharding
 
 Tensor = torch.Tensor
 
@@ -159,12 +159,16 @@ def dense(x: Tensor, w: Tensor) -> Tensor:
 def nll_sum(logits: Tensor, labels: Tensor, ignore: int = -100
             ) -> tuple[Tensor, Tensor]:
     """``(sum of the NLL over labels other than ignore, their count)``; the
-    log-sum-exp and the picked logit in float32."""
+    log-sum-exp and the picked logit in float32.  DTensor logits split over
+    the mesh take :func:`sharding.nll_sum`: each device works on its shard,
+    forward and backward."""
     mask = labels != ignore
+    if is_dtensor(logits) and any(p.is_shard() for p in logits.placements):
+        return sharding.nll_sum(logits, labels, ignore), mask.sum()
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
     lf = logits.float()
-    logz = logsumexp_last(lf)
-    picked = pick_last(lf, safe)
+    logz = torch.logsumexp(lf, dim=-1)
+    picked = torch.gather(lf, -1, safe[..., None])[..., 0]
     return ((logz - picked) * mask).sum(), mask.sum()
 
 

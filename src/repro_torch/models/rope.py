@@ -33,12 +33,16 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float,
                fraction: float = 1.0) -> Tensor:
     """Rotate the first ``fraction`` of the head dim.
 
-    x: [B, S, H, D]; positions: [B, S] int32.
+    x: [B, S, H, D]; positions: [B, S] int32.  Positions alike in every
+    row (a ``[1, S]`` row expanded: the default ``arange``) build one row's
+    table, broadcast over the batch.
     """
     d = x.shape[-1]
     rot = int(d * fraction) // 2 * 2
     if rot == 0:
         return x
+    if positions.stride(0) == 0:
+        positions = positions[:1]
     inv = _freqs_on(rot, float(theta), x.device)               # [rot/2]
     ang = positions.float()[..., None] * inv                   # [B, S, rot/2]
     cos = torch.cos(ang)[:, :, None, :]

@@ -534,83 +534,56 @@ def write_token(cache: Tensor, rows: Tensor, idx: Tensor, val: Tensor) -> None:
     loc[rows, rel] = torch.where(inside, v, loc[rows, rel])
 
 
-def _split_lookup(x: Tensor, dim: int, idx: Tensor, look, idx_dims) -> Tensor:
-    """A lookup into DTensor ``x`` along its dim ``dim`` by ``idx``.  Where
-    ``dim`` is split over some mesh axes (the vocabulary) each shard looks
-    up the indices in its block of ``dim`` (``look(x_local, idx_local)`` on
-    the clamped local indices), zeroes the rest, and the result is a
-    partial sum over those axes, as XLA partitions a gather from a split
-    operand; where it is not, each device looks up its own indices.  On
-    the other axes ``x`` is gathered where ``idx`` splits
-    what ``x`` does not line up with; ``idx_dims[k]`` is the dim of ``x``
-    that ``idx``'s dim ``k`` indexes alongside (None: none).  A table whose
-    rows are whole but whose columns are split where ``idx`` is (ZeRO-3's
-    embedding under a vocabulary ``model`` does not divide) keeps its
-    columns: the indices are gathered instead, each device looks up every
-    row in its columns, and their gradient is whole there (the caller
-    places the rows it wants, as ``lm.embed_tokens`` does)."""
+def embed_lookup(table: Tensor, ids: Tensor) -> Tensor:
+    """``table[ids]``: the rows of an embedding table.  On a DTensor table
+    each device looks up its own ids.  Where the rows (the vocabulary) are
+    split over some mesh axes each shard looks up the ids in its block
+    (clamped to it), zeroes the rest, and the result is a partial sum over
+    those axes, as XLA partitions a gather from a split operand; where they
+    are not, each device looks up its own ids, the table gathered on the
+    axes that split the ids.  A table whose rows are whole but whose
+    columns are split where the ids are (ZeRO-3's embedding under a
+    vocabulary ``model`` does not divide) keeps its columns: the ids are
+    gathered instead, each device looks up every row in its columns, and
+    their gradient is whole there (the caller places the rows it wants, as
+    ``lm.embed_tokens`` does).  The backward's scatter then runs on local
+    tensors, where DTensor's own ``index`` leaves it an ``index_put`` that
+    not every torch version places.  A plain table indexes as it is."""
+    if not is_dtensor(table):
+        return table[ids]
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
-    dm = x.device_mesh
-    ipl = idx.placements if is_dtensor(idx) else [Replicate()] * dm.ndim
-    split = any(isinstance(p, Shard) and p.dim == dim for p in x.placements)
+    dm = table.device_mesh
+    ipl = ids.placements if is_dtensor(ids) else [Replicate()] * dm.ndim
+    split = any(isinstance(p, Shard) and p.dim == 0 for p in table.placements)
     # rows whole, columns split where the ids are: the ids are gathered
-    columns = not split and dim == 0 and any(
-        isinstance(p, Shard) and isinstance(q, Shard) for p, q in zip(x.placements, ipl))
+    columns = not split and any(
+        isinstance(p, Shard) and isinstance(q, Shard) for p, q in zip(table.placements, ipl))
     x_pl, i_pl, o_pl, g_pl = [], [], [], []
-    for p, q in zip(x.placements, ipl):
-        if isinstance(p, Shard) and p.dim == dim:
+    for p, q in zip(table.placements, ipl):
+        if isinstance(p, Shard) and p.dim == 0:
             x_pl.append(p), i_pl.append(Replicate()), o_pl.append(Partial()), g_pl.append(p)
         elif columns and isinstance(p, Shard) and isinstance(q, Shard):
             x_pl.append(p), i_pl.append(Replicate()), g_pl.append(p)
-            o_pl.append(Shard(idx.dim() + p.dim - 1))
-        elif isinstance(q, Shard) and idx_dims[q.dim] is not None:
-            x_pl.append(Shard(idx_dims[q.dim])), i_pl.append(q), o_pl.append(q)
-            g_pl.append(Shard(idx_dims[q.dim]))
+            o_pl.append(Shard(ids.dim() + p.dim - 1))
         elif isinstance(q, Shard):
             x_pl.append(Replicate()), i_pl.append(q), o_pl.append(q), g_pl.append(Partial())
         else:
             x_pl.append(Replicate()), i_pl.append(Replicate()), o_pl.append(Replicate())
             g_pl.append(Replicate())
-    xl = x.redistribute(dm, x_pl).to_local(grad_placements=g_pl)
-    il = (idx.redistribute(dm, i_pl).to_local() if is_dtensor(idx) else idx)
+    xl = table.redistribute(dm, x_pl).to_local(grad_placements=g_pl)
+    il = ids.redistribute(dm, i_pl).to_local() if is_dtensor(ids) else ids
     if split:
-        _, offset = compute_local_shape_and_global_offset(x.shape, dm, x_pl)
-        rel = il - offset[dim]
-        inside = (rel >= 0) & (rel < xl.shape[dim])
-        out = look(xl, rel.clamp(0, xl.shape[dim] - 1))
-        out = out * inside.reshape(inside.shape + (1,) * (out.dim() - inside.dim())).to(out.dtype)
+        _, offset = compute_local_shape_and_global_offset(table.shape, dm, x_pl)
+        rel = il - offset[0]
+        inside = (rel >= 0) & (rel < xl.shape[0])
+        out = xl[rel.clamp(0, xl.shape[0] - 1)] * inside[..., None].to(xl.dtype)
     else:
-        out = look(xl, il)
-    shape = list(idx.shape) + list(x.shape[dim + 1:])
+        out = xl[il]
+    shape = list(ids.shape) + list(table.shape[1:])
     return DTensor.from_local(out, dm, o_pl, run_check=False, shape=torch.Size(shape),
                               stride=contiguous_strides(shape))
-
-
-def embed_lookup(table: Tensor, ids: Tensor) -> Tensor:
-    """``table[ids]``: the rows of an embedding table.  On a DTensor table
-    each device looks up its own ids (:func:`_split_lookup`): split on its
-    rows (the vocabulary), each shard takes the ids in its block, a partial
-    sum over the vocabulary's axes; whole there, its columns stay split and
-    the ids are gathered where both split.  The backward's scatter then
-    runs on local tensors, where DTensor's own
-    ``index`` leaves it an ``index_put`` that not every torch version
-    places.  A plain table indexes as it is."""
-    if not is_dtensor(table):
-        return table[ids]
-    return _split_lookup(table, 0, ids, lambda t, i: t[i], (None,) * ids.dim())
-
-
-def pick_last(x: Tensor, idx: Tensor) -> Tensor:
-    """``x[..., idx]`` elementwise (``torch.gather`` on the last dim, that
-    dim dropped), on a DTensor ``x`` split on its last dim (the vocabulary)
-    a partial sum over those axes (:func:`_split_lookup`)."""
-    if not splits(x, -1):
-        return torch.gather(x, -1, idx[..., None])[..., 0]
-    return _split_lookup(x, x.dim() - 1, idx,
-                         lambda t, i: torch.gather(t, -1, i[..., None])[..., 0],
-                         tuple(range(idx.dim())))
 
 
 def channelwise(fn: Callable, x: Tensor, *params: Tensor) -> Tensor:
@@ -845,16 +818,84 @@ def shard_einsum(eq: str, a: Tensor, b: Tensor, rule: Callable) -> Tensor:
                               stride=contiguous_strides(shape))
 
 
-def logsumexp_last(x: Tensor) -> Tensor:
-    """``torch.logsumexp(x, -1)``.  On a DTensor split on its last dim (the
-    vocabulary) the log-sum-exp of the shards: each shard's max, their max
-    (an all-reduce of the rows), each shard's sum of exponentials, their
-    sum (another) and the log, as XLA partitions the reduction; DTensor's
-    own ``logsumexp`` would gather the logits."""
-    if not splits(x, -1):
-        return torch.logsumexp(x, dim=-1)
-    m = _reduced(x.detach().amax(dim=-1))
-    return torch.exp(x - m[..., None]).sum(dim=-1).log() + m
+class _ShardedNLL(torch.autograd.Function):
+    """The NLL summed over a chunk's non-ignored labels, of DTensor logits
+    ``[..., V]`` split on their rows, their vocabulary or both, on each
+    device's shard, forward and backward.  Forward: the shard's row max,
+    all-reduced over the axes that split the vocabulary, the shard's sum of
+    exponentials and its picked logit (the label's, where it falls in the
+    shard's block of the vocabulary), all-reduced over them together, the
+    log-sum-exp, and the masked sum, a partial sum over the axes that split
+    the rows.  Backward: ``g (softmax - onehot) mask`` of the shard in
+    float32, cast to the logits' dtype, left in their placements: no
+    collective and no buffer beyond the shard.  DTensor's own ops would
+    place the gradient from the one it gets (over the whole vocabulary, or
+    at the global batch's rows for a rows-split ``gather``)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, ignore):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        dm, pl, last = logits.device_mesh, list(logits.placements), logits.dim() - 1
+        vocab = [isinstance(p, Shard) and p.dim == last for p in pl]
+        rows_pl = [p if isinstance(p, Shard) and not v else Replicate()
+                   for p, v in zip(pl, vocab)]
+        yl = labels.redistribute(dm, rows_pl).to_local()
+        xl = logits.to_local()
+        _, offset = compute_local_shape_and_global_offset(logits.shape, dm, pl)
+        rows = logits.shape[:-1]
+
+        def over_vocab(t: Tensor, op: str, lead=()) -> Tensor:
+            if not any(vocab):
+                return t
+            shape = torch.Size((*lead, *rows))
+            shard = [Shard(p.dim + len(lead)) if isinstance(p, Shard) else p for p in rows_pl]
+            t_pl = [Partial(op) if v else q for v, q in zip(vocab, shard)]
+            return DTensor.from_local(t, dm, t_pl, run_check=False, shape=shape,
+                                      stride=contiguous_strides(shape)).redistribute(
+                dm, shard).to_local()
+
+        mask = yl != ignore
+        rel = yl.long() - offset[last]
+        inside = mask & (rel >= 0) & (rel < xl.shape[-1])
+        rel = rel.clamp(0, xl.shape[-1] - 1)
+        xf = xl.to(torch.float32, copy=True)
+        picked = torch.gather(xf, -1, rel[..., None])[..., 0] * inside
+        m = over_vocab(xf.amax(dim=-1), "max")
+        sums = over_vocab(torch.stack([xf.sub_(m[..., None]).exp_().sum(dim=-1), picked]),
+                          "sum", (2,))
+        lse = sums[0].log() + m
+        ctx.save_for_backward(xl, rel, lse, mask, inside)
+        ctx.mesh, ctx.placements, ctx.shape = dm, pl, logits.shape
+        total = ((lse - sums[1]) * mask).sum()
+        return DTensor.from_local(total, dm, [Partial() if isinstance(p, Shard) else Replicate()
+                                              for p in rows_pl],
+                                  run_check=False, shape=torch.Size(()), stride=())
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        xl, rel, lse, mask, inside = ctx.saved_tensors
+        dm = ctx.mesh
+        if is_dtensor(g):
+            g = g.redistribute(dm, [Replicate()] * dm.ndim).to_local()
+        g = g.float()
+        grad = xl.to(torch.float32, copy=True).sub_(lse[..., None]).exp_()
+        grad.mul_((g * mask)[..., None])
+        grad.scatter_add_(-1, rel[..., None], -(g * inside)[..., None])
+        return (DTensor.from_local(grad.to(xl.dtype), dm, ctx.placements, run_check=False,
+                                   shape=ctx.shape, stride=contiguous_strides(ctx.shape)),
+                None, None)
+
+
+def nll_sum(logits: Tensor, labels: Tensor, ignore: int = -100) -> Tensor:
+    """The NLL of DTensor ``logits [..., V]`` summed over DTensor ``labels``
+    other than ``ignore``, log-sum-exp and picked logit in float32, on each
+    device's shard forward and backward (:class:`_ShardedNLL`); a partial
+    sum over the axes that split the rows."""
+    return _ShardedNLL.apply(_reduced(logits), labels, ignore)
 
 
 def _reduced(t: Tensor) -> Tensor:

@@ -1161,3 +1161,35 @@ def test_fake_outputs_match_the_kernels_at_every_head_dim_pair(dev, dtype):
     got = ops.ssd_chunk(*ssd)
     fake = ops.ssd_chunk(*(t.to("meta") for t in ssd))
     assert [(tuple(t.shape), t.dtype) for t in got] == [(tuple(t.shape), t.dtype) for t in fake]
+
+
+def test_alltoall_charge_on_meta_matches_the_card(dev):
+    """A redistribute from a split of the columns to one of the rows over
+    an axis of 16 (an all-to-all: MiniCPM3's embedding rows in the dry-run)
+    gives the card a tensor of its own, no slice of a larger buffer, and
+    ``trace_cost`` charges it the same largest storage and live peak on
+    ``cuda:0`` shards as on ``meta`` shards."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.analysis.cost import trace_cost
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.sharding import P, NamedSharding
+
+    got = {}
+    try:
+        for where in (dev, torch.device("meta")):
+            mesh = sharding.make_mesh_compat((16,), ("data",), devices=[where] * 16)
+            x = sharding.distribute(torch.zeros((64, 256, 320), dtype=BF16, device=where),
+                                    NamedSharding(mesh, P(None, None, "data")))
+            out = trace_cost(lambda: x.redistribute(x.device_mesh, [Shard(0)]))
+            local = out["out"].to_local()
+            assert tuple(local.shape) == (4, 256, 320)
+            if where.type == "cuda":
+                assert local.untyped_storage().nbytes() == local.nbytes
+            got[where.type] = (out["largest_alloc"], out["peak_live_bytes"],
+                               out["collective_counts"])
+            sharding.close_fake_world()
+    finally:
+        sharding.close_fake_world()
+    assert got["cuda"] == got["meta"], got
+    assert got["meta"][1] == 4 * 256 * 320 * 2
