@@ -257,7 +257,11 @@ Phases (each passes or the script exits non-zero without a result line):
    ``model`` 2: its flash calls split their query rows), then the median
    ms of one device's shard step on the card (``shard_step_ms``; an op
    the count ran on gathered inputs, which runs nowhere else, fails the
-   phase; ``shard_compare.py`` takes it for checkouts in turns); (f) one
+   phase; ``shard_compare.py`` takes it for checkouts in turns); then
+   (``META_DEPTH``) SmolLM-360M's train step on [8, 2048] at 2 and 4 layers under
+   ``remat="full"`` and ``"dots"`` (each remat region keeps its residuals
+   split over ``model``, ``sharding.checkpoint``), held meta = card as
+   above, and its peak a layer on the card within [0.8, 1.2] of meta's; (f) one
    SmolLM-360M attention layer at full width on ``CP_X`` tokens, f32 and
    bf16, on the card: the flash call split into ``CP_TP`` blocks of query
    rows, each through the per-shard functions at its coordinate
@@ -5006,6 +5010,13 @@ META_SHARDED = {"smollm-360m": ("flash_attention", (2, 2), ("train", "prefill"))
                 "stablelm-3b": ("flash_attention", (2, 2), ("train", "prefill")),
                 "seamless-m4t-medium": ("flash_attention", (1, 4), ("train",))}
 META_SHARDED_LAYERS = 2
+#: phase 17 (e): an arch's train step at two depths under each remat policy
+#: on a mesh: ``(arch, kernel, (data, model), (batch, seq), (depths),
+#: (policies))``; its peak a layer (the deeper cut's less the shallower's,
+#: over the layers between) on the card within ``META_PEAK_RANGE`` of
+#: meta's.  2048 tokens a row, so a layer's residuals (~7.5 MiB a device
+#: under "full", ~68 under "dots") stand well above the allocator's rounding
+META_DEPTH = ("smollm-360m", "flash_attention", (2, 2), (8, 2048), (2, 4), ("full", "dots"))
 #: phase 17 (f): one SmolLM-360M attention layer at full width on [B, S]
 #: tokens, its flash call split into CP_TP blocks of query rows; the bars
 #: of the put-together output and gradients against the unsplit layer's
@@ -5403,10 +5414,13 @@ def shard_step_ms(torch, step, args, runs: int) -> float:
     return statistics.median(times)
 
 
-def meta_sharded(torch, ops) -> dict:
-    """Phase 17 (e): each ``META_SHARDED`` arch's steps through
-    ``launch.dryrun.step_parts`` over its mesh, the arguments DTensors on
-    ``meta`` shards, then on ``cuda:0`` shards (module docstring)."""
+def _meta_card_cell(torch, ops, cfg, kernel: str, grid, kind: str, size, timed: bool,
+                    tag: str) -> dict:
+    """One step of phase 17 (e) on ``size`` ``(batch, seq)`` through
+    ``launch.dryrun.step_parts`` over ``grid``, the arguments DTensors on
+    ``meta`` shards, then on ``cuda:0`` shards, held meta = card (module
+    docstring); with ``timed``, also the ms of one device's shard step on
+    the card.  ``{"meta": row, "card": row}``."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.analysis.cost import trace_cost
@@ -5414,95 +5428,130 @@ def meta_sharded(torch, ops) -> dict:
     from repro_torch.parallel import sharding
 
     axes = ("data", "model")
+    meshes = {"meta": sharding.abstract_mesh_compat(grid, axes),
+              "card": sharding.make_mesh_compat(grid, axes, devices=[DEVICE] * math.prod(grid))}
+    b, s = size
+    shape = shapes.ShapeSpec(kind, kind, s, b)
+    mode = "train" if kind == "train" else "serve"
+    rows = {}
+    for where, mesh in meshes.items():
+        parts = dryrun.step_parts(cfg, shape, mesh, mode)
+        args = [dryrun.place_args(a, sh) for a, sh in zip(parts["args"], parts["shards"])]
+
+        def step(*a, parts=parts):
+            res = parts["step"](*a)
+            return dryrun.place_outputs(res, parts["out_shards"](res))
+
+        if where == "card":
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+        t0 = time.time()
+        with implicit_replication():
+            row = trace_cost(step, *args)
+        if where == "card":
+            torch.cuda.synchronize()
+            row["peak_card"] = torch.cuda.max_memory_allocated() - held
+            row["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        row["trace_s"] = time.time() - t0
+        if where == "card":
+            # an op this torch's DTensor cannot place runs only under
+            # the count's gathered fallback, which runs nowhere else
+            if row["dtensor_fallbacks"]:
+                fail(f"{tag}: DTensor fallbacks under torch {torch_version()}: "
+                     f"{row['dtensor_fallbacks']}")
+            row["step_ms"] = (shard_step_ms(torch, step, args, META_TIMED[kind]) if timed
+                              else None)
+        del row["out"], args
+        rows[where] = row
+    meta, card = rows["meta"], rows["card"]
+    if meta["flops_per_device"] != card["flops_per_device"]:
+        fail(f"{tag}: FLOPs meta {meta['flops_per_device']} != card "
+             f"{card['flops_per_device']}")
+    ratio = meta["bytes_per_device"] / card["bytes_per_device"]
+    if abs(ratio - 1) > META_BYTES_RTOL:
+        fail(f"{tag}: bytes meta / card {ratio:.5f} beyond {META_BYTES_RTOL}")
+    if meta["num_ops"] != card["num_ops"]:
+        diff = {k: (meta["op_counts"].get(k, 0), card["op_counts"].get(k, 0))
+                for k in set(meta["op_counts"]) | set(card["op_counts"])
+                if meta["op_counts"].get(k, 0) != card["op_counts"].get(k, 0)}
+        fail(f"{tag}: ops meta {meta['num_ops']} != card {card['num_ops']} "
+             f"(by name, meta / card: {diff}; fallbacks {meta['dtensor_fallbacks']} / "
+             f"{card['dtensor_fallbacks']})")
+    if (meta["collective_counts"] != card["collective_counts"]
+            or meta["collective_wire_bytes_per_device"]
+            != card["collective_wire_bytes_per_device"]):
+        fail(f"{tag}: collectives meta {meta['collective_counts']} "
+             f"{meta['collective_wire_bytes_per_device']} != card "
+             f"{card['collective_counts']} {card['collective_wire_bytes_per_device']}")
+    peak = meta["peak_live_bytes"] / card["peak_card"]
+    if not META_PEAK_RANGE[0] <= peak <= META_PEAK_RANGE[1]:
+        fail(f"{tag}: meta peak / card peak {peak:.3f} outside {META_PEAK_RANGE}")
+    if card["launches"].get(kernel, 0) <= 0:
+        fail(f"{tag}: no {kernel} launch on the card shards")
+    step_ms = ("" if card["step_ms"] is None else
+               f", one device's shard step {card['step_ms']:.2f} ms (median of "
+               f"{META_TIMED[kind]})")
+    log(f"{tag} (mesh {grid}, bf16, [{b}, {s}]): per device FLOPs "
+        f"{meta['flops_per_device']:.6g}, bytes meta/card {ratio:.5f}, ops "
+        f"{meta['num_ops']} on both, collectives {meta['collective_counts']} "
+        f"wire {meta['collective_wire_bytes_per_device']:.6g} B on both, peak meta "
+        f"{meta['peak_live_bytes'] / 2**30:.4f} / card {card['peak_card'] / 2**30:.4f} "
+        f"GiB = {peak:.3f}, launches {card['launches']}, fallbacks "
+        f"{card['dtensor_fallbacks']}, trace s meta {meta['trace_s']:.1f} card "
+        f"{card['trace_s']:.1f}{step_ms}")
+    out = {where: {k: r[k] for k in ("flops_per_device", "bytes_per_device", "num_ops",
+                                     "collective_counts", "collective_wire_bytes_per_device",
+                                     "peak_live_bytes", "dtensor_fallbacks", "trace_s")}
+           for where, r in rows.items()}
+    out["card"].update(peak_card=card["peak_card"], launches=card["launches"],
+                       step_ms=card["step_ms"])
+    return out
+
+
+def meta_sharded(torch, ops) -> dict:
+    """Phase 17 (e): each ``META_SHARDED`` arch's steps through
+    ``launch.dryrun.step_parts`` over its mesh, the arguments DTensors on
+    ``meta`` shards, then on ``cuda:0`` shards; then ``META_DEPTH``'s
+    train step at two depths under each remat policy, its peak a layer on
+    the card beside meta's (module docstring)."""
+    from repro_torch.parallel import sharding
+
     out: dict = {}
     launches = {k: 0 for k in ops.LAUNCHES}
     try:
-        for arch, (kernel, grid, kinds) in META_SHARDED.items():
-            cfg = lm_config(arch, num_layers=META_SHARDED_LAYERS)
-            meshes = {"meta": sharding.abstract_mesh_compat(grid, axes),
-                      "card": sharding.make_mesh_compat(grid, axes,
-                                                        devices=[DEVICE] * math.prod(grid))}
-            for kind in kinds:
-                b, s = META_TRAIN if kind == "train" else META_PREFILL
-                shape = shapes.ShapeSpec(kind, kind, s, b)
-                mode = "train" if kind == "train" else "serve"
-                rows = {}
-                for where, mesh in meshes.items():
-                    parts = dryrun.step_parts(cfg, shape, mesh, mode)
-                    args = [dryrun.place_args(a, sh) for a, sh in zip(parts["args"], parts["shards"])]
+        cells = [(arch, kernel, grid, kind, META_TRAIN if kind == "train" else META_PREFILL,
+                  None, META_SHARDED_LAYERS, True)
+                 for arch, (kernel, grid, kinds) in META_SHARDED.items() for kind in kinds]
+        arch, kernel, grid, size, depths, policies = META_DEPTH
+        cells += [(arch, kernel, grid, "train", size, remat, layers, False)
+                  for remat in policies for layers in depths]
+        for arch, kernel, grid, kind, size, remat, layers, timed in cells:
+            cfg = lm_config(arch, num_layers=layers)
+            name = f"{arch} {kind}"
+            if remat is not None:
+                cfg = dataclasses.replace(cfg, remat=remat)
+                name += f" {remat} {layers} layers"
+            out[name] = _meta_card_cell(torch, ops, cfg, kernel, grid, kind, size, timed,
+                                        f"phase 17 (e) {name}")
+            for k, v in out[name]["card"]["launches"].items():
+                launches[k] += v
+        arch, _, _, _, (lo, hi), policies = META_DEPTH
+        for remat in policies:
+            cut = [out[f"{arch} train {remat} {n} layers"] for n in (lo, hi)]
 
-                    def step(*a, parts=parts):
-                        res = parts["step"](*a)
-                        return dryrun.place_outputs(res, parts["out_shards"](res))
+            def per_layer(where: str, key: str, cut=cut) -> float:
+                return (cut[1][where][key] - cut[0][where][key]) / (hi - lo)
 
-                    if where == "card":
-                        torch.cuda.synchronize()
-                        held = torch.cuda.memory_allocated()
-                        torch.cuda.reset_peak_memory_stats()
-                        ops.reset_launches()
-                    t0 = time.time()
-                    with implicit_replication():
-                        row = trace_cost(step, *args)
-                    if where == "card":
-                        torch.cuda.synchronize()
-                        row["peak_card"] = torch.cuda.max_memory_allocated() - held
-                        row["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
-                    row["trace_s"] = time.time() - t0
-                    if where == "card":
-                        # an op this torch's DTensor cannot place runs only under
-                        # the count's gathered fallback, which runs nowhere else
-                        if row["dtensor_fallbacks"]:
-                            fail(f"phase 17 (e) {arch} {kind}: DTensor fallbacks under "
-                                 f"torch {torch_version()}: {row['dtensor_fallbacks']}")
-                        row["step_ms"] = shard_step_ms(torch, step, args, META_TIMED[kind])
-                    del row["out"], args
-                    rows[where] = row
-                meta, card = rows["meta"], rows["card"]
-                tag = f"phase 17 (e) {arch} {kind}"
-                if meta["flops_per_device"] != card["flops_per_device"]:
-                    fail(f"{tag}: FLOPs meta {meta['flops_per_device']} != card "
-                         f"{card['flops_per_device']}")
-                ratio = meta["bytes_per_device"] / card["bytes_per_device"]
-                if abs(ratio - 1) > META_BYTES_RTOL:
-                    fail(f"{tag}: bytes meta / card {ratio:.5f} beyond {META_BYTES_RTOL}")
-                if meta["num_ops"] != card["num_ops"]:
-                    diff = {k: (meta["op_counts"].get(k, 0), card["op_counts"].get(k, 0))
-                            for k in set(meta["op_counts"]) | set(card["op_counts"])
-                            if meta["op_counts"].get(k, 0) != card["op_counts"].get(k, 0)}
-                    fail(f"{tag}: ops meta {meta['num_ops']} != card {card['num_ops']} "
-                         f"(by name, meta / card: {diff}; fallbacks {meta['dtensor_fallbacks']} / "
-                         f"{card['dtensor_fallbacks']})")
-                if (meta["collective_counts"] != card["collective_counts"]
-                        or meta["collective_wire_bytes_per_device"]
-                        != card["collective_wire_bytes_per_device"]):
-                    fail(f"{tag}: collectives meta {meta['collective_counts']} "
-                         f"{meta['collective_wire_bytes_per_device']} != card "
-                         f"{card['collective_counts']} {card['collective_wire_bytes_per_device']}")
-                peak = meta["peak_live_bytes"] / card["peak_card"]
-                if not META_PEAK_RANGE[0] <= peak <= META_PEAK_RANGE[1]:
-                    fail(f"{tag}: meta peak / card peak {peak:.3f} outside {META_PEAK_RANGE}")
-                if card["launches"].get(kernel, 0) <= 0:
-                    fail(f"{tag}: no {kernel} launch on the card shards")
-                for k, v in card["launches"].items():
-                    launches[k] += v
-                log(f"{tag} (mesh {grid}, bf16, [{b}, {s}]): per device FLOPs "
-                    f"{meta['flops_per_device']:.6g}, bytes meta/card {ratio:.5f}, ops "
-                    f"{meta['num_ops']} on both, collectives {meta['collective_counts']} "
-                    f"wire {meta['collective_wire_bytes_per_device']:.6g} B on both, peak meta "
-                    f"{meta['peak_live_bytes'] / 2**30:.4f} / card {card['peak_card'] / 2**30:.4f} "
-                    f"GiB = {peak:.3f}, launches {card['launches']}, fallbacks "
-                    f"{card['dtensor_fallbacks']}, trace s meta {meta['trace_s']:.1f} card "
-                    f"{card['trace_s']:.1f}, one device's shard step "
-                    f"{card['step_ms']:.2f} ms (median of {META_TIMED[kind]})")
-                out[f"{arch} {kind}"] = {
-                    where: {k: r[k] for k in ("flops_per_device", "bytes_per_device", "num_ops",
-                                              "collective_counts",
-                                              "collective_wire_bytes_per_device",
-                                              "peak_live_bytes", "dtensor_fallbacks", "trace_s")}
-                    for where, r in rows.items()}
-                out[f"{arch} {kind}"]["card"].update(peak_card=card["peak_card"],
-                                                      launches=card["launches"],
-                                                      step_ms=card["step_ms"])
+            meta, card = per_layer("meta", "peak_live_bytes"), per_layer("card", "peak_card")
+            ratio = meta / card
+            out[f"{arch} train {remat} a layer"] = dict(meta=meta, card=card, ratio=ratio)
+            log(f"phase 17 (e) {arch} train {remat}: peak a layer ({lo} -> {hi} layers) meta "
+                f"{meta / 2**20:.3f} / card {card / 2**20:.3f} MiB = {ratio:.3f}")
+            if not META_PEAK_RANGE[0] <= ratio <= META_PEAK_RANGE[1]:
+                fail(f"phase 17 (e) {arch} train {remat}: meta / card peak a layer "
+                     f"{ratio:.3f} outside {META_PEAK_RANGE}")
     finally:
         sharding.close_fake_world()
         torch.cuda.empty_cache()

@@ -14,13 +14,23 @@ The JAX package scans the stacked ``[L, ...]`` layer parameters; here the
 model loops over ``L`` (the stacks are unbound once, so a gradient flows
 back to each stack in one op).  ``cfg.remat`` holds as in the JAX
 package while gradients are on: each block, each Mamba2 layer and each
-CE chunk is a ``torch.utils.checkpoint`` region.  ``"full"`` recomputes
-the whole region in the backward.  ``"dots"`` is a selective region
-that keeps the outputs of its 2-D products (``aten.mm``/``aten.addmm``,
-a dot with no batch dims, as JAX's ``checkpoint_dots_with_no_batch_dims``
-keeps) and recomputes everything else: batched products (``bmm``, the
-MoE's capacity buffer) and the two kernel operators included.  The
-policy changes the work and the memory of a step, never its numbers.
+CE chunk is a checkpointed region.  ``"full"`` recomputes the whole
+region in the backward.  ``"dots"`` is a selective region that keeps the
+outputs of its 2-D products (``aten.mm``/``aten.addmm``, a dot with no
+batch dims, as JAX's ``checkpoint_dots_with_no_batch_dims`` keeps) and
+recomputes everything else: batched products (``bmm``, the MoE's capacity
+buffer) and the two kernel operators included.  Where it keeps them: on
+plain tensors a region is ``torch.utils.checkpoint`` (``"dots"`` its
+selective form), which keeps the region's input and every 2-D product's
+output as they are.  On DTensors over more than one device it is
+``parallel.sharding.checkpoint``, which keeps what JAX's partitioned step
+keeps: the input, where it is replicated over ``model``, as the device's
+block of its sequence (gathered again when the backward recomputes the
+region), and under ``"dots"`` only the products' outputs the backward
+reads (a product whose output only joins the residual sum, as the down
+projection's does, is not kept), each split as its product leaves it or,
+replicated over ``model``, on the sequence too.  The policy changes the
+work and the memory of a step, never its numbers.
 The MoE layers read the ambient
 ``ShardingCtx`` (``parallel.sharding.use_ctx``, bound by the step
 factories) and split their experts over its mesh's ``model`` axis as the
@@ -61,8 +71,10 @@ from repro_torch.models.common import (
 from repro_torch.parallel.sharding import (
     ShardingCtx,
     activation,
+    checkpoint as sharded_checkpoint,
     current_ctx,
     embed_lookup,
+    is_dtensor,
     logical_to_spec,
     partial_sums,
     use_ctx,
@@ -179,17 +191,21 @@ def _remat(fn, cfg: ModelConfig):
     are on (see the module docstring); as is otherwise."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
-    ctx = current_ctx()
+    ctx, dots = current_ctx(), cfg.remat == "dots"
 
     def bound(*args):
         with use_ctx(ctx):
             return fn(*args)
 
-    if cfg.remat == "dots":
-        return lambda *args: checkpoint(
-            bound, *args, use_reentrant=False,
-            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
-    return lambda *args: checkpoint(bound, *args, use_reentrant=False)
+    def region(*args):
+        if is_dtensor(args[0]) and args[0].device_mesh.size() > 1:
+            return sharded_checkpoint(bound, *args, dots=dots)
+        if dots:
+            return checkpoint(bound, *args, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy))
+        return checkpoint(bound, *args, use_reentrant=False)
+
+    return region
 
 
 # -- forward ------------------------------------------------------------------

@@ -47,7 +47,9 @@ shard.  On a DTensor, :func:`constraint` (and :func:`activation`)
 redistributes to the placements the rules give, as
 ``with_sharding_constraint`` does under ``jit``; a plain tensor comes
 back as it is, so a one-process step moves nothing.  Only the dry-run
-creates a process group.
+creates a process group.  :func:`checkpoint` is a train step's remat
+region on DTensors, which keeps its residuals split over ``model`` as
+XLA keeps a partitioned step's.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ import contextlib
 import contextvars
 import dataclasses
 import math
+import weakref
 from typing import Any, Callable
 
 import torch
@@ -730,7 +733,13 @@ class _Product(torch.autograd.Function):
         wl = w.redistribute(dm, pw).to_local()
         ctx.save_for_backward(xl, wl)
         ctx.mesh, ctx.x_shape, ctx.w_spec = dm, x.shape, (w.shape, list(w.placements))
-        return _placed(_folded_mm(xl, wl), dm, py, ctx.y_out, (*x.shape[:-1], w.shape[-1]))
+        region = _REGION.get()
+        if region is not None and region.replaying:
+            return region.replay()
+        y = _placed(_folded_mm(xl, wl), dm, py, ctx.y_out, (*x.shape[:-1], w.shape[-1]))
+        if region is not None:
+            region.record(y)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
@@ -752,10 +761,280 @@ def matmul(x: Tensor, w: Tensor) -> Tensor:
     [K, N]``.  On two DTensors, on each device's shards in its forward and
     its backward (:class:`_Product`), as XLA partitions the dot and its
     gradients; DTensor's own choice per op would gather the tokens or the
-    columns in the backward.  Plain tensors run ``torch.matmul`` itself."""
+    columns in the backward.  Plain tensors run ``torch.matmul`` itself,
+    but inside a ``"dots"`` region on DTensors (a device's shards, as the
+    MoE's router sees them) :class:`_Dot`."""
     if not (is_dtensor(x) and is_dtensor(w)):
+        if _REGION.get() is not None and w.dim() == 2:
+            return _Dot.apply(x, w)
         return torch.matmul(x, w)
     return _Product.apply(x, w)
+
+
+class _Dot(torch.autograd.Function):
+    """``torch.matmul(x, w)`` of plain tensors, ``w`` 2-D, whose output a
+    ``"dots"`` region records in its forward and replays in its recompute,
+    as :class:`_Product` does for DTensors."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        region = _REGION.get()
+        if region.replaying:
+            return region.replay()
+        y = _folded_mm(x, w)
+        region.record(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _folded_mm(dy, w.t())
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x.reshape(-1, x.shape[-1]).t(), dy.reshape(-1, dy.shape[-1]))
+        return dx, dw
+
+
+# -- the train step's checkpoint on DTensors -----------------------------------
+
+#: the ``"dots"`` region whose forward or recompute is running (its weight
+#: products recorded or replayed by :class:`_Product` and :class:`_Dot`)
+_REGION: contextvars.ContextVar[_Region | None] = contextvars.ContextVar(
+    "repro_torch_remat_region", default=None)
+
+
+class _StopRecompute(Exception):
+    """A region's recompute has given back every tensor its forward saved."""
+
+
+class _Holder:
+    """What a region's forward saves in place of a tensor: the tensors its
+    recompute gives back, by the backward pass (graph task) that asked."""
+
+    __slots__ = ("tensors", "__weakref__")
+
+    def __init__(self):
+        self.tensors: dict[int, Tensor] = {}
+
+
+class _SeqShard:
+    """A DTensor ``[B, S, ...]`` kept as the device's block of its sequence
+    over ``model``, and put back whole (an all-gather) by :meth:`get`."""
+
+    def __init__(self, t: Tensor, m: int, shard: list, requires_grad: bool):
+        n = t.device_mesh.size(m)
+        local = t.to_local()
+        rows = local.shape[1] // n
+        r = t.device_mesh.get_local_rank(m)
+        # a copy: a view of the slice would keep the whole block alive
+        self.local = local.narrow(1, r * rows, rows).clone(memory_format=torch.contiguous_format)
+        self.mesh, self.placements, self.shard = t.device_mesh, list(t.placements), shard
+        self.shape, self.requires_grad = t.shape, requires_grad
+
+    def get(self) -> Tensor:
+        from torch.distributed.tensor import DTensor
+
+        t = DTensor.from_local(self.local, self.mesh, self.shard, run_check=False,
+                               shape=self.shape, stride=contiguous_strides(self.shape))
+        return t.redistribute(self.mesh, self.placements).requires_grad_(self.requires_grad)
+
+
+def _stash(t):
+    """``t`` as a region keeps it: a floating DTensor ``[B, S, ...]``
+    replicated over a ``model`` axis that divides its local sequence (and
+    no later axis splits) as a :class:`_SeqShard` (a slice, no
+    collective); anything else as it is."""
+    if not is_dtensor(t) or t.dim() < 3 or not t.dtype.is_floating_point:
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = t.device_mesh.mesh_dim_names or ()
+    if "model" not in names:
+        return t
+    m, pl = names.index("model"), list(t.placements)
+    n = t.device_mesh.size(m)
+    if (n == 1 or not isinstance(pl[m], Replicate) or t.to_local().shape[1] % n
+            or any(isinstance(p, Shard) and p.dim == 1 for p in pl[m + 1:])):
+        return t
+    return _SeqShard(t.detach(), m, pl[:m] + [Shard(1)] + pl[m + 1:], t.requires_grad)
+
+
+def _blank(like: Tensor) -> Callable[[], Tensor]:
+    """What makes an uninitialized tensor of ``like``'s shape, dtype and
+    device (of a DTensor's placements too), keeping nothing of ``like``."""
+    local = like.to_local() if is_dtensor(like) else like
+    shape, dtype, device = local.shape, local.dtype, local.device
+    if not is_dtensor(like):
+        return lambda: torch.empty(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+
+    mesh, placements, whole = like.device_mesh, list(like.placements), like.shape
+    return lambda: DTensor.from_local(torch.empty(shape, dtype=dtype, device=device), mesh,
+                                      placements, run_check=False, shape=whole,
+                                      stride=contiguous_strides(whole))
+
+
+def _storage_key(t: Tensor) -> int:
+    """The identity of the storage under ``t`` (a DTensor's local tensor's,
+    an unwaited collective's result's)."""
+    from torch.distributed._functional_collectives import AsyncCollectiveTensor
+
+    while True:
+        if is_dtensor(t):
+            t = t._local_tensor
+        elif isinstance(t, AsyncCollectiveTensor):
+            t = t.elem
+        else:
+            return id(t.untyped_storage())
+
+
+def _provenance_mode():
+    """A dispatch mode that follows which of a region's weight products each
+    storage made in its forward derives from (``src``: storage -> product
+    indices), every op's outputs from its inputs; a storage freed and its
+    id reused only adds indices (a product kept that need not be)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Provenance(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.src: dict[int, frozenset] = {}
+
+        def of(self, t: Tensor) -> frozenset:
+            return self.src.get(_storage_key(t), frozenset())
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            src = frozenset().union(*(self.of(t) for t in tree_leaves((args, kwargs))
+                                      if isinstance(t, Tensor)))
+            if src:
+                for t in tree_leaves(out):
+                    if isinstance(t, Tensor):
+                        key = _storage_key(t)
+                        self.src[key] = self.src.get(key, frozenset()) | src
+            return out
+
+    return Provenance()
+
+
+class _Region:
+    """One call of a checkpointed region on DTensors (:func:`checkpoint`).
+
+    Forward: the region runs with gradients on, each tensor its autograd
+    graph saves replaced by a :class:`_Holder` (nothing kept); the
+    arguments are kept through :func:`_stash`.  Under ``dots`` each weight
+    product's output (:class:`_Product`) is recorded, a dispatch mode
+    follows what each storage derives from, and once the region has run
+    the outputs some saved tensor derives from are kept (:func:`_stash`),
+    the others dropped.  Backward: the first holder unpacked runs the
+    region again on the arguments put back (the recompute), each product
+    replaying its kept output (a dropped one gives an uninitialized
+    placeholder of its shape and placements: nothing saved reads it), the
+    ``i``-th tensor saved filling the ``i``-th holder; it stops at the last
+    one, as ``torch.utils.checkpoint``'s early stop does."""
+
+    def __init__(self, fn: Callable, dots: bool):
+        self.fn, self.dots = fn, dots
+        self.inputs: list = []
+        self.holders: list = []
+        self.products: list = []
+        self.needed: set[int] = set()
+        self.provenance = None
+        self.replaying, self.cursor = False, 0
+        self.recomputed: set[int] = set()
+
+    def run(self, args: tuple):
+        with torch.no_grad():
+            self.inputs = [_stash(a) for a in args]
+        if self.dots:
+            self.provenance = _provenance_mode()
+        tok = _REGION.set(self if self.dots else None)
+        try:
+            with (torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack),
+                  self.provenance or contextlib.nullcontext()):
+                out = self.fn(*args)
+        finally:
+            _REGION.reset(tok)
+        self.provenance = None
+        with torch.no_grad():
+            self.products = [(_stash(y) if i in self.needed else None, blank)
+                             for i, (y, blank) in enumerate(self.products)]
+        return out
+
+    def record(self, y: Tensor) -> None:
+        """A product's output ``y`` in the forward."""
+        self.provenance.src[_storage_key(y)] = frozenset((len(self.products),))
+        self.products.append((y.detach(), _blank(y)))
+
+    def replay(self) -> Tensor:
+        """The next product's output in the recompute: kept, or a
+        placeholder of its shape (and placements)."""
+        kept, blank = self.products[self.cursor]
+        self.cursor += 1
+        if kept is None:
+            return blank()
+        return kept.get() if isinstance(kept, _SeqShard) else kept.detach()
+
+    def _pack(self, t: Tensor) -> _Holder:
+        holder = _Holder()
+        self.holders.append(weakref.ref(holder))
+        if self.provenance is not None:
+            self.needed |= self.provenance.of(t)
+        return holder
+
+    def _unpack(self, holder: _Holder) -> Tensor:
+        gid = torch._C._current_graph_task_id()
+        if gid not in self.recomputed:
+            self._recompute(gid)
+            self.recomputed.add(gid)
+        return holder.tensors.pop(gid)
+
+    def _recompute(self, gid: int) -> None:
+        args = [a.get() if isinstance(a, _SeqShard) else a for a in self.inputs]
+        n, count = len(self.holders), 0
+
+        def pack(t: Tensor) -> Tensor:
+            nonlocal count
+            if count == n:
+                raise RuntimeError("a region's recompute saved more tensors than its forward")
+            holder = self.holders[count]()
+            count += 1
+            if holder is not None:
+                holder.tensors[gid] = t.detach()
+            if count == n:
+                raise _StopRecompute
+            # not ``t``: a node saving its own output would hold itself
+            # through it, a cycle that keeps every recomputed tensor alive
+            return t.detach()
+
+        self.replaying, self.cursor = True, 0
+        tok = _REGION.set(self if self.dots else None)
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t), \
+                    torch.enable_grad():
+                self.fn(*args)
+        except _StopRecompute:
+            pass
+        finally:
+            _REGION.reset(tok)
+            self.replaying = False
+        if count < n:
+            raise RuntimeError(f"a region's recompute saved {count} tensors, its forward {n}")
+
+
+def checkpoint(fn: Callable, *args, dots: bool = False):
+    """``fn(*args)`` as a checkpointed region of DTensors
+    (:class:`_Region`), as XLA keeps a partitioned step's remat
+    residuals: an argument ``[B, S, ...]`` replicated over ``model`` is
+    kept as the device's block of its sequence and gathered again when the
+    backward recomputes the region; under ``dots`` the weight products'
+    outputs that the backward reads are kept too, so split, and no 2-D
+    product is recomputed."""
+    return _Region(fn, dots).run(args)
 
 
 def kernel_placements(x: Tensor, heads: int, groups: int = 0) -> list:

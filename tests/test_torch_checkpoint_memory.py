@@ -1,13 +1,15 @@
-"""What the train step's checkpoint keeps a layer, a device, beside JAX's
-(recorded, not equated: ROADMAP C.13 is open).  The production 16x16 mesh
-of ``meta`` entries, ``train_4k``, full width at two depths: SmolLM-360M
-under ``remat="dots"`` and ``"full"`` at 2 and 8 layers, Command R+ under
-``"dots"`` at 2 and 4.  A layer's share is the temp bytes a device
-(``launch.dryrun.dryrun_cell``; JAX's ``memory_analysis()`` on 256 forced
-CPU devices, in a subprocess) at the deeper cut less the shallower, over
-the layers between.  Run with ``-s`` to print the table ROADMAP C.13
-records.  The full checkpoint keeps less a layer than the selective one
-on both sides."""
+"""What the train step's checkpoint keeps a layer, a device, beside JAX's.
+The production 16x16 mesh of ``meta`` entries, ``train_4k``, full width at
+two depths: SmolLM-360M under ``remat="dots"`` and ``"full"`` at 2 and 8
+layers, Command R+ under ``"dots"`` at 2 and 4.  A layer's share is the
+temp bytes a device (``launch.dryrun.dryrun_cell``; JAX's
+``memory_analysis()`` on 256 forced CPU devices, in a subprocess) at the
+deeper cut less the shallower, over the layers between.  Each region keeps
+its residuals split over ``model`` on the sequence
+(``parallel.sharding.checkpoint``, ROADMAP C.13), so the port keeps at most
+``PER_LAYER_RATIO`` times JAX's share in every cell.  Run with ``-s`` to
+print the table ROADMAP C.13 records.  The full checkpoint keeps less a
+layer than the selective one on both sides."""
 
 import json
 import os
@@ -27,6 +29,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 #: (arch, remat, shallow and deep layer counts)
 CELLS = [("smollm-360m", "dots", (2, 8)), ("smollm-360m", "full", (2, 8)),
          ("command-r-plus-104b", "dots", (2, 4))]
+#: the port's bytes a layer over JAX's, at most
+PER_LAYER_RATIO = 1.10
 
 JAX_TEMP = textwrap.dedent("""
     import dataclasses, json, os
@@ -102,3 +106,5 @@ def test_checkpoint_per_layer_beside_jax(jax_temp):
           "| --- | --- | --- | --- |\n" + "\n".join(rows))
     for side in (0, 1):
         assert per[("smollm-360m", "full")][side] < per[("smollm-360m", "dots")][side]
+    for cell, (p, j) in per.items():
+        assert p <= PER_LAYER_RATIO * j, (cell, p, j)
